@@ -1,0 +1,20 @@
+"""jylis-tpu on PyTorch and CUDA: the port of ``jylis_tpu`` to an NVIDIA GPU.
+
+The same RESP surface and CRDT lattices as the JAX package, with the
+device work in PyTorch and in CUDA kernels written by hand for Hopper
+(``csrc/``, built by ``ops/_build.py`` at first use). This package
+imports no JAX and nothing of ``jylis_tpu``: it keeps its own copy of
+every module it needs.
+
+So far it serves GCOUNT and PNCOUNT on one device:
+
+  utils/     batching, config, logging, node address
+  ops/       counter and tensor lattices, the CUDA kernel launches
+  models/    per-type repos, repo manager, database router
+  server/    RESP codec and TCP server
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
+(``--device cpu``); asking for ``cuda`` without a GPU raises.
+"""
+
+__version__ = "0.5.0"

@@ -1,0 +1,50 @@
+"""Carry lattice state between the JAX package's layout and the port's.
+
+The JAX package keeps each u64 counter plane as hi/lo u32 planes and the
+TENSOR planes as u32; the port keeps one int64 bit-pattern plane per
+counter polarity and int32 bit patterns for TENSOR. These functions take
+the JAX package's host (numpy) planes and return the port's state on a
+given device, and back; the bits are unchanged both ways, and the
+result never shares memory with its input.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .ops import gcount, planes, pncount, tensor
+
+
+def gcount_from_jax(hi, lo, device="cuda") -> gcount.GCountState:
+    return gcount.from_counts(planes.combine64_np(hi, lo), device)
+
+
+def gcount_to_jax(state: gcount.GCountState) -> tuple[np.ndarray, np.ndarray]:
+    """(hi, lo) u32 planes."""
+    return planes.split64_np(gcount.to_counts(state))
+
+
+def pncount_from_jax(p_hi, p_lo, n_hi, n_lo, device="cuda") -> pncount.PNCountState:
+    return pncount.from_counts(
+        planes.combine64_np(p_hi, p_lo), planes.combine64_np(n_hi, n_lo), device
+    )
+
+
+def pncount_to_jax(state: pncount.PNCountState):
+    """(p_hi, p_lo, n_hi, n_lo) u32 planes."""
+    p, n = pncount.to_counts(state)
+    return (*planes.split64_np(p), *planes.split64_np(n))
+
+
+def tensor_from_jax(val, ts_hi, ts_lo, rid, device="cuda") -> tensor.TensorState:
+    def plane(x):
+        bits = np.ascontiguousarray(x, dtype=np.uint32).view(np.int32)
+        return torch.from_numpy(bits).to(device, copy=True)
+
+    return tensor.TensorState(plane(val), plane(ts_hi), plane(ts_lo), plane(rid))
+
+
+def tensor_to_jax(state: tensor.TensorState):
+    """(val, ts_hi, ts_lo, rid) u32 planes."""
+    return tuple(p.cpu().numpy().view(np.uint32) for p in state)

@@ -1,0 +1,50 @@
+"""Process entry point: ``python -m jylis_tpu_torch --port P``.
+
+Builds the Database (GCOUNT and PNCOUNT on ``--device``, default cuda)
+and the RESP Server, serves until SIGINT/SIGTERM, then stops intake,
+waits out any in-flight drain and closes the listener (after the
+reference's main.pony and dispose.pony). There is no cluster yet, so
+nothing is flushed to peers.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import signal
+import sys
+
+from .models.database import Database
+from .server.server import Server
+from .utils.config import config_from_cli
+
+
+async def run(argv: list[str] | None = None) -> None:
+    config = config_from_cli(argv)
+    log = config.log
+    database = Database(identity=config.addr.hash64(), device=config.device)
+    server = Server(config, database)
+    await server.start()
+    log.info() and log.i(
+        f"serving GCOUNT/PNCOUNT on port {server.port}, device {database.device}"
+    )
+    stop = asyncio.Event()
+    loop = asyncio.get_running_loop()
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        loop.add_signal_handler(sig, stop.set)
+    await stop.wait()
+    database.stop_intake()
+    try:
+        await database.clean_shutdown_async()
+    finally:
+        await server.dispose()
+
+
+def main(argv: list[str] | None = None) -> None:
+    try:
+        asyncio.run(run(argv))
+    except KeyboardInterrupt:
+        pass
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

@@ -1,0 +1,162 @@
+"""Per-type repo manager: dispatch, help-on-failure, proactive flush.
+
+The port of jylis_tpu/models/manager.py (reference analog:
+RepoManagerCore, repo_manager.pony:36-108). The actor boundary becomes
+the asyncio event loop plus a per-repo asyncio.Lock; what this class
+keeps is the behavioral contract:
+
+* shutdown flag rejects new commands with the SHUTDOWN error (:49-55),
+* parse failure renders the repo's help text (:62-66),
+* a mutating command triggers a proactive delta flush, throttled to at
+  most once per 500 ms per repo (:68-84),
+* flush_deltas registers the delta sink and drains if non-empty (:86-90),
+* clean_shutdown stops intake and performs a final flush (:95-108).
+
+Concurrency: commands that will hit the device (the repo's
+``may_drain`` predicate) run in a worker thread via
+``asyncio.to_thread`` so a drain never stalls the event loop. The
+per-repo lock serialises every repo access (apply, converge, flush), so
+repo state is never touched concurrently with an offloaded drain.
+Host-only commands take a lock-free inline fast path when no drain is
+active, which preserves per-connection order. Replies from offloaded
+commands are buffered and replayed on the loop thread (transports are
+not thread-safe). The sync ``apply`` path serves single-threaded callers
+(tests, direct drives).
+"""
+
+from __future__ import annotations
+
+import asyncio
+import time
+
+from .base import ParseError
+from .help import respond_help
+
+
+class _ReplayResp:
+    """Records resp-protocol calls in a worker thread; replays them on the
+    event-loop thread afterwards."""
+
+    __slots__ = ("calls",)
+
+    def __init__(self):
+        self.calls: list = []
+
+    def __getattr__(self, name):
+        def record(*args):
+            self.calls.append((name, args))
+
+        return record
+
+    def replay(self, resp) -> None:
+        for name, args in self.calls:
+            getattr(resp, name)(*args)
+
+
+PROACTIVE_FLUSH_INTERVAL = 0.5  # seconds; repo_manager.pony:80
+
+SHUTDOWN_ERR = "SHUTDOWN (server is shutting down, rejecting all requests)"
+
+
+class RepoManager:
+    def __init__(self, name: str, repo, help_obj, clock=time.monotonic):
+        self.name = name
+        self.repo = repo
+        self.help = help_obj
+        self._clock = clock
+        self._deltas_fn = None
+        self._last_proactive = None
+        self._shutdown = False
+        self._lock = asyncio.Lock()
+
+    def apply(self, resp, cmd: list[bytes]) -> None:
+        """cmd includes the routing word (cmd[0] == data type name).
+        Single-threaded path — see module docstring."""
+        if self._shutdown:
+            resp.err(SHUTDOWN_ERR)
+            return
+        if self._apply_core(resp, cmd):
+            self._maybe_proactive_flush()
+
+    def _apply_core(self, resp, cmd: list[bytes]) -> bool:
+        try:
+            return self.repo.apply(resp, cmd[1:])
+        except ParseError:
+            respond_help(resp, self.help.render(cmd[1:]))
+            return False
+
+    async def apply_async(self, resp, cmd: list[bytes]) -> None:
+        """Serving path: device-bound commands offload to a thread under
+        the repo lock; host-only commands run inline.
+
+        Fast path: when the lock is free (a threaded drain ALWAYS holds
+        it, and releases only on the loop thread) and the command needs
+        no device offload, apply synchronously with no await at all —
+        the event loop is single-threaded, so the inline apply is atomic."""
+        if self._shutdown:
+            resp.err(SHUTDOWN_ERR)
+            return
+        if not self._lock.locked() and not self.repo.may_drain(cmd[1:]):
+            if self._apply_core(resp, cmd):
+                self._maybe_proactive_flush()
+            return
+        async with self._lock:
+            if self._shutdown:
+                # shutdown won the lock race while we queued behind a
+                # drain: the final flush already ran — accepting now
+                # would acknowledge a write that never replicates
+                resp.err(SHUTDOWN_ERR)
+                return
+            if self.repo.may_drain(cmd[1:]):
+                replay = _ReplayResp()
+                changed = await asyncio.to_thread(self._apply_core, replay, cmd)
+                replay.replay(resp)
+            else:
+                changed = self._apply_core(resp, cmd)
+            if changed:
+                self._maybe_proactive_flush()
+
+    # keys converged per event-loop slice: a multi-thousand-key batch
+    # converged in one go would block the loop; slicing under the same
+    # lock keeps other traffic flowing with identical lattice results
+    CONVERGE_SLICE = 256
+
+    async def converge_async(self, batch) -> None:
+        async with self._lock:
+            if self._shutdown:
+                return  # fire-and-forget: late deltas re-deliver elsewhere
+            batch = list(batch)
+            for i in range(0, len(batch), self.CONVERGE_SLICE):
+                self.converge_deltas(batch[i : i + self.CONVERGE_SLICE])
+                if i + self.CONVERGE_SLICE < len(batch):
+                    await asyncio.sleep(0)
+
+    async def clean_shutdown_async(self) -> None:
+        """Lock-holding shutdown: waits out any in-flight threaded drain,
+        then stops intake and performs the final flush atomically."""
+        self._shutdown = True  # reject commands queued behind the lock
+        async with self._lock:
+            if self._deltas_fn is not None:
+                self.flush_deltas(self._deltas_fn)
+
+    def _maybe_proactive_flush(self) -> None:
+        if self._deltas_fn is None:
+            return
+        now = self._clock()
+        if (
+            self._last_proactive is None
+            or now - self._last_proactive >= PROACTIVE_FLUSH_INTERVAL
+        ):
+            # unconditional, like the reference's proactive path (:81)
+            self._deltas_fn((self.name, self.repo.flush_deltas()))
+            self._last_proactive = now
+
+    def flush_deltas(self, fn) -> None:
+        """Heartbeat entry point: registers the sink, drains if non-empty."""
+        self._deltas_fn = fn
+        if self.repo.deltas_size() > 0:
+            fn((self.name, self.repo.flush_deltas()))
+
+    def converge_deltas(self, batch) -> None:
+        for key, delta in batch:
+            self.repo.converge(key, delta)

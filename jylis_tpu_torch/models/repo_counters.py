@@ -1,0 +1,323 @@
+"""GCOUNT / PNCOUNT repos: device-resident counter keyspaces.
+
+The port of jylis_tpu/models/repo_counters.py on one device. The whole
+keyspace of a type is ONE (keys x replicas) plane per polarity
+(ops/gcount, ops/pncount). Local INCs and incoming anti-entropy deltas
+funnel into a coalesced pending batch that drains as one fused
+join + row-sum kernel launch; the row sums feed a host value cache, so
+GET is a table lookup and the device only ever sees whole batches.
+
+Host bookkeeping (keys, own contributions, value cache, dirty/pending/
+foreign flags) lives in counter_table.PyTable. Foreign delta columns
+(sparse per-replica maps from the cluster) stay in Python dicts; they
+merge with the exported pending-own values at drain time.
+
+Delta wire shape: GCOUNT -> dict {replica_id: u64}; PNCOUNT -> a
+(p_dict, n_dict) pair. Outbound deltas carry only this node's own column
+(absolute values — joinable delta-state), which the table tracks exactly,
+so flushes never need a device read.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..ops import gcount, planes, pncount
+from .base import ParseError, bucket, need, pad_rows, parse_u64, U64_MAX
+from .counter_table import PyTable
+from .help import RepoHelp
+
+GCOUNT_HELP = RepoHelp("GCOUNT", {"GET": "key", "INC": "key value"})
+PNCOUNT_HELP = RepoHelp(
+    "PNCOUNT", {"GET": "key", "INC": "key value", "DEC": "key value"}
+)
+
+
+# The four drains of jylis_tpu/models/repo_counters.py:54-79. Each joins
+# the batch into the state IN PLACE and returns the row sums as int64
+# bits: the in-place update takes the place of JAX's donate_argnums.
+# On a CUDA state each launches one hand-written kernel.
+def _drain_g(state, ki, d):
+    return gcount.drain_sparse(state, ki, d)
+
+
+def _drain_pn(state, ki, dp, dn):
+    return pncount.drain_sparse(state, ki, dp, dn)
+
+
+# dense drains: when a batch covers most of the keyspace (a full
+# anti-entropy sweep), an elementwise join streams each plane once instead
+# of paying random-access gathers and scatters
+def _drain_g_dense(state, d):
+    return gcount.drain_dense(state, d)
+
+
+def _drain_pn_dense(state, dp, dn):
+    return pncount.drain_dense(state, dp, dn)
+
+
+# a batch covering >= 1/DENSE_FRACTION of the keyspace drains dense: the
+# sparse composite's random accesses cost far more per row than streaming
+DENSE_FRACTION = 4
+
+
+def _wrap_i64(v: int) -> int:
+    """Wrap into signed-64 range (the reference's modular (p-n).i64())."""
+    return ((v + (1 << 63)) & U64_MAX) - (1 << 63)
+
+
+class _CounterRepo:
+    """Shared machinery; subclasses bind the ops module and command set."""
+
+    def __init__(
+        self,
+        identity: int,
+        key_cap: int = 1024,
+        rep_cap: int = 8,
+        device="cuda",
+    ):
+        self._identity = identity
+        self._device = torch.device(device)
+        self._rids: dict[int, int] = {}  # replica id -> column
+        self._key_cap = key_cap
+        self._rep_cap = rep_cap
+        self._tbl = PyTable()
+        # foreign delta columns buffered per row per polarity (sparse
+        # {col: max-value} maps from cluster converges)
+        self._pending_f: tuple[dict[int, dict[int, int]], ...] = ({}, {})
+
+    def _get_raw(self, key: bytes) -> int:
+        """Serving value bits for a key (drains first when foreign deltas
+        make the cache stale; local writes keep it exact)."""
+        row = self._tbl.find(key)
+        if row < 0:
+            return 0
+        if self._tbl.is_foreign(row):
+            self.drain()
+        return self._tbl.value(row)
+
+    def _col_for(self, rid: int) -> int:
+        col = self._rids.get(rid)
+        if col is None:
+            col = len(self._rids)
+            self._rids[rid] = col
+        return col
+
+    def _grow_to_fit(self) -> None:
+        k = bucket(max(self._tbl.rows(), 1), self._key_cap)
+        r = bucket(max(len(self._rids), 1), self._rep_cap)
+        if k != self._key_cap or r != self._rep_cap:
+            self._key_cap, self._rep_cap = k, r
+            self._state = self._ops.grow(self._state, k, r)
+
+    def deltas_size(self) -> int:
+        return self._tbl.dirty_count()
+
+    def may_drain(self, args: list[bytes]) -> bool:
+        """Will this command hit the device? Only a GET over a row holding
+        un-drained FOREIGN deltas does (local writes keep the host value
+        cache exact); the manager offloads such commands to a thread."""
+        if len(args) < 2 or args[0] != b"GET":
+            return False
+        row = self._tbl.find(args[1])
+        return row >= 0 and self._tbl.is_foreign(row)
+
+    def converge_polarity(self, key: bytes, polarity: int, delta: dict) -> None:
+        row = self._tbl.upsert(key)
+        p = self._pending_f[polarity].setdefault(row, {})
+        for rid, v in delta.items():
+            col = self._col_for(rid)
+            if v > p.get(col, 0):
+                p[col] = v
+        self._tbl.set_foreign(row)
+
+    def _collect_rows(self):
+        """The drain batch: pending-own values merged with the buffered
+        foreign columns -> (rows, per-row {col: val} per polarity).
+        Reads WITHOUT clearing: the window clears in `_finish_drain`, so
+        a device failure mid-drain keeps every contribution for the
+        retry."""
+        own_rows, vp, vn = self._tbl.export_pending(clear=False)
+        own_col = self._col_for(self._identity)
+        per_pol: tuple[dict[int, dict[int, int]], ...] = ({}, {})
+        for pol, own_vals in ((0, vp), (1, vn)):
+            fdict = self._pending_f[pol]
+            for row, v in zip(own_rows, own_vals):
+                if v:
+                    per_pol[pol][row] = {own_col: v}
+            for row, cols in fdict.items():
+                d = per_pol[pol].setdefault(row, {})
+                for col, v in cols.items():
+                    if v > d.get(col, 0):
+                        d[col] = v
+        rows = list(dict.fromkeys(list(per_pol[0]) + list(per_pol[1])))
+        return rows, per_pol
+
+    def _delta_plane(self, n: int, slots, pending) -> torch.Tensor:
+        """(n, R) u64 delta plane on the device: row ``slot`` of it holds
+        the pending columns of ``row`` for each (slot, row) in ``slots``."""
+        plane = np.zeros((n, self._rep_cap), np.uint64)
+        for slot, row in slots:
+            for col, v in pending.get(row, {}).items():
+                plane[slot, col] = v
+        return planes.to_tensor(plane, self._device)
+
+    def drain(self) -> None:
+        """Join every pending row into the device state in one launch
+        (dense when the batch covers >= 1/DENSE_FRACTION of the keyspace,
+        else sparse) and hand the rows' sums to the table as u64 values."""
+        rows, per_pol = self._collect_rows()
+        if not rows:
+            return
+        self._grow_to_fit()
+        per_pol = per_pol[: self._polarities]
+        if len(rows) * DENSE_FRACTION >= self._key_cap:
+            slots = [(row, row) for row in rows]
+            deltas = [self._delta_plane(self._key_cap, slots, p) for p in per_pol]
+            sums = self._dense(*deltas).cpu().numpy().view(np.uint64)
+            self._finish_drain(rows, [sums[row] for row in rows])
+        else:
+            b = bucket(len(rows))
+            ki = pad_rows(b)
+            ki[: len(rows)] = rows
+            slots = list(enumerate(rows))
+            deltas = [self._delta_plane(b, slots, p) for p in per_pol]
+            ki = torch.from_numpy(ki).to(self._device)
+            sums = self._sparse(ki, *deltas).cpu().numpy().view(np.uint64)
+            self._finish_drain(rows, [sums[i] for i in range(len(rows))])
+
+    def _finish_drain(self, rows, values_bits) -> None:
+        self._tbl.apply_drain(rows, values_bits)
+        self._tbl.export_pending(clear=True)  # drain succeeded: clear window
+        self._pending_f[0].clear()
+        self._pending_f[1].clear()
+
+    def _sorted_keys(self):
+        return sorted(
+            (self._tbl.key_of(r), r) for r in range(self._tbl.rows())
+        )
+
+    def _dump_rows(self, counts: tuple[np.ndarray, ...]):
+        """(key, [{rid: value} per polarity]) for every key, sorted, with
+        each polarity's nonzero columns of ``counts`` (u64 (K, R))."""
+        cols = {col: rid for rid, col in self._rids.items()}
+        for key, row in self._sorted_keys():
+            yield key, [
+                {cols[c]: int(v) for c, v in enumerate(x[row, : len(cols)]) if v}
+                for x in counts
+            ]
+
+
+class RepoGCOUNT(_CounterRepo):
+    name = "GCOUNT"
+    help = GCOUNT_HELP
+    _ops = gcount
+    _polarities = 1
+
+    def __init__(self, identity: int, **kw):
+        super().__init__(identity, **kw)
+        self._state = gcount.init(self._key_cap, self._rep_cap, self._device)
+
+    def _dense(self, d):
+        return _drain_g_dense(self._state, d)
+
+    def _sparse(self, ki, d):
+        return _drain_g(self._state, ki, d)
+
+    def _get_value(self, key: bytes) -> int:
+        return self._get_raw(key)
+
+    # -- commands (repo_gcount.pony:25-60) ---------------------------------
+
+    def apply(self, resp, args: list[bytes]) -> bool:
+        op = need(args, 0)
+        if op == b"GET":
+            resp.u64(self._get_value(need(args, 1)))
+            return False
+        if op == b"INC":
+            key = need(args, 1)
+            amount = parse_u64(need(args, 2))
+            self._tbl.inc(self._tbl.upsert(key), 0, amount)
+            resp.ok()
+            return True
+        raise ParseError()
+
+    # -- lattice plumbing ---------------------------------------------------
+
+    def converge(self, key: bytes, delta: dict) -> None:
+        self.converge_polarity(key, 0, delta)
+
+    def flush_deltas(self):
+        rows, op, _on, _sb = self._tbl.export_dirty()
+        return sorted(
+            (self._tbl.key_of(r), {self._identity: int(v)})
+            for r, v in zip(rows, op)
+        )
+
+    def dump_state(self):
+        """Full state in the wire-delta shape, keys sorted."""
+        self.drain()
+        counts = gcount.to_counts(self._state)
+        return [(key, d) for key, (d,) in self._dump_rows((counts,)) if d]
+
+
+class RepoPNCOUNT(_CounterRepo):
+    name = "PNCOUNT"
+    help = PNCOUNT_HELP
+    _ops = pncount
+    _polarities = 2
+
+    def __init__(self, identity: int, **kw):
+        super().__init__(identity, **kw)
+        self._state = pncount.init(self._key_cap, self._rep_cap, self._device)
+
+    def _dense(self, dp, dn):
+        return _drain_pn_dense(self._state, dp, dn)
+
+    def _sparse(self, ki, dp, dn):
+        return _drain_pn(self._state, ki, dp, dn)
+
+    def _get_value(self, key: bytes) -> int:
+        return _wrap_i64(self._get_raw(key))
+
+    # -- commands (repo_pncount.pony:26-67) --------------------------------
+
+    def apply(self, resp, args: list[bytes]) -> bool:
+        op = need(args, 0)
+        if op == b"GET":
+            resp.i64(self._get_value(need(args, 1)))
+            return False
+        if op in (b"INC", b"DEC"):
+            key = need(args, 1)
+            amount = parse_u64(need(args, 2))
+            self._tbl.inc(
+                self._tbl.upsert(key), 0 if op == b"INC" else 1, amount
+            )
+            resp.ok()
+            return True
+        raise ParseError()
+
+    def converge(self, key: bytes, delta: tuple) -> None:
+        dp, dn = delta
+        self.converge_polarity(key, 0, dp)
+        self.converge_polarity(key, 1, dn)
+
+    def flush_deltas(self):
+        rows, op, on, sb = self._tbl.export_dirty()
+        out = []
+        for r, p, n, bits in zip(rows, op, on, sb):
+            dp = {self._identity: int(p)} if bits & 1 else {}
+            dn = {self._identity: int(n)} if bits & 2 else {}
+            out.append((self._tbl.key_of(r), (dp, dn)))
+        out.sort()
+        return out
+
+    def dump_state(self):
+        """Full state in the wire-delta shape, keys sorted."""
+        self.drain()
+        return [
+            (key, (dp, dn))
+            for key, (dp, dn) in self._dump_rows(pncount.to_counts(self._state))
+            if dp or dn
+        ]

@@ -1,0 +1,162 @@
+"""PNCOUNT: positive/negative counter lattice on (keys x replicas) tensors.
+
+Semantics (docs/_docs/types/pncount.md:49-55): two grow-only per-replica
+maps, P and N, converged independently by per-replica max; the value is
+sum(P) - sum(N) as a signed 64-bit integer. The port of
+jylis_tpu/ops/pncount.py: each polarity is one (K, R) plane of u64
+counters held as int64 bit patterns (ops/planes.py). Since the planes are
+int64, the wrapped u64 difference is already the signed value the
+reference's (p - n).i64() defines.
+
+As in ops/gcount.py, joins into the state happen in place, and
+``drain_dense`` / ``drain_sparse`` launch ``counter_drain_dense<2>`` /
+``counter_drain_sparse<2>`` on a CUDA tensor and run their plain versions
+on a CPU one.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from . import planes
+
+
+class PNCountState(NamedTuple):
+    p: torch.Tensor  # (K, R) int64 bit patterns
+    n: torch.Tensor
+
+
+def init(num_keys: int, num_replicas: int, device="cuda") -> PNCountState:
+    return PNCountState(
+        *(
+            torch.zeros((num_keys, num_replicas), dtype=torch.int64, device=device)
+            for _ in range(2)
+        )
+    )
+
+
+def from_counts(p, n, device="cuda") -> PNCountState:
+    return PNCountState(
+        planes.to_tensor(np.asarray(p), device),
+        planes.to_tensor(np.asarray(n), device),
+    )
+
+
+def to_counts(state: PNCountState) -> tuple[np.ndarray, np.ndarray]:
+    return planes.to_u64_np(state.p), planes.to_u64_np(state.n)
+
+
+def join(a: PNCountState, b: PNCountState) -> PNCountState:
+    return PNCountState(planes.join_max(a.p, b.p), planes.join_max(a.n, b.n))
+
+
+def converge_batch(
+    state: PNCountState,
+    key_idx: torch.Tensor,
+    dp: torch.Tensor,
+    dn: torch.Tensor,
+) -> PNCountState:
+    """Join a delta batch at UNIQUE (B,) key rows, in place; (B, R) planes
+    per polarity. Rows >= K are dropped."""
+    planes.scatter_join(state.p, key_idx, dp)
+    planes.scatter_join(state.n, key_idx, dn)
+    return state
+
+
+def _bump(x, key_idx, replica_idx, amount) -> None:
+    live = planes.live_rows(key_idx, x.shape[0])
+    x[key_idx[live].long(), replica_idx[live].long()] += amount[live]
+
+
+def increment(
+    state: PNCountState, key_idx, replica_idx, amount
+) -> PNCountState:
+    """INC at UNIQUE (key, replica) coordinates, in place; amount (B,)
+    int64 bits, wrapping at 2^64."""
+    _bump(state.p, key_idx, replica_idx, amount)
+    return state
+
+
+def decrement(
+    state: PNCountState, key_idx, replica_idx, amount
+) -> PNCountState:
+    _bump(state.n, key_idx, replica_idx, amount)
+    return state
+
+
+def read(state: PNCountState, key_idx: torch.Tensor) -> torch.Tensor:
+    """GET for a batch of in-range keys: the signed net value, computed
+    with u64 wraparound (repo_pncount.pony:55-57)."""
+    rows = key_idx.long()
+    return planes.rowsum64(state.p[rows]) - planes.rowsum64(state.n[rows])
+
+
+def read_all(state: PNCountState) -> torch.Tensor:
+    return planes.rowsum64(state.p) - planes.rowsum64(state.n)
+
+
+def grow(state: PNCountState, num_keys: int, num_replicas: int) -> PNCountState:
+    k, r = state.p.shape
+    if num_keys == k and num_replicas == r:
+        return state
+    out = init(num_keys, num_replicas, state.p.device)
+    out.p[:k, :r] = state.p
+    out.n[:k, :r] = state.n
+    return out
+
+
+# ---- the drain steps: kernels and their plain versions ------------------------
+
+
+def drain_dense_plain(
+    state: PNCountState, dp: torch.Tensor, dn: torch.Tensor
+) -> torch.Tensor:
+    """``join`` with (K, R) delta planes, in place, then ``read_all``."""
+    state.p.copy_(planes.join_max(state.p, dp))
+    state.n.copy_(planes.join_max(state.n, dn))
+    return read_all(state)
+
+
+def drain_dense(
+    state: PNCountState, dp: torch.Tensor, dn: torch.Tensor
+) -> torch.Tensor:
+    """Whole-keyspace drain: join (K, R) ``dp``/``dn`` into ``state`` in
+    place and return every row's signed net value (K,) int64."""
+    if state.p.device.type == "cpu":
+        return drain_dense_plain(state, dp, dn)
+    sums = planes.launch_drain_dense(tuple(state), (dp, dn))
+    drain_dense.launches += 1
+    return sums
+
+
+drain_dense.launches = 0
+
+
+def drain_sparse_plain(
+    state: PNCountState, key_idx: torch.Tensor, dp: torch.Tensor, dn: torch.Tensor
+) -> torch.Tensor:
+    """``converge_batch`` then the joined rows' net values; 0 at pads."""
+    live = planes.live_rows(key_idx, state.p.shape[0])
+    converge_batch(state, key_idx, dp, dn)
+    sums = torch.zeros(key_idx.shape[0], dtype=torch.int64, device=dp.device)
+    sums[live] = read(state, key_idx[live])
+    return sums
+
+
+def drain_sparse(
+    state: PNCountState, key_idx: torch.Tensor, dp: torch.Tensor, dn: torch.Tensor
+) -> torch.Tensor:
+    """Batched drain at UNIQUE rows ``key_idx`` ((B,) int32, pads >= K):
+    join the (B, R) ``dp``/``dn`` in place and return the (B,) net values
+    of the joined rows (0 at pad slots)."""
+    if state.p.device.type == "cpu":
+        return drain_sparse_plain(state, key_idx, dp, dn)
+    sums = planes.launch_drain_sparse(tuple(state), key_idx, (dp, dn))
+    drain_sparse.launches += 1
+    return sums
+
+
+drain_sparse.launches = 0

@@ -1,0 +1,190 @@
+"""The port's CUDA kernels against their plain PyTorch versions.
+
+The kernel tests need an NVIDIA GPU and skip without one; they cover the
+shapes the full-size run in chip_smoke.py does not: small and wide
+replica counts, the node's serving shapes (R = 16), cell counts that are
+not a multiple of four (the TENSOR tail), unaligned TENSOR planes, pad
+and negative batch rows, and what the counter wrappers refuse (odd
+replica counts, unaligned planes). Integer lattices,
+so every comparison is exact. On a machine with a GPU (where JAX need
+not be installed, hence --noconftest):
+
+    python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from jylis_tpu_torch.ops import gcount, planes, pncount, tensor
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _u64(rng, shape):
+    return rng.integers(0, 1 << 64, size=shape, dtype=np.uint64)
+
+
+def _state(mod, rng, k, r, dev):
+    if mod is gcount:
+        return gcount.from_counts(_u64(rng, (k, r)), dev)
+    return pncount.from_counts(_u64(rng, (k, r)), _u64(rng, (k, r)), dev)
+
+
+def _clone(st):
+    return type(st)(*(x.clone() for x in st))
+
+
+def _equal(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+# (K, R): R < 64 leaves lanes idle, R > 64 makes each lane loop;
+# (131072, 16) is the node's shape at 100k keys x 8 replica ids
+COUNTER_SHAPES = [(64, 64), (37, 2), (1000, 34), (5, 16), (300, 130),
+                  (131072, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mod", [gcount, pncount], ids=["G", "PN"])
+@pytest.mark.parametrize("k,r", COUNTER_SHAPES)
+def test_drain_dense_matches_plain(dev, mod, k, r):
+    rng = np.random.default_rng(k * 131 + r)
+    st = _state(mod, rng, k, r, dev)
+    deltas = [planes.to_tensor(_u64(rng, (k, r)), dev) for _ in st]
+    sk, sp = _clone(st), _clone(st)
+    before = mod.drain_dense.launches
+    sums_k = mod.drain_dense(sk, *deltas)
+    sums_p = mod.drain_dense_plain(sp, *deltas)
+    torch.cuda.synchronize()
+    assert mod.drain_dense.launches == before + 1
+    assert torch.equal(sums_k, sums_p) and _equal(sk, sp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mod", [gcount, pncount], ids=["G", "PN"])
+@pytest.mark.parametrize("k,r,live,b", [
+    (64, 8, 3, 16), (1000, 6, 100, 128), (64, 8, 0, 16), (2048, 64, 1024, 1024),
+    (131072, 16, 400, 512),  # the node's sparse drain of 400 keys
+])
+def test_drain_sparse_matches_plain(dev, mod, k, r, live, b):
+    rng = np.random.default_rng(k + r + live + b)
+    st = _state(mod, rng, k, r, dev)
+    ki = (2**31 - 1 - np.arange(b)).astype(np.int32)
+    ki[:live] = rng.choice(k, size=live, replace=False)
+    if live < b:
+        ki[-1] = -1  # a negative row is a pad slot too
+    ki = torch.from_numpy(ki).to(dev)
+    deltas = [planes.to_tensor(_u64(rng, (b, r)), dev) for _ in st]
+    sk, sp = _clone(st), _clone(st)
+    sums_k = mod.drain_sparse(sk, ki, *deltas)
+    sums_p = mod.drain_sparse_plain(sp, ki, *deltas)
+    torch.cuda.synchronize()
+    assert torch.equal(sums_k, sums_p) and _equal(sk, sp)
+    assert not sums_k[live:].any()
+
+
+def _tensor_state(rng, n, d, dev):
+    def bits():
+        return rng.integers(0, 1 << 32, size=(n, d), dtype=np.uint32)
+
+    raw = (bits(), bits() & 1, bits() & 3, bits() & 7)
+    return tensor.TensorState(
+        *(torch.from_numpy(x.view(np.int32)).to(dev) for x in raw)
+    )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d", [(2048, 8), (33, 7), (1, 3), (1000, 64)])
+def test_tensor_join_matches_plain(dev, n, d):
+    rng = np.random.default_rng(n * d)
+    st, dl = _tensor_state(rng, n, d, dev), _tensor_state(rng, n, d, dev)
+    sk, sp = _clone(st), _clone(st)
+    before = tensor.join_dense.launches
+    tensor.join_dense(sk, dl)
+    tensor.join_dense_plain(sp, dl)
+    torch.cuda.synchronize()
+    assert tensor.join_dense.launches == before + 1
+    assert _equal(sk, sp)
+
+
+@pytest.mark.cuda
+def test_unaligned_planes_take_the_scalar_path(dev):
+    rng = np.random.default_rng(7)
+    # views one element into a buffer: 4 bytes off the 16-byte boundary,
+    # so the TENSOR launch passes vec = 0
+    t = _tensor_state(rng, 9, 5, dev)
+    shifted = tensor.TensorState(
+        *(torch.cat([p.new_zeros(1), p.flatten()])[1:].view(9, 5) for p in t)
+    )
+    assert shifted.val.data_ptr() % 16 != 0
+    dl = _tensor_state(rng, 9, 5, dev)
+    want = tensor.join_dense_plain(_clone(shifted), dl)
+    got = tensor.join_dense(shifted, dl)
+    assert _equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mod", [gcount, pncount], ids=["G", "PN"])
+def test_counter_drains_reject_odd_rows_and_unaligned_planes(dev, mod):
+    """The counter kernels load 16-byte vectors only; a plane they cannot
+    take that way is refused before any launch."""
+    rng = np.random.default_rng(7)
+    odd = _state(mod, rng, 37, 7, dev)
+    d_odd = [planes.to_tensor(_u64(rng, (37, 7)), dev) for _ in odd]
+    ki = torch.zeros(4, dtype=torch.int32, device=dev)
+    b_odd = [planes.to_tensor(_u64(rng, (4, 7)), dev) for _ in odd]
+    # a view one element into a buffer: 8 bytes off the 16-byte boundary
+    buf = planes.to_tensor(_u64(rng, (64 * 8 + 1,)), dev)
+    shifted = type(odd)(*(buf[1:].view(64, 8) for _ in odd))
+    assert shifted[0].data_ptr() % 16 != 0
+    d8 = [planes.to_tensor(_u64(rng, (64, 8)), dev) for _ in odd]
+    before = (mod.drain_dense.launches, mod.drain_sparse.launches)
+    with pytest.raises(ValueError, match="odd"):
+        mod.drain_dense(odd, *d_odd)
+    with pytest.raises(ValueError, match="odd"):
+        mod.drain_sparse(odd, ki, *b_odd)
+    with pytest.raises(ValueError, match="aligned"):
+        mod.drain_dense(shifted, *d8)
+    with pytest.raises(ValueError, match="aligned"):
+        mod.drain_sparse(mod.init(64, 8, dev), ki[:1],
+                         *(buf[1:9].view(1, 8) for _ in odd))
+    assert (mod.drain_dense.launches, mod.drain_sparse.launches) == before
+
+
+@pytest.mark.cuda
+def test_wrappers_reject_what_the_kernels_do_not_take(dev):
+    st = gcount.init(16, 8, dev)
+    with pytest.raises(ValueError):
+        gcount.drain_dense(st, torch.zeros((16, 8), dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError):
+        gcount.drain_dense(st, torch.zeros((16, 4), dtype=torch.int64, device=dev))
+    with pytest.raises(ValueError):
+        gcount.drain_dense(st, st.counts)  # delta aliases state
+    ki64 = torch.zeros(16, dtype=torch.int64, device=dev)
+    with pytest.raises(ValueError):
+        gcount.drain_sparse(st, ki64, torch.zeros((16, 8), dtype=torch.int64, device=dev))
+    ts = tensor.init(4, 4, dev)
+    with pytest.raises(ValueError):
+        tensor.join_dense(ts, tensor.init(4, 2, dev))
+
+
+def test_cpu_tensors_run_the_plain_versions():
+    """A CPU state never reaches a kernel: the launch counts stay put."""
+    before = (gcount.drain_dense.launches, pncount.drain_sparse.launches,
+              tensor.join_dense.launches)
+    st = gcount.init(8, 4, "cpu")
+    gcount.drain_dense(st, torch.ones((8, 4), dtype=torch.int64))
+    pn = pncount.init(8, 4, "cpu")
+    ki = torch.tensor([1, 2**31 - 1], dtype=torch.int32)
+    z = torch.ones((2, 4), dtype=torch.int64)
+    assert pncount.drain_sparse(pn, ki, z, z).tolist() == [0, 0]
+    tensor.join_dense(tensor.init(2, 4, "cpu"), tensor.init(2, 4, "cpu"))
+    assert (gcount.drain_dense.launches, pncount.drain_sparse.launches,
+            tensor.join_dense.launches) == before
+    assert st.counts.sum().item() == 32
