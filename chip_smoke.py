@@ -28,14 +28,36 @@ build/jylis_tpu_torch/), then:
    back from the card, and every key's served value are held against
    the reference too. The four counter kernels must have launched
    during this phase, the state must be on cuda, and its shape must be
-   the one the kernel phases checked.
+   the one the kernel phases checked;
+4. the TREG and gathered TENSOR kernel phases (run with 1. and 2.):
+   treg_drain_dense at K = 1,048,576 and treg_drain_sparse at B = 8,192
+   (5,000 live) and B = 65,536; tensor_converge_batch at the TENSOR node
+   phase's first drain (N = B = 131,072 x D = 64, 130,000 live rows)
+   and at N = 1,000,000 x D = 64 with B = 65,536. Each is held bit for
+   bit against its plain version (ts and ranks >= 2^63, prefix ties,
+   unset registers, pads, NaN bits, both zeros, equal ts under other
+   rids) and timed on a fresh copy of its inputs per call;
+5. the TREG node phase (BASELINE config 3): 1,000,000 keys through
+   Database.converge_async in three rounds (the dense drain at
+   K = 1,048,576 twice, the second with prefix ties the host settles,
+   then 5,000 new keys through the sparse drain), local SET/GET over
+   the socket, every reply against a Python reference, then the whole
+   device state (ts, rank, vid through the interner) and the mirror
+   cache against the reference for every key;
+6. the TENSOR node phase: 100,000 keys x 64 dims (LWW, MAX and AVG) in
+   two rounds of deltas (contention, NaN payloads, dominance flips),
+   SET/MRG/GET over the socket with both BADSHAPE replies and a
+   BADPAYLOAD, every reply against a numpy reference of the lattice,
+   then every live device row against the repo's mirror rule.
+Each node phase sets its kernels' launch counts to 0 before it and
+fails unless each launched.
 
 Each step prints one JSON line (a kernel phase's "launches" counts that
 phase's compare and timing launches). The line before the last two is
 {"kernels": [...]} (per kernel: launches on its main path, error against
 the plain version, kernel / plain / bound times at the main path's
-shape, and the counters' times at the north-star size under
-"north_star"); then the card's name
+shape, the counters' times at the north-star size under "north_star",
+other shapes' times under "other_shapes"); then the card's name
 and power limit as nvidia-smi reports them; the last line is
 {"ok": true, "device": {...}}. Any failure raises, so the exit code is
 not 0; without a GPU the script exits 1 before printing any result.
@@ -67,8 +89,24 @@ NODE_MORE = 400  # keys of the node phase's sparse drain
 # keyspace to bucket(keys, 1024) and the replica columns to bucket(8
 # replicas + this node, 8); the sparse drain pads 400 rows to bucket(400)
 K_NODE, R_NODE, B_NODE = 131_072, 16, 512
+# BASELINE.json config 3: 1M TREG keys, random-timestamp merge; the repo
+# sizes the keyspace to bucket(keys, 1024). Round 2 contends on 30% of
+# the keys (>= K/4: the dense drain again), round 3 adds 5,000 (above
+# the 4,096-row drain threshold, under K/4: the sparse drain, B = 8,192)
+TREG_KEYS, K_TREG = 1_000_000, 1 << 20
+TREG_CONTEND, TREG_NEW, B_TREG_NODE = 0.3, 5_000, 8_192
+# the TENSOR node phase: 100,000 keys x 64 dims (bench.py's tensor-merge
+# keyspace is 1M keys; cut because the host lattice joins each delta in
+# Python). Round 1 maps 70,000 LWW + 20,000 MAX keys to a device row
+# each and 10,000 AVG keys to 4 rows each: 130,000 rows, so the repo's
+# capacity and its first drain's batch are both bucket(130,000) = 131,072
+TENSOR_KEYS, TENSOR_ROWS_R1, TENSOR_FLIPS = 100_000, 130_000, 50
+N_TENSOR_NODE = B_TENSOR_NODE = 131_072
 TIMED_RUNS = 7
 U64 = (1 << 64) - 1
+# where the node phases keep their state; "cpu" runs the plain versions
+# (a rehearsal of the phases without a GPU; main() refuses to run then)
+DEVICE = "cuda"
 
 # Least-time model of an H100 SXM ("NVIDIA H100 80GB HBM3"): HBM at
 # 3.35 TB/s (NVIDIA data sheet); integer work at the INT32 rate, 64 lanes
@@ -80,6 +118,7 @@ U64 = (1 << 64) - 1
 CARD_RATES = {"H100 80GB HBM3": (3.35e12, 132 * 64 * 1.98e9)}
 OPS_PER_COUNTER = 2
 OPS_PER_CELL = 10
+OPS_PER_REGISTER = 10  # 6 compares and 4 selects per TREG register
 
 
 def emit(obj) -> None:
@@ -114,13 +153,19 @@ def bound(nbytes: float, nops: float, card: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def time_ms(torch, fn, reps: int = 1) -> float:
+def time_ms(torch, fn, reps: int = 1, reset=None) -> float:
     """Median over TIMED_RUNS of CUDA-event time per call of ``fn``
-    (``reps`` calls between one event pair), after one warm-up."""
+    (``reps`` calls between one event pair), after one warm-up.
+    ``reset``, when given, runs before each event pair, outside it: it
+    puts back the inputs a call that joins in place consumed."""
+    if reset is not None:
+        reset()
     fn()
     torch.cuda.synchronize()
     runs = []
     for _ in range(TIMED_RUNS):
+        if reset is not None:
+            reset()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -136,22 +181,26 @@ def device_ms(torch, fn, kernel: str, calls: int = 5):
     """Mean device time per launch of the kernel whose name contains
     ``kernel``, from a torch.profiler (CUPTI) trace of ``calls`` calls of
     ``fn``: the kernel alone, without the host's launch overhead that
-    the event times of small launches include. None when the trace holds
-    no such kernel."""
+    the event times of small launches include. A trace now and then
+    comes back without the kernel's records, so up to 3 traces are
+    taken; None when none of them holds the kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    total_us, n = 0.0, 0
-    for ev in prof.key_averages():
-        if kernel in ev.key:
-            total_us += ev.device_time_total
-            n += ev.count
-    return total_us / n / 1e3 if n else None
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        total_us, n = 0.0, 0
+        for ev in prof.key_averages():
+            if kernel in ev.key:
+                total_us += ev.device_time_total
+                n += ev.count
+        if n:
+            return total_us / n / 1e3
+    return None
 
 
 def max_abs_err(torch, pairs) -> int:
@@ -385,6 +434,231 @@ def tensor_sweep(torch) -> dict:
     return out
 
 
+# ---- the TREG and gathered TENSOR kernels ------------------------------------
+
+TS_POOL = np.array([0, 1, 7, 1 << 63, (1 << 63) + 5, U64], np.uint64)
+
+
+def treg_planes(rng, n: int):
+    """(ts, rank, vid) of ``n`` registers: ts and ranks half from a pool
+    of repeats (>= 2^63 among them), half uniform u64; a tenth unset
+    (0, 0, -1); some set registers at ts 0."""
+    def mix():
+        pool = TS_POOL[rng.integers(0, len(TS_POOL), n)]
+        return np.where(rng.random(n) < 0.5, pool, u64_np(rng, n)).astype(np.uint64)
+
+    ts, rank = mix(), mix()
+    ts[rng.random(n) < 0.05] = 0
+    vid = rng.integers(0, 1 << 30, n).astype(np.int32)
+    unset = rng.random(n) < 0.1
+    ts[unset], rank[unset], vid[unset] = 0, 0, -1
+    return ts, rank, vid
+
+
+def treg_deltas(rng, state_np, rows):
+    """Delta registers for ``rows`` of ``state_np``: a third copy their
+    row's ts and rank under another vid (ties the host settles), the
+    identity (0, 0, -1) stands for "no delta", and a delta (0, 0, vid)
+    meeting an unset row wins by presence alone."""
+    n = len(rows)
+    ts, rank, vid = treg_planes(rng, n)
+    tie = rng.random(n) < 1 / 3
+    ts[tie] = state_np[0][rows[tie]]
+    rank[tie] = state_np[1][rows[tie]]
+    vid[tie] = rng.integers(0, 1 << 30, int(tie.sum())).astype(np.int32)
+    return ts, rank, vid
+
+
+def treg_tensors(torch, planes_np, dev):
+    from jylis_tpu_torch.ops import planes
+
+    ts, rank, vid = planes_np
+    return (planes.to_tensor(ts, dev), planes.to_tensor(rank, dev),
+            torch.from_numpy(np.ascontiguousarray(vid)).to(dev))
+
+
+def changed(torch, before, after) -> int:
+    """Elements a join rewrote (TREG: registers; TENSOR: cells). B
+    strictly beats A only where the element changes, so for TREG this is
+    the number of wins."""
+    diff = torch.zeros_like(before[0], dtype=torch.bool)
+    for a, b in zip(before, after):
+        diff |= a != b
+    return int(diff.sum().item())
+
+
+def restorer(state, pristine):
+    """A function that copies ``pristine`` back into ``state``: the kernel
+    phases time each in-place join on a fresh copy of its inputs (a join
+    that already ran writes nothing the second time)."""
+    def go():
+        for a, b in zip(state, pristine):
+            a.copy_(b)
+    return go
+
+
+def treg_phases(torch, card: str) -> dict:
+    """treg_drain_dense at K = 1,048,576 and treg_drain_sparse at
+    B = 8,192 (5,000 live) and B = 65,536, on the keyspace the TREG node
+    phase gives them: each bit for bit against its plain version, then
+    timed."""
+    from jylis_tpu_torch.ops import treg
+    from jylis_tpu_torch.utils.batching import pad_rows
+
+    rng = np.random.default_rng(SEED + 10)
+    dev = torch.device("cuda")
+    st_np = treg_planes(rng, K_TREG)
+    st0 = treg.TRegState(*treg_tensors(torch, st_np, dev))
+    sk, sp = _clone(st0), _clone(st0)
+    out = {}
+
+    d = treg_tensors(torch, treg_deltas(rng, st_np, np.arange(K_TREG)), dev)
+    l0 = treg.drain_dense.launches
+    tie_k = treg.drain_dense(sk, *d)
+    tie_p = treg.drain_dense_plain(sp, *d)
+    torch.cuda.synchronize()
+    err = max_abs_err(torch, [(tie_k, tie_p), *zip(sk, sp)])
+    ties = int(tie_k.sum().item())
+    wins = changed(torch, st0, sk)
+    if err or not ties or not wins:
+        raise AssertionError(f"treg_drain_dense: err {err}, ties {ties}, wins {wins}")
+    ms = time_ms(torch, lambda: treg.drain_dense(sk, *d), reset=restorer(sk, st0))
+    dev_ms = device_ms(
+        torch, lambda: (restorer(sk, st0)(), treg.drain_dense(sk, *d)),
+        "treg_drain_dense")
+    plain_ms = time_ms(torch, lambda: treg.drain_dense_plain(sp, *d),
+                       reset=restorer(sp, st0))
+    # state and delta read, tie written, the state written where B wins
+    nbytes = K_TREG * (20 + 20 + 1) + wins * 20
+    b_ms, b_by = bound(nbytes, K_TREG * OPS_PER_REGISTER, card)
+    row = dict(shape=f"K={K_TREG}", max_abs_err=err, kernel_ms=ms,
+               device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
+               bound_by=b_by, bytes=nbytes, wins=wins, ties=ties,
+               launches=treg.drain_dense.launches - l0)
+    emit({"phase": "treg_drain_dense", **row, "card": card})
+    out["treg_drain_dense"] = row
+
+    for b, live in ((B_TREG_NODE, TREG_NEW), (B_LARGE, B_LARGE - B_LARGE // 16)):
+        ki = pad_rows(b)
+        ki[:live] = rng.choice(K_TREG, size=live, replace=False)
+        ki[-1] = -1  # a negative row is a pad slot too
+        rows = np.where(np.arange(b) < live, ki, 0)
+        d = treg_tensors(torch, treg_deltas(rng, st_np, rows), dev)
+        ki_t = torch.from_numpy(ki).to(dev)
+        restorer(sk, st0)()
+        restorer(sp, st0)()
+        l0 = treg.drain_sparse.launches
+        res_k = treg.drain_sparse(sk, ki_t, *d)
+        res_p = treg.drain_sparse_plain(sp, ki_t, *d)
+        torch.cuda.synchronize()
+        err = max_abs_err(torch, [*zip(res_k, res_p), *zip(sk, sp)])
+        ties = int(res_k[0].sum().item())
+        wins = changed(torch, st0, sk)
+        pads_zero = not any(x[live:].any().item() for x in res_k)
+        if err or not ties or not wins or not pads_zero:
+            raise AssertionError(
+                f"treg_drain_sparse B={b}: err {err}, ties {ties}, wins {wins}, "
+                f"pad slots zero {pads_zero}")
+        ms = time_ms(torch, lambda: treg.drain_sparse(sk, ki_t, *d),
+                     reset=restorer(sk, st0))
+        dev_ms = device_ms(
+            torch, lambda: (restorer(sk, st0)(), treg.drain_sparse(sk, ki_t, *d)),
+            "treg_drain_sparse")
+        plain_ms = time_ms(torch, lambda: treg.drain_sparse_plain(sp, ki_t, *d),
+                           reset=restorer(sp, st0))
+        # per slot: index read, tie and (ts, vid) written; per live slot:
+        # delta read and row gathered; the row written where B wins
+        nbytes = b * (4 + 1 + 12) + live * (20 + 20) + wins * 20
+        b_ms, b_by = bound(nbytes, live * OPS_PER_REGISTER, card)
+        row = dict(shape=f"K={K_TREG} B={b} live={live}", max_abs_err=err,
+                   kernel_ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                   bound_ms=b_ms, bound_by=b_by, bytes=nbytes, wins=wins,
+                   ties=ties, launches=treg.drain_sparse.launches - l0)
+        emit({"phase": "treg_drain_sparse", **row, "card": card})
+        if b == B_TREG_NODE:
+            out["treg_drain_sparse"] = row
+        else:
+            out["treg_drain_sparse"]["other_shapes"] = [row]
+    del st0, sk, sp
+    torch.cuda.empty_cache()
+    return out
+
+
+def tensor_cells(rng, shape):
+    """(val, ts_hi, ts_lo, rid) u32 planes: random f32 bits with NaN
+    payloads, -0.0 and +0.0 mixed in; ts_hi 0, ts_lo in [0, 4) and rid in
+    [0, 8) (bench.py's TENSOR delta shape), so equal timestamps with
+    other rids are common."""
+    val = rng.integers(0, 1 << 32, size=shape, dtype=np.uint32)
+    special = np.array([0x7FC00000, 0xFFC00000, 0x7F800001, 0x00000000,
+                        0x80000000], np.uint32)
+    pick = rng.random(shape) < 0.1
+    val[pick] = special[rng.integers(0, len(special), int(pick.sum()))]
+    return (val, np.zeros(shape, np.uint32),
+            rng.integers(0, 4, size=shape, dtype=np.uint32),
+            rng.integers(0, 8, size=shape, dtype=np.uint32))
+
+
+def tensor_batch_case(torch, rng, n: int, b: int, live: int, card: str) -> dict:
+    """tensor_converge_batch on ``live`` unique rows of an (n, T_DIM)
+    state padded to ``b`` slots as the repo pads them: bit for bit
+    against the plain version, then timed."""
+    from jylis_tpu_torch.ops import tensor
+    from jylis_tpu_torch.utils.batching import pad_rows
+
+    dev = torch.device("cuda")
+
+    def on_dev(p):
+        return tensor.TensorState(
+            *(torch.from_numpy(x.view(np.int32)).to(dev) for x in p))
+
+    st0 = on_dev(tensor_cells(rng, (n, T_DIM)))
+    dl = on_dev(tensor_cells(rng, (b, T_DIM)))
+    ki = pad_rows(b)
+    ki[:live] = rng.choice(n, size=live, replace=False)
+    ki[-1] = -1
+    ki_t = torch.from_numpy(ki).to(dev)
+    sk, sp = _clone(st0), _clone(st0)
+    l0 = tensor.converge_batch.launches
+    tensor.converge_batch(sk, ki_t, *dl)
+    tensor.converge_batch_plain(sp, ki_t, *dl)
+    torch.cuda.synchronize()
+    err = max_abs_err(torch, list(zip(sk, sp)))
+    cells = changed(torch, st0, sk)
+    if err or not cells:
+        raise AssertionError(
+            f"tensor_converge_batch N={n} B={b}: err {err}, cells changed {cells}")
+    ms = time_ms(torch, lambda: tensor.converge_batch(sk, ki_t, *dl),
+                 reset=restorer(sk, st0))
+    dev_ms = device_ms(
+        torch, lambda: (restorer(sk, st0)(), tensor.converge_batch(sk, ki_t, *dl)),
+        "tensor_converge_batch")
+    plain_ms = time_ms(torch, lambda: tensor.converge_batch_plain(sp, ki_t, *dl),
+                       reset=restorer(sp, st0))
+    nbytes = live * T_DIM * 48 + b * 4
+    b_ms, b_by = bound(nbytes, live * T_DIM * OPS_PER_CELL, card)
+    row = dict(shape=f"N={n} D={T_DIM} B={b} live={live}", max_abs_err=err,
+               kernel_ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
+               bound_by=b_by, bytes=nbytes, cells_changed=cells,
+               launches=tensor.converge_batch.launches - l0)
+    emit({"phase": "tensor_converge_batch", **row, "card": card})
+    del st0, dl, sk, sp
+    torch.cuda.empty_cache()
+    return row
+
+
+def tensor_batch_phases(torch, card: str) -> dict:
+    """The gathered TENSOR join at the shape of the TENSOR node phase's
+    first drain, and at bench.py's tensor-merge keyspace."""
+    rng = np.random.default_rng(SEED + 11)
+    row = tensor_batch_case(torch, rng, N_TENSOR_NODE, B_TENSOR_NODE,
+                            TENSOR_ROWS_R1, card)
+    row["other_shapes"] = [
+        tensor_batch_case(torch, rng, T_KEYS, B_LARGE, B_LARGE - B_LARGE // 16, card)
+    ]
+    return {"tensor_converge_batch": row}
+
+
 # ---- node phase ---------------------------------------------------------------
 
 
@@ -403,26 +677,99 @@ class Client:
         self.sock = socket.create_connection(("127.0.0.1", port), timeout=120)
         self.buf = b""
 
-    def call(self, *parts) -> bytes:
-        self.sock.sendall(resp_cmd(*parts))
-        return self.reply()
+    def _fill(self) -> None:
+        """Read what the socket has into the buffer."""
+        data = self.sock.recv(1 << 16)
+        if not data:
+            raise ConnectionError("server closed the connection")
+        self.buf += data
 
-    def pipeline(self, cmds) -> list[bytes]:
-        self.sock.sendall(b"".join(resp_cmd(*c) for c in cmds))
-        return [self.reply() for _ in cmds]
-
-    def reply(self) -> bytes:
-        # every reply these commands get is one CRLF-terminated line
+    def _line(self) -> bytes:
+        """One CRLF-terminated line, without its CRLF."""
         while b"\r\n" not in self.buf:
-            data = self.sock.recv(1 << 16)
-            if not data:
-                raise ConnectionError("server closed the connection")
-            self.buf += data
+            self._fill()
         line, self.buf = self.buf.split(b"\r\n", 1)
         return line
 
+    def reply(self) -> bytes:
+        """One whole RESP reply, its raw bytes: a line, a bulk string or
+        an array of replies."""
+        line = self._line()
+        out = line + b"\r\n"
+        if line[:1] == b"$" and int(line[1:]) >= 0:
+            n = int(line[1:]) + 2
+            while len(self.buf) < n:
+                self._fill()
+            out += self.buf[:n]
+            self.buf = self.buf[n:]
+        elif line[:1] == b"*":
+            out += b"".join(self.reply() for _ in range(int(line[1:])))
+        return out
+
+    def pipeline(self, cmds, chunk: int = 256) -> list[bytes]:
+        """Send ``cmds`` in pipelined chunks and read each chunk's whole
+        replies before the next (so neither side's buffers fill up)."""
+        out = []
+        for i in range(0, len(cmds), chunk):
+            part = cmds[i : i + chunk]
+            self.sock.sendall(b"".join(resp_cmd(*c) for c in part))
+            out += [self.reply() for _ in part]
+        return out
+
     def close(self) -> None:
         self.sock.close()
+
+
+class Node:
+    """The port's RESP Server with its state on DEVICE, serving from an
+    event loop in a thread, and a raw-socket client to it."""
+
+    def __init__(self, identity: int):
+        from jylis_tpu_torch.models.database import Database
+        from jylis_tpu_torch.server.server import Server
+        from jylis_tpu_torch.utils.config import Config
+
+        self.loop = asyncio.new_event_loop()
+        self.thread = threading.Thread(target=self.loop.run_forever, daemon=True)
+        self.thread.start()
+        self.db = Database(identity=identity, device=DEVICE)
+        self.server = Server(Config(port="0"), self.db)
+        self.run(self.server.start())
+        self.client = Client(self.server.port)
+
+    def run(self, coro, timeout: float = 600):
+        return asyncio.run_coroutine_threadsafe(coro, self.loop).result(timeout)
+
+    def converge(self, name: str, batch) -> None:
+        """One anti-entropy batch through Database.converge_async (which
+        drains in a worker thread when the repo's window trips)."""
+        self.run(self.db.converge_async(name, batch))
+
+    def repo(self, name: str):
+        return self.db.manager(name).repo
+
+    def close(self) -> None:
+        self.client.close()
+        self.run(self.server.dispose())
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self.thread.join(timeout=30)
+        self.loop.close()
+
+
+def check_replies(what: str, got, want) -> None:
+    if got != want:
+        bad = next(i for i, (g, w) in enumerate(zip(got, want)) if g != w)
+        raise AssertionError(f"{what} reply {bad}: {got[bad][:80]!r} != {want[bad][:80]!r}")
+
+
+def bulk(b: bytes) -> bytes:
+    return b"$%d\r\n%s\r\n" % (len(b), b)
+
+
+def prefix_rank(v: bytes) -> int:
+    """The big-endian first 8 bytes, zero padded (the register's rank)."""
+    return int.from_bytes((v[:8] + bytes(8))[:8], "big")
+
 
 
 def signed(v: int) -> int:
@@ -452,33 +799,20 @@ def check_full_state(name: str, repo, ref, expect) -> int:
             f"first difference at {want[bad][0] if bad < len(want) else bad}"
         )
     for key in keys:
-        if b":%d" % repo._get_value(key) != expect(name, key):
+        if b":%d\r\n" % repo._get_value(key) != expect(name, key):
             raise AssertionError(f"{name} served value of {key} != reference")
     return len(keys)
 
 
 def node_phase(torch) -> dict:
-    from jylis_tpu_torch.models.database import Database
     from jylis_tpu_torch.ops import gcount, pncount
-    from jylis_tpu_torch.server.server import Server
-    from jylis_tpu_torch.utils.config import Config
 
     rng = np.random.default_rng(SEED + 3)
     identity = 0x5EED
     rids = [int(x) for x in rng.integers(1 << 40, 1 << 62, NODE_REPLICAS)]
     keys = [b"k%06d" % i for i in range(NODE_KEYS)]
-
-    loop = asyncio.new_event_loop()
-    thread = threading.Thread(target=loop.run_forever, daemon=True)
-    thread.start()
-
-    def on_loop(coro, timeout=600):
-        return asyncio.run_coroutine_threadsafe(coro, loop).result(timeout)
-
-    db = Database(identity=identity, device="cuda")
-    server = Server(Config(port="0"), db)
-    on_loop(server.start())
-    client = Client(server.port)
+    node = Node(identity)
+    client = node.client
     # reference: per type, per polarity, key -> {rid: value}
     ref = {"GCOUNT": ({},), "PNCOUNT": ({}, {})}
 
@@ -486,7 +820,7 @@ def node_phase(torch) -> dict:
         pols = ref[name]
         tot = [sum(pol.get(key, {}).values()) & U64 for pol in pols]
         v = tot[0] if name == "GCOUNT" else signed(tot[0] - tot[1])
-        return b":%d" % v
+        return b":%d\r\n" % v
 
     own = {}  # (type, polarity, key) -> this node's own counter, wrapping
 
@@ -515,7 +849,7 @@ def node_phase(torch) -> dict:
                 ds.append(d)
             batch.append((key, ds[0] if pols == 1 else tuple(ds)))
         for i in range(0, len(batch), 10_000):
-            on_loop(db.converge_async(name, batch[i : i + 10_000]))
+            node.converge(name, batch[i : i + 10_000])
 
     try:
         # local writes
@@ -525,7 +859,8 @@ def node_phase(torch) -> dict:
             ("PNCOUNT", "GET", "p0"), ("GCOUNT", "INC", "g0", U64),
             ("GCOUNT", "GET", "g0"),
         ])
-        want = [b"+OK", b":5", b"+OK", b"+OK", b":-5", b"+OK", b":4"]
+        want = [b"+OK\r\n", b":5\r\n", b"+OK\r\n", b"+OK\r\n", b":-5\r\n",
+                b"+OK\r\n", b":4\r\n"]
         if replies != want:
             raise AssertionError(f"local writes: {replies} != {want}")
         own_inc("GCOUNT", 0, b"g0", 5)
@@ -541,7 +876,7 @@ def node_phase(torch) -> dict:
             op, pol = (("INC", 0), ("DEC", 1))[int(rng.integers(0, 2))]
             cmds.append(("PNCOUNT", op, key, a))
             own_inc("PNCOUNT", pol, key, a)
-        if set(client.pipeline(cmds)) != {b"+OK"}:
+        if set(client.pipeline(cmds)) != {b"+OK\r\n"}:
             raise AssertionError("INC/DEC on converged keys not acknowledged")
 
         gcount.drain_dense.launches = gcount.drain_sparse.launches = 0
@@ -583,12 +918,12 @@ def node_phase(torch) -> dict:
             "counter_drain_sparse<1>": gcount.drain_sparse.launches,
             "counter_drain_sparse<2>": pncount.drain_sparse.launches,
         }
-        if min(launches.values()) < 1 or min(dense) < 1:
+        if DEVICE == "cuda" and (min(launches.values()) < 1 or min(dense) < 1):
             raise AssertionError(f"a drain kernel never launched: {launches}")
         for name in ("GCOUNT", "PNCOUNT"):
-            repo = db.manager(name).repo
+            repo = node.repo(name)
             for plane in repo._state:
-                if plane.device.type != "cuda":
+                if plane.device.type != DEVICE:
                     raise AssertionError(f"{name} state on {plane.device}")
             capacity[name] = (repo._key_cap, repo._rep_cap)
             if capacity[name] != (K_NODE, R_NODE):
@@ -598,11 +933,7 @@ def node_phase(torch) -> dict:
                 )
             checked += check_full_state(name, repo, ref, expect)
     finally:
-        client.close()
-        on_loop(server.dispose())
-        loop.call_soon_threadsafe(loop.stop)
-        thread.join(timeout=30)
-        loop.close()
+        node.close()
     out = {
         "launches": launches, "keys": NODE_KEYS, "replicas": NODE_REPLICAS,
         "gets_checked": 2 * (len(sample) + len(more)) + 7,
@@ -611,6 +942,482 @@ def node_phase(torch) -> dict:
         "capacity": capacity,
     }
     emit({"phase": "node", **out})
+    return out
+
+
+def treg_node_phase(torch, n_keys: int = TREG_KEYS) -> dict:
+    """BASELINE config 3: n_keys TREG registers, random-timestamp merge
+    through Database.converge_async (round 1: every key, the dense drain
+    at K = 1,048,576; round 2: contending deltas on 30% of the keys, a
+    third at an equal ts with a value sharing its 8-byte prefix, so the
+    host settles device ties and patches vids; round 3: 5,000 new keys,
+    the sparse drain), then local SET/GET over a raw socket, every reply
+    against a Python reference, then the whole device state read back
+    and held against the reference for every key."""
+    from jylis_tpu_torch.ops import planes, treg
+
+    rng = np.random.default_rng(SEED + 12)
+    keys = [b"r%07d" % i for i in range(n_keys)]
+    ref: dict[bytes, tuple[int, bytes]] = {}  # key -> LWW winner (ts, value)
+
+    def put(key, ts, value):
+        cur = ref.get(key)
+        if cur is None or (ts, value) > cur:
+            ref[key] = (ts, value)
+
+    def values(n, replicas):
+        """An 8-byte random prefix, the writing replica's tag, 0-7 more
+        bytes: ranks >= 2^63 for half of them."""
+        raw = rng.integers(0, 256, size=(n, 16), dtype=np.uint8)
+        raw[:, 8] = replicas
+        lens = rng.integers(9, 17, n)
+        return [row[:ln].tobytes() for row, ln in zip(raw, lens)]
+
+    def timestamps(n):
+        ts = u64_np(rng, n)
+        pool = rng.random(n)
+        ts[pool < 0.05] = 0  # a set register at ts 0
+        ts[(pool >= 0.05) & (pool < 0.1)] = U64
+        return [int(t) for t in ts]
+
+    node = Node(identity=0x7E6)
+    try:
+        treg.drain_dense.launches = treg.drain_sparse.launches = 0
+        t0 = time.perf_counter()
+        vals = values(n_keys, rng.integers(0, NODE_REPLICAS, n_keys))
+        batch = list(zip(keys, zip(vals, timestamps(n_keys))))
+        for key, (v, ts) in batch:
+            put(key, ts, v)
+        gen_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        node.converge("TREG", batch)
+        r1_s = time.perf_counter() - t0
+        r1 = (treg.drain_dense.launches, treg.drain_sparse.launches)
+
+        # round 2: a third ties (equal ts, shared prefix), a third newer,
+        # a third older
+        sel = rng.choice(n_keys, int(n_keys * TREG_CONTEND), replace=False)
+        kind = rng.integers(0, 3, len(sel))
+        fresh = values(len(sel), rng.integers(0, NODE_REPLICAS, len(sel)))
+        batch, ties = [], 0
+        for i, k, v in zip(sel.tolist(), kind.tolist(), fresh):
+            key = keys[i]
+            ts, cur = ref[key]
+            if k == 0:
+                v = cur[:8] + v[8:]
+                if v == cur:
+                    v += b"!"
+                ties += 1
+            elif k == 1:
+                ts = min(ts + 1, U64)
+            else:
+                ts = max(ts - 1, 0)
+            batch.append((key, (v, ts)))
+            put(key, ts, v)
+        patched = sum(1 for (key, (v, ts)), k in zip(batch, kind.tolist())
+                      if k == 0 and ref[key] == (ts, v))
+        t0 = time.perf_counter()
+        node.converge("TREG", batch)
+        r2_s = time.perf_counter() - t0
+        r2 = (treg.drain_dense.launches, treg.drain_sparse.launches)
+
+        # round 3: new keys, above the drain threshold, under K / 4
+        new = [b"n%06d" % i for i in range(TREG_NEW)]
+        batch = list(zip(new, zip(values(TREG_NEW, rng.integers(0, 8, TREG_NEW)),
+                                  timestamps(TREG_NEW))))
+        for key, (v, ts) in batch:
+            put(key, ts, v)
+        t0 = time.perf_counter()
+        node.converge("TREG", batch)
+        r3_s = time.perf_counter() - t0
+        r3 = (treg.drain_dense.launches, treg.drain_sparse.launches)
+
+        # local SET/GET over the socket
+        cmds = []
+        old = rng.choice(n_keys, 200, replace=False).tolist()
+        for j, i in enumerate(old):
+            key = keys[i]
+            ts, cur = ref[key]
+            v = cur[:8] + b"local%d" % j if j % 2 else b"\xfelocal%d" % j
+            ts = (ts, min(ts + 1, U64), max(ts - 1, 0))[j % 3]
+            cmds.append(("TREG", "SET", key, v, ts))
+            put(key, ts, v)
+        for j in range(100):
+            key, v, ts = b"s%03d" % j, b"v%d" % j, int(rng.integers(0, 1 << 63))
+            cmds.append(("TREG", "SET", key, v, ts))
+            put(key, ts, v)
+        got = node.client.pipeline(cmds)
+        check_replies("TREG SET", got, [b"+OK\r\n"] * len(cmds))
+        sample = [keys[i] for i in rng.choice(n_keys, 3000, replace=False)]
+        sample += [c[2] for c in cmds] + new[:100] + [b"missing"]
+        t0 = time.perf_counter()
+        got = node.client.pipeline([("TREG", "GET", k) for k in sample])
+        get_s = time.perf_counter() - t0
+        want = [b"$-1\r\n" if k not in ref else
+                b"*2\r\n" + bulk(ref[k][1]) + b":%d\r\n" % ref[k][0]
+                for k in sample]
+        check_replies("TREG GET", got, want)
+
+        # the whole device state against the reference
+        repo = node.repo("TREG")
+        repo.drain()  # the socket's SETs: one more sparse drain
+        launches = {"treg_drain_dense": treg.drain_dense.launches,
+                    "treg_drain_sparse": treg.drain_sparse.launches}
+        t0 = time.perf_counter()
+        st = repo._state
+        for plane in st:
+            if plane.device.type != DEVICE:
+                raise AssertionError(f"TREG state on {plane.device}")
+        if n_keys == TREG_KEYS and repo._key_cap != K_TREG:
+            raise AssertionError(
+                f"TREG capacity {repo._key_cap} is not the shape the kernel "
+                f"phase held against plain ({K_TREG})")
+        ts, rank = planes.to_u64_np(st.ts), planes.to_u64_np(st.rank)
+        vid = st.vid.cpu().numpy()
+        rows = repo._tbl.rows()
+        order = [repo._tbl.key_of(r) for r in range(rows)]
+        if len(order) != len(ref) or set(order) != set(ref):
+            raise AssertionError("TREG table keys != reference keys")
+        win = [ref[k] for k in order]
+        if not np.array_equal(ts[:rows], np.fromiter((w[0] for w in win), np.uint64, rows)):
+            raise AssertionError("TREG device ts != reference")
+        if not np.array_equal(rank[:rows], np.fromiter(
+                (prefix_rank(w[1]) for w in win), np.uint64, rows)):
+            raise AssertionError("TREG device rank != reference")
+        if [repo._interner.lookup(v) for v in vid[:rows].tolist()] != [w[1] for w in win]:
+            raise AssertionError("TREG device vid != reference value")
+        if ts[rows:].any() or rank[rows:].any() or (vid[rows:] != -1).any():
+            raise AssertionError("TREG rows past the keys are not unset")
+        if [repo._cache[r] for r in range(rows)] != list(
+                zip(ts[:rows].tolist(), vid[:rows].tolist())):
+            raise AssertionError("TREG mirror cache != device state")
+        check_s = time.perf_counter() - t0
+    finally:
+        node.close()
+    if DEVICE == "cuda" and (r1 != (1, 0) or r2 != (2, 0) or r3 != (2, 1)
+                             or launches["treg_drain_sparse"] != 2):
+        raise AssertionError(
+            f"TREG drains: rounds {r1} {r2} {r3}, then {launches}: expected "
+            "dense, dense, sparse, sparse")
+    out = {"launches": launches, "keys": len(ref), "capacity": repo._key_cap,
+           "ties": ties, "ties_won": patched, "gets_checked": len(sample),
+           "sets_checked": len(cmds), "generate_s": gen_s, "round1_s": r1_s,
+           "round2_s": r2_s, "round3_s": r3_s, "get_s": get_s,
+           "check_s": check_s}
+    emit({"phase": "treg_node", **out})
+    return out
+
+
+# ---- TENSOR node phase: a reference of the lattice, written out ---------------
+
+CANON_NAN = 0x7FC00000
+
+
+def canon(u: np.ndarray) -> np.ndarray:
+    """Every NaN payload collapses to the one canonical quiet NaN."""
+    u = u.copy()
+    nan = ((u & 0x7F800000) == 0x7F800000) & ((u & 0x007FFFFF) != 0)
+    u[nan] = CANON_NAN
+    return u
+
+
+def lww_take(a, b) -> np.ndarray:
+    """Per cell: B's (ts, rid, okey(val)) lexicographically greater."""
+    av, ats, ar = a
+    bv, bts, br = b
+    return (bts > ats) | ((bts == ats) & (
+        (br > ar) | ((br == ar) & (okey_np(bv) > okey_np(av)))))
+
+
+def avg_read(contribs: dict) -> tuple[bytes, int]:
+    """The AVG value: sum(ts_i * v_i) / sum(ts_i) in f64 over sorted
+    rids (the unweighted mean when every ts is 0), as canonical f32."""
+    acc = np.zeros(T_DIM, np.float64)
+    wtot, tmax = 0.0, 0
+    with np.errstate(invalid="ignore", over="ignore"):
+        for rid in sorted(contribs):
+            ts, vec = contribs[rid]
+            acc += float(ts) * vec.view("<f4").astype(np.float64)
+            wtot += float(ts)
+            tmax = max(tmax, ts)
+        if wtot == 0.0:
+            acc = sum(contribs[r][1].view("<f4").astype(np.float64)
+                      for r in sorted(contribs))
+            wtot = float(len(contribs))
+        out = (acc / wtot).astype("<f4").view(np.uint32)
+    return canon(out).tobytes(), tmax
+
+
+def varint(v: int) -> bytes:
+    out = bytearray()
+    while True:
+        b, v = v & 0x7F, v >> 7
+        out.append(b | 0x80 if v else b)
+        if not v:
+            return bytes(out)
+
+
+def max_blob(val: np.ndarray) -> bytes:
+    """delta/TENSOR bytes of a MAX value (mode 1): mode, dim, val, empty
+    ts and rid, no contributions."""
+    raw = val.astype("<u4").tobytes()
+    return varint(1) + varint(len(val)) + varint(len(raw)) + raw + b"\x00\x00\x00"
+
+
+def tensor_node_phase(torch, n_keys: int = TENSOR_KEYS) -> dict:
+    """n_keys TENSOR keys x 64 dims from 8 replica ids (70% LWW, 20% MAX,
+    10% AVG with 4 contributors each) through Database.converge_async;
+    round 2 contends on a fifth of them (equal ts under another rid, NaN
+    payloads, newer AVG contributions) and flips a few MAX keys to LWW
+    (a dominance flip retires their device rows); then SET/MRG/GET over a
+    raw socket, with both BADSHAPE replies and a BADPAYLOAD, every reply
+    against the reference above; then every live device row against the
+    mirror rule of the repo's drain."""
+    from jylis_tpu_torch.ops import tensor
+    from jylis_tpu_torch.ops.tensor_host import Tensor
+
+    rng = np.random.default_rng(SEED + 13)
+    D = T_DIM
+    rids = [int(x) for x in rng.integers(1 << 40, 1 << 62, NODE_REPLICAS)]
+    rid32 = np.array([r & 0xFFFFFFFF for r in rids], np.uint32)
+    keys = [b"v%06d" % i for i in range(n_keys)]
+    kind = np.where(np.arange(n_keys) % 10 < 7, 2, np.where(np.arange(n_keys) % 10 < 9, 1, 3))
+    lww, mx, avg = (np.flatnonzero(kind == m) for m in (2, 1, 3))
+    bottom = np.full(D, 0xFFFFFFFF, np.uint32)
+    # reference state: LWW (val, ts, rid) and MAX val per key; AVG
+    # contributions per key; the mode of each key
+    ref_l = {keys[i]: (bottom.copy(), np.zeros(D, np.uint64), np.zeros(D, np.uint32))
+             for i in lww}
+    ref_m = {keys[i]: bottom.copy() for i in mx}
+    ref_a = {keys[i]: {} for i in avg}
+
+    def f32(n):
+        v = rng.standard_normal((n, D)).astype("<f4").view(np.uint32)
+        nan = rng.random((n, D)) < 0.01
+        v[nan] = 0x7FC00001  # a non-canonical NaN: the host canonicalises
+        v[rng.random((n, D)) < 0.01] = 0x80000000  # -0.0 beside +0.0
+        return v
+
+    def lww_delta(key, val, ts, rid):
+        a = ref_l[key]
+        b = (canon(val), ts, rid)
+        take = lww_take(a, b)
+        for x, y in zip(a, b):
+            x[take] = y[take]
+        return Tensor.from_wire(2, D, val.tobytes(), ts.astype("<u8").tobytes(),
+                                rid.astype("<u4").tobytes(), {})
+
+    def max_delta(key, val):
+        a = ref_m[key]
+        b = canon(val)
+        take = okey_np(b) > okey_np(a)
+        a[take] = b[take]
+        return Tensor.from_wire(1, D, val.tobytes(), b"", b"", {})
+
+    def avg_delta(key, rid, ts, val):
+        cur = ref_a[key].get(rid)
+        vec = canon(val)
+        if cur is None or (ts, tuple(okey_np(vec).tolist())) > (
+                cur[0], tuple(okey_np(cur[1]).tolist())):
+            ref_a[key][rid] = (ts, vec)
+        return Tensor.from_wire(3, D, b"", b"", b"", {rid: (ts, val.tobytes())})
+
+    node = Node(identity=0x7E5 + (1 << 40))
+    ident32 = np.uint32((0x7E5 + (1 << 40)) & 0xFFFFFFFF)
+    try:
+        tensor.converge_batch.launches = 0
+        t0 = time.perf_counter()
+        batch = []
+        base = np.array([0, 5, 1 << 63, U64 - 4], np.uint64)
+        bases = base[rng.integers(0, 4, len(lww))]
+        for rep in range(2):
+            who = rng.integers(0, NODE_REPLICAS, len(lww))
+            vals = f32(len(lww))
+            ts = bases[:, None] + rng.integers(0, 3, (len(lww), D)).astype(np.uint64)
+            for j, i in enumerate(lww.tolist()):
+                who_j = (who[j] + rep) % NODE_REPLICAS
+                batch.append((keys[i], lww_delta(
+                    keys[i], vals[j], ts[j], np.full(D, rid32[who_j], np.uint32))))
+        for _rep in range(2):
+            vals = f32(len(mx))
+            for j, i in enumerate(mx.tolist()):
+                batch.append((keys[i], max_delta(keys[i], vals[j])))
+        for j, i in enumerate(avg.tolist()):
+            vals = f32(4)
+            for c, r in enumerate(rng.choice(NODE_REPLICAS, 4, replace=False).tolist()):
+                ts = int(rng.integers(0, 3)) if j % 5 == 0 else int(rng.integers(1, 1 << 40))
+                batch.append((keys[i], avg_delta(keys[i], rids[r], ts, vals[c])))
+        gen_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        node.converge("TENSOR", batch)
+        r1_s = time.perf_counter() - t0
+        r1 = tensor.converge_batch.launches
+
+        # round 2: contention on a fifth of the keys, and a few flips
+        batch = []
+        sel_l = rng.choice(lww, len(lww) // 5, replace=False)
+        vals = f32(len(sel_l))
+        vals[:, ::7] = 0x7FC00001
+        for j, i in enumerate(sel_l.tolist()):
+            key = keys[i]
+            _v, ts, rid = ref_l[key]
+            other = rid32[rng.integers(0, NODE_REPLICAS)]
+            batch.append((key, lww_delta(key, vals[j], ts.copy(),
+                                         np.full(D, other, np.uint32))))
+        sel_m = rng.choice(mx, len(mx) // 5, replace=False)
+        vals = f32(len(sel_m))
+        vals[:, ::5] = 0xFFC00000  # NaN: the MAX top
+        for j, i in enumerate(sel_m.tolist()):
+            batch.append((keys[i], max_delta(keys[i], vals[j])))
+        sel_a = rng.choice(avg, len(avg) // 5, replace=False)
+        vals = f32(len(sel_a))
+        for j, i in enumerate(sel_a.tolist()):
+            key = keys[i]
+            r = sorted(ref_a[key])[j % len(ref_a[key])]
+            ts = ref_a[key][r][0] + (j % 2)  # equal ts: okey tuple decides
+            batch.append((key, avg_delta(key, r, ts, vals[j])))
+        flip = [keys[i] for i in np.setdiff1d(mx, sel_m)[:TENSOR_FLIPS].tolist()]
+        vals = f32(len(flip))
+        for j, key in enumerate(flip):
+            del ref_m[key]
+            ref_l[key] = (bottom.copy(), np.zeros(D, np.uint64), np.zeros(D, np.uint32))
+            batch.append((key, lww_delta(key, vals[j], np.full(D, 9, np.uint64),
+                                         np.full(D, rid32[0], np.uint32))))
+        repo = node.repo("TENSOR")
+        retired = {repo._dev_rows[repo._tbl.find(k)][-1] for k in flip}
+        t0 = time.perf_counter()
+        node.converge("TENSOR", batch)
+        r2_s = time.perf_counter() - t0
+        r2 = tensor.converge_batch.launches
+
+        # SET / MRG / GET over the socket
+        cmds, want = [], []
+        for j in range(20):
+            vals = f32(3)
+            k_l, k_m, k_a = b"sl%02d" % j, b"sm%02d" % j, b"sa%02d" % j
+            ts = int(rng.integers(0, 1 << 63))
+            ref_l[k_l] = (bottom.copy(), np.zeros(D, np.uint64), np.zeros(D, np.uint32))
+            lww_delta(k_l, vals[0], np.full(D, ts, np.uint64), np.full(D, ident32, np.uint32))
+            ref_m[k_m] = bottom.copy()
+            max_delta(k_m, vals[1])
+            ref_a[k_a] = {}
+            avg_delta(k_a, 0x7E5 + (1 << 40), ts, vals[2])
+            cmds += [("TENSOR", "SET", k_l, "LWW", ts, vals[0].tobytes()),
+                     ("TENSOR", "SET", k_m, "MAX", ts, vals[1].tobytes()),
+                     ("TENSOR", "SET", k_a, "AVG", ts, vals[2].tobytes())]
+            want += [b"+OK\r\n"] * 3
+        for j, i in enumerate(rng.choice(lww, 40, replace=False).tolist()):
+            key, vals = keys[i], f32(1)[0]
+            ts = int(ref_l[key][1].max()) if j % 2 else int(rng.integers(0, 1 << 63))
+            lww_delta(key, vals, np.full(D, ts, np.uint64), np.full(D, ident32, np.uint32))
+            cmds.append(("TENSOR", "SET", key, "LWW", ts, vals.tobytes()))
+            want.append(b"+OK\r\n")
+        for i in rng.choice(mx, 40, replace=False).tolist():
+            key = keys[i]
+            if key in ref_m:
+                vals = f32(1)[0]
+                max_delta(key, vals)
+                cmds.append(("TENSOR", "MRG", key, max_blob(vals)))
+                want.append(b"+OK\r\n")
+        lk = keys[int(lww[0])]
+        cmds += [("TENSOR", "SET", lk, "MAX", 1, f32(1)[0].tobytes()),
+                 ("TENSOR", "SET", lk, "LWW", 1, f32(1)[0][:32].tobytes()),
+                 ("TENSOR", "SET", lk, "LWW", 1, b"\x00" * 5),
+                 ("TENSOR", "MRG", lk, b"\x01\x40\x00")]
+        want += [b"-BADSHAPE (key holds LWW/64, write is MAX/64)\r\n",
+                 b"-BADSHAPE (key holds LWW/64, write is LWW/32)\r\n",
+                 b"-BADSHAPE (tensor payload must be a non-empty multiple of 4 "
+                 b"bytes: packed little-endian float32)\r\n",
+                 b"-BADPAYLOAD (MRG payload must be a canonical delta/TENSOR "
+                 b"encoding)\r\n"]
+        got = node.client.pipeline(cmds)
+        check_replies("TENSOR SET/MRG", got, want)
+
+        def render(key):
+            if key in ref_l:
+                v, ts, _r = ref_l[key]
+                return b"*3\r\n" + bulk(b"LWW") + bulk(v.tobytes()) + b":%d\r\n" % int(ts.max())
+            if key in ref_m:
+                return b"*3\r\n" + bulk(b"MAX") + bulk(ref_m[key].tobytes()) + b":0\r\n"
+            if key in ref_a:
+                v, tmax = avg_read(ref_a[key])
+                return b"*3\r\n" + bulk(b"AVG") + bulk(v) + b":%d\r\n" % tmax
+            return b"$-1\r\n"
+
+        sample = [keys[i] for i in rng.choice(n_keys, 3000, replace=False)]
+        sample += flip + [c[2] for c in cmds] + [b"missing"]
+        t0 = time.perf_counter()
+        got = node.client.pipeline([("TENSOR", "GET", k) for k in sample])
+        get_s = time.perf_counter() - t0
+        check_replies("TENSOR GET", got, [render(k) for k in sample])
+
+        # every live device row against the mirror rule
+        repo.drain()
+        launches = tensor.converge_batch.launches
+        t0 = time.perf_counter()
+        for plane in repo._state:
+            if plane.device.type != DEVICE:
+                raise AssertionError(f"TENSOR state on {plane.device}")
+        if n_keys == TENSOR_KEYS and (repo._row_cap, repo._dim_cap) != (N_TENSOR_NODE, D):
+            raise AssertionError(
+                f"TENSOR capacity {(repo._row_cap, repo._dim_cap)} is not the "
+                f"shape the kernel phase held against plain ({N_TENSOR_NODE}, {D})")
+        val, th, tl, rid = (p.cpu().numpy().view(np.uint32) for p in repo._state)
+        tsp = (th.astype(np.uint64) << np.uint64(32)) | tl
+        live = 0
+        for ref, mode in ((ref_l, 2), (ref_m, 1)):
+            ks = sorted(ref)
+            dev = []
+            for k in ks:
+                m = repo._dev_rows[repo._tbl.find(k)]
+                if list(m) != [-1]:
+                    raise AssertionError(f"TENSOR {k}: device rows {m}")
+                dev.append(m[-1])
+            dev = np.asarray(dev)
+            live += len(dev)
+            if mode == 2:
+                want_v = np.stack([ref[k][0] for k in ks])
+                want_ts = np.stack([ref[k][1] for k in ks])
+                want_r = np.stack([ref[k][2] for k in ks])
+            else:
+                want_v = np.stack([ref[k] for k in ks])
+                want_ts = np.zeros_like(tsp[dev])
+                want_r = np.zeros_like(rid[dev])
+            for name, g, w in (("val", val[dev], want_v), ("ts", tsp[dev], want_ts),
+                               ("rid", rid[dev], want_r)):
+                if not np.array_equal(g, w):
+                    bad = int(np.flatnonzero((g != w).any(axis=1))[0])
+                    raise AssertionError(
+                        f"TENSOR {'LWW' if mode == 2 else 'MAX'} {ks[bad]!r}: device "
+                        f"{name} != reference")
+        for k, contribs in ref_a.items():
+            m = repo._dev_rows[repo._tbl.find(k)]
+            if sorted(m) != sorted(contribs):
+                raise AssertionError(f"TENSOR AVG {k}: device rows {m}")
+            for r, (_ts, vec) in contribs.items():
+                dev = m[r]
+                live += 1
+                ver = repo._avg_ver[dev]
+                if (not np.array_equal(val[dev], vec) or (rid[dev] != (r & 0xFFFFFFFF)).any()
+                        or (tsp[dev] != ver).any()):
+                    raise AssertionError(f"TENSOR AVG {k} rid {r}: device row != mirror")
+        mapped = {d for m in repo._dev_rows.values() for d in m.values()}
+        if retired & mapped or len(retired) != len(flip):
+            raise AssertionError("a flipped key's old device row is still mapped")
+        check_s = time.perf_counter() - t0
+    finally:
+        node.close()
+    if DEVICE == "cuda" and (r1 != 1 or r2 != 2 or launches != 3):
+        raise AssertionError(
+            f"tensor_converge_batch launches: {r1}, {r2}, {launches}: expected one "
+            "per drain (round 1, round 2, the final drain)")
+    out = {"launches": {"tensor_converge_batch": launches},
+           "keys": len(ref_l) + len(ref_m) + len(ref_a), "dim": D,
+           "live_rows_checked": live, "rows_allocated": repo._next_dev,
+           "capacity": [repo._row_cap, repo._dim_cap], "flips": len(flip),
+           "replies_checked": len(cmds) + len(sample), "generate_s": gen_s,
+           "round1_s": r1_s, "round2_s": r2_s, "get_s": get_s, "check_s": check_s}
+    emit({"phase": "tensor_node", **out})
     return out
 
 
@@ -636,6 +1443,21 @@ KERNELS = {
     "tensor_join_dense": (
         "jylis_tpu_torch/csrc/tensor_join_dense.cu",
         "bench.py:1728 (_pallas_tensor_join, pl.pallas_call :1773)",
+    ),
+    "treg_drain_dense": (
+        "jylis_tpu_torch/csrc/treg_drain.cu",
+        "jylis_tpu/models/repo_treg.py:63 (_drain_dense -> ops/treg.py:111 "
+        "converge_dense, XLA)",
+    ),
+    "treg_drain_sparse": (
+        "jylis_tpu_torch/csrc/treg_drain.cu",
+        "jylis_tpu/models/repo_treg.py:57 (_drain -> ops/treg.py:82 "
+        "converge_batch, XLA)",
+    ),
+    "tensor_converge_batch": (
+        "jylis_tpu_torch/csrc/tensor_converge_batch.cu",
+        "jylis_tpu/models/repo_tensor.py:72 (_drain -> ops/tensor.py:121 "
+        "converge_batch, XLA)",
     ),
 }
 
@@ -663,23 +1485,32 @@ def main() -> int:
     rows = counter_phases(torch, card)
     rows.update(tensor_phase(torch, card))
     sweep = tensor_sweep(torch)
+    rows.update(treg_phases(torch, card))
+    rows.update(tensor_batch_phases(torch, card))
+    # the main paths, each with its launch counts set to 0 just before it
     node = node_phase(torch)
+    treg_node = treg_node_phase(torch)
+    tensor_node = tensor_node_phase(torch)
 
-    launches = dict(node["launches"], tensor_join_dense=sweep["launches"])
+    launches = dict(node["launches"], tensor_join_dense=sweep["launches"],
+                    **treg_node["launches"], **tensor_node["launches"])
+    timing = ("shape", "kernel_ms", "device_ms", "plain_ms", "bound_ms")
     kernels = []
     for kname, (source, replaces) in KERNELS.items():
         r = rows[kname]
         ns = r.get("north_star")
+        others = r.get("other_shapes", [])
         kernels.append({
             "name": kname, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[kname],
-            "max_abs_err": max(r["max_abs_err"], ns["max_abs_err"] if ns else 0),
+            "max_abs_err": max([r["max_abs_err"]] + [
+                x["max_abs_err"] for x in ([ns] if ns else []) + others]),
             "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None, "shape": r["shape"], "device_ms": r["device_ms"],
-            **({"north_star": {k: ns[k] for k in (
-                "shape", "kernel_ms", "device_ms", "plain_ms", "bound_ms")}}
-               if ns else {}),
+            **({"north_star": {k: ns[k] for k in timing}} if ns else {}),
+            **({"other_shapes": [{k: x[k] for k in timing} for x in others]}
+               if others else {}),
         })
     emit({"kernels": kernels})
     print(smi_line(), flush=True)

@@ -6,11 +6,13 @@ device work in PyTorch and in CUDA kernels written by hand for Hopper
 imports no JAX and nothing of ``jylis_tpu``: it keeps its own copy of
 every module it needs.
 
-So far it serves GCOUNT and PNCOUNT on one device:
+So far it serves TREG, GCOUNT, PNCOUNT and TENSOR on one device:
 
-  utils/     batching, config, logging, node address
-  ops/       counter and tensor lattices, the CUDA kernel launches
-  models/    per-type repos, repo manager, database router
+  utils/     batching, config, logging, node address, wire primitives
+  ops/       register, counter and tensor lattices, the string interner,
+             the CUDA kernel launches
+  models/    per-type repos and host tables, repo manager, database router
+  cluster/   the TENSOR delta codec (MRG payloads)
   server/    RESP codec and TCP server
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``

@@ -1,8 +1,9 @@
 """Carry lattice state between the JAX package's layout and the port's.
 
-The JAX package keeps each u64 counter plane as hi/lo u32 planes and the
-TENSOR planes as u32; the port keeps one int64 bit-pattern plane per
-counter polarity and int32 bit patterns for TENSOR. These functions take
+The JAX package keeps each u64 counter plane, and TREG's ts and rank, as
+hi/lo u32 planes and the TENSOR planes as u32; the port keeps one int64
+bit-pattern plane per counter polarity and for TREG's ts and rank, and
+int32 bit patterns for TENSOR. These functions take
 the JAX package's host (numpy) planes and return the port's state on a
 given device, and back; the bits are unchanged both ways, and the
 result never shares memory with its input.
@@ -13,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .ops import gcount, planes, pncount, tensor
+from .ops import gcount, planes, pncount, tensor, treg
 
 
 def gcount_from_jax(hi, lo, device="cuda") -> gcount.GCountState:
@@ -48,3 +49,23 @@ def tensor_from_jax(val, ts_hi, ts_lo, rid, device="cuda") -> tensor.TensorState
 def tensor_to_jax(state: tensor.TensorState):
     """(val, ts_hi, ts_lo, rid) u32 planes."""
     return tuple(p.cpu().numpy().view(np.uint32) for p in state)
+
+
+def treg_from_jax(ts_hi, ts_lo, rank_hi, rank_lo, vid, device="cuda") -> treg.TRegState:
+    def u64(hi, lo):
+        return planes.to_tensor(planes.combine64_np(hi, lo), device)
+
+    vid = np.ascontiguousarray(vid, dtype=np.int32)
+    return treg.TRegState(
+        u64(ts_hi, ts_lo), u64(rank_hi, rank_lo),
+        torch.from_numpy(vid).to(device, copy=True),
+    )
+
+
+def treg_to_jax(state: treg.TRegState):
+    """(ts_hi, ts_lo, rank_hi, rank_lo, vid): u32 planes and the int32 vid."""
+    return (
+        *planes.split64_np(planes.to_u64_np(state.ts)),
+        *planes.split64_np(planes.to_u64_np(state.rank)),
+        state.vid.cpu().numpy().copy(),
+    )

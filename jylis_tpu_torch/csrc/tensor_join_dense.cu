@@ -8,8 +8,9 @@
 // Cell by cell, B replaces A iff (ts_hi, ts_lo, rid, okey(val)) of B is
 // lexicographically strictly greater, compared as unsigned integers;
 // okey(u) = (u >> 31) ? ~u : u | 0x80000000 is the order-preserving map
-// of f32 bits, so no NaN is ever compared as a float. The state planes
-// are updated in place, as the Pallas kernel aliases them.
+// of f32 bits, so no NaN is ever compared as a float (the select is
+// tensor_cell.cuh's, shared with tensor_converge_batch.cu). The state
+// planes are updated in place, as the Pallas kernel aliases them.
 //
 // Bound: bytes. Each cell reads 8 planes and writes 4, 48 bytes; at
 // most 4 integer compares, 2 okey maps and 4 selects. At N = 1M, D = 64: ~3.07 GB, 0.92 ms at
@@ -20,34 +21,14 @@
 // plane (a warp-wide access is a contiguous 512-byte run), grid-stride;
 // cells past the last whole uint4 go through a scalar tail. No
 // pipelining (cp.async / TMA) yet.
-#include <cuda_runtime.h>
+#include "tensor_cell.cuh"
 
 namespace {
 
+using jt::join_cell;
+
 constexpr int kThreads = 256;
 constexpr long long kMaxBlocks = 1 << 16;
-
-__device__ __forceinline__ unsigned okey(unsigned u) {
-  return (u >> 31) ? ~u : (u | 0x80000000u);
-}
-
-// B's cell replaces A's: strict lexicographic (ts_hi, ts_lo, rid, okey)
-__device__ __forceinline__ void join_cell(unsigned& av, unsigned& ath,
-                                          unsigned& atl, unsigned& ar,
-                                          unsigned bv, unsigned bth,
-                                          unsigned btl, unsigned br) {
-  bool wins;
-  if (bth != ath) wins = bth > ath;
-  else if (btl != atl) wins = btl > atl;
-  else if (br != ar) wins = br > ar;
-  else wins = okey(bv) > okey(av);
-  if (wins) {
-    av = bv;
-    ath = bth;
-    atl = btl;
-    ar = br;
-  }
-}
 
 template <bool VEC>
 __global__ void __launch_bounds__(kThreads)
@@ -74,10 +55,7 @@ __global__ void __launch_bounds__(kThreads)
     for (long long i = tid; i < n4; i += stride) {
       uint4 a0 = v4[i], a1 = th4[i], a2 = tl4[i], a3 = r4[i];
       const uint4 b0 = dv4[i], b1 = dth4[i], b2 = dtl4[i], b3 = dr4[i];
-      join_cell(a0.x, a1.x, a2.x, a3.x, b0.x, b1.x, b2.x, b3.x);
-      join_cell(a0.y, a1.y, a2.y, a3.y, b0.y, b1.y, b2.y, b3.y);
-      join_cell(a0.z, a1.z, a2.z, a3.z, b0.z, b1.z, b2.z, b3.z);
-      join_cell(a0.w, a1.w, a2.w, a3.w, b0.w, b1.w, b2.w, b3.w);
+      jt::join_vec(a0, a1, a2, a3, b0, b1, b2, b3);
       v4[i] = a0;
       th4[i] = a1;
       tl4[i] = a2;

@@ -1,6 +1,7 @@
 """Process entry point: ``python -m jylis_tpu_torch --port P``.
 
-Builds the Database (GCOUNT and PNCOUNT on ``--device``, default cuda)
+Builds the Database (TREG, GCOUNT, PNCOUNT and TENSOR on ``--device``,
+default cuda)
 and the RESP Server, serves until SIGINT/SIGTERM, then stops intake,
 waits out any in-flight drain and closes the listener (after the
 reference's main.pony and dispose.pony). There is no cluster yet, so
@@ -25,7 +26,8 @@ async def run(argv: list[str] | None = None) -> None:
     server = Server(config, database)
     await server.start()
     log.info() and log.i(
-        f"serving GCOUNT/PNCOUNT on port {server.port}, device {database.device}"
+        f"serving TREG/GCOUNT/PNCOUNT/TENSOR on port {server.port}, device "
+        f"{database.device}"
     )
     stop = asyncio.Event()
     loop = asyncio.get_running_loop()

@@ -130,6 +130,12 @@ class RepoManager:
                 self.converge_deltas(batch[i : i + self.CONVERGE_SLICE])
                 if i + self.CONVERGE_SLICE < len(batch):
                     await asyncio.sleep(0)
+            # repos that buffer deltas (TREG, TENSOR) drain once their
+            # window trips, AFTER buffering, in a worker thread: never
+            # inline on the event loop
+            overdue = getattr(self.repo, "drain_overdue", None)
+            if overdue is not None and overdue():
+                await asyncio.to_thread(self.repo.drain)
 
     async def clean_shutdown_async(self) -> None:
         """Lock-holding shutdown: waits out any in-flight threaded drain,

@@ -1,8 +1,9 @@
 """TENSOR: per-coordinate tensor joins on (rows x dims) planes.
 
-The port of jylis_tpu/ops/tensor.py, to the extent this slice needs: the
-state layout and the dense full-keyspace join. The keyspace is four
-(N, D) planes of u32 bit patterns, held in ``int32`` tensors:
+The port of jylis_tpu/ops/tensor.py: the state layout, the dense
+full-keyspace join, the gathered batch join the repo drains through,
+reads and growth. The keyspace is four (N, D) planes of u32 bit
+patterns, held in ``int32`` tensors:
 
     val    raw f32 bit patterns (okey-comparable, see below)
     ts_hi  } u64 per-coordinate timestamp as hi/lo planes
@@ -21,6 +22,11 @@ unsigned through the ``^ 0x80000000`` bias; the CUDA kernel reads them as
 the port of the Pallas kernel bench.py ``_pallas_tensor_join``) on CUDA
 tensors and runs ``_join_row`` on CPU ones; either way it updates the
 state planes in place, as the Pallas kernel aliases them.
+``converge_batch`` does the same for B unique rows: it launches
+``tensor_converge_batch`` (csrc/tensor_converge_batch.cu, the same
+per-cell select, csrc/tensor_cell.cuh) on CUDA tensors and runs the
+gather / ``_join_row`` / scatter on CPU ones. Pad rows (>= N) are
+dropped, as JAX's mode="drop" scatter drops them.
 """
 
 from __future__ import annotations
@@ -30,7 +36,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import _build
+from . import _build, planes
 
 I32_MIN = -(1 << 31)  # 0x80000000 as an int32
 # per-coordinate identity bits: okey == 0, below every canonical float
@@ -134,3 +140,102 @@ def join_dense(state: TensorState, deltas: TensorState) -> TensorState:
 
 
 join_dense.launches = 0
+
+
+def converge_batch_plain(state: TensorState, key_idx, d_val, d_ts_hi,
+                         d_ts_lo, d_rid) -> TensorState:
+    """Gather the rows ``key_idx`` (pads dropped), ``_join_row`` them with
+    the (B, D) delta rows, scatter back in place."""
+    live = planes.live_rows(key_idx, state.val.shape[0])
+    rows = key_idx[live].long()
+    cur = tuple(plane[rows] for plane in state)
+    d = tuple(x[live] for x in (d_val, d_ts_hi, d_ts_lo, d_rid))
+    for plane, new in zip(state, _join_row(*cur, *d)):
+        plane[rows] = new
+    return state
+
+
+_BATCH_ARGS = [ctypes.c_void_p] * 9 + [
+    ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+
+
+def _launch_converge_batch(state: TensorState, key_idx, deltas) -> None:
+    what = "tensor_converge_batch"
+    n, d = state.val.shape
+    b = key_idx.shape[0]
+    dev = state.val.device
+    if d % 4:
+        raise ValueError(
+            f"{what}: row length {d} is not a multiple of 4 (rows load as "
+            "16-byte vectors)"
+        )
+    for planes_, shape in ((state, (n, d)), (deltas, (b, d))):
+        for p in planes_:
+            if p.device != dev or p.dtype != torch.int32 or not p.is_contiguous():
+                raise ValueError(
+                    f"{what}: expected contiguous int32 CUDA planes on one device"
+                )
+            if tuple(p.shape) != shape:
+                raise ValueError(f"{what}: shape {tuple(p.shape)} != {shape}")
+            if p.data_ptr() % 16:
+                raise ValueError(f"{what}: plane not 16-byte aligned")
+    if (key_idx.device != dev or key_idx.dtype != torch.int32
+            or not key_idx.is_contiguous() or key_idx.dim() != 1):
+        raise ValueError(
+            f"{what}: key_idx must be a contiguous (B,) int32 tensor on the "
+            "state's device"
+        )
+    if any(s.data_ptr() == x.data_ptr() for s in state for x in deltas):
+        raise ValueError(f"{what}: delta aliases state")
+    fn = _build.function(what, "jt_tensor_converge_batch", _BATCH_ARGS)
+    with torch.cuda.device(dev):
+        rc = fn(*(p.data_ptr() for p in state), key_idx.data_ptr(),
+                *(p.data_ptr() for p in deltas), b, n, d,
+                torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, what)
+
+
+def converge_batch(state: TensorState, key_idx, d_val, d_ts_hi, d_ts_lo,
+                   d_rid) -> TensorState:
+    """Join one (B, D) delta batch at UNIQUE rows ``key_idx`` ((B,) int32;
+    rows >= N are pads and dropped), in place; returns ``state``."""
+    if state.val.device.type == "cpu":
+        return converge_batch_plain(state, key_idx, d_val, d_ts_hi, d_ts_lo,
+                                    d_rid)
+    if state.val.device.type != "cuda":
+        raise ValueError(
+            f"tensor_converge_batch: unsupported device {state.val.device}"
+        )
+    _launch_converge_batch(state, key_idx, (d_val, d_ts_hi, d_ts_lo, d_rid))
+    converge_batch.launches += 1
+    return state
+
+
+converge_batch.launches = 0
+
+
+def converge_many(state: TensorState, key_idx, d_val, d_ts_hi, d_ts_lo,
+                  d_rid) -> TensorState:
+    """Fold N batches ((N, B) and (N, B, D) inputs) one after another.
+    Not on the serving path (the repo coalesces per key on the host)."""
+    for i in range(key_idx.shape[0]):
+        converge_batch(state, key_idx[i], d_val[i], d_ts_hi[i], d_ts_lo[i],
+                       d_rid[i])
+    return state
+
+
+def read(state: TensorState, key_idx: torch.Tensor) -> torch.Tensor:
+    """Raw f32 bit-pattern rows (int32) for a batch of in-range rows."""
+    return state.val[key_idx.long()]
+
+
+def grow(state: TensorState, num_rows: int, dim: int) -> TensorState:
+    """Capacity growth: new cells start at the identity
+    (BOTTOM_BITS, 0, 0, 0)."""
+    n, d = state.val.shape
+    if (num_rows, dim) == (n, d):
+        return state
+    out = init(num_rows, dim, state.val.device)
+    for new, old in zip(out, state):
+        new[:n, :d] = old
+    return out

@@ -1,0 +1,250 @@
+"""TREG: last-writer-wins timestamped register keyspace on torch tensors.
+
+Semantics (docs/_docs/types/treg.md:56-63): a register keeps one
+(value, timestamp) pair; pair A beats pair B iff ts_A > ts_B, or the
+timestamps are equal and value_A > value_B bytewise. The port of
+jylis_tpu/ops/treg.py. The keyspace is three (K,) planes:
+
+    ts    int64 bit patterns of the u64 timestamp (0 when unset)
+    rank  int64 bit patterns of the u64 value-prefix rank
+          (ops/interner.prefix_rank; 0 when unset)
+    vid   int32 interned value id, signed (-1 when unset)
+
+The JAX package keeps ts and rank as hi/lo u32 planes; the port keeps
+each u64 as one int64 plane (the ops/planes.py convention) and compares
+it unsigned through ``^ (1 << 63)``. ``convert.treg_from_jax`` /
+``treg_to_jax`` carry the bits between the two layouts.
+
+The value tie-break runs on the device via the rank. Where ts and rank
+are equal but the vids differ (two values sharing their 8-byte prefix)
+the drain flags a tie, and the repo settles it on the host with the full
+strings (models/repo_treg.py).
+
+``drain_dense`` and ``drain_sparse`` are the serving path's steps: on a
+CPU tensor they run their plain versions below; on a CUDA tensor they
+launch the hand-written kernels ``treg_drain_dense`` /
+``treg_drain_sparse`` (csrc/treg_drain.cu) or raise. ``converge_dense``
+and ``converge_batch`` keep the JAX signatures and go through them. All
+of them update the state in place, where JAX returns new arrays into
+donated buffers.
+
+Contract: one batch holds at most one delta per key (the repo coalesces
+per key on the host). Pad slots (rows >= K, or negative) write nothing
+and report tie 0, ts 0 and vid 0; JAX clamps their gathers instead, so
+its pad-slot outputs are row K-1's. The repo reads live slots only.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+
+from . import _build, planes
+
+SIGN = planes.SIGN
+
+
+class TRegState(NamedTuple):
+    ts: torch.Tensor  # (K,) int64 bits of u64; 0 when unset
+    rank: torch.Tensor  # (K,) int64 bits of u64; 0 when unset
+    vid: torch.Tensor  # (K,) int32; -1 when unset
+
+
+def init(num_keys: int, device="cuda") -> TRegState:
+    return TRegState(
+        torch.zeros(num_keys, dtype=torch.int64, device=device),
+        torch.zeros(num_keys, dtype=torch.int64, device=device),
+        torch.full((num_keys,), -1, dtype=torch.int32, device=device),
+    )
+
+
+def _ugt(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Unsigned a > b on int64 bit patterns."""
+    return (a ^ SIGN) > (b ^ SIGN)
+
+
+def _b_wins(a, b):
+    """Where pair B strictly beats pair A, plus the on-host tie flag
+    (jylis_tpu/ops/treg.py:62-79).
+
+    a/b: tuples (ts, rank, vid). An unset register (vid -1, zeros) loses
+    to any set pair: presence (vid >= 0) is the final tie-break."""
+    a_ts, a_rank, a_v = a
+    b_ts, b_rank, b_v = b
+    ts_eq = a_ts == b_ts
+    rank_eq = a_rank == b_rank
+    wins = _ugt(b_ts, a_ts) | (
+        ts_eq & (_ugt(b_rank, a_rank) | (rank_eq & (a_v < 0) & (b_v >= 0)))
+    )
+    tie = ts_eq & rank_eq & (a_v >= 0) & (b_v >= 0) & (a_v != b_v)
+    return wins, tie
+
+
+# ---- the drain steps: kernels and their plain versions ------------------------
+
+
+def drain_dense_plain(state: TRegState, d_ts, d_rank, d_vid) -> torch.Tensor:
+    """Whole-keyspace LWW join of (K,) delta planes into ``state``, in
+    place; returns the (K,) bool tie mask."""
+    d = (d_ts, d_rank, d_vid)
+    wins, tie = _b_wins(tuple(state), d)
+    for plane, dv in zip(state, d):
+        plane.copy_(torch.where(wins, dv, plane))
+    return tie
+
+
+def drain_sparse_plain(state: TRegState, key_idx, d_ts, d_rank, d_vid):
+    """LWW join of a (B,) delta batch at UNIQUE rows ``key_idx``, in
+    place. Returns (tie, out_ts, out_vid), each (B,): the tie flag and
+    the row's winner after the join; 0 at pad slots."""
+    live = planes.live_rows(key_idx, state.vid.shape[0])
+    rows = key_idx[live].long()
+    cur = tuple(plane[rows] for plane in state)
+    d = tuple(x[live] for x in (d_ts, d_rank, d_vid))
+    wins, tie_live = _b_wins(cur, d)
+    new = [torch.where(wins, dv, cv) for dv, cv in zip(d, cur)]
+    for plane, nv in zip(state, new):
+        plane[rows] = nv
+    b = key_idx.shape[0]
+    dev = d_vid.device
+    tie = torch.zeros(b, dtype=torch.bool, device=dev)
+    out_ts = torch.zeros(b, dtype=torch.int64, device=dev)
+    out_vid = torch.zeros(b, dtype=torch.int32, device=dev)
+    tie[live] = tie_live
+    out_ts[live] = new[0]
+    out_vid[live] = new[2]
+    return tie, out_ts, out_vid
+
+
+_P = ctypes.c_void_p
+_DENSE_ARGS = [_P] * 7 + [ctypes.c_longlong, _P]
+_SPARSE_ARGS = [_P] * 10 + [ctypes.c_longlong, ctypes.c_longlong, _P]
+_TYPES = (torch.int64, torch.int64, torch.int32)
+
+
+def _check(what: str, dev, n: int, *planes_) -> None:
+    """Every plane: a contiguous (n,) CUDA tensor on ``dev`` of the
+    (ts, rank, vid) types, repeated per group of three."""
+    for i, p in enumerate(planes_):
+        want = _TYPES[i % 3]
+        if p.device != dev or p.dtype != want or not p.is_contiguous():
+            raise ValueError(
+                f"{what}: expected contiguous {want} CUDA planes on {dev}, got "
+                f"{p.dtype} on {p.device}"
+            )
+        if tuple(p.shape) != (n,):
+            raise ValueError(f"{what}: shape {tuple(p.shape)} != ({n},)")
+
+
+def _launch_dense(state: TRegState, d_ts, d_rank, d_vid) -> torch.Tensor:
+    dev = state.vid.device
+    k = state.vid.shape[0]
+    _check("treg_drain_dense", dev, k, *state, d_ts, d_rank, d_vid)
+    if any(s.data_ptr() == d.data_ptr() for s in state for d in (d_ts, d_rank, d_vid)):
+        raise ValueError("treg_drain_dense: delta aliases state")
+    tie = torch.empty(k, dtype=torch.bool, device=dev)
+    fn = _build.function("treg_drain", "jt_treg_drain_dense", _DENSE_ARGS)
+    with torch.cuda.device(dev):
+        rc = fn(*(p.data_ptr() for p in (*state, d_ts, d_rank, d_vid, tie)),
+                k, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "treg_drain_dense")
+    return tie
+
+
+def _launch_sparse(state: TRegState, key_idx, d_ts, d_rank, d_vid):
+    dev = state.vid.device
+    k = state.vid.shape[0]
+    b = key_idx.shape[0]
+    _check("treg_drain_sparse", dev, k, *state)
+    _check("treg_drain_sparse", dev, b, d_ts, d_rank, d_vid)
+    if (key_idx.device != dev or key_idx.dtype != torch.int32
+            or not key_idx.is_contiguous() or tuple(key_idx.shape) != (b,)):
+        raise ValueError(
+            "treg_drain_sparse: key_idx must be a contiguous (B,) int32 tensor "
+            "on the state's device"
+        )
+    tie = torch.empty(b, dtype=torch.bool, device=dev)
+    out_ts = torch.empty(b, dtype=torch.int64, device=dev)
+    out_vid = torch.empty(b, dtype=torch.int32, device=dev)
+    fn = _build.function("treg_drain", "jt_treg_drain_sparse", _SPARSE_ARGS)
+    with torch.cuda.device(dev):
+        rc = fn(*(p.data_ptr() for p in (*state, key_idx, d_ts, d_rank, d_vid,
+                                         tie, out_ts, out_vid)),
+                b, k, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "treg_drain_sparse")
+    return tie, out_ts, out_vid
+
+
+def drain_dense(state: TRegState, d_ts, d_rank, d_vid) -> torch.Tensor:
+    """Whole-keyspace drain: join (K,) delta planes into ``state`` in
+    place (rows with no delta carry the identity 0, 0, -1, which never
+    wins and never ties); returns the (K,) bool tie mask."""
+    if state.vid.device.type == "cpu":
+        return drain_dense_plain(state, d_ts, d_rank, d_vid)
+    tie = _launch_dense(state, d_ts, d_rank, d_vid)
+    drain_dense.launches += 1
+    return tie
+
+
+drain_dense.launches = 0
+
+
+def drain_sparse(state: TRegState, key_idx, d_ts, d_rank, d_vid):
+    """Batched drain at UNIQUE rows ``key_idx`` ((B,) int32, pads >= K):
+    join in place and return (tie, out_ts, out_vid) per slot."""
+    if state.vid.device.type == "cpu":
+        return drain_sparse_plain(state, key_idx, d_ts, d_rank, d_vid)
+    out = _launch_sparse(state, key_idx, d_ts, d_rank, d_vid)
+    drain_sparse.launches += 1
+    return out
+
+
+drain_sparse.launches = 0
+
+
+# ---- the JAX package's entry points -------------------------------------------
+
+
+def converge_batch(state: TRegState, key_idx, d_ts, d_rank, d_vid):
+    """Join one delta batch (unique keys) in place: (state, tie (B,))."""
+    tie, _ts, _vid = drain_sparse(state, key_idx, d_ts, d_rank, d_vid)
+    return state, tie
+
+
+def converge_dense(state: TRegState, d_ts, d_rank, d_vid):
+    """Full-keyspace elementwise LWW join in place: (state, tie (K,))."""
+    return state, drain_dense(state, d_ts, d_rank, d_vid)
+
+
+def converge_many(state: TRegState, key_idx, d_ts, d_rank, d_vid):
+    """Fold N batches ((N, B) inputs) one after another: (state, tie
+    (N, B)). Not on the serving path (the repo coalesces per key on the
+    host); it exists for offline folds of pre-formed batches."""
+    ties = [
+        converge_batch(state, key_idx[i], d_ts[i], d_rank[i], d_vid[i])[1]
+        for i in range(key_idx.shape[0])
+    ]
+    return state, torch.stack(ties)
+
+
+def set_batch(state: TRegState, key_idx, d_ts, d_rank, d_vid):
+    """Local SET is lattice-identical to converging a delta (LWW join)."""
+    return converge_batch(state, key_idx, d_ts, d_rank, d_vid)
+
+
+def read(state: TRegState, key_idx: torch.Tensor):
+    """GET for a batch of in-range keys -> (ts, vid); vid -1 = nil."""
+    rows = key_idx.long()
+    return state.ts[rows], state.vid[rows]
+
+
+def grow(state: TRegState, num_keys: int) -> TRegState:
+    k = state.vid.shape[0]
+    if num_keys == k:
+        return state
+    out = init(num_keys, state.vid.device)
+    for new, old in zip(out, state):
+        new[:k] = old
+    return out

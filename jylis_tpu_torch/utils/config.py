@@ -29,7 +29,7 @@ class Config:
 def config_from_cli(argv: list[str] | None = None, log_out=None) -> Config:
     parser = argparse.ArgumentParser(
         prog="jylis-tpu-torch",
-        description="CRDT database on PyTorch and CUDA (GCOUNT, PNCOUNT)",
+        description="CRDT database on PyTorch and CUDA (TREG, GCOUNT, PNCOUNT, TENSOR)",
     )
     parser.add_argument(
         "-a", "--addr", default="127.0.0.1:9999:",

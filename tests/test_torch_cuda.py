@@ -5,7 +5,10 @@ shapes the full-size run in chip_smoke.py does not: small and wide
 replica counts, the node's serving shapes (R = 16), cell counts that are
 not a multiple of four (the TENSOR tail), unaligned TENSOR planes, pad
 and negative batch rows, and what the counter wrappers refuse (odd
-replica counts, unaligned planes). Integer lattices,
+replica counts, unaligned planes); for TREG, timestamps and ranks
+>= 2^63, ties and unset registers; for the gathered TENSOR join, pads,
+NaN bits and what its wrapper refuses (D not a multiple of 4, unaligned
+planes). Integer lattices,
 so every comparison is exact. On a machine with a GPU (where JAX need
 not be installed, hence --noconftest):
 
@@ -16,7 +19,8 @@ import numpy as np
 import pytest
 import torch
 
-from jylis_tpu_torch.ops import gcount, planes, pncount, tensor
+from jylis_tpu_torch.ops import gcount, planes, pncount, tensor, treg
+from jylis_tpu_torch.utils.batching import pad_rows
 
 
 @pytest.fixture
@@ -174,10 +178,117 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         tensor.join_dense(ts, tensor.init(4, 2, dev))
 
 
+def _treg(rng, n, dev, like=None):
+    """(ts, rank, vid) planes from small pools (>= 2^63, repeats); with
+    ``like`` = (state, rows), half the registers copy those rows' ts and
+    rank, so ties and the presence tie-break occur."""
+    pool = np.array([0, 1, 1 << 63, (1 << 64) - 1], np.uint64)
+    ts = pool[rng.integers(0, 4, n)]
+    rank = np.where(rng.random(n) < 0.5, pool[rng.integers(0, 4, n)],
+                    _u64(rng, n)).astype(np.uint64)
+    vid = rng.integers(-1, 3, n).astype(np.int32)
+    if like is not None:
+        st, rows = like
+        copy = rng.random(n) < 0.5
+        ts[copy] = planes.to_u64_np(st.ts)[rows[copy]]
+        rank[copy] = planes.to_u64_np(st.rank)[rows[copy]]
+    return (planes.to_tensor(ts, dev), planes.to_tensor(rank, dev),
+            torch.from_numpy(vid).to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 5, 300, 4096, 70001])
+def test_treg_drain_dense_matches_plain(dev, k):
+    rng = np.random.default_rng(k)
+    st = treg.TRegState(*_treg(rng, k, dev))
+    d = _treg(rng, k, dev, like=(st, np.arange(k)))
+    sk, sp = _clone(st), _clone(st)
+    before = treg.drain_dense.launches
+    tie_k = treg.drain_dense(sk, *d)
+    tie_p = treg.drain_dense_plain(sp, *d)
+    torch.cuda.synchronize()
+    assert treg.drain_dense.launches == before + 1
+    assert torch.equal(tie_k, tie_p) and _equal(sk, sp)
+    if k >= 300:
+        assert tie_k.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,b,live", [(64, 16, 16), (64, 16, 5), (1000, 128, 0),
+                                      (1 << 20, 8192, 5000)])
+def test_treg_drain_sparse_matches_plain(dev, k, b, live):
+    rng = np.random.default_rng(k + b + live)
+    st = treg.TRegState(*_treg(rng, k, dev))
+    ki = pad_rows(b)
+    ki[:live] = rng.choice(k, live, replace=False)
+    if live < b:
+        ki[-1] = -1  # a negative row is a pad slot too
+    rows = np.where((ki >= 0) & (ki < k), ki, 0)
+    d = _treg(rng, b, dev, like=(st, rows))
+    ki = torch.from_numpy(ki).to(dev)
+    sk, sp = _clone(st), _clone(st)
+    out_k = treg.drain_sparse(sk, ki, *d)
+    out_p = treg.drain_sparse_plain(sp, ki, *d)
+    torch.cuda.synchronize()
+    assert _equal(out_k, out_p) and _equal(sk, sp)
+    assert not any(x[live:].any() for x in out_k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,b,live", [(64, 8, 16, 16), (64, 8, 16, 3),
+                                        (1000, 4, 256, 200), (131072, 64, 512, 400),
+                                        (100, 32, 16, 0)])
+def test_tensor_converge_batch_matches_plain(dev, n, d, b, live):
+    rng = np.random.default_rng(n + d + b + live)
+    st = _tensor_state(rng, n, d, dev)
+    dl = _tensor_state(rng, b, d, dev)
+    nan = torch.tensor([0x7FC00000, -0x400000, 0, -(1 << 31)], dtype=torch.int32,
+                       device=dev)
+    dl.val[:, :4] = nan  # NaN bits, +0.0 and -0.0
+    ki = pad_rows(b)
+    ki[:live] = rng.choice(n, live, replace=False)
+    if live < b:
+        ki[-1] = -1
+    ki = torch.from_numpy(ki).to(dev)
+    sk, sp = _clone(st), _clone(st)
+    before = tensor.converge_batch.launches
+    tensor.converge_batch(sk, ki, *dl)
+    tensor.converge_batch_plain(sp, ki, *dl)
+    torch.cuda.synchronize()
+    assert tensor.converge_batch.launches == before + 1
+    assert _equal(sk, sp)
+
+
+@pytest.mark.cuda
+def test_new_wrappers_reject_what_the_kernels_do_not_take(dev):
+    st = tensor.init(16, 6, dev)  # D = 6: not whole 16-byte vectors
+    ki = torch.zeros(2, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        tensor.converge_batch(st, ki, *tensor.init(2, 6, dev))
+    buf = torch.zeros(8 * 8 + 1, dtype=torch.int32, device=dev)
+    shifted = tensor.TensorState(*(buf[1:].view(8, 8) for _ in range(4)))
+    with pytest.raises(ValueError, match="aligned"):
+        tensor.converge_batch(tensor.init(8, 8, dev), ki, *(
+            p[:2] for p in shifted))
+    with pytest.raises(ValueError):
+        tensor.converge_batch(tensor.init(8, 8, dev), ki.long(),
+                              *tensor.init(2, 8, dev))
+    rs = treg.init(8, dev)
+    with pytest.raises(ValueError):
+        treg.drain_dense(rs, rs.ts, rs.rank, rs.vid)  # delta aliases state
+    with pytest.raises(ValueError):
+        treg.drain_dense(rs, *(p[:4] for p in treg.init(8, dev)))
+    with pytest.raises(ValueError):
+        treg.drain_sparse(rs, ki.long(), *(p[:2] for p in treg.init(8, dev)))
+    with pytest.raises(ValueError):
+        treg.drain_dense(rs, *(p.int() for p in treg.init(8, dev)))
+
+
 def test_cpu_tensors_run_the_plain_versions():
     """A CPU state never reaches a kernel: the launch counts stay put."""
     before = (gcount.drain_dense.launches, pncount.drain_sparse.launches,
-              tensor.join_dense.launches)
+              tensor.join_dense.launches, tensor.converge_batch.launches,
+              treg.drain_dense.launches, treg.drain_sparse.launches)
     st = gcount.init(8, 4, "cpu")
     gcount.drain_dense(st, torch.ones((8, 4), dtype=torch.int64))
     pn = pncount.init(8, 4, "cpu")
@@ -185,6 +296,12 @@ def test_cpu_tensors_run_the_plain_versions():
     z = torch.ones((2, 4), dtype=torch.int64)
     assert pncount.drain_sparse(pn, ki, z, z).tolist() == [0, 0]
     tensor.join_dense(tensor.init(2, 4, "cpu"), tensor.init(2, 4, "cpu"))
+    tensor.converge_batch(tensor.init(2, 8, "cpu"), ki, *tensor.init(2, 8, "cpu"))
+    rs = treg.init(4, "cpu")
+    treg.drain_dense(rs, *treg.init(4, "cpu"))
+    treg.drain_sparse(rs, ki, *treg.init(2, "cpu"))
     assert (gcount.drain_dense.launches, pncount.drain_sparse.launches,
-            tensor.join_dense.launches) == before
+            tensor.join_dense.launches) == before[:3]
+    assert (tensor.converge_batch.launches, treg.drain_dense.launches,
+            treg.drain_sparse.launches) == before[3:]
     assert st.counts.sum().item() == 32

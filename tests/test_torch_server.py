@@ -6,7 +6,8 @@ goes over a real socket into the port's Server (state on the CPU), and
 command by command into a JAX ``Database(identity, engine="python")``
 through the JAX package's real ``Respond`` writer. The two reply streams
 must be equal. A separate test runs ``python -m jylis_tpu_torch`` as a
-real process.
+real process, and another serves TREG and TENSOR in a process where
+``import jax`` fails.
 """
 
 import asyncio
@@ -15,15 +16,20 @@ import signal
 import socket
 import subprocess
 import sys
+import textwrap
 import time
 from pathlib import Path
 
+import numpy as np
 import pytest
 
+from jylis_tpu.cluster import codec as jax_codec
 from jylis_tpu.models.database import Database as JaxDatabase
+from jylis_tpu.ops.tensor_host import Tensor as JaxTensor
 from jylis_tpu.server.resp import Respond as JaxRespond
 from jylis_tpu.server.resp import RespParser as JaxRespParser
 from jylis_tpu.utils.address import Address as JaxAddress
+from jylis_tpu_torch.cluster import codec
 from jylis_tpu_torch.models.database import Database
 from jylis_tpu_torch.server.server import Server
 from jylis_tpu_torch.utils.config import Config, config_from_cli
@@ -40,28 +46,79 @@ def arr(*parts) -> bytes:
     return out
 
 
+def vec(*xs) -> bytes:
+    return np.asarray(xs, "<f4").tobytes()
+
+
+def tensor_blob(mode, dim, val=b"", ts=b"", rid=b"", contribs=None) -> bytes:
+    """A delta/TENSOR payload, encoded by the JAX codec."""
+    t = JaxTensor.from_wire(mode, dim, val, ts, rid, contribs or {})
+    return jax_codec.encode_delta("TENSOR", t)
+
+
+LWW_T = tensor_blob(2, 3, vec(9, 9, 9), np.array([7, 8, 6], "<u8").tobytes(),
+                    np.array([1, 1, 0xFFFFFFFF], "<u4").tobytes())
+NAN = b"\x01\x00\xc0\x7f"  # a non-canonical NaN
+
 # bursts of raw client bytes; a delta batch is converged between bursts
 BURSTS = [
     arr("GCOUNT", "INC", "a", 5) + arr("GCOUNT", "GET", "a")
-    + b"PNCOUNT INC p 10\r\nPNCOUNT DEC p 25\r\n" + arr("PNCOUNT", "GET", "p"),
+    + b"PNCOUNT INC p 10\r\nPNCOUNT DEC p 25\r\n" + arr("PNCOUNT", "GET", "p")
+    + arr("TREG", "SET", "r", "hello", 5) + arr("TREG", "GET", "r")
+    + arr("TREG", "GET", "nope") + arr("TENSOR", "SET", "t", "LWW", 7, vec(1, 2, 3))
+    + arr("TENSOR", "GET", "t") + arr("TENSOR", "SET", "m", "MAX", 0, vec(-0.0, 1) + NAN)
+    + arr("TENSOR", "SET", "v", "AVG", 4, vec(2, 4)),
     arr("GCOUNT", "GET", "a") + arr("GCOUNT", "GET", "zz")
     + arr("PNCOUNT", "GET", "p") + arr("GCOUNT", "INC", "a", BIG)
-    + arr("GCOUNT", "GET", "a"),
+    + arr("GCOUNT", "GET", "a")
+    + arr("TREG", "GET", "r") + arr("TREG", "GET", "r2")
+    + arr("TREG", "SET", "r", "hellp", 5) + arr("TREG", "GET", "r")
+    + arr("TENSOR", "GET", "t") + arr("TENSOR", "MRG", "t", LWW_T)
+    + arr("TENSOR", "GET", "t") + arr("TENSOR", "GET", "m")
+    + arr("TENSOR", "GET", "v") + arr("TENSOR", "SET", "t", "MAX", 1, vec(1, 2, 3))
+    + arr("TENSOR", "SET", "t", "LWW", 1, vec(1, 2))
+    + arr("TENSOR", "SET", "t", "LWW", 1, b"abc")
+    + arr("TENSOR", "MRG", "t", LWW_T + b"\x00")
+    + arr("TENSOR", "MRG", "t", tensor_blob(0, 0)),
     arr("GCOUNT") + arr("GCOUNT", "FOO", "x") + arr("GCOUNT", "INC", "a")
     + arr("PNCOUNT", "INC", "p", "-3") + arr("PNCOUNT", "DEC", "p", BIG + 1)
     + arr("PNCOUNT", "INC", "p", "1x") + arr("PNCOUNT", "GET")
     + arr("FOO", "GET", "a") + arr("gcount", "GET", "a") + b"\r\n"
-    + arr("PNCOUNT", "GET", "p") + arr("PNCOUNT", "GET", "q"),
+    + arr("PNCOUNT", "GET", "p") + arr("PNCOUNT", "GET", "q")
+    + arr("TREG", "SET", "r", "x") + arr("TREG", "SET", "r", "x", "-1")
+    + arr("TREG", "SET", "r", "x", BIG + 1) + arr("TREG")
+    + arr("TENSOR", "SET", "t", "FOO", 1, vec(1)) + arr("TENSOR", "GET")
+    + arr("TENSOR", "MRG", "t"),
     b"".join(arr("PNCOUNT", "GET", "k%d" % i) for i in range(40))
-    + b"".join(arr("GCOUNT", "GET", "k%d" % i) for i in range(40)),
+    + b"".join(arr("GCOUNT", "GET", "k%d" % i) for i in range(40))
+    + b"".join(arr("TREG", "GET", "k%d" % i) for i in range(40))
+    + b"".join(arr("TENSOR", "GET", "k%d" % i) for i in range(40)),
 ]
 DELTAS = [
     [("GCOUNT", [(b"a", {7: 3, 8: BIG})]),
-     ("PNCOUNT", [(b"p", ({7: 100}, {8: BIG}))])],
+     ("PNCOUNT", [(b"p", ({7: 100}, {8: BIG}))]),
+     ("TREG", [(b"r", (b"hello", 5)), (b"r2", (b"\xff\x00", BIG))]),
+     ("TENSOR", [(b"v", tensor_blob(3, 2, contribs={9: (2, vec(8, 8))})),
+                 (b"m", tensor_blob(1, 3, vec(0.0, 1, 7)))])],
     [],
     [("GCOUNT", [(b"k%d" % i, {7: i, 9: BIG - i}) for i in range(40)]),
-     ("PNCOUNT", [(b"k%d" % i, ({7: i * 3}, {9: BIG - i})) for i in range(40)])],
+     ("PNCOUNT", [(b"k%d" % i, ({7: i * 3}, {9: BIG - i})) for i in range(40)]),
+     ("TREG", [(b"k%d" % i, (b"val%d" % (i % 5), i // 3)) for i in range(40)]),
+     ("TENSOR", [(b"k%d" % i, tensor_blob(1 + i % 3, 2, vec(i, -i), np.array(
+         [i, 1], "<u8").tobytes(), np.array([3, 3], "<u4").tobytes())
+         if i % 3 == 1 else tensor_blob(
+             1 + i % 3, 2, vec(i, -i) if i % 3 == 0 else b"",
+             contribs={i: (i, vec(i, i))} if i % 3 == 2 else None))
+         for i in range(40)])],
 ]
+
+
+def decoded(name, batch, codec_mod):
+    """A delta batch as one package's objects: TENSOR deltas travel as
+    codec blobs and are decoded by that package's codec."""
+    if name != "TENSOR":
+        return batch
+    return [(k, codec_mod.decode_delta("TENSOR", b)) for k, b in batch]
 
 
 def jax_replies() -> list[bytes]:
@@ -77,7 +134,7 @@ def jax_replies() -> list[bytes]:
             db.apply(resp, cmd)
         replies.append(bytes(out[start:]))
         for name, batch in DELTAS[i] if i < len(DELTAS) else ():
-            db.converge_deltas((name, batch))
+            db.converge_deltas((name, decoded(name, batch, jax_codec)))
     return replies
 
 
@@ -98,7 +155,7 @@ def test_reply_stream_matches_jax_database():
                     await asyncio.wait_for(reader.readexactly(len(want[i])), 30)
                 )
                 for name, batch in DELTAS[i] if i < len(DELTAS) else ():
-                    await db.converge_async(name, batch)
+                    await db.converge_async(name, decoded(name, batch, codec))
         finally:
             writer.close()
             await server.dispose()
@@ -108,6 +165,10 @@ def test_reply_stream_matches_jax_database():
     assert got == want
     text = b"".join(got)
     assert b":-" in text and b"BADCOMMAND" in text
+    for reply in (b"*2\r\n$5\r\nhellp\r\n:5", b"*3\r\n$3\r\nLWW",
+                  b"*3\r\n$3\r\nAVG", b"-BADSHAPE (key holds LWW/3, write is MAX/3)",
+                  b"-BADPAYLOAD (MRG", b"-BADPAYLOAD (empty"):
+        assert reply in text, reply
 
 
 def test_protocol_error_replies_and_drops_the_connection():
@@ -176,3 +237,62 @@ def test_module_entry_point_serves_and_stops_on_sigterm():
             proc.kill()
             proc.wait(timeout=10)
         proc.stderr.close()
+
+
+JAX_FREE_NODE = textwrap.dedent("""
+    import asyncio
+    import sys
+
+    sys.modules["jax"] = None  # any import of jax now raises ImportError
+
+    from jylis_tpu_torch.models.database import Database
+    from jylis_tpu_torch.server.server import Server
+    from jylis_tpu_torch.utils.config import Config
+
+
+    async def main(request, n):
+        server = Server(Config(port="0"), Database(1, device="cpu"))
+        await server.start()
+        reader, writer = await asyncio.open_connection("127.0.0.1", server.port)
+        writer.write(request)
+        await writer.drain()
+        reply = await asyncio.wait_for(reader.readexactly(n), 60)
+        writer.close()
+        await server.dispose()
+        return reply
+
+
+    request = sys.stdin.buffer.read()
+    reply = asyncio.run(main(request, int(sys.argv[1])))
+    loaded = [m for m in sys.modules if m == "jylis_tpu" or m.startswith("jylis_tpu.")]
+    assert not loaded, loaded
+    assert sys.modules["jax"] is None
+    sys.stdout.buffer.write(reply)
+""")
+
+
+def test_serves_treg_and_tensor_without_jax():
+    """The port serves TREG and TENSOR in a process where ``import jax``
+    raises, and loads nothing of ``jylis_tpu``; its replies equal the JAX
+    database's."""
+    request = (
+        arr("TREG", "SET", "r", "v1", 3) + arr("TREG", "SET", "r", "v0", 3)
+        + arr("TREG", "GET", "r") + arr("TENSOR", "SET", "t", "MAX", 0, vec(1, 2))
+        + arr("TENSOR", "MRG", "t", tensor_blob(1, 2, vec(3, 0)))
+        + arr("TENSOR", "GET", "t")
+    )
+    db = JaxDatabase(identity=1, engine="python")
+    out = bytearray()
+    resp, parser = JaxRespond(out.extend), JaxRespParser()
+    parser.append(request)
+    for cmd in parser:
+        db.apply(resp, cmd)
+    root = str(Path(__file__).resolve().parents[1])
+    proc = subprocess.run(
+        [sys.executable, "-c", JAX_FREE_NODE, str(len(out))],
+        input=request, capture_output=True, timeout=120, cwd=root,
+        env=dict(os.environ, PYTHONPATH=root),
+    )
+    assert proc.returncode == 0, proc.stderr.decode()
+    assert proc.stdout == bytes(out)
+    assert b"*2\r\n$2\r\nv1\r\n:3" in proc.stdout
