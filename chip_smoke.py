@@ -48,7 +48,27 @@ build/jylis_tpu_torch/), then:
    two rounds of deltas (contention, NaN payloads, dominance flips),
    SET/MRG/GET over the socket with both BADSHAPE replies and a
    BADPAYLOAD, every reply against a numpy reference of the lattice,
-   then every live device row against the repo's mirror rule.
+   then every live device row against the repo's mirror rule;
+7. the TLOG kernel phases (run with 1. and 2.): tlog_drain_sparse and
+   tlog_drain_dense at BASELINE config 4's device size (K = 16,384 rows
+   for 10,000 keys, L = 1,024; sparse at B = 16,384 with Ld = 128, dense
+   with Ld = 64, TRIM counts of 512), narrow and wide; the dense drain at
+   the node phase's L = 512; the socket TRIM's shape (B = 16, one row);
+   a row wider than shared memory (L = Ld = 65,536). Each is held bit
+   for bit against its plain version (ts >= 2^32 and 2^64-1 with CLR,
+   duplicates inside a delta and against the state, raised cutoffs,
+   pad and negative rows, counts 0, above the length, negative and
+   >= the no-op sentinel, rows that overflow under both rules) and
+   timed on a fresh state copy per call;
+8. the TLOG node phase (BASELINE config 4): 10,000 keys filled to
+   1,024 entries each through Database.converge_async, in rounds of
+   64 entries (the dense drain, one of them flagging rows and taking
+   the tail-overflow retry) and 128 (the sparse drain), one round
+   re-delivered, cutoffs raised, the last round in 64-bit ts (the state
+   widens); then GET/SIZE/CUTOFF, TRIM to 512 on 1,000 keys (one sparse
+   drain each), TRIMAT, CLR and INS over the socket, every reply against
+   a Python reference of the lattice, and the whole device state read
+   back through the interner against the reference for every key.
 Each node phase sets its kernels' launch counts to 0 before it and
 fails unless each launched.
 
@@ -102,6 +122,15 @@ TREG_CONTEND, TREG_NEW, B_TREG_NODE = 0.3, 5_000, 8_192
 # capacity and its first drain's batch are both bucket(130,000) = 131,072
 TENSOR_KEYS, TENSOR_ROWS_R1, TENSOR_FLIPS = 100_000, 130_000, 50
 N_TENSOR_NODE = B_TENSOR_NODE = 131_072
+# BASELINE.json config 4 (bench.py:1024 config_tlog_trim): TLOG, 10,000
+# keys x 1,024 entries, merge + TRIM to 512. The repo sizes the keyspace
+# to bucket(10,000, 1024) = 16,384 rows and the slots to 1,024; rounds of
+# 128 entries drain sparse (B = bucket(10,000)), rounds of 64 dense
+TLOG_KEYS, TLOG_LEN, TLOG_TRIM = 10_000, 1024, 512
+K_TLOG, L_TLOG, B_TLOG = 16_384, 1024, 16_384
+LD_SPARSE, LD_DENSE = 128, 64
+TLOG_VALUES = 65_536  # the node phase's value pool: the interner stays bounded
+TLOG_TRIMS = 1000  # keys the node phase TRIMs over the socket
 TIMED_RUNS = 7
 U64 = (1 << 64) - 1
 # where the node phases keep their state; "cpu" runs the plain versions
@@ -657,6 +686,234 @@ def tensor_batch_phases(torch, card: str) -> dict:
         tensor_batch_case(torch, rng, T_KEYS, B_LARGE, B_LARGE - B_LARGE // 16, card)
     ]
     return {"tensor_converge_batch": row}
+
+
+# ---- the TLOG kernels ------------------------------------------------------------
+
+
+def tlog_rows_np(rng, k: int, length: int, lens, wide: bool):
+    """A canonical TLOG state as numpy planes: row r holds lens[r]
+    entries, ts non-increasing with runs of equal ts, vids strictly
+    decreasing (so equal ts order by vid); a wide state's row 0 starts at
+    ts 2^64-1 (CLR's wrap). Returns (planes, length, cutoff, ts, vid):
+    u32 planes (PAD past each length), and the (k, L) ts and vids the
+    rows were cut from (the deltas copy and perturb them)."""
+    from jylis_tpu_torch.ops import tlog
+
+    gaps = rng.integers(0, 3, (k, length)).astype(np.uint64)
+    hi = (1 << 62) if wide else (1 << 32) - 2
+    top = rng.integers(4 * length, hi, k).astype(np.uint64)
+    if wide:
+        top[0], gaps[0, 0] = U64, 0
+    ts = top[:, None] - np.cumsum(gaps, 1, dtype=np.uint64)
+    vid = (np.arange(length - 1, -1, -1)[None, :]
+           + length * rng.integers(0, 1000, k)[:, None]).astype(np.int64)
+    lens = np.asarray(lens, np.int64)
+    live = np.arange(length)[None, :] < lens[:, None]
+    nt = ~ts
+    pl = [(nt >> np.uint64(32)).astype(np.uint32), nt.astype(np.uint32),
+          tlog.encode_vid_np(vid)]
+    pl = [np.where(live, p, np.uint32(0xFFFFFFFF)) for p in (pl if wide else pl[1:])]
+    last = ts[np.arange(k), np.maximum(lens - 1, 0)]
+    cut = np.where((lens > 0) & (rng.random(k) < 0.5), last - (last > 0), 0)
+    return pl, lens.astype(np.int32), cut.astype(np.uint64), ts, vid
+
+
+def tlog_delta_np(rng, ts, vid, lens, rows, ld: int):
+    """(d_ts, d_vid, d_cut) delta rows for ``rows``: fresh entries near
+    the row's own timestamps (some below its cutoff), copies of the
+    row's entries (duplicates against the state), copies of the previous
+    column (duplicates inside the delta), vid -1 slots, and a fifth of
+    the rows with a raised cutoff (at one of its entries)."""
+    n, length = len(rows), ts.shape[1]
+    pick = rng.integers(0, length, (n, ld))
+    d_ts = ts[rows[:, None], pick] + rng.integers(0, 3, (n, ld)).astype(np.uint64)
+    d_vid = rng.integers(0, 1 << 30, (n, ld)).astype(np.int64)
+    lens = np.asarray(lens)[rows]
+    kind = rng.random((n, ld))
+    own = (kind < 0.3) & (lens[:, None] > 0)
+    at = (rng.random((n, ld)) * np.maximum(lens, 1)[:, None]).astype(np.int64)
+    d_ts[own] = ts[rows[:, None], at][own]
+    d_vid[own] = vid[rows[:, None], at][own]
+    if ld > 1:
+        rep = (kind >= 0.3) & (kind < 0.45)
+        rep[:, 0] = False
+        src = np.where(rep)
+        d_ts[src], d_vid[src] = d_ts[src[0], src[1] - 1], d_vid[src[0], src[1] - 1]
+    d_vid[kind > 0.9] = -1
+    at = (rng.random(n) * np.maximum(lens, 1)).astype(np.int64)
+    d_cut = np.where(rng.random(n) < 0.2, ts[rows, at], 0).astype(np.uint64)
+    return d_ts, d_vid, d_cut
+
+
+def tlog_counts_np(rng, n: int) -> np.ndarray:
+    """Trim counts: TRIM to 512 (bench.py:1035) on all but 1 in 16 slots,
+    which take CLR (0), 1, counts above the length, negative, and the
+    no-op sentinel and above."""
+    from jylis_tpu_torch.ops import tlog
+
+    edge = np.array([0, 1, 3, 2000, -1, tlog.TRIM_NOOP, tlog.TRIM_NOOP + 7,
+                     1 << 40], np.int64)
+    out = np.full(n, TLOG_TRIM, np.int64)
+    pick = rng.random(n) < 1 / 16
+    out[pick] = edge[rng.integers(0, len(edge), int(pick.sum()))]
+    return out
+
+
+def _tensors(st):
+    return [x for x in st if x is not None]
+
+
+def tlog_case(torch, rng, wide: bool, dense: bool, k: int, length: int,
+              b: int, live: int, ld: int, card: str) -> dict:
+    """tlog_drain_<dense|sparse> at one shape: a canonical state with
+    uneven rows (some near L: both overflow rules fire), a delta over
+    ``live`` rows (sparse: padded to ``b`` slots as the repo pads them,
+    plus a negative pad), trim counts per row; bit for bit against the
+    plain version, then timed on a fresh state copy per call."""
+    from jylis_tpu_torch.ops import planes, tlog
+    from jylis_tpu_torch.utils.batching import pad_rows
+
+    dev = torch.device("cuda")
+    nplanes = 3 if wide else 2
+    lens = np.zeros(k, np.int64)
+    lens[:live] = rng.integers(0, min(900, length // 2) + 1, live)
+    near = rng.random(k) < 0.04
+    near[live:] = False
+    cap = length - (ld if dense else 0)
+    lens[near] = rng.integers(max(cap - 40, 0), length + 1, int(near.sum()))
+    pl, lens32, cut, ts, vid = tlog_rows_np(rng, k, length, lens, wide)
+    st0 = tlog.TLogState(
+        *([] if wide else [None]),
+        *(torch.from_numpy(p.view(np.int32)).to(dev) for p in pl),
+        torch.from_numpy(lens32).to(dev), planes.to_tensor(cut, dev))
+    rows = np.arange(live)
+    if not dense:
+        rng.shuffle(rows)
+    d_ts, d_vid, d_cut = tlog_delta_np(rng, ts, vid, lens, rows, ld)
+    if ld == 1:  # a socket TRIM's drain carries no entries
+        d_vid[:] = -1
+    counts = tlog_counts_np(rng, live)
+    if dense:
+        # aligned rows: rows >= live get no delta (vid -1) and no trim
+        full = [np.zeros((k, ld), np.uint64), np.full((k, ld), -1, np.int64),
+                np.zeros(k, np.uint64)]
+        full[0][:live], full[1][:live], full[2][:live] = d_ts, d_vid, d_cut
+        d_ts, d_vid, d_cut = full
+        trim_ki = np.arange(live, dtype=np.int32)
+        cnt_rows = np.full(k, tlog.TRIM_NOOP, np.int64)
+        cnt_rows[:live] = counts
+        slot_rows, slot_counts = np.arange(k), cnt_rows
+    else:
+        ki = pad_rows(b)
+        ki[:live] = rows
+        if live < b:
+            ki[-1] = -1
+        pad = np.zeros((b - live,), np.int64)
+        d_ts = np.concatenate([d_ts, np.zeros((b - live, ld), np.uint64)])
+        d_vid = np.concatenate([d_vid, np.full((b - live, ld), -1, np.int64)])
+        d_cut = np.concatenate([d_cut, pad.astype(np.uint64)])
+        counts = np.concatenate([counts, pad + tlog.TRIM_NOOP])
+        slot_rows, slot_counts = rows, counts[:live]
+    dt = (planes.to_tensor(d_ts, dev), torch.from_numpy(d_vid).to(dev),
+          planes.to_tensor(d_cut, dev))
+    extra = ((torch.from_numpy(trim_ki).to(dev), torch.from_numpy(counts).to(dev))
+             if dense else (torch.from_numpy(counts).to(dev),))
+    if dense:
+        kern, plain = tlog.drain_dense, tlog.drain_dense_plain
+
+        def run(st, fn):
+            return (fn(st, *dt, *extra),)
+    else:
+        kern, plain = tlog.drain_sparse, tlog.drain_sparse_plain
+        ki_t = torch.from_numpy(ki).to(dev)
+
+        def run(st, fn):
+            return fn(st, ki_t, *dt, *extra)
+    sk = tlog.TLogState(*(None if x is None else x.clone() for x in st0))
+    sp = tlog.TLogState(*(None if x is None else x.clone() for x in st0))
+    l0 = kern.launches
+    out_k = run(sk, kern)
+    out_p = run(sp, plain)
+    torch.cuda.synchronize()
+    err = max_abs_err(torch, [*zip(out_k, out_p), *zip(_tensors(sk), _tensors(sp))])
+    ovf = out_k[0].cpu().numpy()
+    n_ovf = int(ovf.sum())
+    name = f"tlog_drain_{'dense' if dense else 'sparse'}"
+    shape = (f"K={k} L={length} Ld={ld} {'wide' if wide else 'narrow'}"
+             + ("" if dense else f" B={b} live={live}"))
+    if err or (live > 100 and not (0 < n_ovf < live)):
+        raise AssertionError(f"{name} {shape}: err {err}, overflow rows {n_ovf}")
+    if not dense and (out_k[1][live:].any() or out_k[2][live:].any() or ovf[live:].any()):
+        raise AssertionError(f"{name} {shape}: pad slots must report 0")
+    # the bytes and compares this run's data needs (the source's count):
+    # every slot's delta and scalars; the state row where the kernel
+    # merges it (a valid delta entry, a raised cutoff or a trim), written
+    # back where it changed
+    new_len = sk.length.cpu().numpy().astype(np.int64)
+    diff = torch.zeros(k, dtype=torch.bool, device=dev)
+    for a, c in zip(_tensors(st0)[:nplanes], _tensors(sk)[:nplanes]):
+        diff |= (a != c).any(1)
+    diff = diff.cpu().numpy()
+    sr = np.asarray(slot_rows)
+    n = len(sr)
+    cut_v = np.maximum(cut[sr], d_cut[:n])
+    d_valid = ((d_vid[:n] >= 0) & (d_ts[:n] >= cut_v[:, None])).any(1)
+    flagged = ovf[:n].astype(bool)
+    active = d_valid | (cut_v > cut[sr]) | (slot_counts < tlog.TRIM_NOOP)
+    if dense:
+        active &= ~flagged
+    old = lens[sr]
+    nbytes = n * (ld * 16 + 28) + (k if dense else b * 17)
+    nbytes += int((old[active] * nplanes * 4).sum()) + 12 * int((active & ~flagged).sum())
+    nbytes += int((np.maximum(old, new_len[sr])[diff[sr]] * nplanes * 4).sum())
+    ldp = 1 << (ld - 1).bit_length()
+    s = ldp.bit_length() - 1
+    lg = (length + ldp).bit_length()
+    nops = int(active.sum()) * (ldp // 2 * s * (s + 1) // 2 + ldp + ldp * lg)
+    nops += int((old[active] + new_len[sr][active] * lg).sum())
+    reset = restorer(_tensors(sk), _tensors(st0))
+    ms = time_ms(torch, lambda: run(sk, kern), reset=reset)
+    dev_ms = device_ms(torch, lambda: (reset(), run(sk, kern)), "tlog_drain")
+    plain_ms = time_ms(torch, lambda: run(sp, plain),
+                       reset=restorer(_tensors(sp), _tensors(st0)))
+    b_ms, b_by = bound(nbytes, nops, card)
+    row = dict(shape=shape, max_abs_err=err, kernel_ms=ms, device_ms=dev_ms,
+               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+               operations=nops, overflow_rows=n_ovf, rows_merged=int(active.sum()),
+               rows_changed=int(diff.sum()), launches=kern.launches - l0)
+    emit({"phase": name, **row, "card": card})
+    del st0, sk, sp, dt, extra
+    torch.cuda.empty_cache()
+    return row
+
+
+def tlog_phases(torch, card: str) -> dict:
+    """Both TLOG drains at BASELINE config 4's device size (K = 16,384
+    rows for 10,000 keys, L = 1,024; sparse at B = 16,384 with Ld = 128,
+    dense with Ld = 64; TRIM counts of 512), narrow and wide, the dense
+    drain at the node phase's L = 512, the shape a socket TRIM gives the
+    sparse drain (B = 16, one live row, no entries),
+    and a row wider than shared memory holds (L = Ld = 65,536, wide: the
+    kernel's device-scratch path)."""
+    rng = np.random.default_rng(SEED + 20)
+    out = {}
+    for dense, name in ((False, "tlog_drain_sparse"), (True, "tlog_drain_dense")):
+        ld = LD_DENSE if dense else LD_SPARSE
+        rows = [tlog_case(torch, rng, wide, dense, K_TLOG, L_TLOG, B_TLOG,
+                          TLOG_KEYS, ld, card) for wide in (False, True)]
+        out[name] = rows[0]
+        out[name]["other_shapes"] = rows[1:]
+    # the node phase's dense rounds run at L <= 512 (its retry's shape)
+    out["tlog_drain_dense"]["other_shapes"].append(
+        tlog_case(torch, rng, False, True, K_TLOG, 512, K_TLOG, TLOG_KEYS,
+                  LD_DENSE, card))
+    for wide in (False, True):
+        out["tlog_drain_sparse"]["other_shapes"].append(
+            tlog_case(torch, rng, wide, False, K_TLOG, L_TLOG, 16, 1, 1, card))
+    out["tlog_drain_sparse"]["other_shapes"].append(
+        tlog_case(torch, rng, True, False, 4, 1 << 16, 4, 3, 1 << 16, card))
+    return out
 
 
 # ---- node phase ---------------------------------------------------------------
@@ -1421,6 +1678,288 @@ def tensor_node_phase(torch, n_keys: int = TENSOR_KEYS) -> dict:
     return out
 
 
+# ---- TLOG node phase: BASELINE config 4 through the serving path --------------
+
+
+class TlogRef:
+    """One key's log, the lattice written out (tlog.md:116-133): a set of
+    (ts, value) entries and a grow-only cutoff; entries below the cutoff
+    are gone."""
+
+    __slots__ = ("ents", "cut")
+
+    def __init__(self, ents=(), cut: int = 0):
+        self.ents = set(ents)
+        self.cut = cut
+
+    def raise_cut(self, c: int) -> None:
+        if c > self.cut:
+            self.cut = c
+            self.ents = {e for e in self.ents if e[0] >= c}
+
+    def ins(self, ts: int, value: bytes) -> None:
+        if ts >= self.cut:
+            self.ents.add((ts, value))
+
+    def latest(self):
+        return sorted(self.ents, reverse=True)
+
+    def trim(self, count: int) -> None:
+        desc = self.latest()
+        if count == 0:
+            if desc:  # CLR: latest + 1, wrapping to 0 at 2^64-1
+                self.raise_cut((desc[0][0] + 1) & U64)
+        elif count <= len(desc):
+            self.raise_cut(desc[count - 1][0])
+
+    def get(self, n: int = U64) -> bytes:
+        desc = self.latest()[:n]
+        return b"*%d\r\n" % len(desc) + b"".join(
+            b"*2\r\n" + bulk(v) + b":%d\r\n" % ts for ts, v in desc)
+
+
+def tlog_node_phase(torch, n_keys: int = TLOG_KEYS) -> dict:
+    """BASELINE config 4 on a real Server with state on DEVICE: n_keys
+    keys filled to 1,024 entries each through Database.converge_async.
+    Rounds 1-3: 64 entries to every key (the dense drain); round 4: 64 to
+    the first half only; round 5: 64 to the second half, while the first
+    half's rows (256 entries, L = 256) trip the dense rule (length >
+    L - Ld) and the drain retries at L = 512; rounds 6-11: 128 entries to
+    every key (the sparse drain, B = 16,384); round 7 is delivered twice
+    (the second time all duplicates), round 9 raises every cutoff (below
+    the entries), round 11 carries 64-bit timestamps (the state widens).
+    Entries come in pairs of equal ts with two values from a pool of
+    TLOG_VALUES. Then over the socket: GET key n and GET/SIZE/CUTOFF of
+    drained rows, TRIM to 512 on TLOG_TRIMS keys (one sparse drain each,
+    B = 16), TRIMAT and CLR, then INS on trimmed, cleared and new keys and
+    reads of their merged views, every reply against TlogRef; then the
+    whole device state, read back through the interner, against the
+    reference for every key."""
+    from jylis_tpu_torch.ops import planes, tlog
+    from jylis_tpu_torch.utils.batching import bucket
+
+    rng = np.random.default_rng(SEED + 21)
+    keys = [b"log%05d" % i for i in range(n_keys)]
+    pool = [b"val%05d" % i for i in range(TLOG_VALUES)]
+    half = n_keys // 2
+    # the reference, in bulk: every key's entries as (ts, pool index)
+    ref_ts = np.zeros((n_keys, 0), np.uint64)
+    ref_v = np.zeros((n_keys, 0), np.int64)
+    ref_cut = np.zeros(n_keys, np.uint64)
+
+    def entries(m, n, wide=False):
+        """(m, n) ts and pool indices: pairs of equal ts, two values."""
+        lo, hi = ((1 << 32) + 1, 1 << 40) if wide else (1 << 20, (1 << 31) - 1)
+        ts = np.repeat(rng.integers(lo, hi, (m, n // 2)), 2, axis=1).astype(np.uint64)
+        v = rng.integers(0, TLOG_VALUES, (m, n))
+        v[:, 1::2] = (v[:, 0::2] + 1 + rng.integers(0, 100, (m, n // 2))) % TLOG_VALUES
+        return ts, v
+
+    def batch_of(sel, ts, v, cuts=None):
+        out = []
+        for j, i in enumerate(sel):
+            ents = list(zip([pool[x] for x in v[j].tolist()], ts[j].tolist()))
+            out.append((keys[i], (ents, 0 if cuts is None else int(cuts[j]))))
+        return out
+
+    node = Node(identity=0x7106)
+    repo = node.repo("TLOG")
+    rounds = []
+    try:
+        tlog.drain_dense.launches = tlog.drain_sparse.launches = 0
+        sel_all = np.arange(n_keys)
+        plan = [(sel_all, 64, False, False), (sel_all, 64, False, False),
+                (sel_all, 64, False, False), (sel_all[:half], 64, False, False),
+                (sel_all[half:], 64, False, False)]
+        plan += [(sel_all, 128, r == 9, r == 11) for r in range(6, 12)]
+        for r, (sel, n, raise_cut, wide) in enumerate(plan, start=1):
+            t0 = time.perf_counter()
+            ts, v = entries(len(sel), n, wide)
+            cuts = rng.integers(1, 1 << 19, len(sel)).astype(np.uint64) if raise_cut else None
+            batch = batch_of(sel, ts, v, cuts)
+            full_ts = np.zeros((n_keys, n), np.uint64)
+            full_v = np.full((n_keys, n), -1, np.int64)
+            full_ts[sel], full_v[sel] = ts, v
+            ref_ts = np.concatenate([ref_ts, full_ts], 1)
+            ref_v = np.concatenate([ref_v, full_v], 1)
+            if cuts is not None:
+                ref_cut[sel] = np.maximum(ref_cut[sel], cuts)
+            gen_s = time.perf_counter() - t0
+            l0 = (tlog.drain_dense.launches, tlog.drain_sparse.launches)
+            cap0 = repo._len_cap
+            t0 = time.perf_counter()
+            node.converge("TLOG", batch)
+            conv_s = time.perf_counter() - t0
+            rounds.append(dict(
+                round=r, keys=len(sel), entries=n, generate_s=gen_s,
+                converge_s=conv_s, len_cap=[cap0, repo._len_cap],
+                dense=tlog.drain_dense.launches - l0[0],
+                sparse=tlog.drain_sparse.launches - l0[1],
+                wide=repo._state.wide))
+            if r == 7:  # delivered again: every entry a duplicate
+                l1 = tlog.drain_sparse.launches
+                t0 = time.perf_counter()
+                node.converge("TLOG", batch)
+                rounds.append(dict(round="7 again", keys=len(sel), entries=n,
+                                   converge_s=time.perf_counter() - t0,
+                                   sparse=tlog.drain_sparse.launches - l1))
+        # round 5's drain needs L = 256 by its rows' sizes; the dense rule
+        # flags the first half's 256-entry rows, so only a retry makes 512
+        r5 = rounds[4]
+        if r5["len_cap"] != [256, 512] or (DEVICE == "cuda" and r5["dense"] != 2):
+            raise AssertionError(f"TLOG round 5: no dense tail-overflow retry: {r5}")
+        retries = r5["dense"] - 1 if DEVICE == "cuda" else 1
+        converge_launches = {"tlog_drain_dense": tlog.drain_dense.launches,
+                             "tlog_drain_sparse": tlog.drain_sparse.launches}
+        if not repo._state.wide or repo._len_cap != L_TLOG or repo._key_cap != bucket(n_keys):
+            raise AssertionError(
+                f"TLOG state after the rounds: wide {repo._state.wide}, "
+                f"capacity {(repo._key_cap, repo._len_cap)}")
+
+        # the reference per key for what the socket touches
+        def ref_of(i):
+            ok = ref_v[i] >= 0
+            return TlogRef(zip(ref_ts[i][ok].tolist(), (pool[x] for x in ref_v[i][ok].tolist())),
+                           int(ref_cut[i]))
+
+        touched: dict[int, TlogRef] = {}
+
+        def ref(i):
+            if i not in touched:
+                touched[i] = ref_of(i)
+            return touched[i]
+
+        order = rng.permutation(n_keys).tolist()
+        trim_keys = order[:TLOG_TRIMS]
+        get_keys = order[TLOG_TRIMS : TLOG_TRIMS + 100]
+        at_keys = order[TLOG_TRIMS + 100 : TLOG_TRIMS + 200]
+        clr_keys = order[TLOG_TRIMS + 200 : TLOG_TRIMS + 250]
+        new_keys = [b"fresh%03d" % j for j in range(50)]
+        cmds, want = [], []
+        replies = 0
+
+        def send(cmd, expect):
+            cmds.append(cmd)
+            want.append(expect)
+
+        def run(what, chunk=256):
+            nonlocal replies
+            t0 = time.perf_counter()
+            got = node.client.pipeline(cmds, chunk)
+            check_replies(what, got, want)
+            replies += len(got)
+            cmds.clear()
+            want.clear()
+            return time.perf_counter() - t0
+
+        # reads of drained rows: each first read gathers its row
+        for i in trim_keys:
+            send(("TLOG", "GET", keys[i], 5), ref(i).get(5))
+        for i in get_keys:
+            send(("TLOG", "GET", keys[i]), ref(i).get())
+            send(("TLOG", "SIZE", keys[i]), b":%d\r\n" % len(ref(i).ents))
+            send(("TLOG", "CUTOFF", keys[i]), b":%d\r\n" % ref(i).cut)
+        reads_s = run("TLOG GET/SIZE/CUTOFF")
+        # trims: one sparse drain each (B = 16, no entries)
+        l0 = tlog.drain_sparse.launches
+        for i in trim_keys:
+            send(("TLOG", "TRIM", keys[i], TLOG_TRIM), b"+OK\r\n")
+            ref(i).trim(TLOG_TRIM)
+        for i in at_keys:
+            t = int(rng.integers(1 << 20, 1 << 31))
+            send(("TLOG", "TRIMAT", keys[i], t), b"+OK\r\n")
+            ref(i).raise_cut(t)
+        for i in clr_keys:
+            send(("TLOG", "CLR", keys[i]), b"+OK\r\n")
+            ref(i).trim(0)
+        send(("TLOG", "CLR", b"missing"), b"+OK\r\n")
+        trims_s = run("TLOG TRIM/TRIMAT/CLR", chunk=64)
+        trim_launches = tlog.drain_sparse.launches - l0
+        # local writes on trimmed and cleared keys and on new keys (pending
+        # until the next drain: reads serve the merged view on the host)
+        ins_keys = trim_keys[:200] + clr_keys
+        for i in ins_keys:
+            ts = int(rng.integers(1 << 20, 1 << 41))
+            value = pool[int(rng.integers(TLOG_VALUES))]
+            send(("TLOG", "INS", keys[i], value, ts), b"+OK\r\n")
+            ref(i).ins(ts, value)
+        for j, key in enumerate(new_keys):
+            send(("TLOG", "INS", key, b"n%d" % j, j + 1), b"+OK\r\n")
+        for i in ins_keys + trim_keys[200:400] + at_keys:
+            send(("TLOG", "GET", keys[i]), ref(i).get())
+            send(("TLOG", "SIZE", keys[i]), b":%d\r\n" % len(ref(i).ents))
+            send(("TLOG", "CUTOFF", keys[i]), b":%d\r\n" % ref(i).cut)
+        for j, key in enumerate(new_keys):
+            send(("TLOG", "GET", key), b"*1\r\n*2\r\n" + bulk(b"n%d" % j) + b":%d\r\n" % (j + 1))
+        send(("TLOG", "GET", b"missing"), b"*0\r\n")
+        send(("TLOG", "CUTOFF", b"missing"), b":0\r\n")
+        ins_s = run("TLOG INS and reads after the trims")
+
+        # the whole device state against the reference
+        repo.drain()  # the socket's pending INS: one more sparse drain
+        launches = {"tlog_drain_dense": tlog.drain_dense.launches,
+                    "tlog_drain_sparse": tlog.drain_sparse.launches}
+        t0 = time.perf_counter()
+        st = repo._state
+        for plane in _tensors(st):
+            if plane.device.type != DEVICE:
+                raise AssertionError(f"TLOG state on {plane.device}")
+        all_ts, all_vid = repo._host_planes()
+        length = st.length.cpu().numpy()
+        cutoff = planes.to_u64_np(st.cutoff)
+        tbl = repo._tbl
+        rows = np.array([tbl.find(k) for k in keys])
+        if rows.min() < 0 or len(set(rows.tolist())) != n_keys:
+            raise AssertionError("TLOG table rows for the keys")
+        # entries as one sortable number, ts << 17 | interner id (ts < 2^41,
+        # ids < 2^17): pool values -> interner ids first
+        vid_of = np.array([repo._interner.intern(v) for v in pool], np.uint64)
+        big = np.uint64(U64)
+        dev_ts, dev_vid = all_ts[rows], all_vid[rows]
+        slot = np.arange(dev_ts.shape[1])[None, :]
+        dev_c = np.where(slot < length[rows][:, None],
+                         (dev_ts << np.uint64(17)) | dev_vid.astype(np.uint64), big)
+        dev_c.sort(axis=1)
+        ok = ref_v >= 0
+        ref_c = np.where(ok, (ref_ts << np.uint64(17)) | vid_of[np.where(ok, ref_v, 0)], big)
+        ref_c.sort(axis=1)
+        dup = np.zeros(ref_c.shape, bool)
+        dup[:, 1:] = ref_c[:, 1:] == ref_c[:, :-1]
+        ref_c[dup] = big
+        ref_c.sort(axis=1)
+        width = max(ref_c.shape[1], dev_c.shape[1])
+        ref_c = np.pad(ref_c, ((0, 0), (0, width - ref_c.shape[1])), constant_values=big)
+        dev_c = np.pad(dev_c, ((0, 0), (0, width - dev_c.shape[1])), constant_values=big)
+        for i, r in touched.items():  # the keys the socket changed
+            c = sorted((ts << 17) | repo._interner.intern(v) for ts, v in r.ents)
+            ref_c[i] = big
+            ref_c[i, : len(c)] = c
+            ref_cut[i] = r.cut
+        bad = np.flatnonzero((dev_c != ref_c).any(1) | (cutoff[rows] != ref_cut))
+        if len(bad):
+            i = int(bad[0])
+            raise AssertionError(
+                f"TLOG {keys[i]!r}: device row ({length[rows[i]]} entries, cutoff "
+                f"{cutoff[rows[i]]}) != reference (cutoff {ref_cut[i]}); "
+                f"{len(bad)} keys differ")
+        past = slot >= length[rows][:, None]
+        if (dev_vid[past] != -1).any():
+            raise AssertionError("TLOG slots past a row's length are not PAD")
+        check_s = time.perf_counter() - t0
+    finally:
+        node.close()
+    if DEVICE == "cuda" and (min(launches.values()) < 1 or trim_launches != TLOG_TRIMS + 151):
+        raise AssertionError(f"TLOG drains: {launches}, trim drains {trim_launches}")
+    out = {"launches": launches, "converge_launches": converge_launches,
+           "keys": n_keys, "entries_per_key": TLOG_LEN, "dense_retries": retries,
+           "trim_drains": trim_launches, "capacity": [repo._key_cap, repo._len_cap],
+           "rows_checked": n_keys, "replies_checked": replies,
+           "rounds": rounds, "reads_s": reads_s, "trims_s": trims_s,
+           "ins_reads_s": ins_s, "check_s": check_s}
+    emit({"phase": "tlog_node", **out})
+    return out
+
+
 # ---- main ----------------------------------------------------------------------
 
 KERNELS = {
@@ -1459,6 +1998,16 @@ KERNELS = {
         "jylis_tpu/models/repo_tensor.py:72 (_drain -> ops/tensor.py:121 "
         "converge_batch, XLA)",
     ),
+    "tlog_drain_sparse": (
+        "jylis_tpu_torch/csrc/tlog_drain.cu",
+        "jylis_tpu/models/repo_tlog.py:70 (_drain -> ops/tlog.py:361 "
+        "converge_then_trim, XLA)",
+    ),
+    "tlog_drain_dense": (
+        "jylis_tpu_torch/csrc/tlog_drain.cu",
+        "jylis_tpu/models/repo_tlog.py:79 (_drain_dense -> ops/tlog.py:361 "
+        "converge_then_trim, XLA)",
+    ),
 }
 
 
@@ -1487,13 +2036,16 @@ def main() -> int:
     sweep = tensor_sweep(torch)
     rows.update(treg_phases(torch, card))
     rows.update(tensor_batch_phases(torch, card))
+    rows.update(tlog_phases(torch, card))
     # the main paths, each with its launch counts set to 0 just before it
     node = node_phase(torch)
     treg_node = treg_node_phase(torch)
     tensor_node = tensor_node_phase(torch)
+    tlog_node = tlog_node_phase(torch)
 
     launches = dict(node["launches"], tensor_join_dense=sweep["launches"],
-                    **treg_node["launches"], **tensor_node["launches"])
+                    **treg_node["launches"], **tensor_node["launches"],
+                    **tlog_node["launches"])
     timing = ("shape", "kernel_ms", "device_ms", "plain_ms", "bound_ms")
     kernels = []
     for kname, (source, replaces) in KERNELS.items():

@@ -1,12 +1,13 @@
 """Carry lattice state between the JAX package's layout and the port's.
 
 The JAX package keeps each u64 counter plane, and TREG's ts and rank, as
-hi/lo u32 planes and the TENSOR planes as u32; the port keeps one int64
-bit-pattern plane per counter polarity and for TREG's ts and rank, and
-int32 bit patterns for TENSOR. These functions take
-the JAX package's host (numpy) planes and return the port's state on a
-given device, and back; the bits are unchanged both ways, and the
-result never shares memory with its input.
+hi/lo u32 planes and the TENSOR and TLOG planes as u32; the port keeps
+one int64 bit-pattern plane per counter polarity and for TREG's ts and
+rank, and int32 bit patterns for TENSOR and the TLOG planes (the TLOG
+cutoff as int64 bits). These functions take the JAX package's host
+(numpy) planes and return the port's state on a given device, and back;
+the bits are unchanged both ways, and the result never shares memory
+with its input.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .ops import gcount, planes, pncount, tensor, treg
+from .ops import gcount, planes, pncount, tensor, tlog, treg
 
 
 def gcount_from_jax(hi, lo, device="cuda") -> gcount.GCountState:
@@ -69,3 +70,25 @@ def treg_to_jax(state: treg.TRegState):
         *planes.split64_np(planes.to_u64_np(state.rank)),
         state.vid.cpu().numpy().copy(),
     )
+
+
+def tlog_from_jax(nth, ntl, nv, length, cutoff, device="cuda") -> tlog.TLogState:
+    """The JAX ``TLogState`` as host arrays (``nth`` None when narrow)."""
+    def plane(x):
+        return torch.from_numpy(np.array(x, dtype=np.uint32).view(np.int32)).to(device)
+
+    return tlog.TLogState(
+        None if nth is None else plane(nth), plane(ntl), plane(nv),
+        torch.from_numpy(np.array(length, dtype=np.int32)).to(device),
+        planes.to_tensor(np.asarray(cutoff, np.uint64), device),
+    )
+
+
+def tlog_to_jax(state: tlog.TLogState):
+    """(nth or None, ntl, nv, length, cutoff): u32 planes, the int32
+    length and the u64 cutoff."""
+    def plane(p):
+        return None if p is None else p.cpu().numpy().view(np.uint32).copy()
+
+    return (plane(state.nth), plane(state.ntl), plane(state.nv),
+            state.length.cpu().numpy().copy(), planes.to_u64_np(state.cutoff).copy())

@@ -1,8 +1,7 @@
 """Process entry point: ``python -m jylis_tpu_torch --port P``.
 
-Builds the Database (TREG, GCOUNT, PNCOUNT and TENSOR on ``--device``,
-default cuda)
-and the RESP Server, serves until SIGINT/SIGTERM, then stops intake,
+Builds the Database (TREG, TLOG, GCOUNT, PNCOUNT and TENSOR on
+``--device``, default cuda) and the RESP Server, serves until SIGINT/SIGTERM, then stops intake,
 waits out any in-flight drain and closes the listener (after the
 reference's main.pony and dispose.pony). There is no cluster yet, so
 nothing is flushed to peers.
@@ -26,7 +25,7 @@ async def run(argv: list[str] | None = None) -> None:
     server = Server(config, database)
     await server.start()
     log.info() and log.i(
-        f"serving TREG/GCOUNT/PNCOUNT/TENSOR on port {server.port}, device "
+        f"serving TREG/TLOG/GCOUNT/PNCOUNT/TENSOR on port {server.port}, device "
         f"{database.device}"
     )
     stop = asyncio.Event()

@@ -8,7 +8,10 @@ and negative batch rows, and what the counter wrappers refuse (odd
 replica counts, unaligned planes); for TREG, timestamps and ranks
 >= 2^63, ties and unset registers; for the gathered TENSOR join, pads,
 NaN bits and what its wrapper refuses (D not a multiple of 4, unaligned
-planes). Integer lattices,
+planes); for the TLOG drains, narrow and wide rows, duplicates inside a
+delta and against the state, raised cutoffs, every kind of trim count,
+CLR at ts 2^64-1, both overflow rules, pads, and rows wider than shared
+memory holds (the kernel's device-scratch path). Integer lattices,
 so every comparison is exact. On a machine with a GPU (where JAX need
 not be installed, hence --noconftest):
 
@@ -19,7 +22,7 @@ import numpy as np
 import pytest
 import torch
 
-from jylis_tpu_torch.ops import gcount, planes, pncount, tensor, treg
+from jylis_tpu_torch.ops import gcount, planes, pncount, tensor, tlog, treg
 from jylis_tpu_torch.utils.batching import pad_rows
 
 
@@ -41,11 +44,12 @@ def _state(mod, rng, k, r, dev):
 
 
 def _clone(st):
-    return type(st)(*(x.clone() for x in st))
+    return type(st)(*(None if x is None else x.clone() for x in st))
 
 
 def _equal(a, b):
-    return all(torch.equal(x, y) for x, y in zip(a, b))
+    return all((x is None and y is None) or torch.equal(x, y)
+               for x, y in zip(a, b))
 
 
 # (K, R): R < 64 leaves lanes idle, R > 64 makes each lane loop;
@@ -284,11 +288,150 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take(dev):
         treg.drain_dense(rs, *(p.int() for p in treg.init(8, dev)))
 
 
+U64 = (1 << 64) - 1
+
+
+def _tlog_state(rng, k, length, lens, wide, dev):
+    """A canonical TLOG state: row r holds lens[r] entries, ts
+    non-increasing (runs of equal ts) with vids strictly decreasing;
+    row 0 of a wide state starts at ts 2^64-1. Also returns the (k, L)
+    ts and vids the rows were cut from (for deltas)."""
+    gaps = rng.integers(0, 3, (k, length)).astype(np.uint64)
+    hi = (1 << 62) if wide else (1 << 32) - 2
+    top = rng.integers(4 * length, hi, k).astype(np.uint64)
+    if wide:
+        top[0], gaps[0, 0] = U64, 0
+    ts = top[:, None] - np.cumsum(gaps, 1, dtype=np.uint64)
+    vid = (np.arange(length - 1, -1, -1)[None, :]
+           + length * rng.integers(0, 1000, k)[:, None]).astype(np.int64)
+    live = np.arange(length)[None, :] < np.asarray(lens)[:, None]
+    nt = ~ts
+    pl = [(nt >> np.uint64(32)).astype(np.uint32), nt.astype(np.uint32),
+          tlog.encode_vid_np(vid)]
+    pl = [np.where(live, p, np.uint32(0xFFFFFFFF)).view(np.int32) for p in pl]
+    last = ts[np.arange(k), np.maximum(np.asarray(lens) - 1, 0)]
+    cut = np.where((np.asarray(lens) > 0) & (rng.random(k) < 0.5), last, 0)
+    st = tlog.TLogState(
+        torch.from_numpy(pl[0]).to(dev) if wide else None,
+        torch.from_numpy(pl[1]).to(dev), torch.from_numpy(pl[2]).to(dev),
+        torch.from_numpy(np.asarray(lens, np.int32)).to(dev),
+        planes.to_tensor(cut.astype(np.uint64), dev))
+    return st, ts, vid
+
+
+def _tlog_delta(rng, ts, vid, lens, rows, ld, dev):
+    """(d_ts, d_vid, d_cut) for ``rows``: fresh entries near the row's
+    own ts (some below its cutoff), copies of state entries, copies of
+    earlier delta columns, invalid slots, and some raised cutoffs."""
+    n, length = len(rows), ts.shape[1]
+    pick = rng.integers(0, length, (n, ld))
+    d_ts = ts[rows[:, None], pick] + rng.integers(0, 3, (n, ld)).astype(np.uint64)
+    d_vid = rng.integers(0, 1 << 30, (n, ld)).astype(np.int64)
+    lens = np.asarray(lens)[rows]
+    kind = rng.random((n, ld))
+    own = (kind < 0.3) & (lens[:, None] > 0)
+    at = (rng.random((n, ld)) * np.maximum(lens, 1)[:, None]).astype(np.int64)
+    d_ts[own] = ts[rows[:, None], at][own]
+    d_vid[own] = vid[rows[:, None], at][own]
+    if ld > 1:
+        rep = (kind >= 0.3) & (kind < 0.45)
+        rep[:, 0] = False
+        src = np.where(rep)
+        d_ts[src], d_vid[src] = d_ts[src[0], src[1] - 1], d_vid[src[0], src[1] - 1]
+    d_vid[kind > 0.9] = -1
+    raise_ = rng.random(n) < 0.2
+    d_cut = np.where(raise_, ts[rows, (rng.random(n) * np.maximum(lens, 1)).astype(
+        np.int64)], 0).astype(np.uint64)
+    return (planes.to_tensor(d_ts, dev), torch.from_numpy(d_vid).to(dev),
+            planes.to_tensor(d_cut, dev))
+
+
+def _tlog_counts(rng, n, dev):
+    kinds = np.array([tlog.TRIM_NOOP] * 6 + [0, 1, 2, 5, 40, 1 << 20, -1,
+                                             tlog.TRIM_NOOP + 9], np.int64)
+    return torch.from_numpy(kinds[rng.integers(0, len(kinds), n)]).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
+@pytest.mark.parametrize("k,length,b,live,ld", [
+    (8, 16, 16, 8, 4), (64, 64, 32, 20, 1), (300, 256, 128, 100, 33),
+    (16384, 1024, 16, 1, 1),  # a socket TRIM's drain at config 4's shape
+    (2048, 1024, 2048, 1500, 128),
+    (3, 65536, 4, 3, 65536),  # wider than shared memory: device scratch
+])
+def test_tlog_drain_sparse_matches_plain(dev, wide, k, length, b, live, ld):
+    rng = np.random.default_rng(k + length + b + ld + wide)
+    lens = rng.integers(0, length // 3 + 1, k)
+    lens[: k // 4] = length - rng.integers(0, 2, k // 4)  # near full: overflow
+    st, ts, vid = _tlog_state(rng, k, length, lens, wide, dev)
+    ki = pad_rows(b)
+    ki[:live] = rng.choice(k, live, replace=False)
+    if live < b:
+        ki[-1] = -1  # a negative row is a pad slot too
+    rows = np.where((ki >= 0) & (ki < k), ki, 0)
+    d = _tlog_delta(rng, ts, vid, lens, rows, ld, dev)
+    counts = _tlog_counts(rng, b, dev)
+    ki = torch.from_numpy(ki).to(dev)
+    sk, sp = _clone(st), _clone(st)
+    before = tlog.drain_sparse.launches
+    out_k = tlog.drain_sparse(sk, ki, *d, counts)
+    out_p = tlog.drain_sparse_plain(sp, ki, *d, counts)
+    torch.cuda.synchronize()
+    assert tlog.drain_sparse.launches == before + 1
+    assert _equal(out_k, out_p) and _equal(sk, sp)
+    assert not any(x[live:].any() for x in out_k)
+    if live >= 100:
+        assert out_k[0].any() and not out_k[0].all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
+@pytest.mark.parametrize("k,length,ld", [
+    (8, 16, 4), (100, 64, 64), (1000, 512, 7), (4, 65536, 8192)])
+def test_tlog_drain_dense_matches_plain(dev, wide, k, length, ld):
+    rng = np.random.default_rng(k * 7 + length + ld + wide)
+    lens = rng.integers(0, length - ld + 1, k)
+    lens[: max(1, k // 5)] = length - rng.integers(0, ld, max(1, k // 5))
+    st, ts, vid = _tlog_state(rng, k, length, lens, wide, dev)
+    d = _tlog_delta(rng, ts, vid, lens, np.arange(k), ld, dev)
+    quiet = torch.from_numpy(rng.random(k) < 0.3).to(dev)
+    d[1][quiet] = -1  # rows with no delta still face the overflow rule
+    trim_ki = torch.from_numpy(np.r_[rng.choice(k, min(k, 8), replace=False),
+                                     pad_rows(8)].astype(np.int32)).to(dev)
+    counts = _tlog_counts(rng, trim_ki.shape[0], dev)
+    sk, sp = _clone(st), _clone(st)
+    before = tlog.drain_dense.launches
+    ovf_k = tlog.drain_dense(sk, *d, trim_ki, counts)
+    ovf_p = tlog.drain_dense_plain(sp, *d, trim_ki, counts)
+    torch.cuda.synchronize()
+    assert tlog.drain_dense.launches == before + 1
+    assert torch.equal(ovf_k, ovf_p) and _equal(sk, sp)
+    assert ovf_k.any() and not ovf_k.all()
+
+
+@pytest.mark.cuda
+def test_tlog_wrappers_reject_what_the_kernel_does_not_take(dev):
+    st = tlog.init(8, 16, False, dev)
+    ki = torch.zeros(2, dtype=torch.int32, device=dev)
+    d_ts = torch.zeros((2, 4), dtype=torch.int64, device=dev)
+    cnt = torch.zeros(2, dtype=torch.int64, device=dev)
+    with pytest.raises(ValueError):
+        tlog.drain_sparse(st, ki.long(), d_ts, d_ts, cnt, cnt)
+    with pytest.raises(ValueError):
+        tlog.drain_sparse(st, ki, d_ts.int(), d_ts, cnt, cnt)
+    with pytest.raises(ValueError):
+        tlog.drain_sparse(st, ki, d_ts[:, :0], d_ts[:, :0], cnt, cnt)
+    with pytest.raises(ValueError):
+        tlog.drain_dense(st, d_ts, d_ts, cnt, ki, cnt)  # 2 rows, K = 8
+
+
 def test_cpu_tensors_run_the_plain_versions():
     """A CPU state never reaches a kernel: the launch counts stay put."""
     before = (gcount.drain_dense.launches, pncount.drain_sparse.launches,
               tensor.join_dense.launches, tensor.converge_batch.launches,
-              treg.drain_dense.launches, treg.drain_sparse.launches)
+              treg.drain_dense.launches, treg.drain_sparse.launches,
+              tlog.drain_dense.launches, tlog.drain_sparse.launches)
     st = gcount.init(8, 4, "cpu")
     gcount.drain_dense(st, torch.ones((8, 4), dtype=torch.int64))
     pn = pncount.init(8, 4, "cpu")
@@ -300,8 +443,14 @@ def test_cpu_tensors_run_the_plain_versions():
     rs = treg.init(4, "cpu")
     treg.drain_dense(rs, *treg.init(4, "cpu"))
     treg.drain_sparse(rs, ki, *treg.init(2, "cpu"))
+    ls = tlog.init(4, 8, True, "cpu")
+    one = torch.ones((4, 1), dtype=torch.int64)
+    tlog.drain_dense(ls, one, one, one[:, 0], ki, one[:2, 0])
+    tlog.drain_sparse(ls, ki, one[:2], one[:2], one[:2, 0], one[:2, 0])
     assert (gcount.drain_dense.launches, pncount.drain_sparse.launches,
             tensor.join_dense.launches) == before[:3]
     assert (tensor.converge_batch.launches, treg.drain_dense.launches,
-            treg.drain_sparse.launches) == before[3:]
+            treg.drain_sparse.launches, tlog.drain_dense.launches,
+            tlog.drain_sparse.launches) == before[3:]
+    assert ls.length.tolist() == [1, 1, 1, 1]
     assert st.counts.sum().item() == 32

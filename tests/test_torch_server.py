@@ -6,8 +6,8 @@ goes over a real socket into the port's Server (state on the CPU), and
 command by command into a JAX ``Database(identity, engine="python")``
 through the JAX package's real ``Respond`` writer. The two reply streams
 must be equal. A separate test runs ``python -m jylis_tpu_torch`` as a
-real process, and another serves TREG and TENSOR in a process where
-``import jax`` fails.
+real process, and another serves TREG, TENSOR and TLOG in a process
+where ``import jax`` fails.
 """
 
 import asyncio
@@ -67,7 +67,11 @@ BURSTS = [
     + arr("TREG", "SET", "r", "hello", 5) + arr("TREG", "GET", "r")
     + arr("TREG", "GET", "nope") + arr("TENSOR", "SET", "t", "LWW", 7, vec(1, 2, 3))
     + arr("TENSOR", "GET", "t") + arr("TENSOR", "SET", "m", "MAX", 0, vec(-0.0, 1) + NAN)
-    + arr("TENSOR", "SET", "v", "AVG", 4, vec(2, 4)),
+    + arr("TENSOR", "SET", "v", "AVG", 4, vec(2, 4))
+    + arr("TLOG", "INS", "l", "x", 5) + arr("TLOG", "INS", "l", "y", 5)
+    + arr("TLOG", "INS", "l", "x", 5) + arr("TLOG", "INS", "l", "z", 9)
+    + arr("TLOG", "GET", "l") + arr("TLOG", "SIZE", "l")
+    + arr("TLOG", "GET", "nope"),
     arr("GCOUNT", "GET", "a") + arr("GCOUNT", "GET", "zz")
     + arr("PNCOUNT", "GET", "p") + arr("GCOUNT", "INC", "a", BIG)
     + arr("GCOUNT", "GET", "a")
@@ -79,7 +83,13 @@ BURSTS = [
     + arr("TENSOR", "SET", "t", "LWW", 1, vec(1, 2))
     + arr("TENSOR", "SET", "t", "LWW", 1, b"abc")
     + arr("TENSOR", "MRG", "t", LWW_T + b"\x00")
-    + arr("TENSOR", "MRG", "t", tensor_blob(0, 0)),
+    + arr("TENSOR", "MRG", "t", tensor_blob(0, 0))
+    + arr("TLOG", "GET", "l") + arr("TLOG", "GET", "l", 2)
+    + arr("TLOG", "CUTOFF", "l") + arr("TLOG", "TRIM", "l", 2)
+    + arr("TLOG", "GET", "l") + arr("TLOG", "INS", "l", "w", BIG)
+    + arr("TLOG", "TRIMAT", "l2", 3) + arr("TLOG", "GET", "l2")
+    + arr("TLOG", "SIZE", "l2") + arr("TLOG", "CLR", "l")
+    + arr("TLOG", "GET", "l") + arr("TLOG", "CUTOFF", "l"),
     arr("GCOUNT") + arr("GCOUNT", "FOO", "x") + arr("GCOUNT", "INC", "a")
     + arr("PNCOUNT", "INC", "p", "-3") + arr("PNCOUNT", "DEC", "p", BIG + 1)
     + arr("PNCOUNT", "INC", "p", "1x") + arr("PNCOUNT", "GET")
@@ -88,18 +98,24 @@ BURSTS = [
     + arr("TREG", "SET", "r", "x") + arr("TREG", "SET", "r", "x", "-1")
     + arr("TREG", "SET", "r", "x", BIG + 1) + arr("TREG")
     + arr("TENSOR", "SET", "t", "FOO", 1, vec(1)) + arr("TENSOR", "GET")
-    + arr("TENSOR", "MRG", "t"),
+    + arr("TENSOR", "MRG", "t") + arr("TLOG", "INS", "l", "x")
+    + arr("TLOG", "TRIM", "l", "-1") + arr("TLOG", "GET", "l", "x")
+    + arr("TLOG", "FOO") + arr("TLOG"),
     b"".join(arr("PNCOUNT", "GET", "k%d" % i) for i in range(40))
     + b"".join(arr("GCOUNT", "GET", "k%d" % i) for i in range(40))
     + b"".join(arr("TREG", "GET", "k%d" % i) for i in range(40))
-    + b"".join(arr("TENSOR", "GET", "k%d" % i) for i in range(40)),
+    + b"".join(arr("TENSOR", "GET", "k%d" % i) for i in range(40))
+    + b"".join(arr("TLOG", "GET", "k%d" % i) for i in range(40))
+    + b"".join(arr("TLOG", "CUTOFF", "k%d" % i) for i in range(40)),
 ]
 DELTAS = [
     [("GCOUNT", [(b"a", {7: 3, 8: BIG})]),
      ("PNCOUNT", [(b"p", ({7: 100}, {8: BIG}))]),
      ("TREG", [(b"r", (b"hello", 5)), (b"r2", (b"\xff\x00", BIG))]),
      ("TENSOR", [(b"v", tensor_blob(3, 2, contribs={9: (2, vec(8, 8))})),
-                 (b"m", tensor_blob(1, 3, vec(0.0, 1, 7)))])],
+                 (b"m", tensor_blob(1, 3, vec(0.0, 1, 7)))]),
+     ("TLOG", [(b"l", ([(b"x", 5), (b"q", 7), (b"q", 7)], 0)),
+               (b"l2", ([(b"old", 1), (b"new", 1 << 40)], 0))])],
     [],
     [("GCOUNT", [(b"k%d" % i, {7: i, 9: BIG - i}) for i in range(40)]),
      ("PNCOUNT", [(b"k%d" % i, ({7: i * 3}, {9: BIG - i})) for i in range(40)]),
@@ -109,7 +125,9 @@ DELTAS = [
          if i % 3 == 1 else tensor_blob(
              1 + i % 3, 2, vec(i, -i) if i % 3 == 0 else b"",
              contribs={i: (i, vec(i, i))} if i % 3 == 2 else None))
-         for i in range(40)])],
+         for i in range(40)]),
+     ("TLOG", [(b"k%d" % i, ([(b"e%d" % (i % 3), i), (b"f", i + 1)], i // 2))
+               for i in range(40)])],
 ]
 
 
@@ -166,6 +184,7 @@ def test_reply_stream_matches_jax_database():
     text = b"".join(got)
     assert b":-" in text and b"BADCOMMAND" in text
     for reply in (b"*2\r\n$5\r\nhellp\r\n:5", b"*3\r\n$3\r\nLWW",
+                  b"*3\r\n*2\r\n$1\r\nz\r\n:9\r\n*2\r\n$1\r\ny\r\n:5",
                   b"*3\r\n$3\r\nAVG", b"-BADSHAPE (key holds LWW/3, write is MAX/3)",
                   b"-BADPAYLOAD (MRG", b"-BADPAYLOAD (empty"):
         assert reply in text, reply
@@ -272,14 +291,18 @@ JAX_FREE_NODE = textwrap.dedent("""
 
 
 def test_serves_treg_and_tensor_without_jax():
-    """The port serves TREG and TENSOR in a process where ``import jax``
-    raises, and loads nothing of ``jylis_tpu``; its replies equal the JAX
-    database's."""
+    """The port serves TREG, TENSOR and TLOG in a process where ``import
+    jax`` raises, and loads nothing of ``jylis_tpu``; its replies equal
+    the JAX database's."""
     request = (
         arr("TREG", "SET", "r", "v1", 3) + arr("TREG", "SET", "r", "v0", 3)
         + arr("TREG", "GET", "r") + arr("TENSOR", "SET", "t", "MAX", 0, vec(1, 2))
         + arr("TENSOR", "MRG", "t", tensor_blob(1, 2, vec(3, 0)))
         + arr("TENSOR", "GET", "t")
+        + arr("TLOG", "INS", "l", "a", 4) + arr("TLOG", "INS", "l", "b", 6)
+        + arr("TLOG", "INS", "l", "a", 4) + arr("TLOG", "TRIM", "l", 1)
+        + arr("TLOG", "INS", "l", "c", 1 << 40) + arr("TLOG", "GET", "l")
+        + arr("TLOG", "SIZE", "l") + arr("TLOG", "CUTOFF", "l")
     )
     db = JaxDatabase(identity=1, engine="python")
     out = bytearray()
@@ -296,3 +319,6 @@ def test_serves_treg_and_tensor_without_jax():
     assert proc.returncode == 0, proc.stderr.decode()
     assert proc.stdout == bytes(out)
     assert b"*2\r\n$2\r\nv1\r\n:3" in proc.stdout
+    assert proc.stdout.endswith(
+        b"*2\r\n*2\r\n$1\r\nc\r\n:1099511627776\r\n*2\r\n$1\r\nb\r\n:6\r\n"
+        b":2\r\n:6\r\n")

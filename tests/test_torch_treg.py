@@ -333,8 +333,8 @@ def test_interner_compaction_matches_jax(monkeypatch):
 
 def test_set_threshold_drain_and_database_routing():
     """A SET that fills the pending window drains inline (sync path) in
-    both packages; the Database serves TREG and TENSOR and renders the
-    data-type help for the unported types."""
+    both packages; the Database serves TREG, TLOG and TENSOR beside the
+    counters, in the JAX registry's order."""
     from jylis_tpu_torch.models import database as tdb
 
     jrepo = jrt.RepoTREG(1, mesh=None, engine="python")
@@ -360,4 +360,5 @@ def test_set_threshold_drain_and_database_routing():
         b"This operation expects the arguments in the following form:\n"
         b"TREG SET key value timestamp\r\n"
     )
-    assert [m.decode() for m in db._map] == ["TREG", "GCOUNT", "PNCOUNT", "TENSOR"]
+    assert [m.decode() for m in db._map] == [
+        "TREG", "TLOG", "GCOUNT", "PNCOUNT", "TENSOR"]
