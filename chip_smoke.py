@@ -68,7 +68,28 @@ build/jylis_tpu_torch/), then:
    widens); then GET/SIZE/CUTOFF, TRIM to 512 on 1,000 keys (one sparse
    drain each), TRIMAT, CLR and INS over the socket, every reply against
    a Python reference of the lattice, and the whole device state read
-   back through the interner against the reference for every key.
+   back through the interner against the reference for every key;
+9. the UJSON kernel phases (run with 1. and 2.): ujson_join at BASELINE
+   config 5b's tree levels (K = 64 keys x D = 512 one-entry deltas) and
+   subset join into resident rows of 4,096 dots, at config 5's
+   broadcast join (32 replicas, one folded row 65,536 slots wide: past
+   shared memory) and its tree; ujson_fold_flat at the node phase's
+   flat leg (K = 4,096 x D = 64, and 64 keys) and at random planes past
+   shared memory (K = 2 x D = 64 x W = 512); narrow and wide, each bit
+   for bit against its plain version and timed;
+10. the UJSON store phase (BASELINE config 5, published shape): 32
+   replica documents resident on the card, 8 rounds of 1,280 set_doc
+   deltas through fold_in_broadcast, every replica's state against the
+   host join of the 32 writers' documents;
+11. the UJSON node phase: config 5b's 64 keys x 8 rounds of 512 INS
+   deltas (tree folds), 64 keys of config 5's edits from 32 replica ids
+   (the narrow repack), 4,096 keys x 64 mixed deltas in one batch (the
+   flat rule), a seq past the narrow layout (the store widens; a tree
+   round and a flat round follow), then UJSON GET of every key, read
+   trickles, local INS/SET/RM/CLR that demote resident keys and GETs
+   over the socket, every reply and every key's state (dump_state,
+   canonicalised) against references joined from each writer's own
+   final documents.
 Each node phase sets its kernels' launch counts to 0 before it and
 fails unless each launched.
 
@@ -1960,6 +1981,683 @@ def tlog_node_phase(torch, n_keys: int = TLOG_KEYS) -> dict:
     return out
 
 
+# ---- UJSON ----------------------------------------------------------------------
+
+# BASELINE config 5 (bench.py:1107 config_ujson_32): 32 replica documents,
+# each making 40 set_doc edits over 8 fields per round, for 8 rounds:
+# 10,240 deltas, every one joined into every replica
+UJ5_REPS, UJ5_EDITS, UJ5_ROUNDS = 32, 40, 8
+# config 5b (bench.py:1197 config_ujson_multikey): 64 keys, 512 INS
+# deltas per key and round from 8 replica ids, 8 rounds
+UJ5B_KEYS, UJ5B_FANIN, UJ5B_REPS, UJ5B_ROUNDS = 64, 512, 8, 8
+# the UJSON node phase's flat leg (4,096 keys x 64 deltas in one batch:
+# D = 64, the flat rule), its replica-growth leg (64 keys x config 5's
+# edits from 32 replica ids, 2 rounds) and the wide flat round's keys
+UJ_FLAT_KEYS, UJ_FLAT_D, UJ_GROW_KEYS, UJ_WIDE_FLAT = 4096, 64, 64, 512
+UJ_TRICKLE, UJ_LOCAL = 100, 30  # keys that get a read trickle / local writes
+UJ_IDENTITY = 0xD0C5
+
+
+def uj_copy(doc):
+    """A host UJSON document's copy, its context compacted."""
+    from jylis_tpu_torch.ops.ujson_host import UJSON
+
+    c = UJSON()
+    c.entries = dict(doc.entries)
+    c.ctx.vv = dict(doc.ctx.vv)
+    c.ctx.cloud = set(doc.ctx.cloud)
+    c.ctx.compact()
+    return c
+
+
+def uj_join(docs):
+    """The host join of writer documents: once per writer, not per delta."""
+    out = uj_copy(docs[0])
+    for d in docs[1:]:
+        out.converge(d)
+    return out
+
+
+def uj_canon(doc) -> bytes:
+    """A document's canonical bytes, as the JAX repo's sync_canon makes
+    them: entries, vv and cloud sorted."""
+    ents = sorted((dot, path, token) for dot, (path, token) in doc.entries.items())
+    return repr((ents, sorted(doc.ctx.vv.items()), sorted(doc.ctx.cloud))).encode()
+
+
+def uj_5b_round(docs, rnd, keep=True):
+    """Config 5b's round ``rnd`` (bench.py:1213-1233): per key, 512 INS of
+    distinct values into ("tags",) from replica ids 100..107 on the key's
+    writer document. Returns each key's deltas (None with keep=False)."""
+    from jylis_tpu_torch.ops.ujson_host import UJSON
+
+    groups = []
+    for k, doc in enumerate(docs):
+        g = []
+        for e in range(UJ5B_FANIN):
+            d = UJSON() if keep else None
+            doc.ins(100 + e % UJ5B_REPS, ("tags",), str(k * 100000 + rnd * 1000 + e), d)
+            g.append(d)
+        groups.append(g if keep else None)
+    return groups
+
+
+def uj_5_round(writers, rnd, rid0=0):
+    """Config 5's round ``rnd`` (bench.py:1131-1141): writer r (replica id
+    rid0 + r) makes 40 set_doc edits over 8 fields; returns the deltas."""
+    from jylis_tpu_torch.ops.ujson_host import UJSON
+
+    out = []
+    for r, doc in enumerate(writers):
+        for e in range(UJ5_EDITS):
+            d = UJSON()
+            doc.set_doc(rid0 + r, ("field%d" % (e % 8),),
+                        str(rnd * 100000 + r * 1000 + e), d)
+            out.append(d)
+    return out
+
+
+UJ_FLAT_RIDS = (110, 111, 112)
+
+
+def uj_flat_deltas(ws, k: int, rnd: int):
+    """64 deltas of one flat-leg key from its writers A, B, C (replica
+    ids UJ_FLAT_RIDS): A inserts 24 values; B observes A, removes 8 of
+    A's values and sets a field 8 times; C inserts 16 values and removes
+    8 of them."""
+    from jylis_tpu_torch.ops.ujson_host import UJSON
+
+    a, b, c = ws
+    ra, rb, rc = UJ_FLAT_RIDS
+    out = []
+
+    def take(d):
+        out.append(d)
+        return d
+
+    for i in range(24):
+        a.ins(ra, ("tags",), '"a%d.%d.%d"' % (k, rnd, i), take(UJSON()))
+    b.converge(a)
+    seen = sorted(t for p, t in a.entries.values() if p == ("tags",))
+    for t in seen[:8]:
+        b.rm(rb, ("tags",), t, take(UJSON()))
+    for i in range(8):
+        b.set_doc(rb, ("f",), str(rnd * 100 + i), take(UJSON()))
+    mine = [str(k * 1000 + rnd * 100 + i) for i in range(16)]
+    for v in mine:
+        c.ins(rc, ("tags",), v, take(UJSON()))
+    for v in mine[::2]:
+        c.rm(rc, ("tags",), v, take(UJSON()))
+    return out
+
+
+def uj_random_planes(torch, rng, lead, l, c, r, shift, empty=()):
+    """Random DocBatch planes on the card shaped lead + (width,): per row
+    a random share of sorted, duplicate-free dots (random payload ids)
+    and cloud entries, pads after; rows in ``empty`` hold nothing. Wide
+    rows mix seqs near 2^32 and columns past 2^31 (bit 63 set)."""
+    from jylis_tpu_torch.ops import ujson_device as udev
+
+    n = int(np.prod(lead))
+    wide = shift == 32
+    dt = np.uint64 if wide else np.int64
+    pad = np.uint64(2**64 - 1) if wide else 0x7FFFFFFF
+
+    def row_plane(width):
+        col = rng.integers(0, r, (n, width)).astype(dt)
+        seq = rng.integers(1, 40, (n, width)).astype(dt)
+        if wide:
+            seq = np.where(rng.random((n, width)) < 0.2, dt(2**32 - 3) + seq % 3, seq)
+            col = np.where(rng.random((n, width)) < 0.05, dt(2**31) + col % 2, col)
+        v = (col << dt(shift)) | seq
+        keep = rng.random((n, width)) < rng.random((n, 1)) * 1.2
+        keep[list(empty)] = False
+        v = np.where(keep, v, pad)
+        v.sort(1)
+        v[:, 1:][v[:, 1:] == v[:, :-1]] = pad
+        v.sort(1)
+        return v.view(np.int64) if wide else v.astype(np.int32)
+
+    dots, cloud = row_plane(l), row_plane(c)
+    pay = np.where(dots != (-1 if wide else 0x7FFFFFFF),
+                   rng.integers(0, 200, (n, l)), -1).astype(np.int32)
+    vv = rng.integers(0, 30, (n, r)).astype(np.uint32)
+    vv[rng.random((n, r)) < 0.03] = 0xFFFFFFFF
+    planes_ = (dots, pay, vv.view(np.int32), cloud)
+    return udev.DocBatch(*(torch.from_numpy(x.reshape(tuple(lead) + x.shape[1:])).to(DEVICE)
+                           for x in planes_))
+
+
+def uj_clone(batch):
+    return type(batch)(*(p.clone() for p in batch))
+
+
+def _lg(n: int) -> int:
+    return max(int(n), 1).bit_length()
+
+
+def uj_join_work(a, b, bcast: bool, lo: int, co: int):
+    """(bytes, operations) of one ujson_join launch by its source note:
+    ``a`` holds the a rows the slots read, ``b`` the b rows (one row read
+    once when ``bcast``); each input read once, each output row of
+    widths (lo, co) written once; per row (La + Lb)(log2 L + log2 C + 4)
+    + (Ca + Cb)(log2 C + 6) operations, counted over the valid entries."""
+    from jylis_tpu_torch.ops import ujson_device as udev
+
+    ts = a.dots.element_size()
+    n, la = a.dots.shape
+    lb = b.dots.shape[-1]
+    ca, cb = a.cloud.shape[-1], b.cloud.shape[-1]
+    r = a.vv.shape[-1]
+    nbytes = sum(p.numel() * p.element_size() for p in (*a, *b))
+    nbytes += n * (lo * (ts + 4) + co * ts + r * 4)
+    pad = udev.pad_of(a.dots)
+    times = n if bcast else 1
+    dots = int((a.dots != pad).sum()) + int((b.dots != pad).sum()) * times
+    cloud = int((a.cloud != pad).sum()) + int((b.cloud != pad).sum()) * times
+    lg_l, lg_c = _lg(max(la, lb)), _lg(max(ca, cb))
+    return nbytes, dots * (lg_l + lg_c + 4) + cloud * (lg_c + 6)
+
+
+def uj_tree_work(grid, shift: int):
+    """(bytes, operations) of a tree fold: the sum over its levels' join
+    launches (the levels run in plain torch here, to read their rows)."""
+    from jylis_tpu_torch.ops import ujson_device as udev
+
+    work = [0, 0]
+
+    def join(a, b, s):
+        o = udev.join_rows_plain(a, b, s)
+        nb, no = uj_join_work(a, b, False, o.dots.shape[-1], o.cloud.shape[-1])
+        work[0] += nb
+        work[1] += no
+        return o
+
+    udev._fold_body(grid, shift, join)
+    return tuple(work)
+
+
+def uj_flat_work(grid, out):
+    """(bytes, operations) of one ujson_fold_flat launch by its source
+    note."""
+    from jylis_tpu_torch.ops import ujson_device as udev
+    from jylis_tpu_torch.utils.batching import bucket
+
+    k, d, w = grid.dots.shape
+    c, r = grid.cloud.shape[-1], grid.vv.shape[-1]
+    nbytes = sum(p.numel() * p.element_size() for p in (*grid, *out))
+    valid = int((grid.dots != udev.pad_of(grid.dots)).sum())
+    ep, cp = bucket(d * w, 1), bucket(d * c, 1)
+    se, sc = ep.bit_length() - 1, cp.bit_length() - 1
+    nops = valid * d * (_lg(w) + _lg(c) + 3)
+    nops += k * (ep // 2 * se * (se + 1) // 2 + cp // 2 * sc * (sc + 1) // 2 + d * r)
+    return nbytes, nops
+
+
+def uj_case(torch, name, shape, card, run_k, run_p, work, reset_k=None, reset_p=None,
+            launches_per=1):
+    """Run kernel and plain once on equal inputs, compare bit for bit,
+    then time both (CUDA events; ``reset_*`` put back the inputs of a
+    join that writes in place) and read the kernel's device time."""
+    from jylis_tpu_torch.ops import ujson_device as udev, ujson_resident as ures
+
+    counter = udev.join_rows if name == "ujson_join" else ures.fold_flat
+    reset_k = reset_k or (lambda: None)
+    reset_p = reset_p or (lambda: None)
+    reset_k()
+    reset_p()
+    l0 = counter.launches
+    out_k = run_k()
+    out_p = run_p()
+    torch.cuda.synchronize()
+    launched = counter.launches - l0
+    err = max_abs_err(torch, list(zip(out_k, out_p)))
+    if err or launched != launches_per:
+        raise AssertionError(f"{name} {shape}: err {err}, launches {launched}")
+    ms = time_ms(torch, run_k, reset=reset_k)
+    dev_ms = device_ms(torch, lambda: (reset_k(), run_k()), name, calls=3)
+    if dev_ms is not None:
+        dev_ms *= launches_per  # the profiler's mean is per launch
+    plain_ms = time_ms(torch, run_p, reset=reset_p)
+    nbytes, nops = work
+    b_ms, b_by = bound(nbytes, nops, card)
+    row = dict(shape=shape, max_abs_err=err, kernel_ms=ms, device_ms=dev_ms,
+               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+               operations=nops, launches=launched)
+    emit({"phase": name, **row, "card": card})
+    return row
+
+
+def ujson_phases(torch, card: str, flat_groups) -> dict:
+    """ujson_join and ujson_fold_flat, each bit for bit against its plain
+    version, narrow and wide, at the shapes their main paths give them:
+    config 5b's tree levels (K = 64 keys, D = 512 one-entry INS deltas)
+    and its subset join into resident rows of 4,096 dots (round 8: 3,584
+    resident entries + 512); config 5's broadcast join (32 resident
+    rows, one folded row of 10,240 deltas, 65,536 slots wide: past
+    shared memory, the device-scratch path) and its 14-level tree;
+    ujson_fold_flat at the node phase's flat leg (K = 4,096 x D = 64, and
+    its first 64 keys), and random planes at K = 2 x D = 64 x W = 512
+    (past shared memory)."""
+    from jylis_tpu_torch.ops import ujson_device as udev, ujson_resident as ures
+    from jylis_tpu_torch.ops.ujson_host import UJSON
+
+    rng = np.random.default_rng(SEED + 30)
+    join_rows, flat_rows = [], []
+    for wide in (False, True):
+        lay = "wide" if wide else "narrow"
+        # config 5b: resident docs after 7 rounds, round 8's deltas
+        docs = [UJSON() for _ in range(UJ5B_KEYS)]
+        for rnd in range(UJ5B_ROUNDS - 1):
+            uj_5b_round(docs, rnd, keep=False)
+        store = ures.ResidentStore(n_rep=UJ5B_REPS, device=DEVICE)
+        if wide:
+            store._widen()
+        keys = [b"doc%03d" % k for k in range(UJ5B_KEYS)]
+        store.admit([(k, uj_copy(d)) for k, d in zip(keys, docs)])
+        groups = uj_5b_round(docs, UJ5B_ROUNDS - 1)
+        shift = store._shift
+        grid = store._grid_to_device(store._encode_grid(groups))
+        res0 = uj_clone(store._batch)
+        idx = torch.tensor([store._rows[k] for k in keys], dtype=torch.int32, device=DEVICE)
+        # the store's width bound as the node's round 8 sees it: a consumed
+        # fold's live widths, not the admission buckets
+        lw, lc = (int(x) for x in ures.live_widths(store._batch).tolist())
+        store._base_w, store._base_c, store._floor_w, store._floor_c = lw, lc, 1, 1
+        gw = max(sum(len(d.entries) for d in g) for g in groups)
+        gc = max(sum(len(d.ctx.cloud) for d in g) for g in groups)
+        out_w, out_c = store._budget_widths(gw, gc)
+        l0 = udev.join_rows.launches
+        tree = udev.fold_segments(grid, shift)
+        k_levels = udev.join_rows.launches - l0
+        tree_row = uj_case(
+            torch, "ujson_join",
+            f"config 5b tree: K=64 x D=512 x W={grid.dots.shape[-1]}, {k_levels} levels, {lay}",
+            card, lambda: udev.fold_segments(grid, shift),
+            lambda: udev.DocBatch(*(p[:, 0] for p in udev._fold_body(
+                grid, shift, udev.join_rows_plain))),
+            uj_tree_work(grid, shift), launches_per=k_levels)
+        # the subset join with the epilogue, in place at the resident rows
+        rk, rp = uj_clone(res0), uj_clone(res0)
+        sub_work = uj_join_work(udev.DocBatch(*(p[idx.long()] for p in res0)), tree,
+                                False, out_w, out_c)
+        sub_row = uj_case(
+            torch, "ujson_join",
+            f"config 5b subset join: {len(keys)} of {res0.dots.shape[0]} rows x "
+            f"{res0.dots.shape[-1]} dots + {tree.dots.shape[-1]}, out {out_w}/{out_c}, {lay}",
+            card,
+            lambda: udev.join_rows(rk, tree, shift, a_idx=idx, finish=(out_w, out_c),
+                                   out=ures.slice_widths(rk, out_w, out_c)),
+            lambda: udev.join_rows_plain(rp, tree, shift, a_idx=idx, finish=(out_w, out_c),
+                                         out=ures.slice_widths(rp, out_w, out_c)),
+            sub_work, restorer(rk, res0), restorer(rp, res0))
+        join_rows += [sub_row, tree_row]
+        del store, grid, res0, rk, rp, tree, docs, groups
+
+        # config 5: the broadcast fold of 10,240 deltas into 32 replicas
+        writers = [UJSON() for _ in range(UJ5_REPS)]
+        deltas = [d for rnd in range(UJ5_ROUNDS) for d in uj_5_round(writers, rnd)]
+        st5 = ures.ResidentStore(n_rep=UJ5_REPS, device=DEVICE)
+        if wide:
+            st5._widen()
+        st5.admit([(b"rep%02d" % i, UJSON()) for i in range(UJ5_REPS)])
+        from jylis_tpu_torch.utils.batching import bucket
+
+        d5 = bucket(len(deltas), 4)
+        batch = udev.to_torch(st5._encode_rows(deltas + [UJSON()] * (d5 - len(deltas))), DEVICE)
+        shift = st5._shift
+        g5 = udev.DocBatch(*(p[None] for p in batch))
+        folded = udev.DocBatch(*(p[:, 0] for p in udev._fold_body(g5, shift)))
+        gw = sum(len(x.entries) for x in deltas)
+        gc = sum(len(x.ctx.cloud) for x in deltas)
+        out_w, out_c = st5._budget_widths(gw, gc)
+        occ = torch.zeros(st5._row_axis(), dtype=torch.bool, device=DEVICE)
+        occ[list(st5._rows.values())] = True
+        r0 = uj_clone(st5._batch)
+        rk, rp = uj_clone(r0), uj_clone(r0)
+        wb = udev.join_work_bytes(folded.dots.element_size(), r0.dots.shape[-1],
+                                  folded.dots.shape[-1], r0.cloud.shape[-1],
+                                  folded.cloud.shape[-1], r0.vv.shape[-1])
+        if wb <= udev.SMEM_LIMIT:
+            raise AssertionError("config 5's broadcast row fits shared memory")
+        bc_row = uj_case(
+            torch, "ujson_join",
+            f"config 5 broadcast: {r0.dots.shape[0]} rows ({UJ5_REPS} occupied) x "
+            f"{r0.dots.shape[-1]} + 1 folded row x {folded.dots.shape[-1]} "
+            f"(device scratch, {wb} B a row), out {out_w}/{out_c}, {lay}",
+            card,
+            lambda: udev.join_rows(rk, folded, shift, finish=(out_w, out_c), occupied=occ,
+                                   out=ures.slice_widths(rk, out_w, out_c)),
+            lambda: udev.join_rows_plain(rp, folded, shift, finish=(out_w, out_c),
+                                         occupied=occ, out=ures.slice_widths(rp, out_w, out_c)),
+            uj_join_work(r0, folded, True, out_w, out_c), restorer(rk, r0), restorer(rp, r0))
+        l0 = udev.join_rows.launches
+        udev._fold_body(g5, shift)
+        levels5 = udev.join_rows.launches - l0
+        t5_row = uj_case(
+            torch, "ujson_join",
+            f"config 5 tree: D={d5} x W={batch.dots.shape[-1]}, {levels5} levels, {lay}",
+            card, lambda: udev.DocBatch(*(p[:, 0] for p in udev._fold_body(g5, shift))),
+            lambda: udev.DocBatch(*(p[:, 0] for p in udev._fold_body(
+                g5, shift, udev.join_rows_plain))),
+            uj_tree_work(g5, shift), launches_per=levels5)
+        join_rows += [bc_row, t5_row]
+        del st5, batch, g5, folded, r0, rk, rp, writers, deltas
+
+        # ujson_fold_flat at the flat leg's shape and its first 64 keys
+        stf = ures.ResidentStore(n_rep=32, device=DEVICE)
+        stf._grow_reps_to(32)
+        if wide:
+            stf._widen()
+        gridf = stf._grid_to_device(stf._encode_grid(flat_groups))
+        shift = stf._shift
+        for kk in (gridf.dots.shape[0], 64):
+            g = udev.DocBatch(*(p[:kk].contiguous() for p in gridf))
+            fo = ures.fold_flat_plain(g, shift)
+            flat_rows.append(uj_case(
+                torch, "ujson_fold_flat",
+                f"flat leg: K={kk} x D={g.dots.shape[1]} x W={g.dots.shape[2]} "
+                f"C={g.cloud.shape[2]} R={g.vv.shape[2]}, {lay}",
+                card, lambda: ures.fold_flat(g, shift),
+                lambda: ures.fold_flat_plain(g, shift), uj_flat_work(g, fo)))
+        g = uj_random_planes(torch, rng, (2, 64), 512, 64, 8, 32 if wide else 28)
+        shift = 32 if wide else 28
+        if ures.flat_work_bytes(g.dots.element_size(), 64, 512, 64, 8) <= udev.SMEM_LIMIT:
+            raise AssertionError("the wide flat case fits shared memory")
+        flat_rows.append(uj_case(
+            torch, "ujson_fold_flat",
+            f"random planes past shared memory: K=2 x D=64 x W=512 C=64, {lay}",
+            card, lambda: ures.fold_flat(g, shift), lambda: ures.fold_flat_plain(g, shift),
+            uj_flat_work(g, ures.fold_flat_plain(g, shift))))
+        del stf, gridf, g
+        torch.cuda.empty_cache()
+    # the first row of each kernel is its main path's shape (narrow)
+    return {"ujson_join": dict(join_rows[0], other_shapes=join_rows[1:]),
+            "ujson_fold_flat": dict(flat_rows[0], other_shapes=flat_rows[1:])}
+
+
+def ujson_store_phase(torch) -> dict:
+    """BASELINE config 5 (bench.py:1107-1194, published shape): 32
+    replica documents admitted to a ResidentStore(n_rep=32) on the card;
+    each round's 1,280 deltas (32 writers x 40 set_doc edits over 8
+    fields) go through fold_in_broadcast, which buffers the 8 rounds
+    (10,240 deltas, under BCAST_FLUSH_DELTAS) into one fold at block();
+    then dump(): all 32 renders must be equal, and equal to the host
+    join of the 32 writers' final documents."""
+    from jylis_tpu_torch.ops import ujson_device as udev, ujson_resident as ures
+    from jylis_tpu_torch.ops.ujson_host import UJSON
+
+    t0 = time.perf_counter()
+    writers = [UJSON() for _ in range(UJ5_REPS)]
+    streams = [uj_5_round(writers, rnd) for rnd in range(UJ5_ROUNDS)]
+    gen_s = time.perf_counter() - t0
+    ref = uj_join(writers)
+    l0 = (udev.join_rows.launches, ures.fold_flat.launches)
+    t0 = time.perf_counter()
+    store = ures.ResidentStore(n_rep=UJ5_REPS, device=DEVICE)
+    store.admit([(b"rep%02d" % i, UJSON()) for i in range(UJ5_REPS)])
+    for deltas in streams:
+        store.fold_in_broadcast(deltas)
+    store.block()
+    fold_s = time.perf_counter() - t0
+    launches = udev.join_rows.launches - l0[0]
+    t0 = time.perf_counter()
+    dumped = store.dump()
+    dump_s = time.perf_counter() - t0
+    renders = {doc.render() for _, doc in dumped}
+    if len(dumped) != UJ5_REPS or renders != {ref.render()}:
+        raise AssertionError(f"config 5: {len(renders)} distinct renders of {len(dumped)}")
+    for key, doc in dumped:
+        if uj_canon(doc) != uj_canon(ref):
+            raise AssertionError(f"config 5 {key!r}: state differs from the host join")
+    if store._batch.dots.device.type != DEVICE or (DEVICE == "cuda" and launches < 1):
+        raise AssertionError(f"config 5 store on {store._batch.dots.device}, {launches} joins")
+    out = dict(replicas=UJ5_REPS, deltas=sum(len(s) for s in streams),
+               join_launches=launches, fold_flat_launches=ures.fold_flat.launches - l0[1],
+               generate_s=gen_s, admit_fold_block_s=fold_s, dump_s=dump_s,
+               delta_merges=UJ5_REPS * sum(len(s) for s in streams),
+               planes=[list(p.shape) for p in store._batch], shift=store._shift)
+    emit({"phase": "ujson_store_config5", **out})
+    return out
+
+
+def ujson_node_phase(torch, n5b: int = UJ5B_KEYS, rounds5b: int = UJ5B_ROUNDS,
+                     n_flat: int = UJ_FLAT_KEYS, n_grow: int = UJ_GROW_KEYS,
+                     flat=None) -> dict:
+    """UJSON on a real Server over the port's Database on DEVICE; deltas
+    enter through Database.converge_async, references are each writer's
+    own final documents joined once per writer and key.
+
+    (a) config 5b: n5b keys, 8 replica ids, rounds of 512 INS deltas per
+        key; round 1 promotes every key, every round folds by the tree
+        (D = 512); (c) replica growth: n_grow more keys get config 5's
+        set_doc edits from 32 replica ids over 2 rounds (D = 1,280 by the
+        tree): the column budget passes 8 and the store repacks narrow,
+        shift 28 to 26; (b) the flat leg: n_flat more keys x 64 deltas
+        (INS, SET and RM from 3 replica ids, removals of observed values)
+        in one batch past PENDING_TOTAL_MAX: one segmented drain admits
+        them and folds by the flat rule (D = 64); (d) widening: a replica
+        sends a seq >= 2^26 - 1 with a 5b round (the store widens to u64,
+        and that round folds by the tree in it), then a flat round on
+        UJ_WIDE_FLAT flat keys; (e) over the socket: UJSON GET of every
+        key, whole and at a path; a trickle of 3 deltas on UJ_TRICKLE
+        resident keys, read host-side (<= TRICKLE_MAX pending stays
+        pending); local INS/SET/RM/CLR on UJ_LOCAL resident keys (they
+        demote), applied to the references through the same host
+        lattice; GETs again. Then dump_state() (every pending delta
+        drains, every resident row decodes) against the references, key
+        by key, canonicalised as sync_canon does. (The legs run in the
+        order a, c, b, d, e: the flat leg's admission fills the store's
+        BYTE_BUDGET, after which new keys stay on the host lattice.)"""
+    from jylis_tpu_torch.models import repo_ujson
+    from jylis_tpu_torch.ops import ujson_device as udev, ujson_resident as ures
+    from jylis_tpu_torch.ops.ujson_host import UJSON
+
+    t_gen = 0.0
+    keys5 = [b"doc%03d" % k for k in range(n5b)]
+    keys_g = [b"grow%03d" % k for k in range(n_grow)]
+    if flat is None:
+        t0 = time.perf_counter()
+        flat = uj_flat_data(n_flat)
+        t_gen += time.perf_counter() - t0
+    flat_ws, flat_groups = flat
+    keys_f = [b"flat%05d" % k for k in range(len(flat_ws))]
+    writers5 = [UJSON() for _ in keys5]
+    writers_g = [[UJSON() for _ in range(UJ5_REPS)] for _ in keys_g]
+    refs_extra: dict[bytes, list] = {}  # more writer docs per key
+    node = Node(identity=UJ_IDENTITY)
+    repo = node.repo("UJSON")
+    legs = []
+    replies = 0
+    try:
+        udev.join_rows.launches = ures.fold_flat.launches = 0
+
+        def deliver(leg, batch, note=None):
+            l0 = (udev.join_rows.launches, ures.fold_flat.launches)
+            t0 = time.perf_counter()
+            node.converge("UJSON", batch)
+            st = repo._res
+            legs.append(dict(
+                leg=leg, deltas=len(batch), converge_s=time.perf_counter() - t0,
+                join=udev.join_rows.launches - l0[0], fold_flat=ures.fold_flat.launches - l0[1],
+                shift=None if st is None else st._shift,
+                resident=0 if st is None else len(st),
+                planes=None if st is None else list(st._batch.dots.shape), **(note or {})))
+
+        # (a) config 5b
+        for rnd in range(rounds5b):
+            t0 = time.perf_counter()
+            groups = uj_5b_round(writers5, rnd)
+            batch = [(k, d) for k, g in zip(keys5, groups) for d in g]
+            t_gen += time.perf_counter() - t0
+            deliver(f"a{rnd + 1}", batch)
+        # (c) replica growth: 32 replica ids (100..131) on new keys
+        for rnd in range(2):
+            t0 = time.perf_counter()
+            batch = [(k, d) for k, ws in zip(keys_g, writers_g)
+                     for d in uj_5_round(ws, rnd, rid0=100)]
+            t_gen += time.perf_counter() - t0
+            deliver(f"c{rnd + 1}", batch)
+        # (b) the flat leg, one batch
+        deliver("b", [(k, d) for k, g in zip(keys_f, flat_groups) for d in g])
+        # (d) a seq past the narrow layout, with a 5b round (the tree) ...
+        t0 = time.perf_counter()
+        big_w = UJSON()
+        big = (1 << 26) + 2
+        big_w.ctx.vv[999] = big
+        d_big = UJSON()
+        d_big.ctx.vv[999] = big
+        big_w.ins(999, ("wide",), "1", d_big)
+        refs_extra[keys5[0]] = [big_w]
+        groups = uj_5b_round(writers5, rounds5b)
+        batch = [(keys5[0], d_big)] + [(k, d) for k, g in zip(keys5, groups) for d in g]
+        t_gen += time.perf_counter() - t0
+        shift0 = repo._res._shift
+        deliver("d tree", batch, {"shift_before": shift0})
+        # ... and a flat round, in the wide layout
+        t0 = time.perf_counter()
+        wide_keys = list(range(min(UJ_WIDE_FLAT, len(keys_f))))
+        batch = [(keys_f[i], d) for i in wide_keys
+                 for d in uj_flat_deltas(flat_ws[i], i, 1)]
+        t_gen += time.perf_counter() - t0
+        deliver("d flat", batch)
+        converge_launches = {"ujson_join": udev.join_rows.launches,
+                             "ujson_fold_flat": ures.fold_flat.launches}
+        store = repo._res
+        if store._shift != 32:
+            raise AssertionError(f"UJSON store did not widen: shift {store._shift}")
+        if n_grow and n5b and not any(lg["shift"] == 26 for lg in legs[:rounds5b + 2]):
+            raise AssertionError(f"UJSON store did not repack to shift 26: {legs}")
+
+        # the references: each key's writers, joined once
+        def writer_docs(key):
+            if key.startswith(b"doc"):
+                docs = [writers5[keys5.index(key)]]
+            elif key.startswith(b"grow"):
+                docs = writers_g[keys_g.index(key)]
+            else:
+                docs = flat_ws[keys_f.index(key)]
+            return docs + refs_extra.get(key, [])
+
+        all_keys = keys5 + keys_g + keys_f
+        t0 = time.perf_counter()
+        refs = {k: uj_join(writer_docs(k)) for k in all_keys}
+        ref_s = time.perf_counter() - t0
+        cmds, want = [], []
+
+        def send(cmd, expect):
+            cmds.append(cmd)
+            want.append(expect)
+
+        def run(what, chunk=256):
+            nonlocal replies
+            t0 = time.perf_counter()
+            got = node.client.pipeline(cmds, chunk)
+            check_replies(what, got, want)
+            replies += len(got)
+            cmds.clear()
+            want.clear()
+            return time.perf_counter() - t0
+
+        def path_of(key):
+            return ("tags",) if not key.startswith(b"grow") else ("field3",)
+
+        for k in all_keys:
+            send(("UJSON", "GET", k), bulk(refs[k].render().encode()))
+            send(("UJSON", "GET", k, *path_of(k)),
+                 bulk(refs[k].render(path_of(k)).encode()))
+        get_s = run("UJSON GET every key")
+        # a trickle on resident keys: served host-side, left pending
+        trick = keys_f[-UJ_TRICKLE:]  # disjoint from the local writes' flat keys
+        batch = []
+        for k in trick:
+            ws = flat_ws[keys_f.index(k)]
+            for i in range(3):
+                d = UJSON()
+                ws[2].ins(UJ_FLAT_RIDS[2], ("tags",), str(900000 + i), d)
+                batch.append((k, d))
+        l0 = udev.join_rows.launches
+        node.converge("UJSON", batch)
+        for k in trick:
+            refs[k] = uj_join(writer_docs(k))
+            send(("UJSON", "GET", k, "tags"), bulk(refs[k].render(("tags",)).encode()))
+        trickle_s = run("UJSON trickle GETs")
+        pend = [len(repo._pend.get(k, ())) for k in trick]
+        if set(pend) != {3} or (DEVICE == "cuda" and udev.join_rows.launches != l0):
+            raise AssertionError(f"UJSON trickle reads folded on the device: {set(pend)}")
+        # local writes on resident keys (each demotes its key)
+        local = keys5[1:3] + keys_g[:3] + trick[:5] + keys_f[: UJ_LOCAL - 10]
+        for k in local:
+            if not store.__contains__(k):
+                raise AssertionError(f"UJSON {k!r} is not resident before its local write")
+            r = refs[k]
+            vals = sorted(t for p, t in r.entries.values() if p == ("tags",))
+            send(("UJSON", "INS", k, "tags", '"local"'), b"+OK\r\n")
+            r.ins(UJ_IDENTITY, ("tags",), '"local"')
+            send(("UJSON", "SET", k, "f", '{"z": [1, 2]}'), b"+OK\r\n")
+            r.set_doc(UJ_IDENTITY, ("f",), '{"z": [1, 2]}')
+            if vals:
+                send(("UJSON", "RM", k, "tags", vals[0]), b"+OK\r\n")
+                r.rm(UJ_IDENTITY, ("tags",), vals[0])
+            send(("UJSON", "CLR", k, "field3"), b"+OK\r\n")
+            r.clr(UJ_IDENTITY, ("field3",))
+            send(("UJSON", "GET", k), bulk(r.render().encode()))
+        local_s = run("UJSON local writes", chunk=64)
+        demoted = sum(1 for k in local if k not in store)
+        for k in all_keys[::7] + local:
+            send(("UJSON", "GET", k), bulk(refs[k].render().encode()))
+        send(("UJSON", "GET", b"missing"), bulk(b""))
+        again_s = run("UJSON GETs after the writes")
+
+        # the whole state: every pending delta drains, every row decodes
+        t0 = time.perf_counter()
+        for p in store._batch:
+            if p.device.type != DEVICE:
+                raise AssertionError(f"UJSON resident planes on {p.device}")
+        resident = len(store)
+        got = dict(repo.dump_state())
+        if set(got) != set(all_keys):
+            raise AssertionError(f"UJSON dump: {len(got)} keys, {len(all_keys)} in the references")
+        bad = [k for k in all_keys if uj_canon(got[k]) != uj_canon(refs[k])]
+        if bad:
+            raise AssertionError(f"UJSON state of {bad[0]!r} != its reference; "
+                                 f"{len(bad)} keys differ")
+        check_s = time.perf_counter() - t0
+        # the dump's drain folded the trickles: the phase's launches end here
+        launches = {"ujson_join": udev.join_rows.launches,
+                    "ujson_fold_flat": ures.fold_flat.launches}
+    finally:
+        node.close()
+    if DEVICE == "cuda" and min(launches.values()) < 1:
+        raise AssertionError(f"UJSON kernels did not launch: {launches}")
+    if demoted != len(local):
+        raise AssertionError(f"UJSON local writes demoted {demoted} of {len(local)}")
+    out = {"launches": launches, "converge_launches": converge_launches,
+           "keys": len(all_keys), "legs": legs, "generate_s": t_gen,
+           "references_s": ref_s, "get_s": get_s, "trickle_s": trickle_s,
+           "local_writes_s": local_s, "gets_again_s": again_s, "check_s": check_s,
+           "replies_checked": replies, "keys_checked": len(all_keys),
+           "resident_before_dump": resident, "store_full": store.full(),
+           "final_planes": [list(p.shape) for p in store._batch],
+           "thresholds": [repo_ujson.DEVICE_FANIN_MIN, repo_ujson.SEG_FANIN_MIN,
+                          repo_ujson.PENDING_TOTAL_MAX, repo_ujson.TRICKLE_MAX]}
+    emit({"phase": "ujson_node", **out})
+    return out
+
+
+def uj_flat_data(n_keys: int):
+    """The flat leg's writers and deltas: per key, writers A, B, C and
+    the 64 deltas of uj_flat_deltas (round 0)."""
+    from jylis_tpu_torch.ops.ujson_host import UJSON
+
+    ws, groups = [], []
+    for k in range(n_keys):
+        w = [UJSON(), UJSON(), UJSON()]
+        groups.append(uj_flat_deltas(w, k, 0))
+        ws.append(w)
+    return ws, groups
+
+
 # ---- main ----------------------------------------------------------------------
 
 KERNELS = {
@@ -2008,6 +2706,17 @@ KERNELS = {
         "jylis_tpu/models/repo_tlog.py:79 (_drain_dense -> ops/tlog.py:361 "
         "converge_then_trim, XLA)",
     ),
+    "ujson_join": (
+        "jylis_tpu_torch/csrc/ujson_join.cu",
+        "jylis_tpu/ops/ujson_device.py:109 (_join_row, XLA, under join_batch :143 "
+        "and _fold_body :183) with ops/ujson_resident.py:203 (_finish) in "
+        "fold_join_subset :218 and fold_broadcast_rows :256",
+    ),
+    "ujson_fold_flat": (
+        "jylis_tpu_torch/csrc/ujson_fold_flat.cu",
+        "jylis_tpu/ops/ujson_resident.py:88 (_fold_flat_one, XLA, under "
+        "_fold_grid :136)",
+    ),
 }
 
 
@@ -2037,15 +2746,22 @@ def main() -> int:
     rows.update(treg_phases(torch, card))
     rows.update(tensor_batch_phases(torch, card))
     rows.update(tlog_phases(torch, card))
+    t0 = time.perf_counter()
+    flat = uj_flat_data(UJ_FLAT_KEYS)  # the flat leg, for 7. and 10.
+    emit({"phase": "ujson_flat_leg_generate", "keys": UJ_FLAT_KEYS,
+          "deltas": UJ_FLAT_KEYS * UJ_FLAT_D, "seconds": time.perf_counter() - t0})
+    rows.update(ujson_phases(torch, card, flat[1]))
     # the main paths, each with its launch counts set to 0 just before it
     node = node_phase(torch)
     treg_node = treg_node_phase(torch)
     tensor_node = tensor_node_phase(torch)
     tlog_node = tlog_node_phase(torch)
+    ujson_store_phase(torch)
+    ujson_node = ujson_node_phase(torch, flat=flat)
 
     launches = dict(node["launches"], tensor_join_dense=sweep["launches"],
                     **treg_node["launches"], **tensor_node["launches"],
-                    **tlog_node["launches"])
+                    **tlog_node["launches"], **ujson_node["launches"])
     timing = ("shape", "kernel_ms", "device_ms", "plain_ms", "bound_ms")
     kernels = []
     for kname, (source, replaces) in KERNELS.items():

@@ -6,11 +6,14 @@ device work in PyTorch and in CUDA kernels written by hand for Hopper
 imports no JAX and nothing of ``jylis_tpu``: it keeps its own copy of
 every module it needs.
 
-So far it serves TREG, TLOG, GCOUNT, PNCOUNT and TENSOR on one device:
+So far it serves TREG, TLOG, GCOUNT, PNCOUNT, UJSON and TENSOR on one
+device:
 
   utils/     batching, config, logging, node address, wire primitives
   ops/       register, log, counter and tensor lattices, the string interner,
-             the CUDA kernel launches
+             the UJSON host lattice, document batch (ujson_device) and
+             device-resident store (ujson_resident), the CUDA kernel
+             launches
   models/    per-type repos and host tables, repo manager, database router
   cluster/   the TENSOR delta codec (MRG payloads)
   server/    RESP codec and TCP server

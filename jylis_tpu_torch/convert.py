@@ -4,10 +4,11 @@ The JAX package keeps each u64 counter plane, and TREG's ts and rank, as
 hi/lo u32 planes and the TENSOR and TLOG planes as u32; the port keeps
 one int64 bit-pattern plane per counter polarity and for TREG's ts and
 rank, and int32 bit patterns for TENSOR and the TLOG planes (the TLOG
-cutoff as int64 bits). These functions take the JAX package's host
-(numpy) planes and return the port's state on a given device, and back;
-the bits are unchanged both ways, and the result never shares memory
-with its input.
+cutoff as int64 bits); a UJSON DocBatch keeps its int32 narrow dots,
+its u64 wide dots as int64 bits and its u32 vv as int32 bits. These
+functions take the JAX package's host (numpy) planes and return the
+port's state on a given device, and back; the bits are unchanged both
+ways, and the result never shares memory with its input.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .ops import gcount, planes, pncount, tensor, tlog, treg
+from .ops import gcount, planes, pncount, tensor, tlog, treg, ujson_device
 
 
 def gcount_from_jax(hi, lo, device="cuda") -> gcount.GCountState:
@@ -92,3 +93,36 @@ def tlog_to_jax(state: tlog.TLogState):
 
     return (plane(state.nth), plane(state.ntl), plane(state.nv),
             state.length.cpu().numpy().copy(), planes.to_u64_np(state.cutoff).copy())
+
+
+def docbatch_from_jax(dots, pay, vv, cloud, device="cuda") -> ujson_device.DocBatch:
+    """A JAX ``DocBatch``'s host planes (int32 or uint64 dots and cloud,
+    int32 pay, uint32 vv) -> the port's planes on ``device``."""
+    return ujson_device.to_torch((dots, pay, vv, cloud), device)
+
+
+def docbatch_to_jax(batch: ujson_device.DocBatch):
+    """(dots, pay, vv, cloud) host planes in the JAX dtypes."""
+    return tuple(ujson_device.to_numpy(batch))
+
+
+def resident_state(store) -> dict:
+    """What a ResidentStore holds, in the JAX package's terms: its planes
+    (JAX dtypes; None before the first admission), dot layout, replica
+    budget, rows, free list, width bounds, max seq and interners. Takes
+    either package's store (a JAX store's planes read through
+    ``np.asarray``), so the tests can compare the two."""
+    b = store._batch
+    if b is None:
+        planes = None
+    elif isinstance(b.dots, torch.Tensor):
+        planes = docbatch_to_jax(b)
+    else:
+        planes = tuple(np.asarray(p) for p in b)
+    return dict(
+        planes=planes, shift=store._shift, nrep=store._nrep, rows=dict(store._rows),
+        free=list(store._free), base=(store._base_w, store._base_c),
+        floor=(store._floor_w, store._floor_c), inflight=len(store._inflight),
+        max_seq=store._max_seq, rid_cols=dict(store._rid_cols),
+        pay_rev=list(store._pay_rev), pending_broadcast=len(store._bcast_pend),
+    )

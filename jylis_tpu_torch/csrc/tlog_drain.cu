@@ -59,6 +59,8 @@
 // delta entry for the searches.
 #include <cuda_runtime.h>
 
+#include "block_ops.cuh"
+
 namespace {
 
 using u32 = unsigned int;
@@ -150,32 +152,6 @@ __device__ Ent merged_at(const Planes<W>& a, int na, const Planes<W>& d,
   if (j == 0) return a.get(i - 1);
   const Ent x = a.get(i - 1), y = d.get(j - 1);
   return lt<W>(x, y) ? y : x;
-}
-
-// exclusive prefix sum of x over the block; *total gets the block's sum.
-// Every thread must call it (it holds three barriers).
-__device__ int block_scan(int x, int* warp_sums, int* total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int v = x;
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(0xFFFFFFFFu, v, o);
-    if (lane >= o) v += y;
-  }
-  if (lane == 31) warp_sums[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    int w = lane < kWarps ? warp_sums[lane] : 0;
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xFFFFFFFFu, w, o);
-      if (lane >= o) w += y;
-    }
-    if (lane < kWarps) warp_sums[lane] = w;
-  }
-  __syncthreads();
-  const int base = warp ? warp_sums[warp - 1] : 0;
-  *total = warp_sums[kWarps - 1];
-  __syncthreads();
-  return base + v - x;
 }
 
 // ascending bitonic sort of d[0, n), n a power of two
@@ -308,7 +284,7 @@ __global__ void __launch_bounds__(kThreads)
       // the scan's barriers order this chunk's reads before its writes;
       // writes land at or below their source index, so the next chunk's
       // reads (from index j0 + kThreads - 1 on) see what they should
-      const int pos = block_scan(keep ? 1 : 0, warp_sums, &tot);
+      const int pos = jt::block_scan<kThreads>(keep ? 1 : 0, warp_sums, &tot);
       if (keep) D.put(nd + pos, e);
       nd += tot;
       __syncthreads();

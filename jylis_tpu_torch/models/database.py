@@ -4,8 +4,8 @@ The port of jylis_tpu/models/database.py for this slice (reference
 analog: database.pony:5-65): routes cmd[0] to the matching repo manager
 (case sensitive) and renders the data-type help for any other first
 word, exactly as the JAX node does for an unknown one. The repos here
-are TREG, TLOG, GCOUNT, PNCOUNT and TENSOR, with their state on one
-torch device.
+are TREG, TLOG, GCOUNT, PNCOUNT, UJSON and TENSOR (the JAX registry's
+order), with their device state on one torch device.
 
 ``converge`` / ``converge_async`` take one type's anti-entropy delta
 batch — the entry the cluster calls.
@@ -21,10 +21,14 @@ from .repo_counters import RepoGCOUNT, RepoPNCOUNT
 from .repo_tensor import RepoTENSOR
 from .repo_tlog import RepoTLOG
 from .repo_treg import RepoTREG
+from .repo_ujson import RepoUJSON
 
-# the served types, in the JAX package's registry order
-# (jylis_tpu/models/database.py:55-64; it is wire-positional there)
-DATA_REPO_CLASSES = (RepoTREG, RepoTLOG, RepoGCOUNT, RepoPNCOUNT, RepoTENSOR)
+# the served types TREG, TLOG, GCOUNT, PNCOUNT, UJSON and TENSOR, in the
+# JAX package's registry order (jylis_tpu/models/database.py:55-64; it is
+# wire-positional there); MAP and BCOUNT follow with their slice
+DATA_REPO_CLASSES = (
+    RepoTREG, RepoTLOG, RepoGCOUNT, RepoPNCOUNT, RepoUJSON, RepoTENSOR,
+)
 
 
 def resolve_device(device) -> torch.device:

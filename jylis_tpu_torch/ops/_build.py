@@ -28,7 +28,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "jylis_tpu_torch"
 SOURCES = (
     "counter_drain_dense", "counter_drain_sparse", "tensor_join_dense",
-    "treg_drain", "tensor_converge_batch", "tlog_drain",
+    "treg_drain", "tensor_converge_batch", "tlog_drain", "ujson_join",
+    "ujson_fold_flat",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

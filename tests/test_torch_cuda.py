@@ -11,7 +11,13 @@ NaN bits and what its wrapper refuses (D not a multiple of 4, unaligned
 planes); for the TLOG drains, narrow and wide rows, duplicates inside a
 delta and against the state, raised cutoffs, every kind of trim count,
 CLR at ts 2^64-1, both overflow rules, pads, and rows wider than shared
-memory holds (the kernel's device-scratch path). Integer lattices,
+memory holds (the kernel's device-scratch path); for the UJSON join
+and flat fold, narrow and wide rows (wide ones with seqs near 2^32 and
+columns past 2^31, so dots with bit 63 set), empty rows, pads, one dot
+under several payload ids (the flat fold's last-copy rule), version
+vectors at the u32 wrap, the epilogue in place and refitted, the
+broadcast with free rows, the tree's levels, and rows wider than shared
+memory. Integer lattices,
 so every comparison is exact. On a machine with a GPU (where JAX need
 not be installed, hence --noconftest):
 
@@ -23,6 +29,8 @@ import pytest
 import torch
 
 from jylis_tpu_torch.ops import gcount, planes, pncount, tensor, tlog, treg
+from jylis_tpu_torch.ops import ujson_device as udev
+from jylis_tpu_torch.ops import ujson_resident as ures
 from jylis_tpu_torch.utils.batching import pad_rows
 
 
@@ -447,6 +455,12 @@ def test_cpu_tensors_run_the_plain_versions():
     one = torch.ones((4, 1), dtype=torch.int64)
     tlog.drain_dense(ls, one, one, one[:, 0], ki, one[:2, 0])
     tlog.drain_sparse(ls, ki, one[:2], one[:2], one[:2, 0], one[:2, 0])
+    uj = (udev.join_rows.launches, ures.fold_flat.launches)
+    grid = _ujson_planes(np.random.default_rng(1), (2, 3), 4, 4, 4, 29, "cpu")
+    ures.fold_flat(grid, 29)
+    udev.join_rows(udev.DocBatch(*(p[:, 0] for p in grid)),
+                   udev.DocBatch(*(p[:, 1] for p in grid)), 29)
+    assert (udev.join_rows.launches, ures.fold_flat.launches) == uj
     assert (gcount.drain_dense.launches, pncount.drain_sparse.launches,
             tensor.join_dense.launches) == before[:3]
     assert (tensor.converge_batch.launches, treg.drain_dense.launches,
@@ -454,3 +468,172 @@ def test_cpu_tensors_run_the_plain_versions():
             tlog.drain_sparse.launches) == before[3:]
     assert ls.length.tolist() == [1, 1, 1, 1]
     assert st.counts.sum().item() == 32
+
+
+# ---- UJSON -------------------------------------------------------------------
+
+
+def _ujson_planes(rng, lead, l, c, r, shift, device, empty=()):
+    """Random DocBatch planes shaped lead + (width,): per row a random
+    share of sorted, duplicate-free dots (random payload ids) and cloud
+    entries, pads after; rows in ``empty`` hold nothing. Wide rows mix
+    seqs near 2^32 and columns past 2^31 (bit 63 set); a few vv entries
+    sit at the u32 wrap."""
+    n = int(np.prod(lead))
+    wide = shift == 32
+    dt = np.uint64 if wide else np.int64
+    pad = np.uint64(2**64 - 1) if wide else 0x7FFFFFFF
+
+    def row_plane(width):
+        col = rng.integers(0, r, (n, width)).astype(dt)
+        seq = rng.integers(1, 40, (n, width)).astype(dt)
+        if wide:
+            seq = np.where(rng.random((n, width)) < 0.2, dt(2**32 - 3) + seq % 3, seq)
+            col = np.where(rng.random((n, width)) < 0.05, dt(2**31) + col % 2, col)
+        v = (col << dt(shift)) | seq
+        keep = rng.random((n, width)) < rng.random((n, 1)) * 1.2
+        keep[list(empty)] = False
+        v = np.where(keep, v, pad)
+        v.sort(1)
+        v[:, 1:][v[:, 1:] == v[:, :-1]] = pad
+        v.sort(1)
+        return v.view(np.int64) if wide else v.astype(np.int32)
+
+    dots, cloud = row_plane(l), row_plane(c)
+    pad_t = -1 if wide else 0x7FFFFFFF
+    pay = np.where(dots != pad_t, rng.integers(0, 200, (n, l)), -1).astype(np.int32)
+    vv = rng.integers(0, 30, (n, r)).astype(np.uint32)
+    vv[rng.random((n, r)) < 0.03] = 0xFFFFFFFF
+    vv[list(empty)] = 0
+    out = (dots, pay, vv.view(np.int32), cloud)
+    return udev.DocBatch(*(torch.from_numpy(x.reshape(tuple(lead) + x.shape[1:])).to(device)
+                           for x in out))
+
+
+def _uj_equal(a, b):
+    return all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(a, b))
+
+
+UJ_SHIFT = {"narrow": lambda r: udev.narrow_shift(r), "wide": lambda r: 32}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["narrow", "wide"])
+@pytest.mark.parametrize("n,la,lb,ca,cb,r", [
+    (64, 8, 8, 4, 4, 8), (37, 16, 4, 8, 32, 12), (5, 300, 260, 64, 40, 4),
+    (3, 16384, 16384, 64, 64, 8),  # rows past shared memory: device scratch
+])
+def test_ujson_join_matches_plain(dev, layout, n, la, lb, ca, cb, r):
+    rng = np.random.default_rng(n + la + r)
+    shift = UJ_SHIFT[layout](r)
+    a = _ujson_planes(rng, (n,), la, ca, r, shift, dev, empty=[0])
+    b = _ujson_planes(rng, (n,), lb, cb, r, shift, dev, empty=[1 % n])
+    if la == 16384:
+        assert udev.join_work_bytes(4, la, lb, ca, cb, r) > udev.SMEM_LIMIT
+    for sort_output in (True, False):
+        before = udev.join_rows.launches
+        got = udev.join_rows(a, b, shift, sort_output=sort_output)
+        want = udev.join_rows_plain(a, b, shift, sort_output=sort_output)
+        torch.cuda.synchronize()
+        assert udev.join_rows.launches == before + 1
+        assert _uj_equal(got, want)
+    one = udev.DocBatch(*(p[:1] for p in b))  # the broadcast of one row
+    assert _uj_equal(udev.join_rows(a, one, shift), udev.join_rows_plain(a, one, shift))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["narrow", "wide"])
+@pytest.mark.parametrize("cap,n,l,c,lf,cf,r", [
+    (40, 16, 16, 8, 8, 8, 8), (9, 8, 64, 32, 128, 64, 16), (4, 4, 4, 4, 12000, 9000, 4),
+])
+def test_ujson_join_epilogue_matches_plain(dev, layout, cap, n, l, c, lf, cf, r):
+    """The subset join with the compaction + fit epilogue, written in
+    place (widths kept) and into refitted planes (grown and shrunk), pad
+    slots at identity row 0; then the broadcast with free rows."""
+    rng = np.random.default_rng(cap * n + lf)
+    shift = UJ_SHIFT[layout](r)
+    res = _ujson_planes(rng, (cap,), l, c, r, shift, dev, empty=[0])
+    live = min(n - 1, cap - 1)
+    folded = _ujson_planes(rng, (n,), lf, cf, r, shift, dev, empty=range(live, n))
+    idx = np.zeros(n, np.int32)
+    idx[:live] = rng.choice(np.arange(1, cap), live, replace=False)
+    idx = torch.from_numpy(idx).to(dev)
+    for out_w, out_c in ((l, c), (2 * l, c // 2), (l // 2, 4 * c)):
+        rk = udev.DocBatch(*(p.clone() for p in res))
+        rp = udev.DocBatch(*(p.clone() for p in res))
+        got = udev.join_rows(rk, folded, shift, a_idx=idx, finish=(out_w, out_c),
+                             out=ures.slice_widths(rk, out_w, out_c))
+        want = udev.join_rows_plain(rp, folded, shift, a_idx=idx, finish=(out_w, out_c),
+                                    out=ures.slice_widths(rp, out_w, out_c))
+        torch.cuda.synchronize()
+        assert _uj_equal(got, want)
+        if (out_w, out_c) == (l, c):
+            assert got.dots.data_ptr() == rk.dots.data_ptr()  # in place
+    occ = torch.from_numpy(rng.random(cap) < 0.7).to(dev)
+    occ[0] = False
+    one = udev.DocBatch(*(p[:1] for p in folded))
+    for fn in (udev.join_rows, udev.join_rows_plain):
+        r_ = udev.DocBatch(*(p.clone() for p in res))
+        out = fn(r_, one, shift, finish=(l, c), occupied=occ,
+                 out=ures.slice_widths(r_, l, c))
+        if fn is udev.join_rows:
+            got = out
+    assert _uj_equal(got, out)
+    assert not got.vv[~occ].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["narrow", "wide"])
+@pytest.mark.parametrize("k,d,w,c,r", [
+    (9, 1, 4, 4, 8), (40, 7, 4, 8, 8), (16, 64, 4, 4, 12), (3, 64, 8, 16, 4),
+    (2, 64, 512, 64, 8),  # past shared memory: device scratch
+])
+def test_ujson_fold_flat_matches_plain(dev, layout, k, d, w, c, r):
+    """Random delta stacks repeat dots across deltas under other payload
+    ids, so the last-copy rule decides; empty keys fold to identity."""
+    rng = np.random.default_rng(k * d + w)
+    shift = UJ_SHIFT[layout](r)
+    grid = _ujson_planes(rng, (k, d), w, c, r, shift, dev, empty=range(d))
+    if w == 512:
+        assert ures.flat_work_bytes(4, d, w, c, r) > udev.SMEM_LIMIT
+    before = ures.fold_flat.launches
+    got = ures.fold_flat(grid, shift)
+    want = ures.fold_flat_plain(grid, shift)
+    torch.cuda.synchronize()
+    assert ures.fold_flat.launches == before + 1
+    assert _uj_equal(got, want)
+    pad = udev.pad_of(grid.dots)
+    assert (got.dots[0] == pad).all() and (got.pay[0] == -1).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["narrow", "wide"])
+@pytest.mark.parametrize("k,d", [(4, 70), (2, 130)])
+def test_ujson_tree_fold_matches_plain(dev, layout, k, d):
+    """fold_segments' levels (one join launch each) against the same
+    levels in plain torch on the CPU."""
+    rng = np.random.default_rng(k * d)
+    shift = UJ_SHIFT[layout](8)
+    grid = _ujson_planes(rng, (k, d), 4, 4, 8, shift, dev)
+    before = udev.join_rows.launches
+    got = udev.fold_segments(grid, shift)
+    want = udev.fold_segments(udev.DocBatch(*(p.cpu() for p in grid)), shift)
+    assert udev.join_rows.launches > before
+    assert _uj_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_ujson_wrappers_reject_what_the_kernels_do_not_take(dev):
+    a = _ujson_planes(np.random.default_rng(2), (4,), 8, 4, 8, 28, dev)
+    with pytest.raises(ValueError):
+        udev.join_rows(a, a, 32)  # int32 dots at the wide shift
+    with pytest.raises(ValueError):
+        udev.join_rows(a, a, 28, a_idx=torch.zeros(4, dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError):
+        udev.join_rows(a, udev.DocBatch(*(p[:2] for p in a)), 28)
+    t = udev.DocBatch(a.dots.t().contiguous().t(), *a[1:])
+    with pytest.raises(ValueError):
+        udev.join_rows(t, a, 28)
+    g = udev.DocBatch(*(p[None] for p in a))
+    with pytest.raises(ValueError):
+        ures.fold_flat(g, 32)

@@ -159,7 +159,7 @@ def test_database_routes_counters_and_renders_help():
     r = tresp.Respond(out.extend)
     db.apply(r, [b"GCOUNT", b"INC", b"a", b"2"])
     db.apply(r, [b"GCOUNT", b"GET", b"a"])
-    db.apply(r, [b"UJSON", b"GET", b"a"])
+    db.apply(r, [b"MAP", b"GET", b"a"])
     db.apply(r, [b"PNCOUNT", b"INC", b"a"])
     text = bytes(out)
     assert text.startswith(b"+OK\r\n:2\r\n-BADCOMMAND (could not parse command)\n")

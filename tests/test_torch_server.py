@@ -6,8 +6,8 @@ goes over a real socket into the port's Server (state on the CPU), and
 command by command into a JAX ``Database(identity, engine="python")``
 through the JAX package's real ``Respond`` writer. The two reply streams
 must be equal. A separate test runs ``python -m jylis_tpu_torch`` as a
-real process, and another serves TREG, TENSOR and TLOG in a process
-where ``import jax`` fails.
+real process, and another serves TREG, TENSOR, TLOG and UJSON in a
+process where ``import jax`` fails.
 """
 
 import asyncio
@@ -26,11 +26,13 @@ import pytest
 from jylis_tpu.cluster import codec as jax_codec
 from jylis_tpu.models.database import Database as JaxDatabase
 from jylis_tpu.ops.tensor_host import Tensor as JaxTensor
+from jylis_tpu.ops.ujson_host import UJSON as JaxUJSON
 from jylis_tpu.server.resp import Respond as JaxRespond
 from jylis_tpu.server.resp import RespParser as JaxRespParser
 from jylis_tpu.utils.address import Address as JaxAddress
 from jylis_tpu_torch.cluster import codec
 from jylis_tpu_torch.models.database import Database
+from jylis_tpu_torch.ops.ujson_host import UJSON
 from jylis_tpu_torch.server.server import Server
 from jylis_tpu_torch.utils.config import Config, config_from_cli
 
@@ -71,7 +73,12 @@ BURSTS = [
     + arr("TLOG", "INS", "l", "x", 5) + arr("TLOG", "INS", "l", "y", 5)
     + arr("TLOG", "INS", "l", "x", 5) + arr("TLOG", "INS", "l", "z", 9)
     + arr("TLOG", "GET", "l") + arr("TLOG", "SIZE", "l")
-    + arr("TLOG", "GET", "nope"),
+    + arr("TLOG", "GET", "nope")
+    + arr("UJSON", "SET", "u", "a", '{"x": 1, "y": [1, 2]}') + arr("UJSON", "GET", "u")
+    + arr("UJSON", "INS", "u", "tags", '"t1"') + arr("UJSON", "INS", "u", "tags", 5)
+    + arr("UJSON", "GET", "u", "tags") + arr("UJSON", "GET", "u", "a", "y")
+    + arr("UJSON", "RM", "u", "tags", 5) + arr("UJSON", "GET", "u")
+    + arr("UJSON", "GET", "nope") + arr("UJSON", "CLR", "nope"),
     arr("GCOUNT", "GET", "a") + arr("GCOUNT", "GET", "zz")
     + arr("PNCOUNT", "GET", "p") + arr("GCOUNT", "INC", "a", BIG)
     + arr("GCOUNT", "GET", "a")
@@ -89,7 +96,13 @@ BURSTS = [
     + arr("TLOG", "GET", "l") + arr("TLOG", "INS", "l", "w", BIG)
     + arr("TLOG", "TRIMAT", "l2", 3) + arr("TLOG", "GET", "l2")
     + arr("TLOG", "SIZE", "l2") + arr("TLOG", "CLR", "l")
-    + arr("TLOG", "GET", "l") + arr("TLOG", "CUTOFF", "l"),
+    + arr("TLOG", "GET", "l") + arr("TLOG", "CUTOFF", "l")
+    + arr("UJSON", "GET", "u") + arr("UJSON", "GET", "u2")
+    + arr("UJSON", "SET", "u2", "b", "true") + arr("UJSON", "GET", "u2")
+    + arr("UJSON", "CLR", "u", "a") + arr("UJSON", "GET", "u")
+    + arr("UJSON", "INS", "u2", "tags", "null") + arr("UJSON", "GET", "u2", "tags")
+    + arr("UJSON", "GET", "fan", "tags") + arr("UJSON", "RM", "fan", "tags", 7)
+    + arr("UJSON", "GET", "fan"),
     arr("GCOUNT") + arr("GCOUNT", "FOO", "x") + arr("GCOUNT", "INC", "a")
     + arr("PNCOUNT", "INC", "p", "-3") + arr("PNCOUNT", "DEC", "p", BIG + 1)
     + arr("PNCOUNT", "INC", "p", "1x") + arr("PNCOUNT", "GET")
@@ -100,14 +113,21 @@ BURSTS = [
     + arr("TENSOR", "SET", "t", "FOO", 1, vec(1)) + arr("TENSOR", "GET")
     + arr("TENSOR", "MRG", "t") + arr("TLOG", "INS", "l", "x")
     + arr("TLOG", "TRIM", "l", "-1") + arr("TLOG", "GET", "l", "x")
-    + arr("TLOG", "FOO") + arr("TLOG"),
+    + arr("TLOG", "FOO") + arr("TLOG") + arr("UJSON") + arr("UJSON", "GET")
+    + arr("UJSON", "SET", "u") + arr("UJSON", "INS", "u", "tags", "{bad")
+    + arr("UJSON", "RM", "u", "tags", "[1]") + arr("UJSON", "FOO", "u"),
     b"".join(arr("PNCOUNT", "GET", "k%d" % i) for i in range(40))
     + b"".join(arr("GCOUNT", "GET", "k%d" % i) for i in range(40))
     + b"".join(arr("TREG", "GET", "k%d" % i) for i in range(40))
     + b"".join(arr("TENSOR", "GET", "k%d" % i) for i in range(40))
     + b"".join(arr("TLOG", "GET", "k%d" % i) for i in range(40))
-    + b"".join(arr("TLOG", "CUTOFF", "k%d" % i) for i in range(40)),
+    + b"".join(arr("TLOG", "CUTOFF", "k%d" % i) for i in range(40))
+    + b"".join(arr("UJSON", "GET", "k%d" % i) for i in range(40)),
 ]
+# UJSON deltas as (writer replica id, ops) specs; each package builds its
+# own documents from them (ujson_delta). FAN's 300 deltas to one key
+# reach DEVICE_FANIN_MIN: the port folds them in the resident store
+FAN = [(300 + i % 3, [("ins", ("tags",), str(i))]) for i in range(300)]
 DELTAS = [
     [("GCOUNT", [(b"a", {7: 3, 8: BIG})]),
      ("PNCOUNT", [(b"p", ({7: 100}, {8: BIG}))]),
@@ -115,7 +135,10 @@ DELTAS = [
      ("TENSOR", [(b"v", tensor_blob(3, 2, contribs={9: (2, vec(8, 8))})),
                  (b"m", tensor_blob(1, 3, vec(0.0, 1, 7)))]),
      ("TLOG", [(b"l", ([(b"x", 5), (b"q", 7), (b"q", 7)], 0)),
-               (b"l2", ([(b"old", 1), (b"new", 1 << 40)], 0))])],
+               (b"l2", ([(b"old", 1), (b"new", 1 << 40)], 0))]),
+     ("UJSON", [(b"u", (77, [("set", ("a",), '{"z": 3}'), ("ins", ("tags",), '"r"')])),
+                (b"u2", (78, [("ins", ("tags",), "1"), ("ins", ("tags",), "2")])),
+                *((b"fan", spec) for spec in FAN)])],
     [],
     [("GCOUNT", [(b"k%d" % i, {7: i, 9: BIG - i}) for i in range(40)]),
      ("PNCOUNT", [(b"k%d" % i, ({7: i * 3}, {9: BIG - i})) for i in range(40)]),
@@ -127,13 +150,35 @@ DELTAS = [
              contribs={i: (i, vec(i, i))} if i % 3 == 2 else None))
          for i in range(40)]),
      ("TLOG", [(b"k%d" % i, ([(b"e%d" % (i % 3), i), (b"f", i + 1)], i // 2))
-               for i in range(40)])],
+               for i in range(40)]),
+     ("UJSON", [(b"k%d" % i, (90 + i % 4, [("set", (), '{"n": %d}' % i)]))
+                for i in range(40)])],
 ]
+
+
+def ujson_delta(cls, writers, key, spec):
+    """One package's UJSON delta from a (replica, ops) spec: the key's
+    writer document for that replica (kept in ``writers``, so a stream
+    of specs mints successive dots) runs the ops and accumulates their
+    delta."""
+    replica, ops = spec
+    writer, delta = writers.setdefault((key, replica), cls()), cls()
+    for op, path, value in ops:
+        if op == "set":
+            writer.set_doc(replica, path, value, delta)
+        else:
+            writer.ins(replica, path, value, delta)
+    return delta
 
 
 def decoded(name, batch, codec_mod):
     """A delta batch as one package's objects: TENSOR deltas travel as
-    codec blobs and are decoded by that package's codec."""
+    codec blobs and are decoded by that package's codec; UJSON deltas are
+    built from their specs with that package's document class."""
+    if name == "UJSON":
+        cls = JaxUJSON if codec_mod is jax_codec else UJSON
+        writers = {}
+        return [(k, ujson_delta(cls, writers, k, spec)) for k, spec in batch]
     if name != "TENSOR":
         return batch
     return [(k, codec_mod.decode_delta("TENSOR", b)) for k, b in batch]
@@ -174,6 +219,8 @@ def test_reply_stream_matches_jax_database():
                 )
                 for name, batch in DELTAS[i] if i < len(DELTAS) else ():
                     await db.converge_async(name, decoded(name, batch, codec))
+            # FAN's fan-in went through the resident store's fold
+            assert db.manager("UJSON").repo._res is not None
         finally:
             writer.close()
             await server.dispose()
@@ -186,7 +233,9 @@ def test_reply_stream_matches_jax_database():
     for reply in (b"*2\r\n$5\r\nhellp\r\n:5", b"*3\r\n$3\r\nLWW",
                   b"*3\r\n*2\r\n$1\r\nz\r\n:9\r\n*2\r\n$1\r\ny\r\n:5",
                   b"*3\r\n$3\r\nAVG", b"-BADSHAPE (key holds LWW/3, write is MAX/3)",
-                  b"-BADPAYLOAD (MRG", b"-BADPAYLOAD (empty"):
+                  b"-BADPAYLOAD (MRG", b"-BADPAYLOAD (empty",
+                  b'$23\r\n{"a":{"x":1,"y":[1,2]}}\r\n', b'{"n":39}',
+                  b"UJSON SET key [key...] ujson"):
         assert reply in text, reply
 
 
@@ -291,9 +340,9 @@ JAX_FREE_NODE = textwrap.dedent("""
 
 
 def test_serves_treg_and_tensor_without_jax():
-    """The port serves TREG, TENSOR and TLOG in a process where ``import
-    jax`` raises, and loads nothing of ``jylis_tpu``; its replies equal
-    the JAX database's."""
+    """The port serves TREG, TENSOR, TLOG and UJSON in a process where
+    ``import jax`` raises, and loads nothing of ``jylis_tpu``; its replies
+    equal the JAX database's."""
     request = (
         arr("TREG", "SET", "r", "v1", 3) + arr("TREG", "SET", "r", "v0", 3)
         + arr("TREG", "GET", "r") + arr("TENSOR", "SET", "t", "MAX", 0, vec(1, 2))
@@ -303,6 +352,9 @@ def test_serves_treg_and_tensor_without_jax():
         + arr("TLOG", "INS", "l", "a", 4) + arr("TLOG", "TRIM", "l", 1)
         + arr("TLOG", "INS", "l", "c", 1 << 40) + arr("TLOG", "GET", "l")
         + arr("TLOG", "SIZE", "l") + arr("TLOG", "CUTOFF", "l")
+        + arr("UJSON", "SET", "u", "a", '{"b": [1, "x"]}') + arr("UJSON", "INS", "u", "a", "c", 2)
+        + arr("UJSON", "RM", "u", "a", "b", 1) + arr("UJSON", "GET", "u")
+        + arr("UJSON", "CLR", "u", "a", "c") + arr("UJSON", "GET", "u", "a")
     )
     db = JaxDatabase(identity=1, engine="python")
     out = bytearray()
@@ -319,6 +371,6 @@ def test_serves_treg_and_tensor_without_jax():
     assert proc.returncode == 0, proc.stderr.decode()
     assert proc.stdout == bytes(out)
     assert b"*2\r\n$2\r\nv1\r\n:3" in proc.stdout
-    assert proc.stdout.endswith(
-        b"*2\r\n*2\r\n$1\r\nc\r\n:1099511627776\r\n*2\r\n$1\r\nb\r\n:6\r\n"
-        b":2\r\n:6\r\n")
+    assert (b"*2\r\n*2\r\n$1\r\nc\r\n:1099511627776\r\n*2\r\n$1\r\nb\r\n:6\r\n"
+            b":2\r\n:6\r\n") in proc.stdout
+    assert proc.stdout.endswith(b'$21\r\n{"a":{"b":"x","c":2}}\r\n+OK\r\n$9\r\n{"b":"x"}\r\n')

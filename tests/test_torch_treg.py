@@ -333,8 +333,8 @@ def test_interner_compaction_matches_jax(monkeypatch):
 
 def test_set_threshold_drain_and_database_routing():
     """A SET that fills the pending window drains inline (sync path) in
-    both packages; the Database serves TREG, TLOG and TENSOR beside the
-    counters, in the JAX registry's order."""
+    both packages; the Database serves TREG, TLOG, UJSON and TENSOR beside
+    the counters, in the JAX registry's order."""
     from jylis_tpu_torch.models import database as tdb
 
     jrepo = jrt.RepoTREG(1, mesh=None, engine="python")
@@ -361,4 +361,4 @@ def test_set_threshold_drain_and_database_routing():
         b"TREG SET key value timestamp\r\n"
     )
     assert [m.decode() for m in db._map] == [
-        "TREG", "TLOG", "GCOUNT", "PNCOUNT", "TENSOR"]
+        "TREG", "TLOG", "GCOUNT", "PNCOUNT", "UJSON", "TENSOR"]

@@ -1,0 +1,363 @@
+"""Parity of the port's UJSON device ops (jylis_tpu_torch/ops/ujson_device.py
+and the fused drains of ops/ujson_resident.py) with the JAX package's, on
+the CPU.
+
+The same documents, made from a numpy seed with the JAX tests' own
+``random_mutations`` (tests/test_ops_ujson_device.py), are encoded once
+by the host encoder; the planes go through the JAX functions and through
+the port's plain PyTorch versions (the path every CPU tensor takes), and
+every output plane must be equal bit for bit through convert.py
+(tolerance 0: dots, payload ids, version vectors and clouds, pads
+included), narrow (int32, shift 28) and wide (u64, shift 32). The flat
+fold runs through ``fold_join_subset`` at D <= 64 and the pairwise tree
+at D > 64. Hand-made planes hold one dot under two payload ids (the
+flat fold keeps the last copy in flat order, the tree the first) and
+u32 version vectors at the wrap.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from jylis_tpu.ops import ujson_device as jdev
+from jylis_tpu.ops import ujson_resident as jres
+from jylis_tpu.ops.ujson_host import UJSON as JaxUJSON
+from jylis_tpu_torch import convert
+from jylis_tpu_torch.ops import ujson_device as tdev
+from jylis_tpu_torch.ops import ujson_resident as tres
+from jylis_tpu_torch.ops.ujson_host import UJSON
+from test_ops_ujson_device import PayInterner, random_mutations
+
+N_REP = 8
+SHIFTS = [jdev.narrow_shift(N_REP), 32]
+SHIFT_IDS = ["narrow", "wide"]
+
+
+def docs_np(seed: int, n: int, shift: int, n_ops: int = 6, pay=None, rid_cols=None):
+    """n random documents from writers 1..5, encoded by the JAX encoder
+    (host planes in the JAX dtypes)."""
+    rng = np.random.default_rng(seed)
+    docs = []
+    for i in range(n):
+        d = JaxUJSON()
+        random_mutations(rng, d, replica=i % 5 + 1, n_ops=n_ops)
+        docs.append(d)
+    pay = PayInterner() if pay is None else pay
+    rid_cols = {} if rid_cols is None else rid_cols
+    return jdev._encode_docs_np(docs, rid_cols, pay, N_REP, shift)
+
+
+def delta_stacks(seed: int, k: int, d: int, shift: int, pad_keys: int = 0):
+    """A (k + pad_keys, d, W) grid of delta documents: each key's writers
+    mutate a shared document and ship each step as a delta; the pad keys'
+    segments are identity documents."""
+    rng = np.random.default_rng(seed)
+    flat = []
+    for key in range(k):
+        writer = JaxUJSON()
+        random_mutations(rng, writer, replica=9, n_ops=3)
+        for j in range(d):
+            delta = JaxUJSON()
+            random_mutations(rng, writer, replica=1 + (key + j) % 7, n_ops=1, delta=delta)
+            flat.append(delta)
+    flat += [JaxUJSON()] * (pad_keys * d)
+    b = jdev._encode_docs_np(flat, {}, PayInterner(), N_REP, shift)
+    return jdev.DocBatch(*(p.reshape((k + pad_keys, d) + p.shape[1:]) for p in b))
+
+
+def jx(b):
+    return jdev.DocBatch(*(jnp.asarray(p) for p in b))
+
+
+def pt(b):
+    return convert.docbatch_from_jax(*b, device="cpu")
+
+
+def rows(b, sl):
+    return type(b)(*(p[sl] for p in b))
+
+
+def assert_same(port, jax_out):
+    got = convert.docbatch_to_jax(port)
+    want = tuple(np.asarray(p) for p in jax_out)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert np.array_equal(g, w)
+
+
+@pytest.mark.parametrize("shift", SHIFTS, ids=SHIFT_IDS)
+def test_encode_decode_and_convert_match_jax(shift):
+    rng = np.random.default_rng(5)
+    docs = []
+    for i in range(12):
+        d = UJSON()
+        random_mutations(rng, d, replica=i % 4 + 1, n_ops=7)
+        docs.append(d)
+    jpay, tpay = PayInterner(), PayInterner()
+    jcols, tcols = {}, {}
+    want = jdev._encode_docs_np(docs, jcols, jpay, N_REP, shift)
+    got = tdev._encode_docs_np(docs, tcols, tpay, N_REP, shift)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and np.array_equal(g, w)
+    assert jcols == tcols and jpay.rev == tpay.rev
+    batch = tdev.encode_docs(docs, dict(tcols), PayInterner(), N_REP, shift, device="cpu")
+    assert_same(batch, want)
+    assert np.shares_memory(convert.docbatch_to_jax(batch)[0], want[0]) is False
+    cols_rid = {c: r for r, c in tcols.items()}
+    mine = tdev.decode_batch(batch, cols_rid, tpay.lookup, shift=shift)
+    theirs = jdev.decode_batch(jx(want), cols_rid, jpay.lookup, shift=shift)
+    assert [d.render() for d in mine] == [d.render() for d in theirs]
+    assert [(d.entries, d.ctx.vv, d.ctx.cloud) for d in mine] == [
+        (d.entries, d.ctx.vv, d.ctx.cloud) for d in theirs]
+    assert tdev.plan_shift(docs, N_REP) == jdev.plan_shift(docs, N_REP)
+    assert_same(tdev.compact(batch), jdev.compact(jx(want)))
+
+
+@pytest.mark.parametrize("big_seq", [False, True], ids=["fits", "overflows"])
+def test_auto_layout_policies_match_jax(big_seq):
+    """Narrow first, u64/32 when a seq does not fit (or prefer=32), for
+    one list, several lists under one layout, and key groups."""
+    rng = np.random.default_rng(7 + big_seq)
+    docs = []
+    for i in range(6):
+        d = UJSON()
+        random_mutations(rng, d, replica=i + 1, n_ops=5)
+        docs.append(d)
+    if big_seq:
+        docs[3].ctx.vv[9] = (1 << 28) + 1
+    groups = [docs[:2], docs[2:5], [], docs[5:]]
+    for prefer in (None, 32):
+        want, jshift = jdev.encode_docs_auto(docs, {}, PayInterner(), N_REP, prefer=prefer)
+        got, tshift = tdev.encode_docs_auto(docs, {}, PayInterner(), N_REP, prefer=prefer,
+                                            device="cpu")
+        assert tshift == jshift == (32 if big_seq or prefer else 28)
+        assert_same(got, want)
+        want, jshift = jdev.encode_doc_lists_auto([docs[:3], docs[3:]], {}, PayInterner(),
+                                                  N_REP, prefer=prefer)
+        got, tshift = tdev.encode_doc_lists_auto([docs[:3], docs[3:]], {}, PayInterner(),
+                                                 N_REP, prefer=prefer, device="cpu")
+        assert tshift == jshift
+        for g, w in zip(got, want):
+            assert_same(g, w)
+        want, jshift = jdev.encode_doc_groups_auto(groups, {}, PayInterner(), N_REP,
+                                                   prefer=prefer)
+        got, tshift = tdev.encode_doc_groups_auto(groups, {}, PayInterner(), N_REP,
+                                                  prefer=prefer, device="cpu")
+        assert tshift == jshift
+        assert_same(got, want)
+
+
+@pytest.mark.parametrize("sort_output", [True, False], ids=["sorted", "unsorted"])
+@pytest.mark.parametrize("shift", SHIFTS, ids=SHIFT_IDS)
+def test_join_batch_matches_jax(shift, sort_output):
+    b = docs_np(11, 24, shift)
+    a_np, b_np = rows(b, slice(0, 12)), rows(b, slice(12, 24))
+    before = tdev.join_rows.launches
+    got = tdev.join_batch(pt(a_np), pt(b_np), shift=shift, sort_output=sort_output)
+    assert tdev.join_rows.launches == before  # CPU tensors: the plain version
+    assert_same(got, jdev.join_batch(jx(a_np), jx(b_np), shift=shift,
+                                     sort_output=sort_output))
+
+
+@pytest.mark.parametrize("n", [1, 2, 5, 8, 13, 70])
+@pytest.mark.parametrize("shift", SHIFTS, ids=SHIFT_IDS)
+def test_fold_deltas_matches_jax(shift, n):
+    g = delta_stacks(20 + n, 1, n, shift)
+    flat = rows(g, 0)
+    assert_same(tdev.fold_deltas(pt(flat), shift), jdev.fold_deltas(jx(flat), shift=shift))
+
+
+@pytest.mark.parametrize("k,d", [(4, 3), (3, 9), (2, 70)])
+@pytest.mark.parametrize("shift", SHIFTS, ids=SHIFT_IDS)
+def test_fold_segments_matches_jax(shift, k, d):
+    g = delta_stacks(30 + d, k, d, shift)
+    assert_same(tdev.fold_segments(pt(g), shift), jdev.fold_segments(jx(g), shift=shift))
+
+
+@pytest.mark.parametrize("shift", SHIFTS, ids=SHIFT_IDS)
+def test_broadcast_joins_match_jax(shift):
+    reps = docs_np(41, 6, shift)
+    g = delta_stacks(42, 1, 11, shift)
+    one = jdev.fold_deltas(jx(rows(g, 0)), shift=shift)
+    for sort_output in (True, False):
+        assert_same(
+            tdev.broadcast_join(pt(reps), pt([np.asarray(p) for p in one]), shift, sort_output),
+            jdev.broadcast_join(jx(reps), one, shift=shift, sort_output=sort_output))
+        assert_same(
+            tdev.fold_and_broadcast(pt(reps), pt(rows(g, 0)), shift, sort_output),
+            jdev.fold_and_broadcast(jx(reps), jx(rows(g, 0)), shift=shift,
+                                    sort_output=sort_output))
+
+
+def resident_np(seed: int, cap: int, shift: int):
+    """A resident batch: identity row 0, documents in rows 1..cap-1."""
+    b = docs_np(seed, cap - 1, shift, n_ops=8)
+    ident = jdev._encode_docs_np([JaxUJSON()], {}, PayInterner(), N_REP, shift)
+    ident = jres._pad_planes_np(ident, b.dots.shape[1], b.cloud.shape[1])
+    return jdev.DocBatch(*(np.concatenate([x, y]) for x, y in zip(ident, b)))
+
+
+@pytest.mark.parametrize("d", [1, 5, 64, 65, 130], ids=lambda d: f"D{d}")
+@pytest.mark.parametrize("shift", SHIFTS, ids=SHIFT_IDS)
+def test_fold_join_subset_matches_jax(shift, d):
+    """The flat rule at D <= 64 and the tree above it, joined into the
+    gathered resident rows with the epilogue, at widths that grow, keep
+    and shrink the planes; padded slots point at identity row 0 with
+    identity segments."""
+    res = resident_np(50 + d, 10, shift)
+    grid = delta_stacks(60 + d, 5, d, shift, pad_keys=3)
+    idx = np.array([3, 7, 1, 9, 4, 0, 0, 0], np.int32)
+    lw = res.dots.shape[1]
+    lc = res.cloud.shape[1]
+    for out_w, out_c in ((lw, lc), (4 * lw, 2 * lc), (64, 64)):
+        j_out, j_live = jres.fold_join_subset(jx(res), jx(grid), jnp.asarray(idx),
+                                              shift=shift, out_w=out_w, out_c=out_c)
+        port_res = pt(res)
+        t_out, t_live = tres.fold_join_subset(port_res, pt(grid), torch.from_numpy(idx),
+                                              shift=shift, out_w=out_w, out_c=out_c)
+        assert_same(t_out, j_out)
+        assert t_live.dtype == torch.int32
+        assert np.array_equal(t_live.numpy(), np.asarray(j_live))
+        if (out_w, out_c) == (lw, lc):  # the widths held: joined in place
+            assert t_out.dots.data_ptr() == port_res.dots.data_ptr()
+
+
+@pytest.mark.parametrize("d", [7, 64, 100], ids=lambda d: f"D{d}")
+@pytest.mark.parametrize("shift", SHIFTS, ids=SHIFT_IDS)
+def test_fold_broadcast_rows_matches_jax(shift, d):
+    res = resident_np(70 + d, 8, shift)
+    deltas = rows(delta_stacks(80 + d, 1, d, shift), 0)
+    occ = np.array([False, True, True, False, True, True, True, False])
+    lw, lc = res.dots.shape[1], res.cloud.shape[1]
+    for out_w, out_c in ((lw, lc), (2 * lw, 4 * lc)):
+        j_out, j_live = jres.fold_broadcast_rows(jx(res), jx(deltas), jnp.asarray(occ),
+                                                 shift=shift, out_w=out_w, out_c=out_c)
+        t_out, t_live = tres.fold_broadcast_rows(pt(res), pt(deltas), torch.from_numpy(occ),
+                                                 shift=shift, out_w=out_w, out_c=out_c)
+        assert_same(t_out, j_out)
+        assert np.array_equal(t_live.numpy(), np.asarray(j_live))
+
+
+def test_duplicated_dot_tie_break_matches_jax():
+    """One dot under two payload ids in two deltas of one key: the flat
+    fold keeps the LAST copy in flat (delta, slot) order, the tree the
+    FIRST (add_b excludes b-dots a holds); both held to JAX, narrow and
+    wide, through fold_join_subset, fold_segments and join_batch."""
+    for shift in SHIFTS:
+        dt = np.int32 if shift < 32 else np.uint64
+        pad = jdev._pad_of(dt)
+        dot = lambda col, seq: (col << shift) | seq  # noqa: E731
+        for d in (3, 66):
+            dots = np.full((1, d, 4), pad, dt)
+            pay = np.full((1, d, 4), -1, np.int32)
+            dots[0, 0, :2] = [dot(1, 5), dot(2, 3)]
+            pay[0, 0, :2] = [10, 11]
+            dots[0, d - 1, :2] = [dot(1, 5), dot(3, 9)]  # dot (1, 5) again
+            pay[0, d - 1, :2] = [20, 21]
+            vv = np.zeros((1, d, N_REP), np.uint32)
+            cloud = np.full((1, d, 4), pad, dt)
+            cloud[0, 1, 0] = dot(4, 2)
+            grid = jdev.DocBatch(dots, pay, vv, cloud)
+            assert_same(tdev.fold_segments(pt(grid), shift),
+                        jdev.fold_segments(jx(grid), shift=shift))
+            res = jdev.DocBatch(np.full((2, 4), pad, dt), np.full((2, 4), -1, np.int32),
+                                np.zeros((2, N_REP), np.uint32), np.full((2, 4), pad, dt))
+            idx = np.array([1], np.int32)
+            j_out, _ = jres.fold_join_subset(jx(res), jx(grid), jnp.asarray(idx),
+                                             shift=shift, out_w=8, out_c=4)
+            t_out, _ = tres.fold_join_subset(pt(res), pt(grid), torch.from_numpy(idx),
+                                             shift=shift, out_w=8, out_c=4)
+            assert_same(t_out, j_out)
+            kept = convert.docbatch_to_jax(t_out)[1][1, 0]
+            assert kept == (20 if d <= 64 else 10)
+        a = jdev.DocBatch(dots[0, :1], pay[0, :1], vv[0, :1], cloud[0, :1])
+        b = jdev.DocBatch(dots[0, -1:], pay[0, -1:], vv[0, -1:], cloud[0, -1:])
+        assert_same(tdev.join_batch(pt(a), pt(b), shift), jdev.join_batch(jx(a), jx(b), shift=shift))
+
+
+@pytest.mark.parametrize("shift", SHIFTS, ids=SHIFT_IDS)
+def test_compact_ctx_row_matches_jax(shift):
+    """Random sorted, duplicate-free clouds over a few columns against
+    version vectors that cover part of each column, touch it, or sit at
+    the u32 wrap (vv + rank + 1 wraps)."""
+    rng = np.random.default_rng(90 + shift)
+    dt = np.int32 if shift < 32 else np.uint64
+    pad = jdev._pad_of(dt)
+    n, c = 16, 24
+    vv = rng.integers(0, 12, (n, N_REP)).astype(np.uint32)
+    vv[0, :] = 0xFFFFFFFF
+    vv[1, 2] = 0xFFFFFFFE
+    cloud = np.full((n, c), pad, dt)
+    seq_hi = (1 << min(shift, 32)) - 2
+    for i in range(n):
+        vals = set()
+        for _ in range(int(rng.integers(0, c + 1))):
+            col = int(rng.integers(0, N_REP))
+            seq = int(rng.integers(1, 20)) if i > 1 else int(rng.integers(0, 3))
+            if i == 1 and col == 2:
+                seq = [0xFFFFFFFF, 0, 1][len(vals) % 3] if shift == 32 else int(
+                    rng.integers(1, seq_hi))
+            vals.add((col << shift) | seq)
+        vals = sorted(vals)[:c]
+        cloud[i, : len(vals)] = vals
+    want = jax.vmap(lambda v, cl: jres._compact_ctx_row(v, cl, shift))(
+        jnp.asarray(vv), jnp.asarray(cloud))
+    port = pt((np.zeros((n, 1), dt), np.zeros((n, 1), np.int32), vv, cloud))
+    got_vv, got_cloud = tdev.compact_ctx_rows(port.vv, port.cloud, shift)
+    assert np.array_equal(got_vv.numpy().view(np.uint32), np.asarray(want[0]))
+    assert np.array_equal(convert.docbatch_to_jax(
+        port._replace(cloud=got_cloud))[3], np.asarray(want[1]))
+    assert not np.array_equal(np.asarray(want[0]), vv)  # something absorbed
+
+
+@pytest.mark.parametrize("shift", SHIFTS, ids=SHIFT_IDS)
+def test_layout_helpers_match_jax(shift):
+    res = resident_np(95, 12, shift)
+    j, t = jx(res), pt(res)
+    assert_same(tres.slice_widths(t, 4, 8), jres.slice_widths(j, w=4, c=8))
+    assert_same(tres.slice_widths(t, 64, 32), jres.slice_widths(j, w=64, c=32))
+    assert np.array_equal(tres.live_widths(t).numpy(), np.asarray(jres.live_widths(j)))
+    mask = np.arange(12) % 3 == 1
+    assert_same(tres.clear_rows(t, torch.from_numpy(mask)), jres.clear_rows(j, jnp.asarray(mask)))
+    table = np.random.default_rng(1).permutation(int(res.pay.max()) + 1).astype(np.int32)
+    assert_same(tres.remap_pay(t, torch.from_numpy(table)), jres.remap_pay(j, jnp.asarray(table)))
+    assert_same(tres.grow_capacity(t, 24), jres.grow_capacity(j, rows=24))
+    assert_same(tres.grow_reps(t, 16), jres.grow_reps(j, n_rep=16))
+    new = docs_np(96, 3, shift)
+    new = jres._pad_planes_np(new, res.dots.shape[1], res.cloud.shape[1])
+    new = jdev.DocBatch(new.dots[:, : res.dots.shape[1]], new.pay[:, : res.dots.shape[1]],
+                        new.vv, new.cloud[:, : res.cloud.shape[1]])
+    idx = np.array([2, 5, 11], np.int32)
+    assert_same(tres.place_rows(pt(res), pt(new), torch.from_numpy(idx)),
+                jres.place_rows(j, jx(new), jnp.asarray(idx)))
+    if shift < 32:
+        assert_same(tres.widen_rows(t, shift), jres.widen_rows(j, old_shift=shift))
+        s2 = jdev.narrow_shift(32)
+        assert_same(tres.repack_narrow(t, shift, s2),
+                    jres.repack_narrow(j, old_shift=shift, new_shift=s2))
+
+
+def test_wide_pad_decodes_to_the_last_column():
+    """The wide pad is -1 as int64 bits: its column decodes logically to
+    0xFFFFFFFF and clamps to R-1 (JAX's u64 shift), never to -1, and it
+    sorts after every dot."""
+    x = torch.tensor([[-1, (3 << 32) | 7]], dtype=torch.int64)
+    col, seq = tdev._col_seq(x, 32, N_REP)
+    assert col.tolist() == [[N_REP - 1, 3]] and seq.tolist() == [[0xFFFFFFFF, 7]]
+    assert tdev._sort_rows(x)[0].tolist() == [[(3 << 32) | 7, -1]]
+
+
+def test_cpu_wrappers_take_the_plain_versions():
+    shift = SHIFTS[0]
+    g = pt(delta_stacks(99, 2, 4, shift))
+    before = (tdev.join_rows.launches, tres.fold_flat.launches)
+    for x, y in zip(tres.fold_flat(g, shift), tres.fold_flat_plain(g, shift)):
+        assert torch.equal(x, y)
+    flat = tdev.DocBatch(*(p[:, 0] for p in g))
+    for x, y in zip(tdev.join_rows(flat, flat, shift), tdev.join_rows_plain(flat, flat, shift)):
+        assert torch.equal(x, y)
+    assert (tdev.join_rows.launches, tres.fold_flat.launches) == before
+    with pytest.raises(ValueError):
+        tdev.join_rows(flat, flat, shift, a_idx=torch.zeros(2, dtype=torch.int32))
