@@ -89,15 +89,39 @@ build/jylis_tpu_torch/), then:
    trickles, local INS/SET/RM/CLR that demote resident keys and GETs
    over the socket, every reply and every key's state (dump_state,
    canonicalised) against references joined from each writer's own
-   final documents.
-Each node phase sets its kernels' launch counts to 0 before it and
-fails unless each launched.
+   final documents;
+12. the mesh phases, on a 4-shard mesh over the visible cards when
+   there are four or more, else the one card four times (the line
+   "mesh" says which): replica_join (the new kernel) at the north
+   star's 64 replicas x 1,048,576 keys and at S = 7, bit for bit
+   against its plain version and timed beside torch.amax over the same
+   bytes; the mesh routes of
+   the existing kernels at full width (PNCOUNT 1,048,576 x 64 with a
+   routed drain of B = 65,536 and its pad share, TREG 1,048,576 with
+   B = 65,536, TLOG config 4 wide with every row and its trim, UJSON's
+   row-aligned fold at the flat leg's shape and at D = 130), each
+   against its plain versions on the same per-shard slices and against
+   the single-device drain of the same batch;
+13. the mesh node phase: a Database on the mesh and a single-device
+   one fed the same RESP script and delta stream (config 2's counters,
+   100,000 TREG keys with prefix ties, 2,000 TLOG keys with trims,
+   UJSON's flat and tree rounds), every reply and each repo's
+   dump_state compared; no dense drain may launch on the mesh node;
+   then, with the counts set to 0 again, parallel.dryrun's
+   dryrun_multichip on the mesh's devices (the only path that runs
+   replica_join: no serving repo joins over a rep axis).
+Each node phase (and the dryrun) sets its kernels' launch counts to 0
+just before it, reads them just after, and fails unless each kernel of
+its path launched.
 
 Each step prints one JSON line (a kernel phase's "launches" counts that
 phase's compare and timing launches). The line before the last two is
-{"kernels": [...]} (per kernel: launches on its main path, error against
-the plain version, kernel / plain / bound times at the main path's
-shape, the counters' times at the north-star size under "north_star",
+{"kernels": [...]} (per kernel: "launches" on the single-device node
+phases, replica_join's on the dryrun; "mesh_launches" on the mesh
+node and "dryrun_launches" on the dryrun, each apart; error
+against the plain version, kernel / plain / bound times at the main
+path's shape, the mesh routes' times under "mesh_routes", the
+counters' times at the north-star size under "north_star",
 other shapes' times under "other_shapes"); then the card's name
 and power limit as nvidia-smi reports them; the last line is
 {"ok": true, "device": {...}}. Any failure raises, so the exit code is
@@ -1002,7 +1026,7 @@ class Node:
     """The port's RESP Server with its state on DEVICE, serving from an
     event loop in a thread, and a raw-socket client to it."""
 
-    def __init__(self, identity: int):
+    def __init__(self, identity: int, mesh=None):
         from jylis_tpu_torch.models.database import Database
         from jylis_tpu_torch.server.server import Server
         from jylis_tpu_torch.utils.config import Config
@@ -1010,7 +1034,7 @@ class Node:
         self.loop = asyncio.new_event_loop()
         self.thread = threading.Thread(target=self.loop.run_forever, daemon=True)
         self.thread.start()
-        self.db = Database(identity=identity, device=DEVICE)
+        self.db = Database(identity=identity, device=DEVICE, mesh=mesh)
         self.server = Server(Config(port="0"), self.db)
         self.run(self.server.start())
         self.client = Client(self.server.port)
@@ -2658,6 +2682,499 @@ def uj_flat_data(n_keys: int):
     return ws, groups
 
 
+# ---- mesh phases: the keys-sharded serving mesh ----------------------------------
+
+MESH_SHARDS = 4
+# replica_join at the north star's 64 replicas (BASELINE.json) x 1,048,576
+# keys: 512 MB in, the one joined row (8 MB) out
+RJ_S, RJ_K, RJ_ODD = 64, 1 << 20, 7
+# the aligned UJSON folds: the flat leg's shape (4,096 keys x 64 deltas,
+# W = 4, R = 32) and a tree-shaped one (D > 64)
+UJ_ALIGNED = ((4096, 64, 4, 32), (256, 130, 4, 8))
+# the mesh node phase: config 2's counters (100,000 keys x 8 replica ids),
+# 100,000 TREG keys with prefix ties, TLOG with trims, UJSON with a flat
+# round (512 keys x 64 deltas) and a tree round (16 keys x 512 deltas)
+MESH_KEYS, MESH_MORE = 100_000, 400
+MESH_TLOG_KEYS, MESH_TLOG_ROUNDS, MESH_TLOG_D = 2_000, 3, 16
+MESH_UJ_FLAT, MESH_UJ_TREE = 512, 16
+
+
+def mesh_devices(torch) -> list[str]:
+    """The 4-shard mesh's devices: the visible cards when there are 4 or
+    more, else the one card 4 times (DEVICE in a CPU rehearsal)."""
+    if DEVICE == "cuda" and torch.cuda.device_count() >= MESH_SHARDS:
+        return [f"cuda:{i}" for i in range(MESH_SHARDS)]
+    return [f"{DEVICE}:0" if DEVICE == "cuda" else DEVICE] * MESH_SHARDS
+
+
+def replica_join_phase(torch, card: str) -> dict:
+    """replica_join at S = 64 x K = 1,048,576 and at odd S = 7: values
+    >= 2^63, a column of 0s and one of 2^64-1; bit for bit against the
+    plain version and against numpy on the first 65,536 columns, then
+    timed beside torch.amax over the same bytes (the nearest one-call
+    library reduction: signed)."""
+    from jylis_tpu_torch.ops import planes
+    from jylis_tpu_torch.parallel import replica_join, replica_join_plain
+
+    rng = np.random.default_rng(SEED + 40)
+    rows = []
+    for s in (RJ_S, RJ_ODD):
+        x = u64_np(rng, (s, RJ_K))
+        x[:, 0] = 0
+        x[-1, 1] = U64
+        x[:, 2] = 1 << 63
+        xt = planes.to_tensor(x, DEVICE)
+        l0 = replica_join.launches
+        got = replica_join(xt)
+        want = replica_join_plain(xt)
+        torch.cuda.synchronize()
+        launched = replica_join.launches - l0
+        err = max_abs_err(torch, [(got, want)])
+        host = planes.to_u64_np(got[: 1 << 16])
+        if err or launched != on_card(1) or not (host == x[:, : 1 << 16].max(axis=0)).all():
+            raise AssertionError(f"replica_join S={s}: err {err}, "
+                                 f"launches {launched}")
+        ms = time_ms(torch, lambda: replica_join(xt))
+        dev_ms = device_ms(torch, lambda: replica_join(xt), "replica_join")
+        plain_ms = time_ms(torch, lambda: replica_join_plain(xt))
+        lib_ms = time_ms(torch, lambda: torch.amax(xt, dim=0))
+        nbytes = (s + 1) * RJ_K * 8
+        b_ms, b_by = bound(nbytes, s * RJ_K, card)
+        row = dict(shape=f"S={s} x K={RJ_K}", max_abs_err=err,
+                   kernel_ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                   library="torch.amax(x, dim=0): signed",
+                   bound_ms=b_ms, bound_by=b_by, bytes=nbytes, launches=launched)
+        emit({"phase": "replica_join", **row, "card": card})
+        rows.append(row)
+        del x, xt, got, want
+        torch.cuda.empty_cache()
+    return {"replica_join": dict(rows[0], other_shapes=rows[1:])}
+
+
+def on_card(n: int) -> int:
+    """The launches a step makes: ``n`` on the card, none in a CPU
+    rehearsal (CPU tensors take the plain versions)."""
+    return n if DEVICE == "cuda" else 0
+
+
+def _rand64(torch, shape, gen):
+    """Uniform int64 bit patterns made on the card (half of them >= 2^63
+    as u64)."""
+    return torch.randint(-(1 << 63), (1 << 63) - 1, shape, generator=gen,
+                         dtype=torch.int64, device=DEVICE)
+
+
+def _split_slots(lr, cols, n: int):
+    """Each routed host column cut into the shards' equal slot ranges."""
+    w = len(lr) // n
+    return [(lr[i * w:(i + 1) * w], [c[i * w:(i + 1) * w] for c in cols]) for i in range(n)]
+
+
+def _states_equal(torch, a, b) -> bool:
+    return all((x is None and y is None) or torch.equal(x.to(y.device), y)
+               for x, y in zip(a, b))
+
+
+def _route_row(torch, name, shape, mesh_fn, counter, card, pad_share, **extra):
+    """Time one routed mesh drain (CUDA events around the whole call:
+    the routed batch's copies to the card, one launch per shard, the
+    per-slot read-back) and its kernel's device time per launch."""
+    ms = time_ms(torch, mesh_fn)
+    dev = device_ms(torch, mesh_fn, counter, calls=3)
+    row = dict(shape=shape, mesh_call_ms=ms, device_ms_per_launch=dev,
+               pad_share=pad_share, shards=MESH_SHARDS, **extra)
+    emit({"phase": f"mesh_route {name}", **row, "card": card})
+    return row
+
+
+def mesh_route_phases(torch, card: str, devs) -> dict:
+    """The mesh routes of the existing kernels at full width on a 4-shard
+    mesh: each routed drain (one launch per shard) bit for bit against
+    the plain versions on the same per-shard slices, and against the
+    single-device drain of the unrouted batch on the same data (live
+    slots; pad slots read 0)."""
+    from jylis_tpu_torch import convert
+    from jylis_tpu_torch import parallel as par
+    from jylis_tpu_torch.ops import planes, pncount, tlog, treg
+    from jylis_tpu_torch.ops import ujson_device as udev, ujson_resident as ures
+
+    mesh = par.make_mesh(MESH_SHARDS, devices=devs)
+    rng = np.random.default_rng(SEED + 50)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 50)
+    out = {}
+
+    # PNCOUNT: K = 1,048,576 x R = 64 (1.07 GB of state), B = 65,536
+    k, r, b = K_COUNTER, R_COUNTER, B_LARGE
+    st = pncount.PNCountState(_rand64(torch, (k, r), gen), _rand64(torch, (k, r), gen))
+    shards = par.shard_state(mesh, st)
+    plain = [_clone(s) for s in shards]
+    rows = rng.choice(k, b, replace=False).astype(np.int64)
+    deltas = u64_np(rng, (b, 2 * r))
+    t0 = time.perf_counter()
+    lr, pay, slots = par.route_drain(rows, deltas, MESH_SHARDS, k // MESH_SHARDS)
+    route_s = time.perf_counter() - t0
+    live = slots >= 0
+    l0 = pncount.drain_sparse.launches
+    sums = par.drain_sharded_pn(mesh, shards, lr, pay)
+    launched = pncount.drain_sparse.launches - l0
+    psums = []
+    for p, (ki, (dp, dn)) in zip(plain, _split_slots(lr, (pay[:, :r], pay[:, r:]), MESH_SHARDS)):
+        dev = p.p.device
+        psums.append(pncount.drain_sparse_plain(
+            p, torch.from_numpy(ki).to(dev), planes.to_tensor(dp, dev),
+            planes.to_tensor(dn, dev)).cpu().numpy())
+    ki = torch.from_numpy(rows.astype(np.int32)).to(DEVICE)
+    dp, dn = planes.to_tensor(deltas[:, :r], DEVICE), planes.to_tensor(deltas[:, r:], DEVICE)
+    ssums = pncount.drain_sparse(st, ki, dp, dn).cpu().numpy()
+    pos = np.empty(k, np.int64)
+    pos[rows] = np.arange(b)
+    torch.cuda.synchronize()
+    if launched != on_card(MESH_SHARDS) or not np.array_equal(sums, np.concatenate(psums)) \
+            or not np.array_equal(sums[live], ssums[pos[slots[live]]]) or sums[~live].any():
+        raise AssertionError(f"PNCOUNT mesh route: launches {launched} or sums differ")
+    whole = par.gather_state(shards)
+    if not (_states_equal(torch, whole, st)
+            and _states_equal(torch, par.gather_state(plain), st)):
+        raise AssertionError("PNCOUNT mesh route: state != the single-device drain's")
+    del whole, plain
+    pad = 1 - b / len(slots)
+    out["counter_drain_sparse<2>"] = _route_row(
+        torch, "counter_drain_sparse<2>",
+        f"K={k} x R={r} over {MESH_SHARDS} shards, B={b} routed to {len(slots)} slots",
+        lambda: par.drain_sharded_pn(mesh, shards, lr, pay), "counter_drain_sparse", card,
+        pad, route_s=route_s, launches=launched,
+        single_device_ms=time_ms(torch, lambda: pncount.drain_sparse(st, ki, dp, dn)))
+    del st, shards, dp, dn, ki
+    torch.cuda.empty_cache()
+
+    # TREG: K = 1,048,576, B = 65,536, a third of the deltas tie their row
+    k = K_TREG
+    pl = treg_planes(rng, k)
+    st = treg.TRegState(*treg_tensors(torch, pl, DEVICE))
+    shards = par.shard_state(mesh, st)
+    plain = [_clone(s) for s in shards]
+    rows = rng.choice(k, b, replace=False).astype(np.int64)
+    d_ts, d_rank, d_vid = treg_deltas(rng, pl, rows)
+    payload = np.stack([d_ts, d_rank, d_vid.astype(np.int64).view(np.uint64)], 1)
+    lr, pay, slots = par.route_drain(rows, payload, MESH_SHARDS, k // MESH_SHARDS)
+    live = slots >= 0
+    l0 = treg.drain_sparse.launches
+    got = par.drain_sharded_treg(mesh, shards, lr, pay)
+    launched = treg.drain_sparse.launches - l0
+    bits = pay.view(np.int64)
+    pouts = []
+    for p, (kk, (a, c, v)) in zip(plain, _split_slots(
+            lr, (bits[:, 0], bits[:, 1], pay[:, 2].astype(np.int32)), MESH_SHARDS)):
+        dev = p.vid.device
+        o = treg.drain_sparse_plain(p, torch.from_numpy(kk).to(dev),
+                                    torch.from_numpy(a.copy()).to(dev),
+                                    torch.from_numpy(c.copy()).to(dev),
+                                    torch.from_numpy(v.copy()).to(dev))
+        pouts.append([x.cpu().numpy() for x in o])
+    sgl = treg.drain_sparse(st, torch.from_numpy(rows.astype(np.int32)).to(DEVICE),
+                            *treg_tensors(torch, (d_ts, d_rank, d_vid), DEVICE))
+    sgl = [x.cpu().numpy() for x in sgl]
+    pos = np.empty(k, np.int64)
+    pos[rows] = np.arange(b)
+    ok = launched == on_card(MESH_SHARDS)
+    for g, pp, s in zip(got, zip(*pouts), sgl):
+        ok = ok and np.array_equal(g, np.concatenate(pp))
+        ok = ok and np.array_equal(g[live], s[pos[slots[live]]])
+    ties = int(got[0][live].sum())
+    if not ok or not ties:
+        raise AssertionError(
+            f"TREG mesh route: launches {launched}, ties {ties}, or outputs differ")
+    if not (_states_equal(torch, par.gather_state(shards), st)
+            and _states_equal(torch, par.gather_state(plain), st)):
+        raise AssertionError("TREG mesh route: state != the single-device drain's")
+    del plain
+    out["treg_drain_sparse"] = _route_row(
+        torch, "treg_drain_sparse",
+        f"K={k} over {MESH_SHARDS} shards, B={b} routed to {len(slots)} slots",
+        lambda: par.drain_sharded_treg(mesh, shards, lr, pay), "treg_drain_sparse", card,
+        1 - b / len(slots), launches=launched, ties=ties)
+    del st, shards
+    torch.cuda.empty_cache()
+
+    # TLOG: config 4, wide (K = 16,384, L = 1,024, Ld = 128), every row
+    # routed with its trim count; some rows near L flag overflow
+    k, L, ld = K_TLOG, L_TLOG, LD_SPARSE
+    lens = rng.integers(0, L // 2, k)
+    near = rng.random(k) < 0.04
+    lens[near] = rng.integers(L - 40, L + 1, int(near.sum()))
+    tpl, lens32, cut, ts, vid = tlog_rows_np(rng, k, L, lens, True)
+    st = convert.tlog_from_jax(*tpl, lens32, cut, device=DEVICE)
+    shards = par.shard_state(mesh, st)
+    plain = [_clone(s) for s in shards]
+    rows = rng.permutation(k).astype(np.int64)
+    d_ts, d_vid, d_cut = tlog_delta_np(rng, ts, vid, lens, rows, ld)
+    counts = tlog_counts_np(rng, k)
+    payload = np.concatenate([d_ts, d_vid.view(np.uint64), d_cut[:, None],
+                              counts.view(np.uint64)[:, None]], 1)
+    lr, pay, slots = par.route_drain(rows, payload, MESH_SHARDS, k // MESH_SHARDS)
+    live = slots >= 0
+    l0 = tlog.drain_sparse.launches
+    got = par.drain_sharded_tlog(mesh, shards, lr, pay, ld)
+    launched = tlog.drain_sparse.launches - l0
+    bits = pay.view(np.int64)
+    pouts = []
+    for p, (kk, cols) in zip(plain, _split_slots(
+            lr, (bits[:, :ld], bits[:, ld:2 * ld], bits[:, 2 * ld], bits[:, 2 * ld + 1]),
+            MESH_SHARDS)):
+        dev = p.ntl.device
+        o = tlog.drain_sparse_plain(p, torch.from_numpy(kk).to(dev),
+                                    *(torch.from_numpy(np.ascontiguousarray(c)).to(dev)
+                                      for c in cols))
+        pouts.append([x.cpu().numpy() for x in o])
+    sgl = tlog.drain_sparse(
+        st, torch.from_numpy(rows.astype(np.int32)).to(DEVICE),
+        *(torch.from_numpy(np.ascontiguousarray(c)).to(DEVICE) for c in (
+            d_ts.view(np.int64), d_vid, d_cut.view(np.int64), counts)))
+    sgl = [x.cpu().numpy() for x in sgl]
+    pos = np.empty(k, np.int64)
+    pos[rows] = np.arange(k)
+    ok = launched == on_card(MESH_SHARDS)
+    for g, pp, s in zip(got, zip(*pouts), sgl):
+        ok = ok and np.array_equal(g, np.concatenate(pp))
+        ok = ok and np.array_equal(g[live], s[pos[slots[live]]])
+    flagged = int(got[0][live].sum())
+    if not ok or not flagged:
+        raise AssertionError(f"TLOG mesh route: launches {launched}, flagged {flagged}, "
+                             "or outputs differ")
+    if not (_states_equal(torch, par.gather_state(shards), st)
+            and _states_equal(torch, par.gather_state(plain), st)):
+        raise AssertionError("TLOG mesh route: state != the single-device drain's")
+    del plain
+    out["tlog_drain_sparse"] = _route_row(
+        torch, "tlog_drain_sparse",
+        f"K={k} x L={L} wide over {MESH_SHARDS} shards, B={k} x Ld={ld} with trims",
+        lambda: par.drain_sharded_tlog(mesh, shards, lr, pay, ld), "tlog_drain",
+        card, 1 - k / len(slots), launches=launched, overflow_rows=flagged)
+    del st, shards
+    torch.cuda.empty_cache()
+
+    # UJSON: the row-aligned fold per shard (flat, then tree-shaped)
+    for kk, d, w, r in UJ_ALIGNED:
+        shift = udev.narrow_shift(r)
+        res = uj_random_planes(torch, rng, (kk,), 64, 32, r, shift)
+        grid = uj_random_planes(torch, rng, (kk, d), w, w, r, shift, empty=range(0, kk, 7))
+        out_w, out_c = 128, 64
+        parts = par.shard_state(mesh, res)
+        gparts = par.shard_state(mesh, grid)
+        l0 = (udev.join_rows.launches, ures.fold_flat.launches)
+        lives = [ures.fold_join_aligned(p, g, shift, out_w, out_c)
+                 for p, g in zip(parts, gparts)]
+        launched = (udev.join_rows.launches - l0[0], ures.fold_flat.launches - l0[1])
+        mesh_out = par.gather_state([o for o, _ in lives])
+        single, _ = ures.fold_join_aligned(uj_clone(res), grid, shift, out_w, out_c)
+        if d <= ures.FLAT_MAX:
+            folded = ures.fold_flat_plain(grid, shift)
+        else:
+            folded = udev.DocBatch(*(p[:, 0] for p in udev._fold_body(
+                grid, shift, udev.join_rows_plain)))
+        rp = uj_clone(res)
+        want = udev.join_rows_plain(rp, folded, shift, finish=(out_w, out_c),
+                                    out=ures.slice_widths(rp, out_w, out_c))
+        torch.cuda.synchronize()
+        if not (_states_equal(torch, mesh_out, want) and _states_equal(torch, single, want)):
+            raise AssertionError(f"UJSON aligned fold K={kk} D={d}: mesh != plain")
+        if launched[1 if d <= ures.FLAT_MAX else 0] < on_card(MESH_SHARDS):
+            raise AssertionError(f"UJSON aligned fold K={kk} D={d}: launches {launched}")
+
+        def run():  # the widths change: the resident parts are not written
+            for p, g in zip(parts, gparts):
+                ures.fold_join_aligned(p, g, shift, out_w, out_c)
+
+        name = "ujson_fold_flat" if d <= ures.FLAT_MAX else "ujson_join"
+        out.setdefault("ujson_aligned", []).append(_route_row(
+            torch, f"fold_join_aligned {name}",
+            f"K={kk} x D={d} x W={w} R={r} over {MESH_SHARDS} shards, out {out_w}/{out_c}",
+            run, name, card, 0.0, launches={"ujson_join": launched[0],
+                                             "ujson_fold_flat": launched[1]}))
+        del res, grid, parts, gparts, lives, mesh_out, single, folded, rp, want
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_node_script(rng):
+    """The mesh node phase's RESP script and delta stream, made afresh
+    from ``rng`` for each node (UJSON deltas are objects): a list of
+    ("cmds", [commands]) and ("conv", type, batch) steps."""
+    from jylis_tpu_torch.ops.ujson_host import UJSON
+
+    steps = []
+    rids = [int(x) for x in rng.integers(1 << 40, 1 << 62, NODE_REPLICAS)]
+    keys = [b"m%06d" % i for i in range(MESH_KEYS)]
+    sample = [keys[int(i)] for i in rng.choice(MESH_KEYS, 300, replace=False)]
+    # counters, config 2: every key from 8 replicas, two rounds a type
+    for name, pols in (("GCOUNT", 1), ("PNCOUNT", 2)):
+        steps.append(("cmds", [(name, "INC", k, int(rng.integers(1, 1 << 62)))
+                               for k in keys[:200]]))
+        for _ in range(2):
+            vals = rng.integers(0, 1 << 64, (pols, MESH_KEYS, NODE_REPLICAS), dtype=np.uint64)
+            batch = []
+            for j, key in enumerate(keys):
+                ds = [{rid: int(v) for rid, v in zip(rids, vals[p, j]) if v}
+                      for p in range(pols)]
+                batch.append((key, ds[0] if pols == 1 else tuple(ds)))
+            steps += [("conv", name, batch[i:i + 10_000]) for i in range(0, MESH_KEYS, 10_000)]
+        steps.append(("cmds", [(name, "GET", k) for k in sample + keys[:50]]))
+        more = keys[:150] + [b"x%04d" % i for i in range(MESH_MORE - 150)]
+        batch = [(k, {rids[0]: int(rng.integers(1, 1 << 63))} if pols == 1 else
+                  ({rids[1]: 7}, {rids[2]: int(rng.integers(1, 1 << 63))})) for k in more]
+        steps += [("conv", name, batch), ("cmds", [(name, "GET", k) for k in more])]
+    # TREG: 100,000 keys; values share an 8-byte prefix at equal ts on a
+    # third of the keys, so the host settles prefix ties
+    for rnd in range(2):
+        batch = []
+        for i, key in enumerate(keys):
+            ts = int(rng.integers(0, 4)) if i % 3 == 0 else int(rng.integers(0, 1 << 63))
+            batch.append((key, (b"prefix00" + b"%d" % rng.integers(0, 1000), ts)))
+        steps += [("conv", "TREG", batch[i:i + 10_000]) for i in range(0, MESH_KEYS, 10_000)]
+    steps.append(("cmds", [("TREG", "SET", k, "v%d" % i, int(rng.integers(0, 5)))
+                           for i, k in enumerate(keys[:300])]))
+    steps.append(("cmds", [("TREG", "GET", k) for k in sample + keys[:300]]))
+    # TLOG: 2,000 keys in rounds of 16 entries, cutoffs raised, then
+    # TRIM / TRIMAT / CLR / INS and reads over the socket
+    tkeys = [b"t%05d" % i for i in range(MESH_TLOG_KEYS)]
+    for rnd in range(MESH_TLOG_ROUNDS):
+        batch = [(k, ([(b"e%d" % rng.integers(0, 300), int(rng.integers(0, 1 << 40)))
+                       for _ in range(MESH_TLOG_D)],
+                      int(rng.integers(0, 1 << 20)) if rng.random() < 0.1 else 0))
+                 for k in tkeys]
+        steps += [("conv", "TLOG", batch[i:i + 500]) for i in range(0, len(tkeys), 500)]
+    cmds = [("TLOG", "TRIM", k, int(rng.integers(0, 20))) for k in tkeys[:40]]
+    cmds += [("TLOG", "TRIMAT", k, int(rng.integers(0, 1 << 40))) for k in tkeys[40:50]]
+    cmds += [("TLOG", "CLR", k) for k in tkeys[50:55]]
+    cmds += [("TLOG", "INS", k, "new", 1 << 41) for k in tkeys[:60]]
+    steps.append(("cmds", cmds))
+    steps.append(("cmds", [(op, k) for k in tkeys[:100] for op in
+                           (("TLOG", "GET"), ("TLOG", "SIZE"), ("TLOG", "CUTOFF"))]))
+    # UJSON: a flat round (64 deltas a key) and a tree round (512)
+    ws, groups = [], []
+    for k in range(MESH_UJ_FLAT):
+        w = [UJSON(), UJSON(), UJSON()]
+        groups.append(uj_flat_deltas(w, k, 0))
+        ws.append(w)
+    ukeys = [b"u%04d" % k for k in range(MESH_UJ_FLAT)]
+    steps.append(("conv", "UJSON", [(k, d) for k, g in zip(ukeys, groups) for d in g]))
+    docs = [UJSON() for _ in range(MESH_UJ_TREE)]
+    tree = uj_5b_round(docs, 0)
+    vkeys = [b"doc%03d" % k for k in range(MESH_UJ_TREE)]
+    steps.append(("conv", "UJSON", [(k, d) for k, g in zip(vkeys, tree) for d in g]))
+    steps.append(("cmds", [("UJSON", "GET", k) for k in ukeys[:64] + vkeys]))
+    return steps
+
+
+def run_script(node, steps) -> list[bytes]:
+    replies = []
+    for step in steps:
+        if step[0] == "cmds":
+            replies += node.client.pipeline(step[1])
+        else:
+            node.converge(step[1], step[2])
+    return replies
+
+
+# the kernels the mesh node's serving path runs, the kernel only the
+# dryrun runs, and the dense drains that must not launch on a mesh
+MESH_PATH = ("counter_drain_sparse<1>", "counter_drain_sparse<2>", "treg_drain_sparse",
+             "tlog_drain_sparse", "ujson_join", "ujson_fold_flat")
+DRYRUN_PATH = ("replica_join",)
+SINGLE_ONLY = ("counter_drain_dense<1>", "counter_drain_dense<2>", "treg_drain_dense",
+               "tlog_drain_dense")
+
+
+def launch_counters():
+    from jylis_tpu_torch.ops import gcount, pncount, tlog, treg
+    from jylis_tpu_torch.ops import ujson_device as udev, ujson_resident as ures
+    from jylis_tpu_torch.parallel import replica_join
+
+    return {"counter_drain_sparse<1>": gcount.drain_sparse,
+            "counter_drain_sparse<2>": pncount.drain_sparse,
+            "counter_drain_dense<1>": gcount.drain_dense,
+            "counter_drain_dense<2>": pncount.drain_dense,
+            "treg_drain_sparse": treg.drain_sparse, "treg_drain_dense": treg.drain_dense,
+            "tlog_drain_sparse": tlog.drain_sparse, "tlog_drain_dense": tlog.drain_dense,
+            "ujson_join": udev.join_rows, "ujson_fold_flat": ures.fold_flat,
+            "replica_join": replica_join}
+
+
+def counted(counters, fn):
+    """Run ``fn`` with every launch count set to 0 just before it; returns
+    (its result, the counts just after it)."""
+    for c in counters.values():
+        c.launches = 0
+    result = fn()
+    return result, {n: c.launches for n, c in counters.items()}
+
+
+def mesh_node_phase(torch, devs) -> dict:
+    """Two nodes on the card fed the same RESP script and delta stream:
+    one Database on the 4-shard mesh, one single-device. Every reply and
+    every repo's dump_state must be equal; the mesh node's drains must
+    all be routed (no dense kernel launches there) and each kernel of the
+    mesh path must launch. Then, counted on its own, dryrun_multichip on
+    the mesh's devices, which must launch replica_join."""
+    from jylis_tpu_torch import parallel as par
+    from jylis_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    mesh = par.make_mesh(MESH_SHARDS, devices=devs)
+    counters = launch_counters()
+    out = {"devices": devs, "device_count": torch.cuda.device_count() if DEVICE == "cuda" else 0}
+    node = Node(0x5EED, mesh=mesh)
+    try:
+        def serve():
+            replies = run_script(node, mesh_node_script(np.random.default_rng(SEED + 60)))
+            return replies, {n: node.repo(n).dump_state()
+                             for n in ("GCOUNT", "PNCOUNT", "TREG", "TLOG", "UJSON")}
+
+        t0 = time.perf_counter()
+        (mesh_replies, mesh_dumps), launches = counted(counters, serve)
+        out["mesh_node_s"] = time.perf_counter() - t0
+        for n in ("GCOUNT", "PNCOUNT", "TREG", "TLOG"):
+            if len(node.repo(n)._ks.parts) != MESH_SHARDS:
+                raise AssertionError(f"{n} state is not sharded over the mesh")
+        res = node.repo("UJSON")._res
+        if res is None or len(res._ks.parts) != MESH_SHARDS:
+            raise AssertionError("UJSON resident store is not sharded over the mesh")
+    finally:
+        node.close()
+    t0 = time.perf_counter()
+    out["dryrun"], dry = counted(counters, lambda: dryrun_multichip(devs))
+    out["dryrun_s"] = time.perf_counter() - t0
+    if DEVICE == "cuda":
+        if min(launches[n] for n in MESH_PATH) < 1:
+            raise AssertionError(f"a kernel of the mesh path never launched: {launches}")
+        if max(launches[n] for n in SINGLE_ONLY + DRYRUN_PATH):
+            raise AssertionError(f"a kernel off the mesh path launched there: {launches}")
+        if min(dry[n] for n in DRYRUN_PATH) < 1:
+            raise AssertionError(f"replica_join never launched in the dryrun: {dry}")
+    single = Node(0x5EED)
+    try:
+        t0 = time.perf_counter()
+        single_replies = run_script(single, mesh_node_script(np.random.default_rng(SEED + 60)))
+        single_dumps = {n: single.repo(n).dump_state() for n in mesh_dumps}
+        out["single_node_s"] = time.perf_counter() - t0
+    finally:
+        single.close()
+    check_replies("mesh node vs single-device node", mesh_replies, single_replies)
+    for n, dump in mesh_dumps.items():
+        if n == "UJSON":
+            dump = [(k, uj_canon(d)) for k, d in dump]
+            want = [(k, uj_canon(d)) for k, d in single_dumps[n]]
+        else:
+            want = single_dumps[n]
+        if dump != want:
+            raise AssertionError(f"{n} dump_state: mesh node != single-device node")
+        out[f"{n.lower()}_keys"] = len(dump)
+    out.update(replies=len(mesh_replies), launches={n: launches[n] for n in MESH_PATH},
+               dryrun_launches={n: c for n, c in dry.items() if c})
+    emit({"phase": "mesh_node", **out})
+    return out
+
+
 # ---- main ----------------------------------------------------------------------
 
 KERNELS = {
@@ -2710,12 +3227,17 @@ KERNELS = {
         "jylis_tpu_torch/csrc/ujson_join.cu",
         "jylis_tpu/ops/ujson_device.py:109 (_join_row, XLA, under join_batch :143 "
         "and _fold_body :183) with ops/ujson_resident.py:203 (_finish) in "
-        "fold_join_subset :218 and fold_broadcast_rows :256",
+        "fold_join_subset :218, fold_join_aligned :244 and fold_broadcast_rows :256",
     ),
     "ujson_fold_flat": (
         "jylis_tpu_torch/csrc/ujson_fold_flat.cu",
         "jylis_tpu/ops/ujson_resident.py:88 (_fold_flat_one, XLA, under "
         "_fold_grid :136)",
+    ),
+    "replica_join": (
+        "jylis_tpu_torch/csrc/replica_join.cu",
+        "jylis_tpu/parallel/sharded.py:396-442 (join_replica_axis: _tree_join + "
+        "_local_then_pmax, shard_map + lax.pmax over the rep axis)",
     ),
 }
 
@@ -2751,6 +3273,11 @@ def main() -> int:
     emit({"phase": "ujson_flat_leg_generate", "keys": UJ_FLAT_KEYS,
           "deltas": UJ_FLAT_KEYS * UJ_FLAT_D, "seconds": time.perf_counter() - t0})
     rows.update(ujson_phases(torch, card, flat[1]))
+    devs = mesh_devices(torch)
+    emit({"phase": "mesh", "devices": devs, "device_count": torch.cuda.device_count(),
+          "cards": "one card, 4 shards on it" if len(set(devs)) == 1 else "4 cards"})
+    rows.update(replica_join_phase(torch, card))
+    routes = mesh_route_phases(torch, card, devs)
     # the main paths, each with its launch counts set to 0 just before it
     node = node_phase(torch)
     treg_node = treg_node_phase(torch)
@@ -2758,10 +3285,16 @@ def main() -> int:
     tlog_node = tlog_node_phase(torch)
     ujson_store_phase(torch)
     ujson_node = ujson_node_phase(torch, flat=flat)
+    mesh_node = mesh_node_phase(torch, devs)
 
     launches = dict(node["launches"], tensor_join_dense=sweep["launches"],
                     **treg_node["launches"], **tensor_node["launches"],
                     **tlog_node["launches"], **ujson_node["launches"])
+    mesh_launches = mesh_node["launches"]
+    dryrun_launches = mesh_node["dryrun_launches"]
+    # replica_join's main path is the dryrun (no serving repo runs it)
+    launches.update({n: dryrun_launches.get(n, 0) for n in DRYRUN_PATH})
+    routes["ujson_join"] = routes["ujson_fold_flat"] = routes.pop("ujson_aligned")
     timing = ("shape", "kernel_ms", "device_ms", "plain_ms", "bound_ms")
     kernels = []
     for kname, (source, replaces) in KERNELS.items():
@@ -2770,15 +3303,21 @@ def main() -> int:
         others = r.get("other_shapes", [])
         kernels.append({
             "name": kname, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[kname],
+            "replaces": replaces,
+            "launches": launches.get(kname, 0),
+            "mesh_launches": mesh_launches.get(kname, 0),
+            "dryrun_launches": dryrun_launches.get(kname, 0),
             "max_abs_err": max([r["max_abs_err"]] + [
                 x["max_abs_err"] for x in ([ns] if ns else []) + others]),
             "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": None, "shape": r["shape"], "device_ms": r["device_ms"],
+            "library_ms": r.get("library_ms"), "shape": r["shape"],
+            "device_ms": r["device_ms"],
+            **({"library": r["library"]} if "library" in r else {}),
             **({"north_star": {k: ns[k] for k in timing}} if ns else {}),
             **({"other_shapes": [{k: x[k] for k in timing} for x in others]}
                if others else {}),
+            **({"mesh_routes": routes[kname]} if kname in routes else {}),
         })
     emit({"kernels": kernels})
     print(smi_line(), flush=True)

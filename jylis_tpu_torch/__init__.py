@@ -7,7 +7,7 @@ imports no JAX and nothing of ``jylis_tpu``: it keeps its own copy of
 every module it needs.
 
 So far it serves TREG, TLOG, GCOUNT, PNCOUNT, UJSON and TENSOR on one
-device:
+device, or keys-sharded over the cards of one host (mesh mode):
 
   utils/     batching, config, logging, node address, wire primitives
   ops/       register, log, counter and tensor lattices, the string interner,
@@ -15,6 +15,8 @@ device:
              device-resident store (ujson_resident), the CUDA kernel
              launches
   models/    per-type repos and host tables, repo manager, database router
+  parallel/  the mesh: routing, per-shard drains, the replica-axis join,
+             the multi-device dryrun
   cluster/   the TENSOR delta codec (MRG payloads)
   server/    RESP codec and TCP server
 

@@ -1,7 +1,8 @@
 """Process entry point: ``python -m jylis_tpu_torch --port P``.
 
-Builds the Database (TREG, TLOG, GCOUNT, PNCOUNT and TENSOR on
-``--device``, default cuda) and the RESP Server, serves until SIGINT/SIGTERM, then stops intake,
+Builds the Database (TREG, TLOG, GCOUNT, PNCOUNT, UJSON and TENSOR on
+``--device``, default cuda; keys-sharded over every card when the host
+has more than one) and the RESP Server, serves until SIGINT/SIGTERM, then stops intake,
 waits out any in-flight drain and closes the listener (after the
 reference's main.pony and dispose.pony). There is no cluster yet, so
 nothing is flushed to peers.
@@ -25,8 +26,8 @@ async def run(argv: list[str] | None = None) -> None:
     server = Server(config, database)
     await server.start()
     log.info() and log.i(
-        f"serving TREG/TLOG/GCOUNT/PNCOUNT/TENSOR on port {server.port}, device "
-        f"{database.device}"
+        f"serving TREG/TLOG/GCOUNT/PNCOUNT/UJSON/TENSOR on port {server.port}, device "
+        f"{database.device}" + (f", {database.mesh}" if database.mesh else "")
     )
     stop = asyncio.Event()
     loop = asyncio.get_running_loop()

@@ -5,7 +5,12 @@ analog: database.pony:5-65): routes cmd[0] to the matching repo manager
 (case sensitive) and renders the data-type help for any other first
 word, exactly as the JAX node does for an unknown one. The repos here
 are TREG, TLOG, GCOUNT, PNCOUNT, UJSON and TENSOR (the JAX registry's
-order), with their device state on one torch device.
+order). Their device state lives on one torch device, or, in mesh mode,
+split over the keys shards of a mesh (parallel/mesh.py):
+``mesh="auto"`` shards every plane-backed type over all visible cards
+when a host has more than one, as a JAX node does on more than one
+device. TENSOR has no mesh mode in either package: it stays on the
+mesh's first device.
 
 ``converge`` / ``converge_async`` take one type's anti-entropy delta
 batch — the entry the cluster calls.
@@ -15,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel.mesh import resolve_mesh
 from .help import DATATYPE_HELP, respond_help
 from .manager import RepoManager
 from .repo_counters import RepoGCOUNT, RepoPNCOUNT
@@ -44,11 +50,18 @@ def resolve_device(device) -> torch.device:
 
 
 class Database:
-    def __init__(self, identity: int, device="cuda"):
+    def __init__(self, identity: int, device="cuda", mesh="auto"):
         self.device = resolve_device(device)
+        # JAX's Database takes no mesh: JAX picks its devices process-wide;
+        # the explicit argument is the torch counterpart of that hook
+        self.mesh = resolve_mesh(mesh, self.device)
         self._map: dict[bytes, RepoManager] = {}
         for cls in DATA_REPO_CLASSES:
-            repo = cls(identity, device=self.device)
+            if cls is RepoTENSOR:
+                dev = self.device if self.mesh is None else self.mesh.keys_devices[0]
+                repo = cls(identity, device=dev)
+            else:
+                repo = cls(identity, device=self.device, mesh=self.mesh)
             self._map[repo.name.encode()] = RepoManager(repo.name, repo, repo.help)
 
     def manager(self, name: str) -> RepoManager:

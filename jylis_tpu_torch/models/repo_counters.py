@@ -1,8 +1,8 @@
 """GCOUNT / PNCOUNT repos: device-resident counter keyspaces.
 
-The port of jylis_tpu/models/repo_counters.py on one device. The whole
-keyspace of a type is ONE (keys x replicas) plane per polarity
-(ops/gcount, ops/pncount). Local INCs and incoming anti-entropy deltas
+The port of jylis_tpu/models/repo_counters.py. The whole keyspace of a
+type is ONE (keys x replicas) plane per polarity (ops/gcount,
+ops/pncount). Local INCs and incoming anti-entropy deltas
 funnel into a coalesced pending batch that drains as one fused
 join + row-sum kernel launch; the row sums feed a host value cache, so
 GET is a table lookup and the device only ever sees whole batches.
@@ -16,6 +16,14 @@ Delta wire shape: GCOUNT -> dict {replica_id: u64}; PNCOUNT -> a
 (p_dict, n_dict) pair. Outbound deltas carry only this node's own column
 (absolute values — joinable delta-state), which the table tracks exactly,
 so flushes never need a device read.
+
+Mesh mode (``mesh``, parallel/mesh.py): the keyspace lives as one state
+per keys shard, a contiguous block of key rows on that shard's device,
+and every drain routes the batch to its shards and launches the sparse
+drain once per shard (parallel/sharded.drain_sharded_g / _pn): the
+per-type actor keyspace of repo_manager.pony:92-93 becomes per-device
+key blocks. Without a mesh (one visible card, or a CPU device) the
+single-device drains below run untouched.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ import numpy as np
 import torch
 
 from ..ops import gcount, planes, pncount
+from ..parallel import Keyspace, drain_sharded_g, drain_sharded_pn, resolve_mesh
 from .base import ParseError, bucket, need, pad_rows, parse_u64, U64_MAX
 from .counter_table import PyTable
 from .help import RepoHelp
@@ -76,12 +85,17 @@ class _CounterRepo:
         key_cap: int = 1024,
         rep_cap: int = 8,
         device="cuda",
+        mesh="auto",
     ):
         self._identity = identity
         self._device = torch.device(device)
         self._rids: dict[int, int] = {}  # replica id -> column
-        self._key_cap = key_cap
+        # mesh mode: "auto" shards over every visible card when there
+        # are several (parallel/mesh.serving_mesh)
+        self._ks = Keyspace(resolve_mesh(mesh, self._device), self._device)
+        self._key_cap = self._ks.round_cap(key_cap)
         self._rep_cap = rep_cap
+        self._ks.init(self._key_cap, lambda n, d: self._ops.init(n, rep_cap, d))
         self._tbl = PyTable()
         # foreign delta columns buffered per row per polarity (sparse
         # {col: max-value} maps from cluster converges)
@@ -104,12 +118,18 @@ class _CounterRepo:
             self._rids[rid] = col
         return col
 
+    @property
+    def _state(self):
+        """The whole state: the single device's own (drains update it in
+        place), or a mesh's shards gathered (a copy, for reading)."""
+        return self._ks.whole()
+
     def _grow_to_fit(self) -> None:
-        k = bucket(max(self._tbl.rows(), 1), self._key_cap)
+        k = self._ks.round_cap(bucket(max(self._tbl.rows(), 1), self._key_cap))
         r = bucket(max(len(self._rids), 1), self._rep_cap)
         if k != self._key_cap or r != self._rep_cap:
             self._key_cap, self._rep_cap = k, r
-            self._state = self._ops.grow(self._state, k, r)
+            self._ks.grow(lambda st: self._ops.grow(st, k, r))
 
     def deltas_size(self) -> int:
         return self._tbl.dirty_count()
@@ -166,13 +186,26 @@ class _CounterRepo:
     def drain(self) -> None:
         """Join every pending row into the device state in one launch
         (dense when the batch covers >= 1/DENSE_FRACTION of the keyspace,
-        else sparse) and hand the rows' sums to the table as u64 values."""
+        else sparse; with a mesh, one sparse launch per shard) and hand
+        the rows' sums to the table as u64 values."""
         rows, per_pol = self._collect_rows()
         if not rows:
             return
         self._grow_to_fit()
         per_pol = per_pol[: self._polarities]
-        if len(rows) * DENSE_FRACTION >= self._key_cap:
+        if self._ks.mesh is not None:
+            # polarity-stacked (B, NP * R): one routing pass serves both
+            r = self._rep_cap
+            stacked = np.zeros((len(rows), len(per_pol) * r), np.uint64)
+            for p, pending in enumerate(per_pol):
+                for i, row in enumerate(rows):
+                    for col, v in pending.get(row, {}).items():
+                        stacked[i, p * r + col] = v
+            lr, payload, slots = self._ks.route(rows, stacked)
+            sums = self._sharded(self._ks.mesh, self._ks.parts, lr, payload).view(np.uint64)
+            live = slots >= 0
+            self._finish_drain(slots[live].tolist(), list(sums[live]))
+        elif len(rows) * DENSE_FRACTION >= self._key_cap:
             slots = [(row, row) for row in rows]
             deltas = [self._delta_plane(self._key_cap, slots, p) for p in per_pol]
             sums = self._dense(*deltas).cpu().numpy().view(np.uint64)
@@ -214,10 +247,7 @@ class RepoGCOUNT(_CounterRepo):
     help = GCOUNT_HELP
     _ops = gcount
     _polarities = 1
-
-    def __init__(self, identity: int, **kw):
-        super().__init__(identity, **kw)
-        self._state = gcount.init(self._key_cap, self._rep_cap, self._device)
+    _sharded = staticmethod(drain_sharded_g)
 
     def _dense(self, d):
         return _drain_g_dense(self._state, d)
@@ -267,10 +297,7 @@ class RepoPNCOUNT(_CounterRepo):
     help = PNCOUNT_HELP
     _ops = pncount
     _polarities = 2
-
-    def __init__(self, identity: int, **kw):
-        super().__init__(identity, **kw)
-        self._state = pncount.init(self._key_cap, self._rep_cap, self._device)
+    _sharded = staticmethod(drain_sharded_pn)
 
     def _dense(self, dp, dn):
         return _drain_pn_dense(self._state, dp, dn)

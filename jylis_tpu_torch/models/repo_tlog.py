@@ -1,7 +1,7 @@
 """TLOG repo: device-resident timestamped-log keyspace.
 
-The port of jylis_tpu/models/repo_tlog.py on one device (reference
-analog: repo_tlog.pony:16-111). The keyspace is the ops/tlog plane block
+The port of jylis_tpu/models/repo_tlog.py (reference analog:
+repo_tlog.pony:16-111). The keyspace is the ops/tlog plane block
 (narrow 2-plane layout until the first 64-bit timestamp widens it);
 local INS and incoming delta logs buffer host-side per key and drain as
 ONE batched merge launch at write thresholds and snapshots. TRIM/TRIMAT/
@@ -15,6 +15,13 @@ current.
 
 Host bookkeeping lives in tlog_table.PyTlogTable.
 
+Mesh mode (``mesh``, parallel/mesh.py) mirrors the counter and TREG
+repos: the segment tensors live as one block of key rows per keys shard,
+always in the wide (3-plane) layout, and drains and trims route to the
+shards as one sparse drain launch per shard
+(parallel/sharded.drain_sharded_tlog), with the same overflow-retry
+contract.
+
 Delta wire shape: (entries: list[(value: bytes, ts: u64)], cutoff: u64).
 """
 
@@ -25,6 +32,7 @@ import torch
 
 from ..ops import planes, tlog
 from ..ops.interner import Interner
+from ..parallel import Keyspace, drain_sharded_tlog, resolve_mesh
 from .base import PAD_ROW, ParseError, bucket, need, parse_opt_count, parse_u64
 from .help import RepoHelp
 from .tlog_table import PENDING_DRAIN_THRESHOLD, ROW_DRAIN_THRESHOLD, PyTlogTable
@@ -75,12 +83,17 @@ class RepoTLOG:
     help = TLOG_HELP
 
     def __init__(self, identity: int, key_cap: int = 1024, len_cap: int = 16,
-                 device="cuda"):
+                 device="cuda", mesh="auto"):
         # identity unused: log entries carry no replica identity
         self._device = torch.device(device)
-        self._key_cap = key_cap
+        self._ks = Keyspace(resolve_mesh(mesh, self._device), self._device)
+        self._key_cap = self._ks.round_cap(key_cap)
         self._len_cap = len_cap
-        self._state = tlog.init(key_cap, len_cap, wide=False, device=self._device)
+        # mesh mode always uses the wide layout: one fixed plane set for
+        # every shard's drain
+        wide = self._ks.mesh is not None
+        self._ks.init(self._key_cap,
+                      lambda n, d: tlog.init(n, len_cap, wide=wide, device=d))
         self._interner = Interner()
         self._tbl = PyTlogTable()
         # row -> desc-sorted [(ts, value)], the rendered drained part; built
@@ -89,6 +102,15 @@ class RepoTLOG:
         # row -> (table gen, desc-sorted merged list): the GET-order memo
         # over the table's merged view
         self._sorted: dict[int, tuple[int, list[tuple[int, bytes]]]] = {}
+
+    @property
+    def _state(self):
+        """The whole state: the single device's own (drains update it in
+        place), or a mesh's shards gathered (a copy, for reading)."""
+        return self._ks.whole()
+
+    def _grow(self, kcap: int, lcap: int) -> None:
+        self._ks.grow(lambda st: tlog.grow(st, kcap, lcap))
 
     # -- commands (repo_tlog.pony:29-111) ----------------------------------
 
@@ -156,7 +178,7 @@ class RepoTLOG:
                 if base is not None:
                     ents = sorted(base, reverse=True)
                 else:
-                    ts_row, vid_row = _get_row(self._state, row)
+                    ts_row, vid_row = _get_row(*self._ks.locate(row))
                     ents = [
                         (int(ts_row[i]), self._interner.lookup(int(vid_row[i])))
                         for i in range(length)
@@ -332,8 +354,7 @@ class RepoTLOG:
                 # remap[-1] would silently alias the last live id
                 new_vid[row, :n] = np.where(src >= 0, remap[np.clip(src, 0, None)], -1)
         new_nv = tlog.encode_vid_np(new_vid).view(np.int32)
-        self._state = self._state._replace(
-            nv=torch.from_numpy(new_nv).to(self._device))
+        self._ks.set_plane("nv", new_nv)
 
     def _finish_drain(self, updates) -> None:
         """Common drain epilogue: refresh the per-row host caches from the
@@ -365,19 +386,22 @@ class RepoTLOG:
         cuts_in = {r: self._tbl.pend_cutoff(r) for r in rows}
         # adaptive layout: the narrow (2-plane) state holds every ts below
         # TS32_MAX; the first wider timestamp or cutoff upgrades it
-        # losslessly before this drain ships
-        if not self._state.wide and (
+        # losslessly before this drain ships (mesh states start wide)
+        if not self._ks.parts[0].wide and (
             any(ts > tlog.TS32_MAX for lst in pend.values() for ts, _ in lst)
             or any(c > tlog.TS32_MAX for c in cuts_in.values())
         ):
-            self._state = tlog.widen(self._state)
+            self._ks.map(tlog.widen)
         # capacity: keys, then entry slots (worst case current + pending)
-        kcap = bucket(max(self._tbl.rows(), 1), self._key_cap)
+        kcap = self._ks.round_cap(bucket(max(self._tbl.rows(), 1), self._key_cap))
         need_len = max(self._tbl.len_cache(r) + len(pend.get(r, ())) for r in rows)
         lcap = bucket(max(need_len, 1), self._len_cap)
         if kcap != self._key_cap or lcap != self._len_cap:
             self._key_cap, self._len_cap = kcap, lcap
-            self._state = tlog.grow(self._state, kcap, lcap)
+            self._grow(kcap, lcap)
+        if self._ks.mesh is not None:
+            self._drain_sharded(rows, pend, cuts_in, trim)
+            return
         while True:
             ld = bucket(max((len(pend.get(r, ())) for r in rows), default=1), 1)
             # dense path (repo_counters precedent): when the batch covers a
@@ -422,9 +446,40 @@ class RepoTLOG:
                 # the flagged rows are untouched and the others merged:
                 # grow and drain the same delta again (idempotent)
                 self._len_cap *= 2
-                self._state = tlog.grow(self._state, self._key_cap, self._len_cap)
+                self._grow(self._key_cap, self._len_cap)
                 continue
             lens = lens.cpu().numpy()
             cuts = planes.to_u64_np(cuts)
             self._finish_drain(zip(rows, lens[slots], cuts[slots]))
+            return
+
+    def _drain_sharded(self, rows, pend, cuts_in, trim=None) -> None:
+        """Mesh-mode drain: per-row deltas route as u64 payload columns
+        [ts(ld) | vid(ld) | cutoff | count]; the merge + fused trim runs
+        per key block with per-slot lengths and cutoffs read back. On a
+        flagged live row: grow and drain the same delta again, as the
+        single-device path does (the flagged rows are untouched, the
+        others merged, and the merge is idempotent)."""
+        while True:
+            ld = bucket(max((len(pend.get(r, ())) for r in rows), default=1), 1)
+            payload = np.zeros((len(rows), 2 * ld + 2), np.uint64)
+            # empty vid slots must read back as -1, not id 0
+            payload[:, ld : 2 * ld] = np.uint64(0xFFFFFFFFFFFFFFFF)
+            payload[:, 2 * ld + 1] = np.uint64(tlog.TRIM_NOOP)
+            for i, row in enumerate(rows):
+                for j, (ts, value) in enumerate(pend.get(row, ())):
+                    payload[i, j] = ts
+                    payload[i, ld + j] = self._interner.intern(value)
+                payload[i, 2 * ld] = cuts_in.get(row, 0)
+                if trim is not None and row == trim[0]:
+                    payload[i, 2 * ld + 1] = trim[1]
+            lr, pay, slots = self._ks.route(rows, payload)
+            ovf, lens, cuts = drain_sharded_tlog(self._ks.mesh, self._ks.parts, lr, pay, ld)
+            live = slots >= 0
+            if bool(ovf[live].any()):
+                self._len_cap *= 2
+                self._grow(self._key_cap, self._len_cap)
+                continue
+            cuts = cuts.view(np.uint64)
+            self._finish_drain(zip(slots[live].tolist(), lens[live], cuts[live]))
             return

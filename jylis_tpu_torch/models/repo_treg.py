@@ -1,7 +1,7 @@
 """TREG repo: device-mirrored last-writer-wins register keyspace.
 
-The port of jylis_tpu/models/repo_treg.py on one device (reference
-analog: repo_treg.pony:11-68). The keyspace is the ops/treg planes.
+The port of jylis_tpu/models/repo_treg.py (reference analog:
+repo_treg.pony:11-68). The keyspace is the ops/treg planes.
 Local SETs and incoming deltas coalesce on the host per key (the exact
 LWW compare with full strings: the host has them), then drain in one
 kernel launch whose results feed the host's mirror cache. Prefix ties
@@ -11,6 +11,12 @@ full strings and patched with a small follow-up scatter.
 Host bookkeeping (keys, winner, pending window, delta accumulator) lives
 in treg_table.PyTregTable. GET never pays a device round-trip: the
 winner is an O(1) host compare.
+
+Mesh mode (``mesh``, parallel/mesh.py) mirrors the counter repos: the
+three planes live as one block of key rows per keys shard, and a drain
+routes its rows to the shards and launches the sparse drain once per
+shard (parallel/sharded.drain_sharded_treg); ties patch through the
+routed vid scatter.
 
 Delta wire shape: (value: bytes, ts: u64).
 """
@@ -22,6 +28,7 @@ import torch
 
 from ..ops import planes, treg
 from ..ops.interner import Interner, prefix_rank
+from ..parallel import Keyspace, drain_sharded_treg, patch_sharded_treg, resolve_mesh
 from .base import ParseError, bucket, need, pad_rows, parse_u64
 from .help import RepoHelp
 from .treg_table import PyTregTable
@@ -69,14 +76,22 @@ class RepoTREG:
     name = "TREG"
     help = TREG_HELP
 
-    def __init__(self, identity: int, key_cap: int = 1024, device="cuda"):
+    def __init__(self, identity: int, key_cap: int = 1024, device="cuda",
+                 mesh="auto"):
         # identity is ignored: LWW needs no replica identity (repo_treg.pony:15)
         self._device = torch.device(device)
-        self._key_cap = key_cap
-        self._state = treg.init(key_cap, self._device)
+        self._ks = Keyspace(resolve_mesh(mesh, self._device), self._device)
+        self._key_cap = self._ks.round_cap(key_cap)
+        self._ks.init(self._key_cap, treg.init)
         self._interner = Interner()
         self._cache: dict[int, tuple[int, int]] = {}  # row -> (ts, vid)
         self._tbl = PyTregTable()
+
+    @property
+    def _state(self):
+        """The whole state: the single device's own (drains update it in
+        place), or a mesh's shards gathered (a copy, for reading)."""
+        return self._ks.whole()
 
     # -- commands (repo_treg.pony:24-68) -----------------------------------
 
@@ -149,11 +164,15 @@ class RepoTREG:
         pend = self._tbl.export_pend()  # [(row, ts, value)], not yet cleared
         if not pend:
             return
-        cap = bucket(max(self._tbl.rows(), 1), self._key_cap)
+        cap = self._ks.round_cap(bucket(max(self._tbl.rows(), 1), self._key_cap))
         if cap != self._key_cap:
             self._key_cap = cap
-            self._state = treg.grow(self._state, cap)
+            self._ks.grow(lambda st: treg.grow(st, cap))
         self._maybe_compact_interner()
+        if self._ks.mesh is not None:
+            self._drain_sharded(pend)
+            self._tbl.fold_pend()
+            return
         n = len(pend)
         rows = np.fromiter((p[0] for p in pend), np.int64, n)
         dense = n * DENSE_FRACTION >= self._key_cap
@@ -225,6 +244,38 @@ class RepoTREG:
         vids_by_row = np.full(self._key_cap, -1, np.int32)
         for row, (_ts, vid) in self._cache.items():
             vids_by_row[row] = vid
-        self._state = self._state._replace(
-            vid=torch.from_numpy(vids_by_row).to(self._device)
-        )
+        self._ks.set_plane("vid", vids_by_row)
+
+    def _drain_sharded(self, pend) -> None:
+        """Mesh-mode drain: payload columns [ts, rank, vid] route to the
+        key blocks; ties come back per slot and resolve on the host as
+        the single-device path resolves them, patched with a routed vid
+        scatter."""
+        rows = [row for row, _ts, _v in pend]
+        payload = np.zeros((len(rows), 3), np.uint64)
+        values: dict[int, bytes] = {}
+        for i, (row, ts, value) in enumerate(pend):
+            payload[i, 0] = ts
+            payload[i, 1] = prefix_rank(value)
+            payload[i, 2] = self._interner.intern(value)  # vids are >= 0
+            values[row] = value
+        ks = self._ks
+        lr, pay, slots = ks.route(rows, payload)
+        tie, out_ts, out_vid = drain_sharded_treg(ks.mesh, ks.parts, lr, pay)
+        out_ts = out_ts.view(np.uint64)
+        patch_rows: list[int] = []
+        patch_vids: list[int] = []
+        for j in np.flatnonzero(slots >= 0):
+            row = int(slots[j])
+            if tie[j]:
+                cur_val = self._interner.lookup(int(out_vid[j]))
+                if values[row] > cur_val:
+                    my_vid = self._interner.intern(values[row])
+                    patch_rows.append(row)
+                    patch_vids.append(my_vid)
+                    out_vid[j] = my_vid
+            self._cache[row] = (int(out_ts[j]), int(out_vid[j]))
+        if patch_rows:
+            pp = np.asarray(patch_vids, np.uint64).reshape(-1, 1)
+            lr2, p2, _slots = ks.route(patch_rows, pp)
+            patch_sharded_treg(ks.mesh, ks.parts, lr2, p2[:, 0].astype(np.int32))

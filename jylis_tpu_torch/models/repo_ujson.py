@@ -1,7 +1,7 @@
 """UJSON repo: causal-document keyspace with device-RESIDENT hot keys.
 
-The port of jylis_tpu/models/repo_ujson.py on one device (reference
-analog: repo_ujson.pony:14-110). Variadic argument shape: the first arg
+The port of jylis_tpu/models/repo_ujson.py (reference analog:
+repo_ujson.pony:14-110). Variadic argument shape: the first arg
 is the database key, the LAST arg is the value/document (for SET/INS/RM),
 and everything between is a path of nested-map keys
 (repo_ujson.pony:45-49). GET/CLR take key + optional path only.
@@ -23,6 +23,10 @@ host mode first (observed-remove mutators need the current doc anyway).
 Seqs past u32 exceed every device layout; those keys fall back to host
 mode permanently.
 
+Mesh mode (``mesh``, parallel/mesh.py): the resident store's row axis
+splits over the mesh's keys shards and its drains use the row-aligned
+fold on every shard, like every plane-backed type.
+
 Delta wire shape: the UJSON object itself (entries + causal context).
 """
 
@@ -31,6 +35,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.ujson_host import UJSON, parse_value
+from ..parallel.mesh import resolve_mesh
 from .base import ParseError, need
 from .help import RepoHelp
 
@@ -69,9 +74,10 @@ class RepoUJSON:
     name = "UJSON"
     help = UJSON_HELP
 
-    def __init__(self, identity: int, device="cuda"):
+    def __init__(self, identity: int, device="cuda", mesh="auto"):
         self._identity = identity
         self._device = torch.device(device)
+        self._mesh = resolve_mesh(mesh, self._device)
         self._data: dict[bytes, UJSON] = {}
         self._deltas: dict[bytes, UJSON] = {}
         self._pend: dict[bytes, list[UJSON]] = {}  # buffered remote deltas
@@ -90,7 +96,7 @@ class RepoUJSON:
         if self._res is None:
             from ..ops.ujson_resident import ResidentStore
 
-            self._res = ResidentStore(device=self._device)
+            self._res = ResidentStore(device=self._device, mesh=self._mesh)
         return self._res
 
     def _is_resident(self, key: bytes) -> bool:

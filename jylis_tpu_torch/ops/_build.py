@@ -29,7 +29,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "jylis_tpu_torch"
 SOURCES = (
     "counter_drain_dense", "counter_drain_sparse", "tensor_join_dense",
     "treg_drain", "tensor_converge_batch", "tlog_drain", "ujson_join",
-    "ujson_fold_flat",
+    "ujson_fold_flat", "replica_join",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -9,7 +9,8 @@ the bit pattern of an ``int64`` element:
 * wrapping add and row sums are plain int64 arithmetic, whose bits are
   the u64 result mod 2^64.
 
-``split64_np`` / ``combine64_np`` convert to and from the JAX layout.
+``split64_np`` / ``combine64_np`` convert to and from the JAX layout;
+``coalesce`` max-combines duplicate rows of a host delta batch.
 ``launch_drain_dense`` / ``launch_drain_sparse`` run the two CUDA drain
 kernels (``csrc/counter_drain_*.cu``); the GCOUNT and PNCOUNT modules wrap
 them with their plain versions and launch counts.
@@ -38,6 +39,16 @@ def split64_np(x: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
 
 def combine64_np(hi: np.ndarray, lo: np.ndarray) -> np.ndarray:
     return (np.asarray(hi, np.uint64) << np.uint64(32)) | np.asarray(lo, np.uint64)
+
+
+def coalesce(key_idx: np.ndarray, deltas: np.ndarray):
+    """Max-combine duplicate rows of a (B,) x (B, R) u64 delta batch on the
+    host, returning unique rows + combined deltas (what converge requires)."""
+    key_idx = np.asarray(key_idx)
+    uniq, inv = np.unique(key_idx, return_inverse=True)
+    out = np.zeros((len(uniq),) + deltas.shape[1:], np.uint64)
+    np.maximum.at(out, inv, np.asarray(deltas, np.uint64))
+    return uniq.astype(key_idx.dtype), out
 
 
 def to_tensor(x: np.ndarray, device) -> torch.Tensor:

@@ -1,11 +1,18 @@
 """Device-resident UJSON keyspace: hot documents live on the device.
 
-The port of jylis_tpu/ops/ujson_resident.py, single device. The hot
-keys' packed rows (ops/ujson_device.DocBatch) stay RESIDENT between
-drains. A drain encodes ONLY the new deltas into a (K, D, W) grid,
-folds each key's D deltas and joins the result into that key's resident
-row on the device (`fold_join_subset`), and decodes nothing: reads
-decode lazily.
+The port of jylis_tpu/ops/ujson_resident.py. The hot keys' packed rows
+(ops/ujson_device.DocBatch) stay RESIDENT between drains. A drain
+encodes ONLY the new deltas into a (K, D, W) grid, folds each key's D
+deltas and joins the result into that key's resident row on the device,
+and decodes nothing: reads decode lazily.
+
+Sharding: with a mesh, the row axis splits into one contiguous block of
+rows per keys shard, each on its shard's device, and the drain uses the
+row-ALIGNED fold (`fold_join_aligned`: grid row i joins resident row i,
+no gather or scatter) on every shard; single-device serving uses the
+subset fold (`fold_join_subset`: gather rows, join, scatter back), so a
+drain touching few of many resident keys does not pay a full-batch
+join.
 
 The device steps:
 
@@ -33,9 +40,8 @@ upper bounds the fold slices to, kept as a bounded pipeline of in-flight
 folds whose live widths copy to pinned host memory behind a CUDA event
 (never read before the event completes). Row 0 is a permanent identity
 scratch row: padded subset slots point at it and write identical bytes.
-The native wire->planes grid encoder (``_grid_from_wire``) and the
-mesh's row-aligned fold (``fold_join_aligned``) are not ported yet:
-every grid takes the object encoder, which the JAX store also takes
+The native wire->planes grid encoder (``_grid_from_wire``) is not ported
+yet: every grid takes the object encoder, which the JAX store also takes
 whenever a delta is a plain ``UJSON``.
 """
 
@@ -46,6 +52,7 @@ import ctypes
 import numpy as np
 import torch
 
+from ..parallel.sharded import Keyspace
 from ..utils.batching import bucket
 from . import _build
 from . import ujson_device as dev
@@ -183,6 +190,19 @@ def fold_join_subset(resident: DocBatch, grid: DocBatch, idx, shift: int,
     return out, live_widths(out)
 
 
+def fold_join_aligned(resident: DocBatch, grid: DocBatch, shift: int,
+                      out_w: int, out_c: int):
+    """Row-aligned variant: grid row i folds into resident row i, one
+    `ujson_join` launch with no row index (b step 1) after the fold, the
+    epilogue in place when the widths match. With the resident rows
+    sharded, each shard runs it on its own rows: no gather, no scatter,
+    no communication. Returns (planes, live widths)."""
+    folded = _fold_grid(grid, shift)
+    out = dev.join_rows(resident, folded, shift, finish=(out_w, out_c),
+                        out=slice_widths(resident, out_w, out_c))
+    return out, live_widths(out)
+
+
 def fold_broadcast_rows(resident: DocBatch, deltas: DocBatch, occupied,
                         shift: int, out_w: int, out_c: int):
     """Fold a (D, W) delta batch to ONE doc and join it into every
@@ -282,30 +302,33 @@ def grow_reps(batch: DocBatch, n_rep: int) -> DocBatch:
 
 
 class _Live:
-    """One fold's live widths on their way to the host: a non-blocking
-    copy into pinned memory behind a recorded CUDA event (CPU tensors:
-    copied at once)."""
+    """One fold's live widths on their way to the host: per part (a
+    tensor, or a list of one per part), a non-blocking copy into pinned
+    memory behind a recorded CUDA event (CPU tensors: copied at once);
+    ``get`` takes the max over parts."""
 
-    __slots__ = ("host", "event")
+    __slots__ = ("host", "events")
 
-    def __init__(self, live: torch.Tensor):
-        self.event = None
-        if live.device.type == "cuda":
-            self.host = torch.empty(2, dtype=torch.int32, pin_memory=True)
-            stream = torch.cuda.current_stream(live.device)
-            self.host.copy_(live, non_blocking=True)
-            self.event = torch.cuda.Event()
-            self.event.record(stream)
-        else:
-            self.host = live.clone()
+    def __init__(self, lives):
+        self.host, self.events = [], []
+        for live in [lives] if isinstance(lives, torch.Tensor) else lives:
+            if live.device.type == "cuda":
+                host = torch.empty(2, dtype=torch.int32, pin_memory=True)
+                host.copy_(live, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(live.device))
+                self.events.append(event)
+            else:
+                host = live.clone()
+            self.host.append(host)
 
     def ready(self) -> bool:
-        return self.event is None or self.event.query()
+        return all(e.query() for e in self.events)
 
     def get(self) -> tuple[int, int]:
-        if self.event is not None:
-            self.event.synchronize()
-        return int(self.host[0]), int(self.host[1])
+        for e in self.events:
+            e.synchronize()
+        return (max(int(h[0]) for h in self.host), max(int(h[1]) for h in self.host))
 
 
 # ---- the store ---------------------------------------------------------------
@@ -313,15 +336,18 @@ class _Live:
 
 class ResidentStore:
     """Hot UJSON keys as device-resident DocBatch rows (see the module
-    docstring); ``device`` holds the planes."""
+    docstring). Without a mesh, ``device`` holds the planes as one part;
+    with one, the rows split into one part per keys shard, each on its
+    shard's device (a parallel.sharded.Keyspace)."""
 
     ROW_BUCKET = 8  # capacity granularity (rows)
     # soft device-memory budget for the resident planes: admission stops
     # (keys fall back to the host lattice) once the plane bytes cross it
     BYTE_BUDGET = 256 << 20
 
-    def __init__(self, n_rep: int = 8, device="cuda"):
-        self._device = torch.device(device)
+    def __init__(self, n_rep: int = 8, device="cuda", mesh=None):
+        self._ks = Keyspace(mesh, device)  # no parts before the first admission
+        self._device = self._ks.devices[0]
         self._nrep = bucket(n_rep, 4)
         self._shift = dev.narrow_shift(self._nrep)
         self._rid_cols: dict[int, int] = {}
@@ -329,7 +355,6 @@ class ResidentStore:
         self._pay_rev: list[tuple] = []
         self._rows: dict[bytes, int] = {}
         self._free: list[int] = []
-        self._batch: DocBatch | None = None
         # the width bound as a bounded pipeline: base (the newest consumed
         # fold's live widths, or admission widths) + the growth of every
         # fold still in flight
@@ -369,17 +394,24 @@ class ResidentStore:
     def keys(self):
         return self._rows.keys()
 
+    @property
+    def _batch(self) -> DocBatch | None:
+        """The resident planes as one DocBatch: the single part itself,
+        or, with a mesh, the parts gathered on the first device (a copy,
+        for reading)."""
+        return None if self._ks.parts is None else self._ks.whole()
+
     def block(self) -> None:
         """Wait for every queued device mutation (timing/shutdown)."""
         self._flush_broadcast()
-        if self._batch is not None and self._device.type == "cuda":
-            torch.cuda.synchronize(self._device)
+        for part in self._ks.parts or ():
+            if part.dots.device.type == "cuda":
+                torch.cuda.synchronize(part.dots.device)
 
     def approx_bytes(self) -> int:
         """Resident plane footprint (current shapes)."""
-        if self._batch is None:
-            return 0
-        return sum(p.numel() * p.element_size() for p in self._batch)
+        return sum(p.numel() * p.element_size() for part in self._ks.parts or ()
+                   for p in part)
 
     def full(self) -> bool:
         """True when admission should stop (BYTE_BUDGET crossed)."""
@@ -388,10 +420,10 @@ class ResidentStore:
     # -- layout plumbing ----------------------------------------------------
 
     def _row_axis(self) -> int:
-        return self._batch.dots.shape[0] if self._batch is not None else 0
+        return self._ks.key_cap
 
     def _capacity_for(self, rows: int) -> int:
-        return bucket(max(rows, 2), self.ROW_BUCKET)
+        return self._ks.round_cap(bucket(max(rows, 2), self.ROW_BUCKET))
 
     PIPE_DEPTH = 2  # folds allowed in flight before blocking on the oldest
 
@@ -419,10 +451,10 @@ class ResidentStore:
             self._consume(block=True)
         ub_w = self._base_w + grow_w + sum(g for _, g, _c in self._inflight)
         ub_c = self._base_c + grow_c + sum(c for _, _g, c in self._inflight)
-        if self._batch is None:
+        if self._ks.parts is None:
             return bucket(ub_w, 4), bucket(ub_c, 4)
-        bw = self._batch.dots.shape[-1]
-        bc = self._batch.cloud.shape[-1]
+        bw = self._ks.parts[0].dots.shape[-1]
+        bc = self._ks.parts[0].cloud.shape[-1]
         out_w = bucket(ub_w, 4)
         out_c = bucket(ub_c, 4)
         # shape hysteresis: keep the current width unless it must grow or
@@ -433,27 +465,28 @@ class ResidentStore:
             out_c = bc
         return out_w, out_c
 
-    def _grid_to_device(self, grid: DocBatch) -> DocBatch:
-        """Ship host grid planes (JAX dtypes) to the device, making
-        all-identity planes on the device instead of copying them."""
+    def _grid_to_device(self, grid: DocBatch, device=None) -> DocBatch:
+        """Ship host grid planes (JAX dtypes) to ``device`` (default: the
+        store's), making all-identity planes there instead of copying
+        them."""
+        device = self._device if device is None else device
         pad = _pad_of(grid.dots.dtype)
 
         def put(p, fill):
             uniform = (not p.any()) if fill == 0 else bool((p == fill).all())
             if not uniform:
-                return dev.plane_to_torch(p, self._device)
+                return dev.plane_to_torch(p, device)
             bits = dev.plane_to_torch(np.asarray([fill], p.dtype), "cpu")
-            return torch.full(p.shape, int(bits[0]), dtype=bits.dtype,
-                              device=self._device)
+            return torch.full(p.shape, int(bits[0]), dtype=bits.dtype, device=device)
 
         return DocBatch(put(grid.dots, pad), put(grid.pay, -1), put(grid.vv, 0),
                         put(grid.cloud, pad))
 
-    def _note_fold(self, batch: DocBatch, live, gw: int, gc: int) -> DocBatch:
-        """Enqueue a fold in the bounded pipeline: its live widths start
-        their copy to the host now; its growth counts join the bound."""
-        self._inflight.append((_Live(live), gw, gc))
-        return batch
+    def _note_fold(self, lives: list, gw: int, gc: int) -> None:
+        """Enqueue a fold in the bounded pipeline: its live widths (one
+        per part) start their copy to the host now; its growth counts
+        join the bound."""
+        self._inflight.append((_Live(lives), gw, gc))
 
     def _note_seqs(self, docs) -> None:
         """Track the max seq across delta contexts (a context covers its
@@ -471,8 +504,9 @@ class ResidentStore:
     def _widen(self) -> None:
         if self._shift == 32:
             return
-        if self._batch is not None:
-            self._batch = widen_rows(self._batch, self._shift)
+        if self._ks.parts is not None:
+            old = self._shift
+            self._ks.map(lambda p: widen_rows(p, old))
         self._shift = 32
 
     def _ensure_reps(self) -> None:
@@ -486,15 +520,16 @@ class ResidentStore:
         if self._shift != 32 and n > (1 << (31 - self._shift)):
             s2 = dev.narrow_shift(bucket(n, 4))
             if self._max_seq < (1 << s2) - 1:
-                if self._batch is not None:
-                    self._batch = repack_narrow(self._batch, self._shift, s2)
+                if self._ks.parts is not None:
+                    old = self._shift
+                    self._ks.map(lambda p: repack_narrow(p, old, s2))
                 self._shift = s2
             else:
                 self._widen()
         if n > self._nrep:
             self._nrep = bucket(n, 4)
-            if self._batch is not None:
-                self._batch = grow_reps(self._batch, self._nrep)
+            if self._ks.parts is not None:
+                self._ks.map(lambda p: grow_reps(p, self._nrep))
 
     def _encode_rows(self, docs) -> DocBatch:
         """Encode host docs (host planes) at the store's current layout,
@@ -549,41 +584,45 @@ class ResidentStore:
         self._base_c = max(self._base_c, rows_np.cloud.shape[-1])
         self._floor_w = max(self._floor_w, rows_np.dots.shape[-1])
         self._floor_c = max(self._floor_c, rows_np.cloud.shape[-1])
-        if self._batch is None:
+        if self._ks.parts is None:
             cap = self._capacity_for(len(items) + 1)
             dtype = torch.int32 if self._shift < 32 else torch.int64
             pad = int(PAD32) if self._shift < 32 else -1
             w = rows_np.dots.shape[-1]
             c = rows_np.cloud.shape[-1]
-            d = self._device
-            self._batch = DocBatch(
-                torch.full((cap, w), pad, dtype=dtype, device=d),
-                torch.full((cap, w), -1, dtype=torch.int32, device=d),
-                torch.zeros((cap, self._nrep), dtype=torch.int32, device=d),
-                torch.full((cap, c), pad, dtype=dtype, device=d),
-            )
+            nrep = self._nrep
+            self._ks.init(cap, lambda n, d: DocBatch(
+                torch.full((n, w), pad, dtype=dtype, device=d),
+                torch.full((n, w), -1, dtype=torch.int32, device=d),
+                torch.zeros((n, nrep), dtype=torch.int32, device=d),
+                torch.full((n, c), pad, dtype=dtype, device=d),
+            ))
             self._free = list(range(cap - 1, 0, -1))  # row 0 is scratch
         need = len(items)
         if len(self._free) < need:
             old = self._row_axis()
             cap = self._capacity_for(old + need - len(self._free))
-            self._batch = grow_capacity(self._batch, cap)
+            # a mesh re-splits: the rows per shard change with capacity
+            self._ks.grow(lambda b: grow_capacity(b, cap))
             self._free = list(range(cap - 1, old - 1, -1)) + self._free
         # harmonise widths between the resident planes and the new rows
-        bw, bc = self._batch.dots.shape[-1], self._batch.cloud.shape[-1]
+        bw, bc = self._ks.parts[0].dots.shape[-1], self._ks.parts[0].cloud.shape[-1]
         rw, rc = rows_np.dots.shape[-1], rows_np.cloud.shape[-1]
         if rw > bw or rc > bc:
-            self._batch = slice_widths(self._batch, max(rw, bw), max(rc, bc))
-            bw, bc = max(rw, bw), max(rc, bc)
+            w, c = max(rw, bw), max(rc, bc)
+            self._ks.map(lambda p: slice_widths(p, w, c))
+            bw, bc = w, c
         if rw < bw or rc < bc:
             rows_np = _pad_planes_np(rows_np, bw, bc)
-        idx = np.empty(need, np.int32)
+        idx = np.empty(need, np.int64)
         for j, (key, _) in enumerate(items):
             row = self._free.pop()
             self._rows[key] = row
             idx[j] = row
-        self._batch = place_rows(self._batch, dev.to_torch(rows_np, self._device),
-                                 torch.from_numpy(idx).to(self._device))
+        for part, sel, local in self._ks.split_rows(idx):
+            d = part.dots.device
+            place_rows(part, dev.to_torch(DocBatch(*(p[sel] for p in rows_np)), d),
+                       torch.from_numpy(local).to(d))
 
     def evict(self, key: bytes):
         """Decode a key's current doc and drop its row (demotion)."""
@@ -597,9 +636,10 @@ class ResidentStore:
         row = self._rows.pop(key)
         # the identity row, written in place (the JAX store rebuilds every
         # plane through clear_rows)
-        pad = pad_of(self._batch.dots)
-        for plane, fill in zip(self._batch, (pad, -1, 0, pad)):
-            plane[row] = fill
+        batch, local = self._ks.locate(row)
+        pad = pad_of(batch.dots)
+        for plane, fill in zip(batch, (pad, -1, 0, pad)):
+            plane[local] = fill
         self._free.append(row)
 
     # -- the drain ----------------------------------------------------------
@@ -622,7 +662,13 @@ class ResidentStore:
             ec = sum(len(d.ctx.cloud) for d in lst)
             grow_w = max(grow_w, ew)
             grow_c = max(grow_c, ec)
-        self._fold_subset(pending, grow_w, grow_c)
+        if self._ks.mesh is None:
+            # single device: the subset fold's grid covers exactly the
+            # drained keys (the aligned grid spans every capacity row —
+            # only worth it when sharding forbids gathers/scatters)
+            self._fold_subset(pending, grow_w, grow_c)
+        else:
+            self._fold_aligned(pending, grow_w, grow_c)
 
     # buffered broadcast deltas past this count force a flush (a memory
     # and width bound on the single fold's delta axis)
@@ -650,17 +696,22 @@ class ResidentStore:
 
         d = bucket(len(deltas), 4)  # identity-pad: bound the shapes
         rows_np = self._encode_rows(list(deltas) + [UJSON()] * (d - len(deltas)))
-        batch = dev.to_torch(rows_np, self._device)
         grow_w = sum(len(x.entries) for x in deltas)
         grow_c = sum(len(x.ctx.cloud) for x in deltas)
         out_w, out_c = self._budget_widths(grow_w, grow_c)
         occ = np.zeros(self._row_axis(), bool)
         occ[list(self._rows.values())] = True
-        out, live = fold_broadcast_rows(
-            self._batch, batch, torch.from_numpy(occ).to(self._device),
-            shift=self._shift, out_w=out_w, out_c=out_c,
-        )
-        self._batch = self._note_fold(out, live, grow_w, grow_c)
+        rps = self._ks.rows_per_shard
+        # the delta batch's leading axis is deltas, not resident rows: it
+        # goes whole to every part's device
+        ins = [(dev.to_torch(rows_np, p.dots.device),
+                torch.from_numpy(occ[i * rps:(i + 1) * rps]).to(p.dots.device))
+               for i, p in enumerate(self._ks.parts)]
+        outs = [fold_broadcast_rows(p, batch, o, shift=self._shift, out_w=out_w,
+                                    out_c=out_c)
+                for p, (batch, o) in zip(self._ks.parts, ins)]
+        self._ks.parts = [o for o, _ in outs]
+        self._note_fold([live for _, live in outs], grow_w, grow_c)
 
     def _fold_subset(self, pending, grow_w: int, grow_c: int) -> None:
         ks = sorted(pending)
@@ -673,10 +724,31 @@ class ResidentStore:
             idx[j] = self._rows[k]
         grid = self._grid_to_device(grid)
         out, live = fold_join_subset(
-            self._batch, grid, torch.from_numpy(idx).to(self._device),
+            self._ks.parts[0], grid, torch.from_numpy(idx).to(self._device),
             shift=self._shift, out_w=out_w, out_c=out_c,
         )
-        self._batch = self._note_fold(out, live, grow_w, grow_c)
+        self._ks.parts = [out]
+        self._note_fold([live], grow_w, grow_c)
+
+    def _fold_aligned(self, pending, grow_w: int, grow_c: int) -> None:
+        """The mesh's drain: a grid over every capacity row (identity
+        groups where nothing is pending), each part's slice of it moved
+        to the part's device first, then `fold_join_aligned` launched on
+        every part."""
+        cap = self._row_axis()
+        groups: list[list] = [[] for _ in range(cap)]
+        for k, lst in pending.items():
+            groups[self._rows[k]] = lst
+        grid = self._encode_grid(groups)
+        out_w, out_c = self._budget_widths(grow_w, grow_c)
+        rps = self._ks.rows_per_shard
+        grids = [self._grid_to_device(DocBatch(*(g[i * rps:(i + 1) * rps] for g in grid)),
+                                      p.dots.device)
+                 for i, p in enumerate(self._ks.parts)]
+        outs = [fold_join_aligned(p, g, shift=self._shift, out_w=out_w, out_c=out_c)
+                for p, g in zip(self._ks.parts, grids)]
+        self._ks.parts = [o for o, _ in outs]
+        self._note_fold([live for _, live in outs], grow_w, grow_c)
 
     # -- reads ---------------------------------------------------------------
 
@@ -684,11 +756,19 @@ class ResidentStore:
         """Decode ONE key's doc (a device->host pull of its row)."""
         return self.read_many([key])[0]
 
+    def _take(self, rows: np.ndarray) -> DocBatch:
+        """Host planes (JAX dtypes) of the global ``rows``, in order."""
+        pos, subs = [], []
+        for part, sel, local in self._ks.split_rows(rows):
+            idx = torch.from_numpy(local).to(part.dots.device)
+            subs.append(dev.to_numpy(DocBatch(*(p[idx] for p in part))))
+            pos.append(sel)
+        order = np.argsort(np.concatenate(pos), kind="stable")
+        return DocBatch(*(np.concatenate(ps)[order] for ps in zip(*subs)))
+
     def read_many(self, keys: list[bytes]) -> list:
         self._flush_broadcast()
-        rows = torch.from_numpy(
-            np.array([self._rows[k] for k in keys], np.int64)).to(self._device)
-        np_sub = dev.to_numpy(DocBatch(*(p[rows] for p in self._batch)))
+        np_sub = self._take(np.array([self._rows[k] for k in keys], np.int64))
         # a full read (no duplicate keys) pulled every row anyway:
         # re-tighten the width bounds and re-bucket the planes for free
         full = len(keys) == len(self._rows) and len(set(keys)) == len(keys)
@@ -700,8 +780,8 @@ class ResidentStore:
             self._floor_w = self._floor_c = 1
             w = bucket(self._base_w, 4)
             c = bucket(self._base_c, 4)
-            if w < self._batch.dots.shape[-1] or c < self._batch.cloud.shape[-1]:
-                self._batch = slice_widths(self._batch, w, c)
+            if w < self._ks.parts[0].dots.shape[-1] or c < self._ks.parts[0].cloud.shape[-1]:
+                self._ks.map(lambda p: slice_widths(p, w, c))
         cols_rid = {c: r for r, c in self._rid_cols.items()}
         docs = dev.decode_batch(np_sub, cols_rid, self.pay_lookup, shift=self._shift)
         if full:
@@ -723,7 +803,8 @@ class ResidentStore:
             new_rev.append(self._pay_rev[pid])
         self._pay_rev = new_rev
         self._pay_ids = {k: i for i, k in enumerate(new_rev)}
-        self._batch = remap_pay(self._batch, torch.from_numpy(table).to(self._device))
+        table = torch.from_numpy(table)
+        self._ks.map(lambda p: remap_pay(p, table.to(p.dots.device)))
 
     def dump(self) -> list[tuple[bytes, object]]:
         """Decode every resident key (snapshots / bootstrap sync)."""

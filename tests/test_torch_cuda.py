@@ -17,7 +17,11 @@ columns past 2^31, so dots with bit 63 set), empty rows, pads, one dot
 under several payload ids (the flat fold's last-copy rule), version
 vectors at the u32 wrap, the epilogue in place and refitted, the
 broadcast with free rows, the tree's levels, and rows wider than shared
-memory. Integer lattices,
+memory; for the mesh, replica_join at even and odd S with columns at 0,
+2^64-1 and >= 2^63 (and what its wrapper refuses), join_replica_axis,
+the routed GCOUNT / PNCOUNT / TREG / TLOG drains on [cuda] * 4 against
+the same drains on [cpu] * 4 (one launch per shard), the row-aligned
+UJSON fold, and the dryrun on one card. Integer lattices,
 so every comparison is exact. On a machine with a GPU (where JAX need
 not be installed, hence --noconftest):
 
@@ -32,6 +36,9 @@ from jylis_tpu_torch.ops import gcount, planes, pncount, tensor, tlog, treg
 from jylis_tpu_torch.ops import ujson_device as udev
 from jylis_tpu_torch.ops import ujson_resident as ures
 from jylis_tpu_torch.utils.batching import pad_rows
+
+torch.set_num_threads(1)  # tier-1 shares the cores among its pytest workers
+from torch_cpu_share import yield_cpu  # noqa: E402,F401 (autouse: yields the cores)
 
 
 @pytest.fixture
@@ -637,3 +644,134 @@ def test_ujson_wrappers_reject_what_the_kernels_do_not_take(dev):
     g = udev.DocBatch(*(p[None] for p in a))
     with pytest.raises(ValueError):
         ures.fold_flat(g, 32)
+
+
+# ---- the mesh: replica_join and the per-shard routes -----------------------------
+
+
+def _cpu_and_cuda_meshes(n, rep=1):
+    from jylis_tpu_torch.parallel import make_mesh
+
+    return (make_mesh(n, rep=rep, devices=["cpu"] * n),
+            make_mesh(n, rep=rep, devices=["cuda"] * n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,k", [(1, 1), (7, 1000), (7, 1001), (8, 4099), (64, 3000),
+                                 (9, 70001)])
+def test_replica_join_matches_plain(dev, s, k):
+    """Columns at 0 and 2^64-1 and half the values >= 2^63: the kernel's
+    unsigned max against the plain version's biased signed one."""
+    from jylis_tpu_torch.parallel import replica_join, replica_join_plain
+
+    rng = np.random.default_rng(s * k)
+    x = _u64(rng, (s, k))
+    x[:, 0] = 0
+    if k > 1:
+        x[-1, 1] = np.uint64(2**64 - 1)
+    xt = planes.to_tensor(x, dev)
+    before = replica_join.launches
+    got = replica_join(xt)
+    torch.cuda.synchronize()
+    assert replica_join.launches == before + 1
+    assert got.shape == (k,) and torch.equal(got, replica_join_plain(xt))
+    np.testing.assert_array_equal(planes.to_u64_np(got), x.max(axis=0))
+
+
+@pytest.mark.cuda
+def test_replica_join_rejects_what_the_kernel_does_not_take(dev):
+    from jylis_tpu_torch.parallel import replica_join
+
+    x = torch.zeros((4, 6), dtype=torch.int64, device=dev)
+    for bad in (x.to(torch.int32), x.t(), x[:0], x[0]):
+        with pytest.raises(ValueError):
+            replica_join(bad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,rep,n", [(8, 4, 8), (12, 4, 8), (7, 1, 4), (64, 1, 4)])
+def test_join_replica_axis_on_a_cuda_mesh(dev, s, rep, n):
+    from jylis_tpu_torch import parallel as tpar
+
+    rng = np.random.default_rng(s + rep)
+    x = _u64(rng, (s, 16 * n))
+    cm, gm = _cpu_and_cuda_meshes(n, rep)
+    want = tpar.gather_grid(tpar.join_replica_axis(cm, tpar.shard_grid(cm, x)))
+    before = tpar.replica_join.launches
+    got = tpar.gather_grid(tpar.join_replica_axis(gm, tpar.shard_grid(gm, x)))
+    launches = n if rep == 1 else n + n // rep
+    assert tpar.replica_join.launches == before + launches
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_sharded_drains_on_a_cuda_mesh_match_the_cpu_mesh(dev):
+    """GCOUNT, PNCOUNT, TREG and TLOG routed drains on [cuda] * 4 against
+    the same drains on [cpu] * 4 (the plain versions): one launch per
+    shard, per-slot outputs and the gathered states equal."""
+    from jylis_tpu_torch import parallel as tpar
+
+    rng = np.random.default_rng(12)
+    n, k, r = 4, 256, 8
+    cm, gm = _cpu_and_cuda_meshes(n)
+    rows = rng.choice(k, 70, replace=False)
+    cases = [
+        (gcount, gcount.from_counts(_u64(rng, (k, r)), "cpu"), _u64(rng, (70, r)),
+         tpar.drain_sharded_g, ()),
+        (pncount, pncount.from_counts(_u64(rng, (k, r)), _u64(rng, (k, r)), "cpu"),
+         _u64(rng, (70, 2 * r)), tpar.drain_sharded_pn, ()),
+        (treg, treg.init(k, "cpu"),
+         np.stack([rng.integers(0, 3, 70), rng.integers(0, 3, 70),
+                   rng.integers(0, 9, 70)], 1).astype(np.uint64), tpar.drain_sharded_treg, ()),
+    ]
+    ld = 4
+    pay = np.concatenate([rng.integers(0, 30, (70, ld)), rng.integers(0, 5, (70, ld)),
+                          rng.integers(0, 4, (70, 1)),
+                          np.where(rng.random((70, 1)) < 0.3, 2, tlog.TRIM_NOOP)],
+                         1).astype(np.uint64)
+    cases.append((tlog, tlog.init(k, 16, True, "cpu"), pay, tpar.drain_sharded_tlog, (ld,)))
+    for mod, st, payload, fn, extra in cases:
+        lr, p, slots = tpar.route_drain(rows, payload, n, k // n)
+        sc, sg = tpar.shard_state(cm, st), tpar.shard_state(gm, st)
+        before = mod.drain_sparse.launches
+        got = fn(gm, sg, lr, p, *extra)
+        want = fn(cm, sc, lr, p, *extra)
+        assert mod.drain_sparse.launches == before + n
+        for g, w in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            np.testing.assert_array_equal(g, w)
+        gs, cs = tpar.gather_state(sg), tpar.gather_state(sc)
+        assert all((a is None and b is None) or torch.equal(a.cpu(), b)
+                   for a, b in zip(gs, cs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["narrow", "wide"])
+@pytest.mark.parametrize("d", [7, 64, 70])
+def test_fold_join_aligned_matches_plain(dev, layout, d):
+    """The mesh's row-aligned fold: the flat fold (or the tree past 64
+    deltas), then one ujson_join with no row index, epilogue in place."""
+    rng = np.random.default_rng(d)
+    shift = UJ_SHIFT[layout](8)
+    res = _ujson_planes(rng, (6,), 16, 16, 8, shift, dev)
+    grid = _ujson_planes(rng, (6, d), 4, 4, 8, shift, dev, empty=range(d))
+    cpu = udev.DocBatch(*(p.cpu() for p in res))
+    before = udev.join_rows.launches
+    got, live = ures.fold_join_aligned(res, grid, shift, 64, 64)
+    want, wlive = ures.fold_join_aligned(cpu, udev.DocBatch(*(p.cpu() for p in grid)),
+                                         shift, 64, 64)
+    torch.cuda.synchronize()
+    assert udev.join_rows.launches > before
+    assert _uj_equal(got, want) and torch.equal(live.cpu(), wlive)
+
+
+@pytest.mark.cuda
+def test_dryrun_multichip_on_one_card(dev):
+    from jylis_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    before = (gcount.drain_sparse.launches, pncount.drain_sparse.launches,
+              tlog.drain_sparse.launches)
+    dryrun_multichip(["cuda"] * 4)
+    after = (gcount.drain_sparse.launches, pncount.drain_sparse.launches,
+             tlog.drain_sparse.launches)
+    assert all(a >= b + 4 for a, b in zip(after, before))

@@ -25,6 +25,9 @@ from jylis_tpu_torch.models import repo_counters as rc
 from jylis_tpu_torch.ops import gcount, planes, pncount, tensor
 from jylis_tpu_torch.utils.batching import pad_rows
 
+torch.set_num_threads(1)  # tier-1 shares the cores among its pytest workers
+from torch_cpu_share import yield_cpu  # noqa: E402,F401 (autouse: yields the cores)
+
 K, R, B = 64, 8, 16
 SEEDS = [0, 1, 2]
 

@@ -22,6 +22,9 @@ from jylis_tpu_torch.models import repo_counters as rc
 from jylis_tpu_torch.ops import gcount, pncount
 from jylis_tpu_torch.server import resp as tresp
 
+torch.set_num_threads(1)  # tier-1 shares the cores among its pytest workers
+from torch_cpu_share import yield_cpu  # noqa: E402,F401 (autouse: yields the cores)
+
 IDENTITY = 0xC0FFEE
 U64 = (1 << 64) - 1
 

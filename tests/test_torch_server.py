@@ -22,6 +22,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from jylis_tpu.cluster import codec as jax_codec
 from jylis_tpu.models.database import Database as JaxDatabase
@@ -35,6 +36,9 @@ from jylis_tpu_torch.models.database import Database
 from jylis_tpu_torch.ops.ujson_host import UJSON
 from jylis_tpu_torch.server.server import Server
 from jylis_tpu_torch.utils.config import Config, config_from_cli
+
+torch.set_num_threads(1)  # tier-1 shares the cores among its pytest workers
+from torch_cpu_share import yield_cpu  # noqa: E402,F401 (autouse: yields the cores)
 
 IDENTITY = 0xABCDEF
 BIG = (1 << 64) - 1

@@ -29,6 +29,9 @@ from jylis_tpu_torch.ops import tensor, tensor_host
 from jylis_tpu_torch.server import resp as tresp
 from jylis_tpu_torch.utils.batching import pad_rows
 
+torch.set_num_threads(1)  # tier-1 shares the cores among its pytest workers
+from torch_cpu_share import yield_cpu  # noqa: E402,F401 (autouse: yields the cores)
+
 SEEDS = [0, 1, 2]
 U64 = (1 << 64) - 1
 F32_POOL = np.array(

@@ -25,6 +25,9 @@ from jylis_tpu_torch import convert
 from jylis_tpu_torch.ops import planes, tlog
 from jylis_tpu_torch.utils.batching import pad_rows
 
+torch.set_num_threads(1)  # tier-1 shares the cores among its pytest workers
+from torch_cpu_share import yield_cpu  # noqa: E402,F401 (autouse: yields the cores)
+
 K, L = 12, 16
 U64 = (1 << 64) - 1
 NOOP = tlog.TRIM_NOOP

@@ -14,6 +14,7 @@ dense drain's tail-overflow retry, interner compaction past
 
 import numpy as np
 import pytest
+import torch
 
 from jylis_tpu.models import repo_tlog as jrt
 from jylis_tpu.server import resp as jresp
@@ -21,6 +22,9 @@ from jylis_tpu_torch import convert
 from jylis_tpu_torch.models import repo_tlog as rt
 from jylis_tpu_torch.ops import interner
 from jylis_tpu_torch.server import resp as tresp
+
+torch.set_num_threads(1)  # tier-1 shares the cores among its pytest workers
+from torch_cpu_share import yield_cpu  # noqa: E402,F401 (autouse: yields the cores)
 
 U64 = (1 << 64) - 1
 WIDE_TS = [1 << 32, (1 << 40) + 3, U64 - 1, U64]

@@ -30,6 +30,9 @@ from jylis_tpu_torch.ops import ujson_resident as tres
 from jylis_tpu_torch.ops.ujson_host import UJSON
 from test_ops_ujson_device import PayInterner, random_mutations
 
+torch.set_num_threads(1)  # tier-1 shares the cores among its pytest workers
+from torch_cpu_share import yield_cpu  # noqa: E402,F401 (autouse: yields the cores)
+
 N_REP = 8
 SHIFTS = [jdev.narrow_shift(N_REP), 32]
 SHIFT_IDS = ["narrow", "wide"]

@@ -17,6 +17,7 @@ layout (the store widens) and a seq past u32 (the key goes host-only).
 
 import numpy as np
 import pytest
+import torch
 
 from jylis_tpu.models import repo_ujson as jru
 from jylis_tpu.models.base import ParseError as JaxParseError
@@ -27,6 +28,9 @@ from jylis_tpu_torch.models import repo_ujson as tru
 from jylis_tpu_torch.models.base import ParseError
 from jylis_tpu_torch.server import resp as tresp
 from test_ops_ujson_device import random_mutations
+
+torch.set_num_threads(1)  # tier-1 shares the cores among its pytest workers
+from torch_cpu_share import yield_cpu  # noqa: E402,F401 (autouse: yields the cores)
 
 PATHS = [(), ("a",), ("b",), ("a", "x"), ("c", "y", "z"), ("tags",)]
 

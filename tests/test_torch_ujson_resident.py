@@ -23,6 +23,9 @@ from jylis_tpu_torch import convert
 from jylis_tpu_torch.ops import ujson_resident as tres
 from test_ops_ujson_device import copy_doc, random_mutations
 
+torch.set_num_threads(1)  # tier-1 shares the cores among its pytest workers
+from torch_cpu_share import yield_cpu  # noqa: E402,F401 (autouse: yields the cores)
+
 
 def make_deltas(rng, doc, replica, n, n_ops=1):
     out = []
