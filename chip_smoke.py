@@ -54,7 +54,10 @@ build/jylis_tpu_torch/), then:
    for 10,000 keys, L = 1,024; sparse at B = 16,384 with Ld = 128, dense
    with Ld = 64, TRIM counts of 512), narrow and wide; the dense drain at
    the node phase's L = 512; the socket TRIM's shape (B = 16, one row);
-   a row wider than shared memory (L = Ld = 65,536). Each is held bit
+   a row wider than shared memory (L = Ld = 65,536); and the class
+   boundaries of ops/tlog.py drain_plan (the widest L the warp class
+   takes at Ld = 128 and the next, narrow and wide; Ld = 256 and 257;
+   the dense drain at its crossover). Each is held bit
    for bit against its plain version (ts >= 2^32 and 2^64-1 with CLR,
    duplicates inside a delta and against the state, raised cutoffs,
    pad and negative rows, counts 0, above the length, negative and
@@ -75,8 +78,11 @@ build/jylis_tpu_torch/), then:
    broadcast join (32 replicas, one folded row 65,536 slots wide: past
    shared memory) and its tree; ujson_fold_flat at the node phase's
    flat leg (K = 4,096 x D = 64, and 64 keys) and at random planes past
-   shared memory (K = 2 x D = 64 x W = 512); narrow and wide, each bit
-   for bit against its plain version and timed;
+   shared memory (K = 2 x D = 64 x W = 512); ujson_join at the class
+   boundaries of ops/ujson_device.py join_plan (random rows of the
+   widest width the warp class takes, and of the next; the fewest rows
+   it takes, and half as many); narrow and wide, each bit for bit
+   against its plain version and timed;
 10. the UJSON store phase (BASELINE config 5, published shape): 32
    replica documents resident on the card, 8 rounds of 1,280 set_doc
    deltas through fold_in_broadcast, every replica's state against the
@@ -118,7 +124,10 @@ Each step prints one JSON line (a kernel phase's "launches" counts that
 phase's compare and timing launches). The line before the last two is
 {"kernels": [...]} (per kernel: "launches" on the single-device node
 phases, replica_join's on the dryrun; "mesh_launches" on the mesh
-node and "dryrun_launches" on the dryrun, each apart; error
+node and "dryrun_launches" on the dryrun, each apart; for the row
+kernels tlog_drain and ujson_join, "class" at each shape and
+"launch_classes", the main path's launches by class (a warp or a CTA
+per row, or device scratch: ops/row_plan.py); error
 against the plain version, kernel / plain / bound times at the main
 path's shape, the mesh routes' times under "mesh_routes", the
 counters' times at the north-star size under "north_star",
@@ -891,25 +900,56 @@ def tlog_case(torch, rng, wide: bool, dense: bool, k: int, length: int,
         raise AssertionError(f"{name} {shape}: err {err}, overflow rows {n_ovf}")
     if not dense and (out_k[1][live:].any() or out_k[2][live:].any() or ovf[live:].any()):
         raise AssertionError(f"{name} {shape}: pad slots must report 0")
-    # the bytes and compares this run's data needs (the source's count):
-    # every slot's delta and scalars; the state row where the kernel
-    # merges it (a valid delta entry, a raised cutoff or a trim), written
-    # back where it changed
-    new_len = sk.length.cpu().numpy().astype(np.int64)
-    diff = torch.zeros(k, dtype=torch.bool, device=dev)
-    for a, c in zip(_tensors(st0)[:nplanes], _tensors(sk)[:nplanes]):
+    nbytes, nops, active, diff = tlog_work(
+        torch, st0, sk, lens, cut, slot_rows, d_ts, d_vid, d_cut, slot_counts, ovf,
+        k if dense else b, dense)
+    reset = restorer(_tensors(sk), _tensors(st0))
+    ms = time_ms(torch, lambda: run(sk, kern), reset=reset)
+    dev_ms = device_ms(torch, lambda: (reset(), run(sk, kern)), "tlog_drain")
+    plain_ms = time_ms(torch, lambda: run(sp, plain),
+                       reset=restorer(_tensors(sp), _tensors(st0)))
+    b_ms, b_by = bound(nbytes, nops, card)
+    plan = tlog.drain_plan(k if dense else b, length, ld, nplanes).rows
+    row = dict(shape=shape, max_abs_err=err, kernel_ms=ms, device_ms=dev_ms,
+               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+               operations=nops, overflow_rows=n_ovf, rows_merged=int(active.sum()),
+               rows_changed=int(diff.sum()), launches=kern.launches - l0,
+               **{"class": f"{plan.kind} x{plan.rows_per_cta}"})
+    emit({"phase": name, **row, "card": card})
+    del st0, sk, sp, dt, extra
+    torch.cuda.empty_cache()
+    return row
+
+
+def tlog_work(torch, before, after, lens, cut, slot_rows, d_ts, d_vid, d_cut,
+              slot_counts, ovf, nslots: int, dense: bool):
+    """(bytes, compares, merged rows, changed rows) of one tlog_drain
+    launch, by the source's count of what this run's data needs: every
+    slot's delta and scalars; the state row where the kernel merges it
+    (a valid delta entry, a raised cutoff or a trim), written back where
+    it changed. ``before`` / ``after``: the state around the drain;
+    ``slot_rows``, the delta arrays, ``slot_counts`` and ``ovf``: the live
+    slots, in slot order; ``nslots``: the launch's slots, pads included."""
+    from jylis_tpu_torch.ops import tlog
+
+    k, length = before.ntl.shape
+    nplanes = 3 if before.wide else 2
+    ld = d_ts.shape[1]
+    new_len = after.length.cpu().numpy().astype(np.int64)
+    diff = torch.zeros(k, dtype=torch.bool, device=before.ntl.device)
+    for a, c in zip(_tensors(before)[:nplanes], _tensors(after)[:nplanes]):
         diff |= (a != c).any(1)
     diff = diff.cpu().numpy()
     sr = np.asarray(slot_rows)
     n = len(sr)
     cut_v = np.maximum(cut[sr], d_cut[:n])
     d_valid = ((d_vid[:n] >= 0) & (d_ts[:n] >= cut_v[:, None])).any(1)
-    flagged = ovf[:n].astype(bool)
-    active = d_valid | (cut_v > cut[sr]) | (slot_counts < tlog.TRIM_NOOP)
+    flagged = np.asarray(ovf)[:n].astype(bool)
+    active = d_valid | (cut_v > cut[sr]) | (np.asarray(slot_counts)[:n] < tlog.TRIM_NOOP)
     if dense:
         active &= ~flagged
-    old = lens[sr]
-    nbytes = n * (ld * 16 + 28) + (k if dense else b * 17)
+    old = np.asarray(lens)[sr]
+    nbytes = n * (ld * 16 + 28) + (nslots if dense else nslots * 17)
     nbytes += int((old[active] * nplanes * 4).sum()) + 12 * int((active & ~flagged).sum())
     nbytes += int((np.maximum(old, new_len[sr])[diff[sr]] * nplanes * 4).sum())
     ldp = 1 << (ld - 1).bit_length()
@@ -917,20 +957,7 @@ def tlog_case(torch, rng, wide: bool, dense: bool, k: int, length: int,
     lg = (length + ldp).bit_length()
     nops = int(active.sum()) * (ldp // 2 * s * (s + 1) // 2 + ldp + ldp * lg)
     nops += int((old[active] + new_len[sr][active] * lg).sum())
-    reset = restorer(_tensors(sk), _tensors(st0))
-    ms = time_ms(torch, lambda: run(sk, kern), reset=reset)
-    dev_ms = device_ms(torch, lambda: (reset(), run(sk, kern)), "tlog_drain")
-    plain_ms = time_ms(torch, lambda: run(sp, plain),
-                       reset=restorer(_tensors(sp), _tensors(st0)))
-    b_ms, b_by = bound(nbytes, nops, card)
-    row = dict(shape=shape, max_abs_err=err, kernel_ms=ms, device_ms=dev_ms,
-               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
-               operations=nops, overflow_rows=n_ovf, rows_merged=int(active.sum()),
-               rows_changed=int(diff.sum()), launches=kern.launches - l0)
-    emit({"phase": name, **row, "card": card})
-    del st0, sk, sp, dt, extra
-    torch.cuda.empty_cache()
-    return row
+    return nbytes, nops, active, diff
 
 
 def tlog_phases(torch, card: str) -> dict:
@@ -940,7 +967,7 @@ def tlog_phases(torch, card: str) -> dict:
     drain at the node phase's L = 512, the shape a socket TRIM gives the
     sparse drain (B = 16, one live row, no entries),
     and a row wider than shared memory holds (L = Ld = 65,536, wide: the
-    kernel's device-scratch path)."""
+    kernel's device-scratch path); then the class boundaries."""
     rng = np.random.default_rng(SEED + 20)
     out = {}
     for dense, name in ((False, "tlog_drain_sparse"), (True, "tlog_drain_dense")):
@@ -958,7 +985,34 @@ def tlog_phases(torch, card: str) -> dict:
             tlog_case(torch, rng, wide, False, K_TLOG, L_TLOG, 16, 1, 1, card))
     out["tlog_drain_sparse"]["other_shapes"].append(
         tlog_case(torch, rng, True, False, 4, 1 << 16, 4, 3, 1 << 16, card))
+    # the class boundaries (ops/tlog.py drain_plan): the widest L the warp
+    # class takes at Ld = 128 and the next L, narrow and wide; Ld = 256
+    # (8 delta entries a lane) and 257 (a CTA per row); the dense drain at
+    # the crossover
+    for wide in (False, True):
+        lx = tlog_warp_max_len(3 if wide else 2, LD_SPARSE)
+        for length in (lx, lx + 4):
+            out["tlog_drain_sparse"]["other_shapes"].append(
+                tlog_case(torch, rng, wide, False, 2048, length, 2048, 2000, LD_SPARSE, card))
+    for ld in (256, 257):
+        out["tlog_drain_sparse"]["other_shapes"].append(
+            tlog_case(torch, rng, False, False, 2048, L_TLOG, 2048, 2000, ld, card))
+    lx = tlog_warp_max_len(2, LD_DENSE)
+    for length in (lx, lx + 4):
+        out["tlog_drain_dense"]["other_shapes"].append(
+            tlog_case(torch, rng, False, True, 2048, length, 2048, 2000, LD_DENSE, card))
     return out
+
+
+def tlog_warp_max_len(nplanes: int, ld: int, b: int = 2048) -> int:
+    """The widest L (a multiple of 4) whose rows the warp class of
+    tlog_drain takes at Ld = ``ld`` in a launch of ``b`` slots."""
+    from jylis_tpu_torch.ops import tlog
+
+    length = 4
+    while tlog.drain_plan(b, length + 4, ld, nplanes).rows.kind == "warp":
+        length += 4
+    return length
 
 
 # ---- node phase ---------------------------------------------------------------
@@ -1812,6 +1866,7 @@ def tlog_node_phase(torch, n_keys: int = TLOG_KEYS) -> dict:
     rounds = []
     try:
         tlog.drain_dense.launches = tlog.drain_sparse.launches = 0
+        tlog.drain_dense.classes, tlog.drain_sparse.classes = {}, {}
         sel_all = np.arange(n_keys)
         plan = [(sel_all, 64, False, False), (sel_all, 64, False, False),
                 (sel_all, 64, False, False), (sel_all[:half], 64, False, False),
@@ -1856,6 +1911,8 @@ def tlog_node_phase(torch, n_keys: int = TLOG_KEYS) -> dict:
         retries = r5["dense"] - 1 if DEVICE == "cuda" else 1
         converge_launches = {"tlog_drain_dense": tlog.drain_dense.launches,
                              "tlog_drain_sparse": tlog.drain_sparse.launches}
+        converge_classes = {"tlog_drain_dense": dict(tlog.drain_dense.classes),
+                            "tlog_drain_sparse": dict(tlog.drain_sparse.classes)}
         if not repo._state.wide or repo._len_cap != L_TLOG or repo._key_cap != bucket(n_keys):
             raise AssertionError(
                 f"TLOG state after the rounds: wide {repo._state.wide}, "
@@ -1907,6 +1964,7 @@ def tlog_node_phase(torch, n_keys: int = TLOG_KEYS) -> dict:
         reads_s = run("TLOG GET/SIZE/CUTOFF")
         # trims: one sparse drain each (B = 16, no entries)
         l0 = tlog.drain_sparse.launches
+        c0 = dict(tlog.drain_sparse.classes)
         for i in trim_keys:
             send(("TLOG", "TRIM", keys[i], TLOG_TRIM), b"+OK\r\n")
             ref(i).trim(TLOG_TRIM)
@@ -1920,6 +1978,8 @@ def tlog_node_phase(torch, n_keys: int = TLOG_KEYS) -> dict:
         send(("TLOG", "CLR", b"missing"), b"+OK\r\n")
         trims_s = run("TLOG TRIM/TRIMAT/CLR", chunk=64)
         trim_launches = tlog.drain_sparse.launches - l0
+        trim_classes = {c: n - c0.get(c, 0) for c, n in tlog.drain_sparse.classes.items()
+                        if n != c0.get(c, 0)}
         # local writes on trimmed and cleared keys and on new keys (pending
         # until the next drain: reads serve the merged view on the host)
         ins_keys = trim_keys[:200] + clr_keys
@@ -1944,6 +2004,8 @@ def tlog_node_phase(torch, n_keys: int = TLOG_KEYS) -> dict:
         repo.drain()  # the socket's pending INS: one more sparse drain
         launches = {"tlog_drain_dense": tlog.drain_dense.launches,
                     "tlog_drain_sparse": tlog.drain_sparse.launches}
+        classes = {"tlog_drain_dense": dict(tlog.drain_dense.classes),
+                   "tlog_drain_sparse": dict(tlog.drain_sparse.classes)}
         t0 = time.perf_counter()
         st = repo._state
         for plane in _tensors(st):
@@ -1995,7 +2057,8 @@ def tlog_node_phase(torch, n_keys: int = TLOG_KEYS) -> dict:
         node.close()
     if DEVICE == "cuda" and (min(launches.values()) < 1 or trim_launches != TLOG_TRIMS + 151):
         raise AssertionError(f"TLOG drains: {launches}, trim drains {trim_launches}")
-    out = {"launches": launches, "converge_launches": converge_launches,
+    out = {"launches": launches, "classes": classes, "converge_launches": converge_launches,
+           "converge_classes": converge_classes, "trim_classes": trim_classes,
            "keys": n_keys, "entries_per_key": TLOG_LEN, "dense_retries": retries,
            "trim_drains": trim_launches, "capacity": [repo._key_cap, repo._len_cap],
            "rows_checked": n_keys, "replies_checked": replies,
@@ -2184,21 +2247,52 @@ def uj_join_work(a, b, bcast: bool, lo: int, co: int):
 
 
 def uj_tree_work(grid, shift: int):
-    """(bytes, operations) of a tree fold: the sum over its levels' join
-    launches (the levels run in plain torch here, to read their rows)."""
+    """(bytes, operations, classes) of a tree fold: the sum over its
+    levels' join launches (the levels run in plain torch here, to read
+    their rows), and the class each launch takes (ujson_device.join_plan)
+    as "warp x7, cta x2"."""
     from jylis_tpu_torch.ops import ujson_device as udev
 
     work = [0, 0]
+    kinds: list[str] = []
 
     def join(a, b, s):
         o = udev.join_rows_plain(a, b, s)
         nb, no = uj_join_work(a, b, False, o.dots.shape[-1], o.cloud.shape[-1])
         work[0] += nb
         work[1] += no
+        kinds.append(uj_join_class(a, b))
         return o
 
     udev._fold_body(grid, shift, join)
-    return tuple(work)
+    runs = []
+    for k in kinds:
+        if runs and runs[-1][0] == k:
+            runs[-1][1] += 1
+        else:
+            runs.append([k, 1])
+    return work[0], work[1], ", ".join(f"{k} x{n}" for k, n in runs)
+
+
+def uj_warp_max_width(tsize: int, r: int, n: int = 1024) -> int:
+    """The widest W (a multiple of 4) at which ujson_join's warp class
+    takes ``n`` rows of W dots and W cloud entries joined with the same."""
+    from jylis_tpu_torch.ops import ujson_device as udev
+
+    width = 4
+    while udev.join_plan(n, udev.join_work_bytes(
+            tsize, width + 4, width + 4, width + 4, width + 4, r)).kind == "warp":
+        width += 4
+    return width
+
+
+def uj_join_class(a, b) -> str:
+    """The class ujson_join takes for slots joining a's rows with b's."""
+    from jylis_tpu_torch.ops import ujson_device as udev
+
+    wb = udev.join_work_bytes(a.dots.element_size(), a.dots.shape[-1], b.dots.shape[-1],
+                              a.cloud.shape[-1], b.cloud.shape[-1], a.vv.shape[-1])
+    return udev.join_plan(a.dots.shape[0], wb).kind
 
 
 def uj_flat_work(grid, out):
@@ -2219,7 +2313,7 @@ def uj_flat_work(grid, out):
 
 
 def uj_case(torch, name, shape, card, run_k, run_p, work, reset_k=None, reset_p=None,
-            launches_per=1):
+            launches_per=1, launch_class=None):
     """Run kernel and plain once on equal inputs, compare bit for bit,
     then time both (CUDA events; ``reset_*`` put back the inputs of a
     join that writes in place) and read the kernel's device time."""
@@ -2243,13 +2337,52 @@ def uj_case(torch, name, shape, card, run_k, run_p, work, reset_k=None, reset_p=
     if dev_ms is not None:
         dev_ms *= launches_per  # the profiler's mean is per launch
     plain_ms = time_ms(torch, run_p, reset=reset_p)
-    nbytes, nops = work
+    nbytes, nops = work[:2]
     b_ms, b_by = bound(nbytes, nops, card)
     row = dict(shape=shape, max_abs_err=err, kernel_ms=ms, device_ms=dev_ms,
                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
-               operations=nops, launches=launched)
+               operations=nops, launches=launched,
+               **({"class": launch_class} if launch_class else {}))
     emit({"phase": name, **row, "card": card})
     return row
+
+
+def uj_5b_setup(wide: bool):
+    """BASELINE config 5b in a ResidentStore on the card: 64 documents
+    resident after 7 rounds, and round 8's deltas as the (K = 64, D =
+    512, W) grid the tree folds. Returns (store, keys, groups, grid)."""
+    from jylis_tpu_torch.ops import ujson_resident as ures
+    from jylis_tpu_torch.ops.ujson_host import UJSON
+
+    docs = [UJSON() for _ in range(UJ5B_KEYS)]
+    for rnd in range(UJ5B_ROUNDS - 1):
+        uj_5b_round(docs, rnd, keep=False)
+    store = ures.ResidentStore(n_rep=UJ5B_REPS, device=DEVICE)
+    if wide:
+        store._widen()
+    keys = [b"doc%03d" % k for k in range(UJ5B_KEYS)]
+    store.admit([(k, uj_copy(d)) for k, d in zip(keys, docs)])
+    groups = uj_5b_round(docs, UJ5B_ROUNDS - 1)
+    return store, keys, groups, store._grid_to_device(store._encode_grid(groups))
+
+
+def uj_5_setup(wide: bool):
+    """BASELINE config 5: 32 replica rows resident (empty), and the 8
+    rounds' 10,240 deltas as one (1, D, W) grid, D padded to a power of
+    two with identity rows. Returns (store, deltas, grid)."""
+    from jylis_tpu_torch.ops import ujson_device as udev, ujson_resident as ures
+    from jylis_tpu_torch.ops.ujson_host import UJSON
+    from jylis_tpu_torch.utils.batching import bucket
+
+    writers = [UJSON() for _ in range(UJ5_REPS)]
+    deltas = [d for rnd in range(UJ5_ROUNDS) for d in uj_5_round(writers, rnd)]
+    st5 = ures.ResidentStore(n_rep=UJ5_REPS, device=DEVICE)
+    if wide:
+        st5._widen()
+    st5.admit([(b"rep%02d" % i, UJSON()) for i in range(UJ5_REPS)])
+    d5 = bucket(len(deltas), 4)
+    batch = udev.to_torch(st5._encode_rows(deltas + [UJSON()] * (d5 - len(deltas))), DEVICE)
+    return st5, deltas, udev.DocBatch(*(p[None] for p in batch))
 
 
 def ujson_phases(torch, card: str, flat_groups) -> dict:
@@ -2262,26 +2395,16 @@ def ujson_phases(torch, card: str, flat_groups) -> dict:
     shared memory, the device-scratch path) and its 14-level tree;
     ujson_fold_flat at the node phase's flat leg (K = 4,096 x D = 64, and
     its first 64 keys), and random planes at K = 2 x D = 64 x W = 512
-    (past shared memory)."""
+    (past shared memory); then ujson_join at the class boundaries of
+    ujson_device.join_plan."""
     from jylis_tpu_torch.ops import ujson_device as udev, ujson_resident as ures
-    from jylis_tpu_torch.ops.ujson_host import UJSON
 
     rng = np.random.default_rng(SEED + 30)
     join_rows, flat_rows = [], []
     for wide in (False, True):
         lay = "wide" if wide else "narrow"
-        # config 5b: resident docs after 7 rounds, round 8's deltas
-        docs = [UJSON() for _ in range(UJ5B_KEYS)]
-        for rnd in range(UJ5B_ROUNDS - 1):
-            uj_5b_round(docs, rnd, keep=False)
-        store = ures.ResidentStore(n_rep=UJ5B_REPS, device=DEVICE)
-        if wide:
-            store._widen()
-        keys = [b"doc%03d" % k for k in range(UJ5B_KEYS)]
-        store.admit([(k, uj_copy(d)) for k, d in zip(keys, docs)])
-        groups = uj_5b_round(docs, UJ5B_ROUNDS - 1)
+        store, keys, groups, grid = uj_5b_setup(wide)
         shift = store._shift
-        grid = store._grid_to_device(store._encode_grid(groups))
         res0 = uj_clone(store._batch)
         idx = torch.tensor([store._rows[k] for k in keys], dtype=torch.int32, device=DEVICE)
         # the store's width bound as the node's round 8 sees it: a consumed
@@ -2294,17 +2417,18 @@ def ujson_phases(torch, card: str, flat_groups) -> dict:
         l0 = udev.join_rows.launches
         tree = udev.fold_segments(grid, shift)
         k_levels = udev.join_rows.launches - l0
+        work = uj_tree_work(grid, shift)
         tree_row = uj_case(
             torch, "ujson_join",
             f"config 5b tree: K=64 x D=512 x W={grid.dots.shape[-1]}, {k_levels} levels, {lay}",
             card, lambda: udev.fold_segments(grid, shift),
             lambda: udev.DocBatch(*(p[:, 0] for p in udev._fold_body(
                 grid, shift, udev.join_rows_plain))),
-            uj_tree_work(grid, shift), launches_per=k_levels)
+            work, launches_per=k_levels, launch_class=work[2])
         # the subset join with the epilogue, in place at the resident rows
         rk, rp = uj_clone(res0), uj_clone(res0)
-        sub_work = uj_join_work(udev.DocBatch(*(p[idx.long()] for p in res0)), tree,
-                                False, out_w, out_c)
+        sub_a = udev.DocBatch(*(p[idx.long()] for p in res0))
+        sub_work = uj_join_work(sub_a, tree, False, out_w, out_c)
         sub_row = uj_case(
             torch, "ujson_join",
             f"config 5b subset join: {len(keys)} of {res0.dots.shape[0]} rows x "
@@ -2314,23 +2438,15 @@ def ujson_phases(torch, card: str, flat_groups) -> dict:
                                    out=ures.slice_widths(rk, out_w, out_c)),
             lambda: udev.join_rows_plain(rp, tree, shift, a_idx=idx, finish=(out_w, out_c),
                                          out=ures.slice_widths(rp, out_w, out_c)),
-            sub_work, restorer(rk, res0), restorer(rp, res0))
+            sub_work, restorer(rk, res0), restorer(rp, res0),
+            launch_class=uj_join_class(sub_a, tree))
         join_rows += [sub_row, tree_row]
-        del store, grid, res0, rk, rp, tree, docs, groups
+        del store, grid, res0, rk, rp, tree, groups
 
         # config 5: the broadcast fold of 10,240 deltas into 32 replicas
-        writers = [UJSON() for _ in range(UJ5_REPS)]
-        deltas = [d for rnd in range(UJ5_ROUNDS) for d in uj_5_round(writers, rnd)]
-        st5 = ures.ResidentStore(n_rep=UJ5_REPS, device=DEVICE)
-        if wide:
-            st5._widen()
-        st5.admit([(b"rep%02d" % i, UJSON()) for i in range(UJ5_REPS)])
-        from jylis_tpu_torch.utils.batching import bucket
-
-        d5 = bucket(len(deltas), 4)
-        batch = udev.to_torch(st5._encode_rows(deltas + [UJSON()] * (d5 - len(deltas))), DEVICE)
+        st5, deltas, g5 = uj_5_setup(wide)
+        d5, batch = g5.dots.shape[1], udev.DocBatch(*(p[0] for p in g5))
         shift = st5._shift
-        g5 = udev.DocBatch(*(p[None] for p in batch))
         folded = udev.DocBatch(*(p[:, 0] for p in udev._fold_body(g5, shift)))
         gw = sum(len(x.entries) for x in deltas)
         gc = sum(len(x.ctx.cloud) for x in deltas)
@@ -2354,19 +2470,41 @@ def ujson_phases(torch, card: str, flat_groups) -> dict:
                                    out=ures.slice_widths(rk, out_w, out_c)),
             lambda: udev.join_rows_plain(rp, folded, shift, finish=(out_w, out_c),
                                          occupied=occ, out=ures.slice_widths(rp, out_w, out_c)),
-            uj_join_work(r0, folded, True, out_w, out_c), restorer(rk, r0), restorer(rp, r0))
+            uj_join_work(r0, folded, True, out_w, out_c), restorer(rk, r0), restorer(rp, r0),
+            launch_class=uj_join_class(r0, folded))
         l0 = udev.join_rows.launches
         udev._fold_body(g5, shift)
         levels5 = udev.join_rows.launches - l0
+        work = uj_tree_work(g5, shift)
         t5_row = uj_case(
             torch, "ujson_join",
             f"config 5 tree: D={d5} x W={batch.dots.shape[-1]}, {levels5} levels, {lay}",
             card, lambda: udev.DocBatch(*(p[:, 0] for p in udev._fold_body(g5, shift))),
             lambda: udev.DocBatch(*(p[:, 0] for p in udev._fold_body(
                 g5, shift, udev.join_rows_plain))),
-            uj_tree_work(g5, shift), launches_per=levels5)
+            work, launches_per=levels5, launch_class=work[2])
         join_rows += [bc_row, t5_row]
-        del st5, batch, g5, folded, r0, rk, rp, writers, deltas
+        del st5, batch, g5, folded, r0, rk, rp, deltas
+
+        # the class boundaries (ujson_device.join_plan): random rows of the
+        # widest width the warp class takes (dots and cloud alike, R = 8)
+        # and of the next width, 1,024 slots; 64-wide rows in the fewest
+        # slots the warp class takes and in half as many
+        shift = 32 if wide else 28
+        wx = uj_warp_max_width(8 if wide else 4, 8)
+        for n, width in ((1024, wx), (1024, wx + 4), (udev.WARP_MIN_ROWS, 64),
+                         (udev.WARP_MIN_ROWS // 2, 64)):
+            a = uj_random_planes(torch, rng, (n,), width, width, 8, shift)
+            b = uj_random_planes(torch, rng, (n,), width, width, 8, shift)
+            join_rows.append(uj_case(
+                torch, "ujson_join",
+                f"random rows at the class boundary: {n} x {width} dots + {width}, "
+                f"C={width}+{width} R=8, {lay}",
+                card, lambda: udev.join_rows(a, b, shift),
+                lambda: udev.join_rows_plain(a, b, shift),
+                uj_join_work(a, b, False, 2 * width, 2 * width),
+                launch_class=uj_join_class(a, b)))
+        del a, b
 
         # ujson_fold_flat at the flat leg's shape and its first 64 keys
         stf = ures.ResidentStore(n_rep=32, device=DEVICE)
@@ -2495,15 +2633,19 @@ def ujson_node_phase(torch, n5b: int = UJ5B_KEYS, rounds5b: int = UJ5B_ROUNDS,
     replies = 0
     try:
         udev.join_rows.launches = ures.fold_flat.launches = 0
+        udev.join_rows.classes = {}
 
         def deliver(leg, batch, note=None):
             l0 = (udev.join_rows.launches, ures.fold_flat.launches)
+            c0 = dict(udev.join_rows.classes)
             t0 = time.perf_counter()
             node.converge("UJSON", batch)
             st = repo._res
             legs.append(dict(
                 leg=leg, deltas=len(batch), converge_s=time.perf_counter() - t0,
                 join=udev.join_rows.launches - l0[0], fold_flat=ures.fold_flat.launches - l0[1],
+                join_classes={c: n - c0.get(c, 0) for c, n in udev.join_rows.classes.items()
+                              if n != c0.get(c, 0)},
                 shift=None if st is None else st._shift,
                 resident=0 if st is None else len(st),
                 planes=None if st is None else list(st._batch.dots.shape), **(note or {})))
@@ -2650,13 +2792,14 @@ def ujson_node_phase(torch, n5b: int = UJ5B_KEYS, rounds5b: int = UJ5B_ROUNDS,
         # the dump's drain folded the trickles: the phase's launches end here
         launches = {"ujson_join": udev.join_rows.launches,
                     "ujson_fold_flat": ures.fold_flat.launches}
+        classes = {"ujson_join": dict(udev.join_rows.classes)}
     finally:
         node.close()
     if DEVICE == "cuda" and min(launches.values()) < 1:
         raise AssertionError(f"UJSON kernels did not launch: {launches}")
     if demoted != len(local):
         raise AssertionError(f"UJSON local writes demoted {demoted} of {len(local)}")
-    out = {"launches": launches, "converge_launches": converge_launches,
+    out = {"launches": launches, "classes": classes, "converge_launches": converge_launches,
            "keys": len(all_keys), "legs": legs, "generate_s": t_gen,
            "references_s": ref_s, "get_s": get_s, "trickle_s": trickle_s,
            "local_writes_s": local_s, "gets_again_s": again_s, "check_s": check_s,
@@ -2775,13 +2918,18 @@ def _states_equal(torch, a, b) -> bool:
                for x, y in zip(a, b))
 
 
-def _route_row(torch, name, shape, mesh_fn, counter, card, pad_share, **extra):
+def _route_row(torch, name, shape, mesh_fn, counter, card, pad_share, work, **extra):
     """Time one routed mesh drain (CUDA events around the whole call:
     the routed batch's copies to the card, one launch per shard, the
-    per-slot read-back) and its kernel's device time per launch."""
+    per-slot read-back) and its kernel's device time per launch, beside
+    the bound of one launch: ``work`` is (bytes, operations) per launch,
+    counted as the single-device kernel rows count them over the routed
+    batch (pad slots included) and split evenly over the launches."""
     ms = time_ms(torch, mesh_fn)
     dev = device_ms(torch, mesh_fn, counter, calls=3)
+    b_ms, b_by = bound(work[0], work[1], card)
     row = dict(shape=shape, mesh_call_ms=ms, device_ms_per_launch=dev,
+               bound_ms_per_launch=b_ms, bound_by=b_by, bytes_per_launch=work[0],
                pad_share=pad_share, shards=MESH_SHARDS, **extra)
     emit({"phase": f"mesh_route {name}", **row, "card": card})
     return row
@@ -2843,7 +2991,8 @@ def mesh_route_phases(torch, card: str, devs) -> dict:
         torch, "counter_drain_sparse<2>",
         f"K={k} x R={r} over {MESH_SHARDS} shards, B={b} routed to {len(slots)} slots",
         lambda: par.drain_sharded_pn(mesh, shards, lr, pay), "counter_drain_sparse", card,
-        pad, route_s=route_s, launches=launched,
+        pad, ((2 * b * r * 8 * 3 + len(slots) * 12) / launched,
+              2 * b * r * OPS_PER_COUNTER / launched), route_s=route_s, launches=launched,
         single_device_ms=time_ms(torch, lambda: pncount.drain_sparse(st, ki, dp, dn)))
     del st, shards, dp, dn, ki
     torch.cuda.empty_cache()
@@ -2852,6 +3001,7 @@ def mesh_route_phases(torch, card: str, devs) -> dict:
     k = K_TREG
     pl = treg_planes(rng, k)
     st = treg.TRegState(*treg_tensors(torch, pl, DEVICE))
+    st0 = _clone(st)
     shards = par.shard_state(mesh, st)
     plain = [_clone(s) for s in shards]
     rows = rng.choice(k, b, replace=False).astype(np.int64)
@@ -2889,12 +3039,15 @@ def mesh_route_phases(torch, card: str, devs) -> dict:
             and _states_equal(torch, par.gather_state(plain), st)):
         raise AssertionError("TREG mesh route: state != the single-device drain's")
     del plain
+    wins = changed(torch, st0, st)
     out["treg_drain_sparse"] = _route_row(
         torch, "treg_drain_sparse",
         f"K={k} over {MESH_SHARDS} shards, B={b} routed to {len(slots)} slots",
         lambda: par.drain_sharded_treg(mesh, shards, lr, pay), "treg_drain_sparse", card,
-        1 - b / len(slots), launches=launched, ties=ties)
-    del st, shards
+        1 - b / len(slots), ((len(slots) * 17 + b * 40 + wins * 20) / launched,
+                             b * OPS_PER_REGISTER / launched),
+        launches=launched, ties=ties, wins=wins)
+    del st, st0, shards
     torch.cuda.empty_cache()
 
     # TLOG: config 4, wide (K = 16,384, L = 1,024, Ld = 128), every row
@@ -2946,11 +3099,16 @@ def mesh_route_phases(torch, card: str, devs) -> dict:
             and _states_equal(torch, par.gather_state(plain), st)):
         raise AssertionError("TLOG mesh route: state != the single-device drain's")
     del plain
+    before = convert.tlog_from_jax(*tpl, lens32, cut, device=DEVICE)
+    nbytes, nops, _, _ = tlog_work(torch, before, st, lens, cut, rows, d_ts, d_vid, d_cut,
+                                   counts, sgl[0], len(slots), False)
+    del before
     out["tlog_drain_sparse"] = _route_row(
         torch, "tlog_drain_sparse",
         f"K={k} x L={L} wide over {MESH_SHARDS} shards, B={k} x Ld={ld} with trims",
         lambda: par.drain_sharded_tlog(mesh, shards, lr, pay, ld), "tlog_drain",
-        card, 1 - k / len(slots), launches=launched, overflow_rows=flagged)
+        card, 1 - k / len(slots), (nbytes / launched, nops / launched), launches=launched,
+        overflow_rows=flagged)
     del st, shards
     torch.cuda.empty_cache()
 
@@ -2987,11 +3145,24 @@ def mesh_route_phases(torch, card: str, devs) -> dict:
                 ures.fold_join_aligned(p, g, shift, out_w, out_c)
 
         name = "ujson_fold_flat" if d <= ures.FLAT_MAX else "ujson_join"
+        work = [0, 0]
+        for p, g in zip(par.shard_state(mesh, res), gparts):  # the pristine parts
+            if d <= ures.FLAT_MAX:
+                w_ = uj_flat_work(g, ures.fold_flat_plain(g, shift))
+            else:
+                w_ = uj_tree_work(g, shift)
+                f = udev.DocBatch(*(x[:, 0] for x in udev._fold_body(
+                    g, shift, udev.join_rows_plain)))
+                w2 = uj_join_work(p, f, False, out_w, out_c)
+                w_ = (w_[0] + w2[0], w_[1] + w2[1])
+            work[0] += w_[0]
+            work[1] += w_[1]
+        n_l = launched[1 if d <= ures.FLAT_MAX else 0]
         out.setdefault("ujson_aligned", []).append(_route_row(
             torch, f"fold_join_aligned {name}",
             f"K={kk} x D={d} x W={w} R={r} over {MESH_SHARDS} shards, out {out_w}/{out_c}",
-            run, name, card, 0.0, launches={"ujson_join": launched[0],
-                                             "ujson_fold_flat": launched[1]}))
+            run, name, card, 0.0, (work[0] / n_l, work[1] / n_l),
+            launches={"ujson_join": launched[0], "ujson_fold_flat": launched[1]}))
         del res, grid, parts, gparts, lives, mesh_out, single, folded, rp, want
         torch.cuda.empty_cache()
     return out
@@ -3106,6 +3277,8 @@ def counted(counters, fn):
     (its result, the counts just after it)."""
     for c in counters.values():
         c.launches = 0
+        if hasattr(c, "classes"):
+            c.classes = {}
     result = fn()
     return result, {n: c.launches for n, c in counters.items()}
 
@@ -3133,6 +3306,8 @@ def mesh_node_phase(torch, devs) -> dict:
         t0 = time.perf_counter()
         (mesh_replies, mesh_dumps), launches = counted(counters, serve)
         out["mesh_node_s"] = time.perf_counter() - t0
+        out["classes"] = {n: dict(c.classes) for n, c in counters.items()
+                          if getattr(c, "classes", None)}
         for n in ("GCOUNT", "PNCOUNT", "TREG", "TLOG"):
             if len(node.repo(n)._ks.parts) != MESH_SHARDS:
                 raise AssertionError(f"{n} state is not sharded over the mesh")
@@ -3290,12 +3465,14 @@ def main() -> int:
     launches = dict(node["launches"], tensor_join_dense=sweep["launches"],
                     **treg_node["launches"], **tensor_node["launches"],
                     **tlog_node["launches"], **ujson_node["launches"])
+    # the row kernels' main-path launches by class (ops/row_plan.py)
+    classes = dict(tlog_node["classes"], **ujson_node["classes"])
     mesh_launches = mesh_node["launches"]
     dryrun_launches = mesh_node["dryrun_launches"]
     # replica_join's main path is the dryrun (no serving repo runs it)
     launches.update({n: dryrun_launches.get(n, 0) for n in DRYRUN_PATH})
     routes["ujson_join"] = routes["ujson_fold_flat"] = routes.pop("ujson_aligned")
-    timing = ("shape", "kernel_ms", "device_ms", "plain_ms", "bound_ms")
+    timing = ("shape", "class", "kernel_ms", "device_ms", "plain_ms", "bound_ms")
     kernels = []
     for kname, (source, replaces) in KERNELS.items():
         r = rows[kname]
@@ -3313,9 +3490,11 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r.get("library_ms"), "shape": r["shape"],
             "device_ms": r["device_ms"],
+            **({"class": r["class"]} if "class" in r else {}),
+            **({"launch_classes": classes[kname]} if kname in classes else {}),
             **({"library": r["library"]} if "library" in r else {}),
-            **({"north_star": {k: ns[k] for k in timing}} if ns else {}),
-            **({"other_shapes": [{k: x[k] for k in timing} for x in others]}
+            **({"north_star": {k: ns[k] for k in timing if k in ns}} if ns else {}),
+            **({"other_shapes": [{k: x[k] for k in timing if k in x} for x in others]}
                if others else {}),
             **({"mesh_routes": routes[kname]} if kname in routes else {}),
         })

@@ -1,7 +1,8 @@
-// Block-scope building blocks shared by the row kernels (tlog_drain.cu,
-// ujson_join.cu, ujson_fold_flat.cu): an exclusive block scan for
-// compactions, binary searches over sorted rows, and an ascending bitonic
-// sort of a power-of-two buffer. Buffers are generic pointers, so the
+// Block-scope building blocks of the row kernels (ujson_fold_flat.cu, and
+// ujson_join.cu's searches; warp_ops.cuh holds the group scans the
+// redesigned row kernels use): an exclusive block scan for compactions,
+// binary searches over sorted rows, and an ascending bitonic sort of a
+// power-of-two buffer. Buffers are generic pointers, so the
 // same code runs on shared memory or on per-CTA device scratch.
 #pragma once
 

@@ -32,22 +32,48 @@
 // as the JAX package does; the repo widens the state before any ts or
 // cutoff exceeds 2^32 - 2.
 //
-// Design: one CTA of 256 threads per row (grid-stride over slots). The
-// row's work buffer holds a copy of its L state slots and the delta's Ld
-// slots rounded up to a power of two, per plane: in shared memory when it
-// fits (the wrapper's SMEM_LIMIT), else in device scratch the wrapper
-// allocates per CTA, so rows of any width merge (the code is the same:
-// generic pointers). Steps, each ended by a barrier: load the delta
-// (invalid entries as PAD) and copy the state row, counting the entries
-// that survive the cutoff with __syncthreads_count; bitonic-sort the
-// delta; drop each delta entry equal to its left neighbour or present in
-// the state row (binary search), compacting with a block scan; then every
-// surviving entry finds its merged position as its own index plus a
-// binary search in the other list (both are sorted and disjoint). Thread
-// 0 reads the trim's entries with a merge-path co-rank search. Positions
-// below the trimmed length are written, PAD over the rest of the old
-// length. A row with no valid delta entry, no raised cutoff and no trim
-// is not written at all.
+// Design. A row's work is a chain of small dependent steps, so latency
+// and synchronisation bound it, not bytes: a CTA of 256 threads on a row
+// of a few hundred entries waits at a barrier between every step and
+// idles 255 threads on a one-entry TRIM. A launch's rows share one width,
+// and the
+// wrapper (ops/tlog.py `drain_plan`, ops/row_plan.py) picks one of three
+// classes for it:
+//   warp     (tlog_drain_warp) a warp per row, up to 8 rows per CTA (as
+//            many as keep the most rows resident on an SM), each warp
+//            owning a slice of shared memory that holds the row's state
+//            entries, its compacted delta and each delta entry's bound in
+//            the state. The delta, 32*E entries (E = 1..8, Ld <= 256), is
+//            read coalesced into registers, E a lane, and sorted there by
+//            a warp bitonic network of shuffles (warp_ops.cuh);
+//            duplicates are found with __shfl_up_sync, membership in the
+//            state row by a binary search, and the survivors compacted
+//            into the slice by __ballot_sync. Only __syncwarp between
+//            steps: a warp reads its whole row before it writes any of it.
+//   cta      (tlog_drain_cta) a CTA per row, for rows past a warp's
+//            slice or Ld > 256: the delta is bitonic-sorted in the work
+//            buffer (a barrier a stage), compacted by ballot scans of
+//            one barrier each (warp_ops.cuh CtaGroup).
+//   scratch  the cta kernel with its work buffer in device scratch the
+//            wrapper allocates, for rows past shared memory.
+// In every class: a slot's delta and the scalars that need no row are
+// loaded before the row's, so their latencies overlap; a row with no
+// valid delta entry, no raised cutoff and no trim reads no state and
+// writes nothing, and state entries below the first delta entry keep
+// their slots unwritten (a TRIM writes only PAD); the state row's old length
+// is copied (16-byte loads where the planes allow), not its L slots, and
+// the copy finds where the entries surviving the cutoff end (a prefix);
+// every thread computes the trim's target (a merge-path co-rank search)
+// and the trimmed length itself, with searches the warp's 32 lanes run
+// together (warp_partition_point), so no thread waits on another; a
+// state entry's merged position is its index plus the delta entries
+// whose bound lies at or below it (a search of the bounds), a delta
+// entry's its index plus its bound, so the writes stay nearly coalesced.
+// Compares are branch-free: a warp's lanes compare different entries,
+// and a branch per plane would split the warp at every compare of the
+// register sort.
+// The crossover (the wrapper's WARP_ROW_BYTES), measured on an H100 by
+// scripts/row_kernel_profile.py --sweep: PERF.md §6.
 //
 // Bound: bytes. Per live row: the state's valid entries read (4 bytes a
 // plane), Ld delta entries (8-byte ts, 8-byte vid), length, cutoff, delta
@@ -59,15 +85,14 @@
 // delta entry for the searches.
 #include <cuda_runtime.h>
 
-#include "block_ops.cuh"
+#include "warp_ops.cuh"
 
 namespace {
 
 using u32 = unsigned int;
 using u64 = unsigned long long;
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+constexpr int kCtaThreads = 256;
 constexpr u32 kPad = 0xFFFFFFFFu;
 constexpr long long kTrimNoop = 1LL << 62;
 
@@ -76,16 +101,17 @@ struct Ent {
   u32 h, l, v;
 };
 
+// lexicographic order and equality, without branches (a warp's lanes
+// compare different entries; a branch per plane would diverge)
 template <bool W>
 __device__ __forceinline__ bool lt(const Ent& a, const Ent& b) {
-  if (W && a.h != b.h) return a.h < b.h;
-  if (a.l != b.l) return a.l < b.l;
-  return a.v < b.v;
+  const bool lv = (a.l < b.l) | ((a.l == b.l) & (a.v < b.v));
+  return W ? (a.h < b.h) | ((a.h == b.h) & lv) : lv;
 }
 
 template <bool W>
 __device__ __forceinline__ bool eq(const Ent& a, const Ent& b) {
-  return (!W || a.h == b.h) && a.l == b.l && a.v == b.v;
+  return ((!W) | (a.h == b.h)) & (a.l == b.l) & (a.v == b.v);
 }
 
 // jylis_tpu/ops/tlog.py `_ts_ge`: ts >= cut as lex (nth, ntl) <=
@@ -94,8 +120,7 @@ template <bool W>
 __device__ __forceinline__ bool ts_ge(const Ent& e, u64 cut) {
   const u64 nc = ~cut;
   const u32 nch = static_cast<u32>(nc >> 32), ncl = static_cast<u32>(nc);
-  if (W) return e.h < nch || (e.h == nch && e.l <= ncl);
-  return e.l <= ncl;
+  return W ? (e.h < nch) | ((e.h == nch) & (e.l <= ncl)) : e.l <= ncl;
 }
 
 template <bool W>
@@ -122,44 +147,327 @@ struct Planes {
   }
 };
 
+// A row's work buffer: per plane `slice` u32 (its L state slots, then
+// ldp delta slots), then ldp ints: where each compacted delta entry falls
+// among the state's surviving entries (its lower bound there).
+template <bool W>
+__device__ __forceinline__ Planes<W> buffer(u32* w, long long slice) {
+  return Planes<W>{W ? w : nullptr, w + (W ? slice : 0),
+                   w + (W ? 2 : 1) * slice};
+}
+
+__device__ __forceinline__ long long buffer_u32(long long slice, int ldp, bool wide) {
+  return slice * (wide ? 3 : 2) + ((ldp + 3) & ~3);
+}
+
 // entries of p[0, n) that are < e (p sorted ascending)
 template <bool W>
-__device__ int lower_bound(const Planes<W>& p, int n, const Ent& e) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (lt<W>(p.get(mid), e)) lo = mid + 1;
-    else hi = mid;
-  }
-  return lo;
+__device__ __forceinline__ int lower_bound(const Planes<W>& p, int n,
+                                           const Ent& e) {
+  return jt::partition_point(n, [&](int i) { return lt<W>(p.get(i), e); });
+}
+
+// entries of p[0, n) with ts >= cut: a prefix of a sorted list. Every
+// thread of the group calls it (a warp-parallel search).
+template <bool W>
+__device__ __forceinline__ int live_prefix(const Planes<W>& p, int n, u64 cut) {
+  return jt::warp_partition_point(0, n, [&](int i) { return ts_ge<W>(p.get(i), cut); });
 }
 
 // the k-th entry (0-based) of the merge of sorted, disjoint a[0, na) and
 // d[0, nd): a merge-path co-rank search for how many of the first k + 1
-// come from a
+// come from a. Every thread of the group calls it.
 template <bool W>
 __device__ Ent merged_at(const Planes<W>& a, int na, const Planes<W>& d,
                          int nd, int k) {
   const int kk = k + 1;
-  int lo = kk - nd > 0 ? kk - nd : 0, hi = kk < na ? kk : na;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (lt<W>(a.get(mid), d.get(kk - mid - 1))) lo = mid + 1;
-    else hi = mid;
-  }
-  const int i = lo, j = kk - lo;
+  const int i = jt::warp_partition_point(
+      kk - nd > 0 ? kk - nd : 0, kk < na ? kk : na,
+      [&](int mid) { return lt<W>(a.get(mid), d.get(kk - mid - 1)); });
+  const int j = kk - i;
   if (i == 0) return d.get(j - 1);
   if (j == 0) return a.get(i - 1);
   const Ent x = a.get(i - 1), y = d.get(j - 1);
   return lt<W>(x, y) ? y : x;
 }
 
-// ascending bitonic sort of d[0, n), n a power of two
+// copy src[0, n) to dst[0, n) across the group: 16-byte words when vec
+// (both planes 16-byte aligned, n rounded up within a row of L % 4 == 0
+// slots, so the extra words are the row's own PAD). Returns the least
+// index this thread copied whose entry has ts < cut, n if none: the
+// group's least is where the entries that survive the cutoff end (they
+// are a prefix), found while copying instead of by a search after it.
+template <bool W, class G>
+__device__ __forceinline__ int copy_row(const G& g, const Planes<W>& dst,
+                                        const Planes<W>& src, int n, bool vec,
+                                        u64 cut) {
+  int fail = n;
+  if (vec) {
+    const int nq = (n + 3) >> 2;
+    for (int q = g.rank; q < nq; q += G::kSize) {
+      const uint4 h = W ? reinterpret_cast<const uint4*>(src.h)[q]
+                        : make_uint4(kPad, kPad, kPad, kPad);
+      const uint4 l = reinterpret_cast<const uint4*>(src.l)[q];
+      if (W) reinterpret_cast<uint4*>(dst.h)[q] = h;
+      reinterpret_cast<uint4*>(dst.l)[q] = l;
+      reinterpret_cast<uint4*>(dst.v)[q] = reinterpret_cast<const uint4*>(src.v)[q];
+      const u32 hs[4] = {h.x, h.y, h.z, h.w}, ls[4] = {l.x, l.y, l.z, l.w};
+#pragma unroll
+      for (int j = 3; j >= 0; --j) {
+        const int i = 4 * q + j;
+        if (i < n && i < fail && !ts_ge<W>(Ent{hs[j], ls[j], 0}, cut)) fail = i;
+      }
+    }
+  } else {
+    for (int i = g.rank; i < n; i += G::kSize) {
+      const Ent e = src.get(i);
+      dst.put(i, e);
+      if (i < fail && !ts_ge<W>(e, cut)) fail = i;
+    }
+  }
+  return fail;
+}
+
+// a slot's inputs, read by every thread of its group (same addresses:
+// one broadcast load each)
+struct Slot {
+  long long s, row;
+  int old_len;
+  u64 a_cut, cut;
+  long long cnt;
+};
+
+// the slot's scalars; false when the slot is done already (a pad slot,
+// or a row the dense rule flags), its outputs written by rank 0
+__device__ __forceinline__ bool open_slot(
+    int rank, long long s, const int* key_idx, long long k, int L, int ld,
+    const int* length, const u64* cutoff, const u64* dcut,
+    const long long* counts, unsigned char* ovf, int* out_len, u64* out_cut,
+    Slot* o) {
+  const u64 d_cut = dcut[s];  // (loads that need no row go first)
+  const long long cnt = counts[s];
+  long long row = s;
+  if (key_idx) {
+    row = static_cast<u32>(key_idx[s]);
+    if (row >= k) {  // pad slot
+      if (rank == 0) {
+        ovf[s] = 0;
+        out_len[s] = 0;
+        out_cut[s] = 0;
+      }
+      return false;
+    }
+  }
+  const int old_len = length[row];
+  if (!key_idx && old_len > L - ld) {  // the dense rule, on every row
+    if (rank == 0) ovf[s] = 1;
+    return false;
+  }
+  const u64 a_cut = cutoff[row];
+  *o = Slot{s, row, old_len, a_cut, a_cut > d_cut ? a_cut : d_cut, cnt};
+  return true;
+}
+
+// rank 0 reports a slot that leaves its row as it was
+__device__ __forceinline__ void report(int rank, const Slot& t, unsigned char flag,
+                                       unsigned char* ovf, int* out_len,
+                                       u64* out_cut) {
+  if (rank == 0) {
+    ovf[t.s] = flag;
+    if (out_len) {
+      out_len[t.s] = t.old_len;
+      out_cut[t.s] = t.a_cut;
+    }
+  }
+}
+
+// delta column j of slot s as read (vid -1 past Ld): loaded before the
+// slot's row is known, so the loads overlap the row's
+struct Raw {
+  u64 ts;
+  long long vid;
+};
+
+__device__ __forceinline__ Raw delta_raw(const u64* dts, const long long* dvid,
+                                         long long s, int ld, int j) {
+  if (j < ld) return Raw{dts[s * ld + j], dvid[s * ld + j]};
+  return Raw{0, -1};
+}
+
+// the entry of a raw delta column in plane order, PAD unless valid
+// under cut
+__device__ __forceinline__ Ent delta_entry(const Raw& r, u64 cut, bool* ok) {
+  *ok = r.vid >= 0 && r.ts >= cut;
+  const u64 nt = ~r.ts;
+  return *ok ? Ent{static_cast<u32>(nt >> 32), static_cast<u32>(nt),
+                   ~(static_cast<u32>(r.vid) + 1u)}
+             : Ent{kPad, kPad, kPad};
+}
+
+// Keep delta entry e (sorted position: after prev, or first) unless it
+// is PAD, equal to its left neighbour or already in a[0, na); *at gets
+// its lower bound in a.
 template <bool W>
-__device__ void bitonic(const Planes<W>& d, int n) {
+__device__ __forceinline__ bool keep_delta(const Planes<W>& a, int na,
+                                           const Ent& e, const Ent& prev,
+                                           bool first, int* at) {
+  if (e.v == kPad || (!first && eq<W>(prev, e))) return false;
+  *at = lower_bound<W>(a, na, e);
+  return *at == na || !eq<W>(a.get(*at), e);
+}
+
+// Everything after the delta is sorted, deduplicated, filtered against
+// the state and compacted to d[0, nd), each entry's lower bound in
+// a[0, na) in at[0, nd) (synced): the overflow rule, the trim, the
+// write-back and the slot's outputs.
+template <bool W, class G>
+__device__ __forceinline__ void finish_row(
+    const G& g, const Slot& t, const Planes<W>& R, const Planes<W>& A, int na,
+    const Planes<W>& D, const int* at, int nd, int L, bool sparse, int* length,
+    u64* cutoff, unsigned char* ovf, int* out_len, u64* out_cut) {
+  const int m = na + nd;
+  if (sparse && m > L) {  // the sparse rule
+    report(g.rank, t, 1, ovf, out_len, out_cut);
+    return;
+  }
+  // the fused trim's target, from the merged row
+  // (with no delta entry the merged row is a's)
+  u64 target = 0;
+  if (t.cnt == 0) {
+    if (m > 0) target = ts_of<W>(nd ? merged_at<W>(A, na, D, nd, 0) : A.get(0)) + 1;
+  } else if (t.cnt > 0 && t.cnt <= m) {
+    const int k = static_cast<int>(t.cnt - 1);
+    target = ts_of<W>(nd ? merged_at<W>(A, na, D, nd, k) : A.get(k));
+  }
+  const u64 new_cut = t.cut > target ? t.cut : target;
+  // the entries that survive it: a prefix of each list (all of a's when
+  // the trim raised nothing: a[0, na) survived t.cut)
+  const int ka = new_cut == t.cut ? na : live_prefix<W>(A, na, new_cut);
+  const int kd = live_prefix<W>(D, nd, new_cut);
+  const int nk = ka + kd;
+  // write the merged, trimmed row; PAD over what is left of the old one.
+  // Merged position: a state entry's index plus the delta entries below
+  // it (at[] is sorted), a delta entry's index plus its bound in a[0, ka)
+  if (nd > 0 || nk != t.old_len) {
+    // (state entries below the first delta entry's bound keep their slots)
+    const int i0 = kd && at[0] < ka ? at[0] : ka;
+    for (int i = i0 + g.rank; i < ka; i += G::kSize) {
+      R.put(i + jt::partition_point(kd, [&](int j) { return at[j] <= i; }), A.get(i));
+    }
+    for (int j = g.rank; j < kd; j += G::kSize) {
+      R.put(j + (at[j] < ka ? at[j] : ka), D.get(j));
+    }
+    for (int p = nk + g.rank; p < t.old_len; p += G::kSize) {
+      R.put(p, Ent{kPad, kPad, kPad});
+    }
+  }
+  if (g.rank == 0) {
+    length[t.row] = nk;
+    cutoff[t.row] = new_cut;
+    ovf[t.s] = 0;
+    if (out_len) {
+      out_len[t.s] = nk;
+      out_cut[t.s] = new_cut;
+    }
+  }
+}
+
+// A warp per row, rows_per_cta warps per CTA; slice: u32 per plane of a
+// warp's work buffer, whose delta part holds 32 << LogE slots.
+template <bool W, int LogE>
+__global__ void __launch_bounds__(256, W ? 2 : 3)
+    tlog_drain_warp(u32* nth, u32* ntl, u32* nv, int* length, u64* cutoff,
+                    const int* key_idx, const u64* dts, const long long* dvid,
+                    const u64* dcut, const long long* counts,
+                    unsigned char* ovf, int* out_len, u64* out_cut,
+                    long long nslots, long long k, int L, int ld,
+                    int rows_per_cta, long long slice, int vec) {
+  constexpr int E = 1 << LogE;
+  extern __shared__ __align__(16) u32 smem[];
+  const jt::WarpGroup g;
+  const int warp = static_cast<int>(threadIdx.x >> 5), lane = g.rank;
+  u32* w = smem + warp * buffer_u32(slice, 32 << LogE, W);
+  const Planes<W> A = buffer<W>(w, slice);
+  const Planes<W> D = A.at(L);
+  int* at = reinterpret_cast<int*>(w + slice * (W ? 3 : 2));
+  const auto xshfl = [](const Ent& x, int m) {
+    return Ent{W ? __shfl_xor_sync(jt::kFullMask, x.h, m) : kPad,
+               __shfl_xor_sync(jt::kFullMask, x.l, m),
+               __shfl_xor_sync(jt::kFullMask, x.v, m)};
+  };
+
+  for (long long s = static_cast<long long>(blockIdx.x) * rows_per_cta + warp;
+       s < nslots; s += static_cast<long long>(gridDim.x) * rows_per_cta) {
+    __syncwarp();  // the previous slot is done with the slice
+    // the delta, E columns a lane (element e * 32 + lane), coalesced
+    Raw raw[E];
+#pragma unroll
+    for (int e = 0; e < E; ++e) raw[e] = delta_raw(dts, dvid, s, ld, (e << 5) | lane);
+    Slot t;
+    if (!open_slot(lane, s, key_idx, k, L, ld, length, cutoff, dcut, counts,
+                   ovf, out_len, out_cut, &t)) {
+      continue;
+    }
+    // its entries under the cutoff, PAD elsewhere
+    Ent d[E];
+    int nvalid = 0;
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      bool ok;
+      d[e] = delta_entry(raw[e], t.cut, &ok);
+      nvalid += g.count(ok);
+    }
+    if (nvalid == 0 && t.cut == t.a_cut && t.cnt >= kTrimNoop) {  // unchanged
+      report(lane, t, 0, ovf, out_len, out_cut);
+      continue;
+    }
+    const long long off = t.row * L;
+    const Planes<W> R{W ? nth + off : nullptr, ntl + off, nv + off};
+    const int na = g.min(copy_row<W>(g, A, R, t.old_len, vec != 0, t.cut));
+    if (nvalid > 1) {
+      jt::warp_bitonic<LogE>(
+          d, [](const Ent& a, const Ent& b) { return lt<W>(a, b); }, xshfl);
+    }
+    __syncwarp();
+
+    // drop entries equal to their left neighbour or already in the state
+    // row; compact the rest to D[0, nd) in sorted order
+    int nd = 0;
+    if (nvalid) {  // (no entry: nothing to drop or place)
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        Ent prev{W ? __shfl_up_sync(jt::kFullMask, d[e].h, 1) : kPad,
+                 __shfl_up_sync(jt::kFullMask, d[e].l, 1),
+                 __shfl_up_sync(jt::kFullMask, d[e].v, 1)};
+        if (e > 0) {  // lane 0's left neighbour is lane 31's previous entry
+          const Ent w{W ? __shfl_sync(jt::kFullMask, d[e - 1].h, 31) : kPad,
+                      __shfl_sync(jt::kFullMask, d[e - 1].l, 31),
+                      __shfl_sync(jt::kFullMask, d[e - 1].v, 31)};
+          if (lane == 0) prev = w;
+        }
+        int p = 0;
+        const bool keep = keep_delta<W>(A, na, d[e], prev, e == 0 && lane == 0, &p);
+        int tot;
+        const int pos = g.scan(keep, &tot);
+        if (keep) {
+          D.put(nd + pos, d[e]);
+          at[nd + pos] = p;
+        }
+        nd += tot;
+      }
+    }
+    __syncwarp();
+    finish_row<W>(g, t, R, A, na, D, at, nd, L, key_idx != nullptr, length,
+                  cutoff, ovf, out_len, out_cut);
+  }
+}
+
+// ascending bitonic sort of d[0, n), n a power of two, over the CTA
+template <bool W>
+__device__ void cta_bitonic(const Planes<W>& d, int n) {
   for (int k = 2; k <= n; k <<= 1) {
     for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = threadIdx.x; i < n; i += kThreads) {
+      for (int i = threadIdx.x; i < n; i += kCtaThreads) {
         const int p = i ^ j;
         if (p > i) {
           const Ent a = d.get(i), b = d.get(p);
@@ -174,204 +482,144 @@ __device__ void bitonic(const Planes<W>& d, int n) {
   }
 }
 
+// A CTA per row (grid-stride over slots); the work buffer of `slice` u32
+// per plane (L state slots, then ldp delta slots) in shared memory, or in
+// device scratch when scratch is not null.
 template <bool W>
-__global__ void __launch_bounds__(kThreads)
-    tlog_drain(u32* nth, u32* ntl, u32* nv, int* length, u64* cutoff,
-               const int* key_idx, const u64* dts, const long long* dvid,
-               const u64* dcut, const long long* counts, unsigned char* ovf,
-               int* out_len, u64* out_cut, u32* scratch, long long nslots,
-               long long k, int L, int ld, int ldp) {
-  extern __shared__ u32 smem[];
-  __shared__ int warp_sums[kWarps];
-  __shared__ u64 s_cut;
-  const long long wsz = static_cast<long long>(L) + ldp;  // slots a plane
-  u32* w = scratch ? scratch + static_cast<long long>(blockIdx.x) * wsz *
-                                   (W ? 3 : 2)
-                   : smem;
-  const Planes<W> A{W ? w : nullptr, w + (W ? wsz : 0), w + (W ? 2 : 1) * wsz};
+__global__ void __launch_bounds__(kCtaThreads)
+    tlog_drain_cta(u32* nth, u32* ntl, u32* nv, int* length, u64* cutoff,
+                   const int* key_idx, const u64* dts, const long long* dvid,
+                   const u64* dcut, const long long* counts,
+                   unsigned char* ovf, int* out_len, u64* out_cut,
+                   u32* scratch, long long nslots, long long k, int L, int ld,
+                   int ldp, long long slice, int vec) {
+  extern __shared__ __align__(16) u32 smem[];
+  __shared__ int sums[2 * kCtaThreads / 32];
+  jt::CtaGroup<kCtaThreads> g(sums);
+  u32* w = scratch ? scratch + blockIdx.x * buffer_u32(slice, ldp, W) : smem;
+  const Planes<W> A = buffer<W>(w, slice);
   const Planes<W> D = A.at(L);
-  const int tid = threadIdx.x;
+  int* at = reinterpret_cast<int*>(w + slice * (W ? 3 : 2));
+  const int tid = g.rank;
 
   for (long long s = blockIdx.x; s < nslots; s += gridDim.x) {
     __syncthreads();  // the previous slot is done with the work buffer
-    long long row = s;
-    if (key_idx) {
-      row = static_cast<u32>(key_idx[s]);
-      if (row >= k) {  // pad slot
-        if (tid == 0) {
-          ovf[s] = 0;
-          out_len[s] = 0;
-          out_cut[s] = 0;
-        }
-        continue;
-      }
-    }
-    const int old_len = length[row];
-    const u64 a_cut = cutoff[row];
-    const u64 d_cut = dcut[s];
-    const u64 cut = a_cut > d_cut ? a_cut : d_cut;
-    const long long cnt = counts[s];
-    if (!key_idx && old_len > L - ld) {  // the dense rule, on every row
-      if (tid == 0) ovf[s] = 1;
+    const Raw first = delta_raw(dts, dvid, s, ld, tid);  // the first chunk
+    Slot t;
+    if (!open_slot(tid, s, key_idx, k, L, ld, length, cutoff, dcut, counts,
+                   ovf, out_len, out_cut, &t)) {
       continue;
     }
-    const long long off = row * L;
-    const Planes<W> R{W ? nth + off : nullptr, ntl + off, nv + off};
-
     // the delta's entries under the cutoff, PAD elsewhere
     int nvalid = 0;
-    for (int j0 = 0; j0 < ldp; j0 += kThreads) {
+    for (int j0 = 0; j0 < ldp; j0 += kCtaThreads) {
       const int j = j0 + tid;
       bool ok = false;
       if (j < ldp) {
-        Ent e{kPad, kPad, kPad};
-        if (j < ld) {
-          const u64 ts = dts[s * ld + j];
-          const long long vid = dvid[s * ld + j];
-          ok = vid >= 0 && ts >= cut;
-          if (ok) {
-            const u64 nt = ~ts;
-            e = Ent{static_cast<u32>(nt >> 32), static_cast<u32>(nt),
-                    ~(static_cast<u32>(vid) + 1u)};
-          }
-        }
-        D.put(j, e);
+        D.put(j, delta_entry(j0 ? delta_raw(dts, dvid, s, ld, j) : first, t.cut, &ok));
       }
-      nvalid += __syncthreads_count(ok);
+      nvalid += g.count(ok);
     }
-    if (nvalid == 0 && cut == a_cut && cnt >= kTrimNoop) {  // unchanged
-      if (tid == 0) {
-        ovf[s] = 0;
-        if (out_len) {
-          out_len[s] = old_len;
-          out_cut[s] = a_cut;
-        }
-      }
+    if (nvalid == 0 && t.cut == t.a_cut && t.cnt >= kTrimNoop) {  // unchanged
+      report(tid, t, 0, ovf, out_len, out_cut);
       continue;
     }
-
-    // the state row's entries, and how many survive the cutoff (a prefix)
-    int na = 0;
-    for (int i0 = 0; i0 < old_len; i0 += kThreads) {
-      const int i = i0 + tid;
-      bool ok = false;
-      if (i < old_len) {
-        const Ent e = R.get(i);
-        A.put(i, e);
-        ok = ts_ge<W>(e, cut);
-      }
-      na += __syncthreads_count(ok);
-    }
-
-    bitonic<W>(D, ldp);
+    const long long off = t.row * L;
+    const Planes<W> R{W ? nth + off : nullptr, ntl + off, nv + off};
+    // (the min's barrier orders the copy and the delta's writes ahead of
+    // the reads below)
+    const int na = g.min(copy_row<W>(g, A, R, t.old_len, vec != 0, t.cut));
+    if (nvalid > 1) cta_bitonic<W>(D, ldp);  // each stage ends on a barrier
 
     // drop delta entries equal to their left neighbour or already in the
-    // state row; compact the rest to d[0, nd)
+    // state row; compact the rest to D[0, nd) in place. A chunk reads
+    // before its scan's barrier and writes after it, at or below each
+    // source index; the left neighbour of a chunk's first entry was read
+    // by the chunk before (`last`), never after a write.
     int nd = 0;
-    for (int j0 = 0; j0 < ldp; j0 += kThreads) {
+    Ent last{kPad, kPad, kPad};
+    for (int j0 = 0; j0 < (nvalid ? ldp : 0); j0 += kCtaThreads) {
       const int j = j0 + tid;
       bool keep = false;
+      int p = 0;
       Ent e{kPad, kPad, kPad};
       if (j < ldp) {
         e = D.get(j);
-        keep = e.v != kPad && (j == 0 || !eq<W>(D.get(j - 1), e));
-        if (keep) {
-          const int p = lower_bound<W>(A, na, e);
-          keep = p == na || !eq<W>(A.get(p), e);
-        }
+        keep = keep_delta<W>(A, na, e, tid ? D.get(j - 1) : last, j == 0, &p);
       }
+      const int jl = j0 + kCtaThreads - 1;
+      if (jl < ldp) last = D.get(jl);
       int tot;
-      // the scan's barriers order this chunk's reads before its writes;
-      // writes land at or below their source index, so the next chunk's
-      // reads (from index j0 + kThreads - 1 on) see what they should
-      const int pos = jt::block_scan<kThreads>(keep ? 1 : 0, warp_sums, &tot);
-      if (keep) D.put(nd + pos, e);
+      const int pos = g.scan(keep, &tot);
+      if (keep) {
+        D.put(nd + pos, e);
+        at[nd + pos] = p;
+      }
       nd += tot;
-      __syncthreads();
     }
+    if (nvalid) __syncthreads();
+    finish_row<W>(g, t, R, A, na, D, at, nd, L, key_idx != nullptr, length,
+                  cutoff, ovf, out_len, out_cut);
+  }
+}
 
-    const int m = na + nd;
-    if (key_idx && m > L) {  // the sparse rule
-      if (tid == 0) {
-        ovf[s] = 1;
-        out_len[s] = old_len;
-        out_cut[s] = a_cut;
-      }
-      continue;
-    }
-
-    // the fused trim's target, from the merged row
-    if (tid == 0) {
-      u64 target = 0;
-      if (cnt == 0) {
-        if (m > 0) target = ts_of<W>(merged_at<W>(A, na, D, nd, 0)) + 1;
-      } else if (cnt > 0 && cnt <= m) {
-        target = ts_of<W>(merged_at<W>(A, na, D, nd, static_cast<int>(cnt - 1)));
-      }
-      s_cut = cut > target ? cut : target;
-    }
-    __syncthreads();
-    const u64 new_cut = s_cut;
-    int nk = 0;
-    for (int i0 = 0; i0 < m; i0 += kThreads) {
-      const int i = i0 + tid;
-      bool ok = false;
-      if (i < m) ok = ts_ge<W>(i < na ? A.get(i) : D.get(i - na), new_cut);
-      nk += __syncthreads_count(ok);
-    }
-
-    // write the merged, trimmed row; PAD over what is left of the old one
-    if (nd > 0 || nk != old_len) {
-      for (int i = tid; i < na; i += kThreads) {
-        const Ent e = A.get(i);
-        const int p = i + lower_bound<W>(D, nd, e);
-        if (p < nk) R.put(p, e);
-      }
-      for (int j = tid; j < nd; j += kThreads) {
-        const Ent e = D.get(j);
-        const int p = j + lower_bound<W>(A, na, e);
-        if (p < nk) R.put(p, e);
-      }
-      for (int p = nk + tid; p < old_len; p += kThreads) {
-        R.put(p, Ent{kPad, kPad, kPad});
-      }
-    }
-    if (tid == 0) {
-      length[row] = nk;
-      cutoff[row] = new_cut;
-      ovf[s] = 0;
-      if (out_len) {
-        out_len[s] = nk;
-        out_cut[s] = new_cut;
-      }
-    }
+template <typename F>
+void allow_smem(F* fn, long long smem) {
+  if (smem > 48 * 1024) {
+    cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(smem));
   }
 }
 
 template <bool W>
-int launch(void* nth, void* ntl, void* nv, void* length, void* cutoff,
-           const void* key_idx, const void* dts, const void* dvid,
-           const void* dcut, const void* counts, void* ovf, void* out_len,
-           void* out_cut, void* scratch, long long nslots, long long k,
-           long long L, long long ld, long long ldp, long long grid,
-           cudaStream_t stream) {
-  if (nslots <= 0) return 0;
-  const size_t smem =
-      scratch ? 0 : static_cast<size_t>(W ? 3 : 2) * 4 * (L + ldp);
-  if (smem > 48 * 1024) {
-    cudaFuncSetAttribute(tlog_drain<W>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(smem));
+int launch(int kind, int log_e, void* nth, void* ntl, void* nv, void* length,
+           void* cutoff, const void* key_idx, const void* dts,
+           const void* dvid, const void* dcut, const void* counts, void* ovf,
+           void* out_len, void* out_cut, void* scratch, long long nslots,
+           long long k, long long L, long long ld, long long ldp,
+           long long rows_per_cta, long long slice, long long grid,
+           long long smem, int vec, cudaStream_t stream) {
+  auto* a_h = static_cast<u32*>(nth);
+  auto* a_l = static_cast<u32*>(ntl);
+  auto* a_v = static_cast<u32*>(nv);
+  auto* len = static_cast<int*>(length);
+  auto* cut = static_cast<u64*>(cutoff);
+  auto* ki = static_cast<const int*>(key_idx);
+  auto* ts = static_cast<const u64*>(dts);
+  auto* vid = static_cast<const long long*>(dvid);
+  auto* dc = static_cast<const u64*>(dcut);
+  auto* cn = static_cast<const long long*>(counts);
+  auto* of = static_cast<unsigned char*>(ovf);
+  auto* ol = static_cast<int*>(out_len);
+  auto* oc = static_cast<u64*>(out_cut);
+  const unsigned blocks = static_cast<unsigned>(grid);
+  const size_t bytes = static_cast<size_t>(smem);
+  if (kind == 0) {
+    const unsigned threads = static_cast<unsigned>(32 * rows_per_cta);
+    const int rpc = static_cast<int>(rows_per_cta);
+#define JT_WARP_CASE(LE)                                                      \
+  case LE:                                                                    \
+    allow_smem(tlog_drain_warp<W, LE>, smem);                                 \
+    tlog_drain_warp<W, LE><<<blocks, threads, bytes, stream>>>(               \
+        a_h, a_l, a_v, len, cut, ki, ts, vid, dc, cn, of, ol, oc, nslots, k,  \
+        static_cast<int>(L), static_cast<int>(ld), rpc, slice, vec);          \
+    break;
+    switch (log_e) {
+      JT_WARP_CASE(0)
+      JT_WARP_CASE(1)
+      JT_WARP_CASE(2)
+      JT_WARP_CASE(3)
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+#undef JT_WARP_CASE
+  } else {
+    allow_smem(tlog_drain_cta<W>, smem);
+    tlog_drain_cta<W><<<blocks, kCtaThreads, bytes, stream>>>(
+        a_h, a_l, a_v, len, cut, ki, ts, vid, dc, cn, of, ol, oc,
+        static_cast<u32*>(scratch), nslots, k, static_cast<int>(L),
+        static_cast<int>(ld), static_cast<int>(ldp), slice, vec);
   }
-  tlog_drain<W><<<static_cast<unsigned>(grid), kThreads, smem, stream>>>(
-      static_cast<u32*>(nth), static_cast<u32*>(ntl), static_cast<u32*>(nv),
-      static_cast<int*>(length), static_cast<u64*>(cutoff),
-      static_cast<const int*>(key_idx), static_cast<const u64*>(dts),
-      static_cast<const long long*>(dvid), static_cast<const u64*>(dcut),
-      static_cast<const long long*>(counts),
-      static_cast<unsigned char*>(ovf), static_cast<int*>(out_len),
-      static_cast<u64*>(out_cut), static_cast<u32*>(scratch), nslots, k,
-      static_cast<int>(L), static_cast<int>(ld), static_cast<int>(ldp));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -381,9 +629,14 @@ int launch(void* nth, void* ntl, void* nv, void* length, void* cutoff,
 // rows, or null for the dense drain (B = K slots, row = slot). dts, dvid:
 // (B, Ld) u64 and int64; dcut, counts: (B,). ovf: (B,) bytes; out_len,
 // out_cut: (B,) for the sparse drain, null for the dense one (its state
-// planes are its outputs). scratch: null to keep each row's work buffer in
-// shared memory, else grid * nplanes * (L + ldp) u32 of device memory.
-// ldp: Ld rounded up to a power of two. Returns cudaGetLastError() after
+// planes are its outputs). kind: 0 the warp class (log_e: log2 of the
+// delta entries a lane holds, 0..3; rows_per_cta warps a CTA), 1 a CTA a
+// row. ldp: delta slots of the work buffer (32 << log_e for the warp
+// class, Ld rounded up to a power of two otherwise); slice: u32 per plane
+// of one row's work buffer, at least L + ldp, a multiple of 4. scratch:
+// null to keep the work buffers in shared memory (smem bytes a CTA), else
+// grid * nplanes * slice u32 of device memory. vec: 1 when L % 4 == 0 and
+// the state planes are 16-byte aligned. Returns cudaGetLastError() after
 // the launch.
 extern "C" int jt_tlog_drain(int nplanes, void* nth, void* ntl, void* nv,
                              void* length, void* cutoff, const void* key_idx,
@@ -391,10 +644,15 @@ extern "C" int jt_tlog_drain(int nplanes, void* nth, void* ntl, void* nv,
                              const void* dcut, const void* counts, void* ovf,
                              void* out_len, void* out_cut, void* scratch,
                              long long nslots, long long k, long long L,
-                             long long ld, long long ldp, long long grid,
-                             void* stream) {
+                             long long ld, long long kind, long long log_e,
+                             long long ldp, long long rows_per_cta,
+                             long long slice, long long grid, long long smem,
+                             long long vec, void* stream) {
+  if (nslots <= 0) return 0;
   auto fn = nplanes == 3 ? launch<true> : launch<false>;
-  return fn(nth, ntl, nv, length, cutoff, key_idx, dts, dvid, dcut, counts,
-            ovf, out_len, out_cut, scratch, nslots, k, L, ld, ldp, grid,
+  return fn(static_cast<int>(kind), static_cast<int>(log_e), nth, ntl, nv,
+            length, cutoff, key_idx, dts, dvid, dcut, counts, ovf, out_len,
+            out_cut, scratch, nslots, k, L, ld, ldp, rows_per_cta, slice,
+            grid, smem, static_cast<int>(vec),
             static_cast<cudaStream_t>(stream));
 }

@@ -1,10 +1,11 @@
 """Process entry point: ``python -m jylis_tpu_torch --port P``.
 
-Builds the Database (TREG, TLOG, GCOUNT, PNCOUNT, UJSON and TENSOR on
-``--device``, default cuda; keys-sharded over every card when the host
-has more than one) and the RESP Server, serves until SIGINT/SIGTERM, then stops intake,
-waits out any in-flight drain and closes the listener (after the
-reference's main.pony and dispose.pony). There is no cluster yet, so
+Builds the Database (the types of ``models.database.DATA_REPO_CLASSES``
+on ``--device``, default cuda; keys-sharded over every card when the
+device names no card and the host has more than one) and the RESP
+Server, serves until SIGINT/SIGTERM, then stops intake, waits out any
+in-flight drain and closes the listener (after the reference's
+main.pony and dispose.pony). There is no cluster yet, so
 nothing is flushed to peers.
 """
 
@@ -14,7 +15,7 @@ import asyncio
 import signal
 import sys
 
-from .models.database import Database
+from .models.database import SERVED_TYPES, Database
 from .server.server import Server
 from .utils.config import config_from_cli
 
@@ -26,7 +27,7 @@ async def run(argv: list[str] | None = None) -> None:
     server = Server(config, database)
     await server.start()
     log.info() and log.i(
-        f"serving TREG/TLOG/GCOUNT/PNCOUNT/UJSON/TENSOR on port {server.port}, device "
+        f"serving {'/'.join(SERVED_TYPES)} on port {server.port}, device "
         f"{database.device}" + (f", {database.mesh}" if database.mesh else "")
     )
     stop = asyncio.Event()

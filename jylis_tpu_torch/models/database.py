@@ -35,6 +35,7 @@ from .repo_ujson import RepoUJSON
 DATA_REPO_CLASSES = (
     RepoTREG, RepoTLOG, RepoGCOUNT, RepoPNCOUNT, RepoUJSON, RepoTENSOR,
 )
+SERVED_TYPES = tuple(cls.name for cls in DATA_REPO_CLASSES)
 
 
 def resolve_device(device) -> torch.device:

@@ -1,0 +1,77 @@
+"""Launch plans of the row kernels (csrc/tlog_drain.cu, csrc/ujson_join.cu,
+csrc/ujson_fold_flat.cu).
+
+A row kernel gives each row of a launch a work buffer of the same size
+(the launch's rows share one width), and the plan puts the rows in one
+of three classes:
+
+* ``warp``: a warp per row, up to ``WARPS_PER_CTA`` rows a CTA, each
+  warp owning a slice of the CTA's shared memory; as many rows a CTA as
+  keep the most rows resident on an SM, and fewer when the rows would
+  not cover the card's SMs;
+* ``cta``: a CTA of ``CTA_THREADS`` threads per row, its buffer in
+  shared memory;
+* ``scratch``: a CTA per row with its buffer in device scratch the
+  wrapper allocates, for rows past ``SMEM_LIMIT``; only as many CTAs as
+  ``SCRATCH_LIMIT`` holds, each striding over the rows.
+
+Pure Python, so the CPU tests check the plans the card gets.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+# a CTA's dynamic shared memory, at most (the H100 allows 232,448 bytes
+# a block; the rest is headroom for the kernels' static shared memory)
+SMEM_LIMIT = 200 * 1024
+SCRATCH_LIMIT = 256 << 20  # bytes of device scratch per launch, at most
+WARPS_PER_CTA = 8
+CTA_THREADS = 256
+# an H100 SXM: streaming multiprocessors, shared memory an SM holds, and
+# what each resident CTA reserves of it
+SMS = 132
+SM_SMEM = 233_472
+CTA_RESERVED = 1_024
+
+
+class RowPlan(NamedTuple):
+    kind: str  # "warp", "cta" or "scratch"
+    rows_per_cta: int  # rows a CTA holds at once (1 unless "warp")
+    threads: int  # threads a CTA
+    smem: int  # dynamic shared-memory bytes a CTA
+    grid: int  # CTAs launched
+    scratch: int  # bytes of device scratch (0 unless "scratch")
+    stride: int  # bytes between two rows' work buffers
+
+
+def align(n: int, a: int) -> int:
+    return (n + a - 1) // a * a
+
+
+def _resident_rows(rpc: int, warp_bytes: int) -> int:
+    """Rows an SM holds at once with ``rpc`` warps a CTA, by shared
+    memory (at most 32 CTAs and 64 warps an SM)."""
+    ctas = min(32, 64 // rpc, SM_SMEM // (rpc * warp_bytes + CTA_RESERVED))
+    return ctas * rpc
+
+
+def plan_rows(nrows: int, warp_bytes: Optional[int], cta_bytes: int,
+              warp_limit: int, warp_min_rows: int = 1) -> RowPlan:
+    """The plan for ``nrows`` rows whose work buffer takes ``warp_bytes``
+    in the warp class (None: the kernel has no warp class for this
+    width) and ``cta_bytes`` in the others. The warp class takes rows up
+    to ``warp_limit`` bytes, in launches of at least ``warp_min_rows``
+    rows (the kernel's measured crossovers: fewer rows than that keep
+    more of the card busy a CTA per row)."""
+    if (warp_bytes is not None and nrows >= warp_min_rows
+            and warp_bytes <= min(warp_limit, SMEM_LIMIT)):
+        top = max(1, min(WARPS_PER_CTA, SMEM_LIMIT // warp_bytes, -(-nrows // SMS)))
+        rpc = max(range(1, top + 1), key=lambda n: (_resident_rows(n, warp_bytes), n))
+        return RowPlan("warp", rpc, 32 * rpc, rpc * warp_bytes, -(-nrows // rpc), 0,
+                       warp_bytes)
+    if cta_bytes <= SMEM_LIMIT:
+        return RowPlan("cta", 1, CTA_THREADS, cta_bytes, nrows, 0, cta_bytes)
+    stride = align(cta_bytes, 256)
+    grid = max(1, min(nrows, SCRATCH_LIMIT // stride))
+    return RowPlan("scratch", 1, CTA_THREADS, 0, grid, grid * stride, stride)

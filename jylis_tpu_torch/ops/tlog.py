@@ -26,7 +26,8 @@ as the constant PAD plane, losslessly.
 one delta batch (cutoff, sort, dedup, overflow) and apply a per-row
 TRIM/CLR count in the same pass. On a CPU tensor they run their plain
 versions below; on a CUDA tensor they launch the hand-written kernels
-``tlog_drain_sparse`` / ``tlog_drain_dense`` (csrc/tlog_drain.cu) or
+``tlog_drain_sparse`` / ``tlog_drain_dense`` (csrc/tlog_drain.cu: one
+CUDA kernel a call, a warp or a CTA per row as ``drain_plan`` picks) or
 raise. The JAX package's entry points (``converge_batch``,
 ``converge_then_trim``, ``trim_batch`` ...) keep their signatures and go
 through them. All of them update the state in place, where JAX returns
@@ -53,7 +54,7 @@ import numpy as np
 import torch
 
 from ..utils.batching import bucket
-from . import _build, planes
+from . import _build, planes, row_plan
 
 SIGN = planes.SIGN
 PAD = -1  # the all-ones u32 as int32 bits
@@ -282,19 +283,43 @@ def drain_sparse_plain(state: TLogState, key_idx, d_ts, d_vid, d_cut, counts):
     return ovf, out_len, out_cut
 
 
-# the work buffer of one row (its L state slots and Ld delta slots, each
-# plane) lives in shared memory up to this size, else in device scratch
-SMEM_LIMIT = 200 * 1024
-SCRATCH_LIMIT = 256 << 20  # bytes of scratch per launch, at most
+# the launch plan (csrc/tlog_drain.cu): a warp per row while a row's work
+# buffer (its L state slots and the delta's slots, each plane) fits
+# WARP_ROW_BYTES and Ld <= WARP_MAX_LD (the delta sorts in a warp's
+# registers, WARP_MAX_LD / 32 entries a lane); else a CTA per row, its
+# buffer in shared memory, or in device scratch past row_plan.SMEM_LIMIT
+# (the crossover measured on an H100: PERF.md §6)
+WARP_ROW_BYTES = 36 * 1024
+WARP_MAX_LD = 256
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
-_ARGS = [ctypes.c_int] + [_P] * 14 + [_LL] * 6 + [_P]
+_ARGS = [ctypes.c_int] + [_P] * 14 + [_LL] * 12 + [_P]
 
 
-def work_bytes(nplanes: int, L: int, ld: int) -> int:
-    """Bytes of one row's work buffer (csrc/tlog_drain.cu)."""
-    return nplanes * 4 * (L + bucket(ld, 1))
+class DrainPlan(NamedTuple):
+    rows: row_plan.RowPlan
+    log_e: int  # log2 of the delta entries a lane holds (warp class)
+    ldp: int  # delta slots of a row's work buffer
+    slice: int  # u32 a plane of a row's work buffer
+
+
+def _row_bytes(nplanes: int, L: int, ldp: int) -> int:
+    """Bytes of one row's work buffer: per plane the L state slots and
+    ldp delta slots, then ldp ints (csrc/tlog_drain.cu `buffer_u32`)."""
+    return 4 * (nplanes * row_plan.align(L + ldp, 4) + row_plan.align(ldp, 4))
+
+
+def drain_plan(b: int, L: int, ld: int, nplanes: int) -> DrainPlan:
+    """How ``tlog_drain`` runs ``b`` slots of width L with Ld delta
+    columns: the class, rows a CTA, shared memory, grid and scratch."""
+    ldp = bucket(ld, 1)
+    wl = max(32, ldp)
+    warp = _row_bytes(nplanes, L, wl) if ldp <= WARP_MAX_LD else None
+    rows = row_plan.plan_rows(b, warp, _row_bytes(nplanes, L, ldp), WARP_ROW_BYTES)
+    if rows.kind == "warp":
+        return DrainPlan(rows, (wl // 32).bit_length() - 1, wl, row_plan.align(L + wl, 4))
+    return DrainPlan(rows, 0, ldp, row_plan.align(L + ldp, 4))
 
 
 def _check(what, state, key_idx, d_ts, d_vid, d_cut, counts, b) -> None:
@@ -323,20 +348,21 @@ def _launch(what, state, key_idx, d_ts, d_vid, d_cut, counts, outs):
     k, L = state.shape
     b, ld = d_ts.shape
     nplanes = 3 if state.wide else 2
-    wb = work_bytes(nplanes, L, ld)
-    if wb <= SMEM_LIMIT:
-        scratch, grid = None, b
-    else:
-        grid = max(1, min(b, SCRATCH_LIMIT // wb))
-        scratch = torch.empty(grid * wb // 4, dtype=torch.int32, device=dev)
+    plan = drain_plan(b, L, ld, nplanes)
+    rows = plan.rows
+    scratch = (torch.empty(rows.scratch // 4, dtype=torch.int32, device=dev)
+               if rows.scratch else None)
+    vec = L % 4 == 0 and all(p.data_ptr() % 16 == 0 for p in _planes(state))
     ptrs = [None if t is None else t.data_ptr() for t in (
         state.nth, state.ntl, state.nv, state.length, state.cutoff, key_idx,
         d_ts, d_vid, d_cut, counts, *outs, scratch)]
     fn = _build.function("tlog_drain", "jt_tlog_drain", _ARGS)
     with torch.cuda.device(dev):
-        rc = fn(nplanes, *ptrs, b, k, L, ld, bucket(ld, 1), grid,
-                torch.cuda.current_stream(dev).cuda_stream)
+        rc = fn(nplanes, *ptrs, b, k, L, ld, 0 if rows.kind == "warp" else 1,
+                plan.log_e, plan.ldp, rows.rows_per_cta, plan.slice, rows.grid,
+                rows.smem, int(vec), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, what)
+    return rows.kind
 
 
 def drain_dense(state: TLogState, d_ts, d_vid, d_cut, trim_ki, counts):
@@ -348,13 +374,15 @@ def drain_dense(state: TLogState, d_ts, d_vid, d_cut, trim_ki, counts):
     cnt = _row_counts(k, trim_ki, counts)
     _check("tlog_drain_dense", state, None, d_ts, d_vid, d_cut, cnt, k)
     ovf = torch.empty(k, dtype=torch.bool, device=state.ntl.device)
-    _launch("tlog_drain_dense", state, None, d_ts, d_vid, d_cut, cnt,
-            (ovf, None, None))
+    kind = _launch("tlog_drain_dense", state, None, d_ts, d_vid, d_cut, cnt,
+                   (ovf, None, None))
     drain_dense.launches += 1
+    drain_dense.classes[kind] = drain_dense.classes.get(kind, 0) + 1
     return ovf
 
 
 drain_dense.launches = 0
+drain_dense.classes = {}  # launches by drain_plan class
 
 
 def drain_sparse(state: TLogState, key_idx, d_ts, d_vid, d_cut, counts):
@@ -369,12 +397,15 @@ def drain_sparse(state: TLogState, key_idx, d_ts, d_vid, d_cut, counts):
     outs = (torch.empty(b, dtype=torch.bool, device=dev),
             torch.empty(b, dtype=torch.int32, device=dev),
             torch.empty(b, dtype=torch.int64, device=dev))
-    _launch("tlog_drain_sparse", state, key_idx, d_ts, d_vid, d_cut, counts, outs)
+    kind = _launch("tlog_drain_sparse", state, key_idx, d_ts, d_vid, d_cut, counts,
+                   outs)
     drain_sparse.launches += 1
+    drain_sparse.classes[kind] = drain_sparse.classes.get(kind, 0) + 1
     return outs
 
 
 drain_sparse.launches = 0
+drain_sparse.classes = {}  # launches by drain_plan class
 
 
 # ---- the JAX package's entry points -------------------------------------------

@@ -46,7 +46,7 @@ import numpy as np
 import torch
 
 from ..utils.batching import bucket
-from . import _build
+from . import _build, row_plan
 from .planes import SIGN
 
 PAD64 = np.uint64(0xFFFFFFFFFFFFFFFF)  # the host (JAX dtype) wide pad
@@ -264,38 +264,32 @@ def clear_rows(batch: DocBatch, mask) -> DocBatch:
         torch.where(m, 0, batch.vv), torch.where(m, pad, batch.cloud))
 
 
-# a CTA's work buffer (csrc/ujson_join.cu) lives in shared memory up to
-# this size, else in device scratch
-SMEM_LIMIT = 200 * 1024
-SCRATCH_LIMIT = 256 << 20  # bytes of scratch per launch, at most
+# the launch plan (csrc/ujson_join.cu): a warp per row while a row's work
+# buffer fits WARP_ROW_BYTES and the launch has WARP_MIN_ROWS rows or
+# more, else a CTA per row, its buffer in shared memory, or in device
+# scratch past row_plan.SMEM_LIMIT (crossovers measured on an H100:
+# PERF.md §6)
+WARP_ROW_BYTES = 16 * 1024
+WARP_MIN_ROWS = 512
+SMEM_LIMIT = row_plan.SMEM_LIMIT
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _JOIN_ARGS = ([ctypes.c_int] + [_P] * 5 + [_LL] * 2 + [_P] * 4 + [_LL] * 5
-              + [_P] * 4 + [_LL] * 4 + [_P] * 2 + [_LL] * 4 + [_P])
-
-
-def _align(n: int, a: int) -> int:
-    return (n + a - 1) // a * a
+              + [_P] * 4 + [_LL] * 4 + [_P] + [_LL] * 2 + [_P] + [_LL] * 4 + [_P])
 
 
 def join_work_bytes(tsize: int, la: int, lb: int, ca: int, cb: int, r: int) -> int:
-    """Bytes of one CTA's work buffer in csrc/ujson_join.cu."""
+    """Bytes of one row's work buffer in csrc/ujson_join.cu."""
     cm = ca + cb
-    return _align(tsize * (la + lb + 2 * cm) + 4 * (la + lb + cm + 4 * r)
-                  + la + lb, 16)
+    return row_plan.align(tsize * (la + lb + 2 * cm) + 4 * (la + lb + cm + 4 * r)
+                          + la + lb, 16)
 
 
-def grid_and_scratch(nrows: int, wb: int, device):
-    """(grid, scratch, stride, smem) for ``nrows`` CTAs of ``wb`` work
-    bytes each: shared memory when it fits, else device scratch for as
-    many CTAs as SCRATCH_LIMIT holds (they grid-stride)."""
-    if wb <= SMEM_LIMIT:
-        return nrows, None, 0, wb
-    stride = _align(wb, 256)
-    grid = max(1, min(nrows, SCRATCH_LIMIT // stride))
-    scratch = torch.empty(grid * stride, dtype=torch.uint8, device=device)
-    return grid, scratch, stride, 0
+def join_plan(nrows: int, wb: int) -> row_plan.RowPlan:
+    """How ``ujson_join`` runs ``nrows`` rows of ``wb`` work bytes each:
+    the class, rows a CTA, shared memory, grid and scratch."""
+    return row_plan.plan_rows(nrows, wb, wb, WARP_ROW_BYTES, WARP_MIN_ROWS)
 
 
 def _check_planes(what, batch: DocBatch, dev, dtype, r=None) -> None:
@@ -326,7 +320,8 @@ def join_rows(a: DocBatch, b: DocBatch, shift: int, a_idx=None,
     only): rows not occupied get the identity document.
 
     A CPU tensor runs the plain version; a CUDA tensor launches
-    csrc/ujson_join.cu or raises."""
+    csrc/ujson_join.cu (one CUDA kernel a call, a warp or a CTA per row
+    as ``join_plan`` picks) or raises."""
     if a.dots.device.type == "cpu":
         return join_rows_plain(a, b, shift, a_idx, sort_output, finish, occupied, out)
     _check_finish(finish, sort_output, occupied, a_idx, out)
@@ -370,8 +365,9 @@ def join_rows(a: DocBatch, b: DocBatch, shift: int, a_idx=None,
             raise ValueError("ujson_join: occupied must be a (rows,) bool on the device")
     if r < 1:
         raise ValueError("ujson_join: vv needs at least one column")
-    wb = join_work_bytes(8 if wide else 4, la, lb, ca, cb, r)
-    grid, scratch, stride, smem = grid_and_scratch(n, wb, dev)
+    plan = join_plan(n, join_work_bytes(8 if wide else 4, la, lb, ca, cb, r))
+    scratch = (torch.empty(plan.scratch, dtype=torch.uint8, device=dev)
+               if plan.scratch else None)
     ptrs = [None if t is None else t.data_ptr() for t in (
         *a[:4], a_idx)]
     fn = _build.function("ujson_join", "jt_ujson_join", _JOIN_ARGS)
@@ -381,14 +377,17 @@ def join_rows(a: DocBatch, b: DocBatch, shift: int, a_idx=None,
                 *(t.data_ptr() for t in out), lo, co, int(sort_output),
                 int(finish is not None),
                 None if occupied is None else occupied.data_ptr(),
-                None if scratch is None else scratch.data_ptr(), stride, n, grid,
-                smem, torch.cuda.current_stream(dev).cuda_stream)
+                0 if plan.kind == "warp" else 1, plan.rows_per_cta,
+                None if scratch is None else scratch.data_ptr(), plan.stride, n,
+                plan.grid, plan.smem, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "ujson_join")
     join_rows.launches += 1
+    join_rows.classes[plan.kind] = join_rows.classes.get(plan.kind, 0) + 1
     return out
 
 
 join_rows.launches = 0
+join_rows.classes = {}  # launches by join_plan class
 
 
 # ---- the JAX package's entry points -------------------------------------------

@@ -54,7 +54,7 @@ import torch
 
 from ..parallel.sharded import Keyspace
 from ..utils.batching import bucket
-from . import _build
+from . import _build, row_plan
 from . import ujson_device as dev
 from .ujson_device import (  # noqa: F401 (clear_rows: the JAX module's name)
     PAD32, DocBatch, _col_seq, _i32, _member, _pad_of, _sort_rows, _u32,
@@ -117,7 +117,7 @@ _FLAT_ARGS = [ctypes.c_int] + [_P] * 4 + [_LL] * 7 + [_P] * 5 + [_LL] * 4 + [_P]
 def flat_work_bytes(tsize: int, d: int, w: int, c: int, r: int) -> int:
     """Bytes of one CTA's work buffer in csrc/ujson_fold_flat.cu."""
     ep, cp = bucket(d * w, 1), bucket(d * c, 1)
-    return dev._align(tsize * (d * w + cp + ep) + 4 * (ep + d * r), 16)
+    return row_plan.align(tsize * (d * w + cp + ep) + 4 * (ep + d * r), 16)
 
 
 def fold_flat(grid: DocBatch, shift: int) -> DocBatch:
@@ -147,14 +147,15 @@ def fold_flat(grid: DocBatch, shift: int) -> DocBatch:
                    torch.empty((k, d * w), dtype=torch.int32, device=device),
                    torch.empty((k, r), dtype=torch.int32, device=device),
                    torch.empty((k, d * c), dtype=dtype, device=device))
-    wb = flat_work_bytes(8 if wide else 4, d, w, c, r)
-    grid_n, scratch, stride, smem = dev.grid_and_scratch(k, wb, device)
+    plan = row_plan.plan_rows(k, None, flat_work_bytes(8 if wide else 4, d, w, c, r), 0)
+    scratch = (torch.empty(plan.scratch, dtype=torch.uint8, device=device)
+               if plan.scratch else None)
     fn = _build.function("ujson_fold_flat", "jt_ujson_fold_flat", _FLAT_ARGS)
     with torch.cuda.device(device):
         rc = fn(int(wide), *(t.data_ptr() for t in grid), d, w, c, r, shift,
                 bucket(d * w, 1), bucket(d * c, 1), *(t.data_ptr() for t in out),
-                None if scratch is None else scratch.data_ptr(), stride, k, grid_n,
-                smem, torch.cuda.current_stream(device).cuda_stream)
+                None if scratch is None else scratch.data_ptr(), plan.stride, k,
+                plan.grid, plan.smem, torch.cuda.current_stream(device).cuda_stream)
     _build.check(rc, "ujson_fold_flat")
     fold_flat.launches += 1
     return out

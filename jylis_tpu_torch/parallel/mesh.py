@@ -79,10 +79,12 @@ def serving_mesh() -> Mesh | None:
 
 def resolve_mesh(mesh, device) -> Mesh | None:
     """A repo's ``mesh`` argument: "auto" takes ``serving_mesh()`` for a
-    CUDA ``device`` (one visible card: None) and no mesh for a CPU one;
-    None or a Mesh pass through."""
+    bare CUDA ``device`` ("cuda": every visible card; one card: None),
+    and no mesh for a CUDA device with an index ("cuda:1" names that
+    card alone) or a CPU one; None or a Mesh pass through."""
     if isinstance(mesh, str):
         if mesh != "auto":
             raise ValueError(f"mesh must be 'auto', None or a Mesh, got {mesh!r}")
-        return serving_mesh() if torch.device(device).type == "cuda" else None
+        dev = torch.device(device)
+        return serving_mesh() if dev.type == "cuda" and dev.index is None else None
     return mesh

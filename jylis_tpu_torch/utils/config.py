@@ -14,6 +14,7 @@ import argparse
 import sys
 from dataclasses import dataclass, field
 
+from ..models.database import SERVED_TYPES
 from .address import Address
 from .log import Log
 
@@ -29,7 +30,7 @@ class Config:
 def config_from_cli(argv: list[str] | None = None, log_out=None) -> Config:
     parser = argparse.ArgumentParser(
         prog="jylis-tpu-torch",
-        description="CRDT database on PyTorch and CUDA (TREG, GCOUNT, PNCOUNT, TENSOR)",
+        description=f"CRDT database on PyTorch and CUDA ({', '.join(SERVED_TYPES)})",
     )
     parser.add_argument(
         "-a", "--addr", default="127.0.0.1:9999:",

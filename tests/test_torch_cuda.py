@@ -11,7 +11,9 @@ NaN bits and what its wrapper refuses (D not a multiple of 4, unaligned
 planes); for the TLOG drains, narrow and wide rows, duplicates inside a
 delta and against the state, raised cutoffs, every kind of trim count,
 CLR at ts 2^64-1, both overflow rules, pads, and rows wider than shared
-memory holds (the kernel's device-scratch path); for the UJSON join
+memory holds (the kernel's device-scratch path); both classes of each
+row kernel (a warp per row and a CTA per row, forced in turn) at the
+widths that split them; for the UJSON join
 and flat fold, narrow and wide rows (wide ones with seqs near 2^32 and
 columns past 2^31, so dots with bit 63 set), empty rows, pads, one dot
 under several payload ids (the flat fold's last-copy rule), version
@@ -425,6 +427,89 @@ def test_tlog_drain_dense_matches_plain(dev, wide, k, length, ld):
     assert ovf_k.any() and not ovf_k.all()
 
 
+def _force_class(monkeypatch, mod, klass):
+    """Make a row kernel's wrapper take the warp class wherever the
+    kernel has one ("warp"), or a CTA per row ("cta")."""
+    monkeypatch.setattr(mod, "WARP_ROW_BYTES", (1 << 40) if klass == "warp" else 0)
+    monkeypatch.setattr(mod, "WARP_MIN_ROWS", 1, raising=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("klass", ["warp", "cta"])
+@pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
+@pytest.mark.parametrize("k,length,b,live,ld,all_pad", [
+    (64, 64, 64, 60, 1, False), (64, 64, 64, 60, 31, False), (64, 64, 64, 60, 32, False),
+    (64, 64, 64, 60, 33, False), (64, 30, 64, 60, 5, False),  # L % 4 != 0: scalar copies
+    (300, 256, 128, 100, 128, False), (300, 512, 128, 100, 256, False),
+    (40, 1024, 32, 30, 257, False),  # Ld past the warp's registers: a CTA per row
+    (200, 128, 256, 150, 8, True),  # no entry at all: trims and raised cutoffs only
+    (16384, 1024, 16, 1, 1, True),  # a socket TRIM's drain
+])
+def test_tlog_drain_sparse_classes_match_plain(dev, monkeypatch, klass, wide, k, length,
+                                               b, live, ld, all_pad):
+    """Both classes of tlog_drain at the widths that split them (Ld = 1,
+    31, 32, 33: one delta entry a lane, 2; 256: 8; 257: the CTA class),
+    bit for bit against the plain drain, with rows the sparse rule flags,
+    pad and negative slots, and deltas that carry no entry."""
+    _force_class(monkeypatch, tlog, klass)
+    nplanes = 3 if wide else 2
+    want = "cta" if klass == "cta" or ld > tlog.WARP_MAX_LD else "warp"
+    assert tlog.drain_plan(b, length, ld, nplanes).rows.kind == want
+    rng = np.random.default_rng(k + length + ld + 7 * wide)
+    lens = rng.integers(0, length // 3 + 1, k)
+    lens[: k // 4] = length - rng.integers(0, 2, k // 4)
+    st, ts, vid = _tlog_state(rng, k, length, lens, wide, dev)
+    ki = pad_rows(b)
+    ki[:live] = rng.choice(k, live, replace=False)
+    if live < b:
+        ki[-1] = -1
+    rows = np.where((ki >= 0) & (ki < k), ki, 0)
+    d = _tlog_delta(rng, ts, vid, lens, rows, ld, dev)
+    if all_pad:
+        d[1][:] = -1
+    counts = _tlog_counts(rng, b, dev)
+    ki = torch.from_numpy(ki).to(dev)
+    sk, sp = _clone(st), _clone(st)
+    before = tlog.drain_sparse.classes.get(want, 0)
+    out_k = tlog.drain_sparse(sk, ki, *d, counts)
+    out_p = tlog.drain_sparse_plain(sp, ki, *d, counts)
+    torch.cuda.synchronize()
+    assert tlog.drain_sparse.classes[want] == before + 1
+    assert _equal(out_k, out_p) and _equal(sk, sp)
+    assert not any(x[live:].any() for x in out_k)
+    if live >= 100 and not all_pad:
+        assert out_k[0].any() and not out_k[0].all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("klass", ["warp", "cta"])
+@pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
+@pytest.mark.parametrize("k,length,ld", [
+    (100, 64, 1), (100, 64, 33), (300, 512, 128), (50, 1024, 256), (30, 1024, 300)])
+def test_tlog_drain_dense_classes_match_plain(dev, monkeypatch, klass, wide, k, length, ld):
+    """Both classes of the dense drain, rows the dense rule flags (with
+    and without a delta) among them, bit for bit against the plain drain."""
+    _force_class(monkeypatch, tlog, klass)
+    want = "cta" if klass == "cta" or ld > tlog.WARP_MAX_LD else "warp"
+    assert tlog.drain_plan(k, length, ld, 3 if wide else 2).rows.kind == want
+    rng = np.random.default_rng(k * 3 + length + ld + wide)
+    lens = rng.integers(0, max(1, length - ld) + 1, k)
+    lens[: max(1, k // 5)] = length - rng.integers(0, min(ld, length), max(1, k // 5))
+    st, ts, vid = _tlog_state(rng, k, length, lens, wide, dev)
+    d = _tlog_delta(rng, ts, vid, lens, np.arange(k), ld, dev)
+    quiet = torch.from_numpy(rng.random(k) < 0.3).to(dev)
+    d[1][quiet] = -1
+    trim_ki = torch.from_numpy(np.r_[rng.choice(k, min(k, 8), replace=False),
+                                     pad_rows(8)].astype(np.int32)).to(dev)
+    counts = _tlog_counts(rng, trim_ki.shape[0], dev)
+    sk, sp = _clone(st), _clone(st)
+    ovf_k = tlog.drain_dense(sk, *d, trim_ki, counts)
+    ovf_p = tlog.drain_dense_plain(sp, *d, trim_ki, counts)
+    torch.cuda.synchronize()
+    assert torch.equal(ovf_k, ovf_p) and _equal(sk, sp)
+    assert ovf_k.any()
+
+
 @pytest.mark.cuda
 def test_tlog_wrappers_reject_what_the_kernel_does_not_take(dev):
     st = tlog.init(8, 16, False, dev)
@@ -627,6 +712,66 @@ def test_ujson_tree_fold_matches_plain(dev, layout, k, d):
     want = udev.fold_segments(udev.DocBatch(*(p.cpu() for p in grid)), shift)
     assert udev.join_rows.launches > before
     assert _uj_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("klass", ["warp", "cta"])
+@pytest.mark.parametrize("layout", ["narrow", "wide"])
+@pytest.mark.parametrize("n,la,lb,ca,cb,r", [
+    (64, 4, 4, 4, 4, 8), (37, 16, 4, 8, 32, 12), (9, 200, 260, 64, 40, 4),
+    (3, 2048, 2048, 64, 64, 8),  # a warp's slice of 38 KB narrow: 3 rows a CTA
+])
+def test_ujson_join_classes_match_plain(dev, monkeypatch, klass, layout, n, la, lb, ca,
+                                        cb, r):
+    """Both classes of ujson_join, bit for bit against the plain join:
+    sorted and unsorted, the broadcast of one row (b step 0), the
+    epilogue written in place at a subset of rows (a_idx, pad slots at
+    the identity row 0) and into refitted planes, and the broadcast
+    with free rows (occupied)."""
+    _force_class(monkeypatch, udev, klass)
+    rng = np.random.default_rng(n + la + r + len(klass))
+    shift = UJ_SHIFT[layout](r)
+    a = _ujson_planes(rng, (n,), la, ca, r, shift, dev, empty=[0])
+    b = _ujson_planes(rng, (n,), lb, cb, r, shift, dev, empty=[1 % n])
+    wb = udev.join_work_bytes(a.dots.element_size(), la, lb, ca, cb, r)
+    assert udev.join_plan(n, wb).kind == klass
+    for sort_output in (True, False):
+        before = udev.join_rows.classes.get(klass, 0)
+        got = udev.join_rows(a, b, shift, sort_output=sort_output)
+        want = udev.join_rows_plain(a, b, shift, sort_output=sort_output)
+        torch.cuda.synchronize()
+        assert udev.join_rows.classes[klass] == before + 1
+        assert _uj_equal(got, want)
+    one = udev.DocBatch(*(p[:1] for p in b))
+    assert _uj_equal(udev.join_rows(a, one, shift), udev.join_rows_plain(a, one, shift))
+    cap = n + 3
+    res = _ujson_planes(rng, (cap,), la, ca, r, shift, dev, empty=[0])
+    live = n - 1
+    folded = _ujson_planes(rng, (n,), lb, cb, r, shift, dev, empty=range(live, n))
+    idx = np.zeros(n, np.int32)
+    idx[:live] = rng.choice(np.arange(1, cap), live, replace=False)
+    idx = torch.from_numpy(idx).to(dev)
+    for out_w, out_c in ((la, ca), (la + lb, max(1, ca // 2))):
+        rk = udev.DocBatch(*(p.clone() for p in res))
+        rp = udev.DocBatch(*(p.clone() for p in res))
+        got = udev.join_rows(rk, folded, shift, a_idx=idx, finish=(out_w, out_c),
+                             out=ures.slice_widths(rk, out_w, out_c))
+        want = udev.join_rows_plain(rp, folded, shift, a_idx=idx, finish=(out_w, out_c),
+                                    out=ures.slice_widths(rp, out_w, out_c))
+        torch.cuda.synchronize()
+        assert _uj_equal(got, want)
+        if (out_w, out_c) == (la, ca):
+            assert got.dots.data_ptr() == rk.dots.data_ptr()  # in place
+    occ = torch.from_numpy(rng.random(cap) < 0.6).to(dev)
+    occ[0] = False
+    one = udev.DocBatch(*(p[:1] for p in folded))
+    outs = []
+    for fn in (udev.join_rows, udev.join_rows_plain):
+        r_ = udev.DocBatch(*(p.clone() for p in res))
+        outs.append(fn(r_, one, shift, finish=(la, ca), occupied=occ,
+                       out=ures.slice_widths(r_, la, ca)))
+    assert _uj_equal(*outs)
+    assert not outs[0].vv[~occ].any()
 
 
 @pytest.mark.cuda

@@ -123,6 +123,22 @@ def test_serving_mesh_and_resolve_mesh():
         tpar.make_mesh(devices=[])
 
 
+def test_an_indexed_cuda_device_takes_no_mesh(monkeypatch):
+    """On a host with four cards, "auto" shards a node over all of them
+    for a bare ``cuda``, and over none for ``cuda:1``, so the node and its
+    TENSOR repo stay on the card it names."""
+    from jylis_tpu_torch.parallel import mesh as tmesh_mod
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    monkeypatch.setattr(tmesh_mod, "_SERVING_MESH", [])
+    assert tpar.resolve_mesh("auto", "cuda:1") is None
+    assert tpar.resolve_mesh("auto", torch.device("cuda", 0)) is None
+    sm = tpar.resolve_mesh("auto", "cuda")
+    assert sm is tpar.serving_mesh()
+    assert [str(d) for d in sm.keys_devices] == [f"cuda:{i}" for i in range(4)]
+
+
 # ---- routing ---------------------------------------------------------------------
 
 

@@ -32,7 +32,7 @@ from jylis_tpu.server.resp import Respond as JaxRespond
 from jylis_tpu.server.resp import RespParser as JaxRespParser
 from jylis_tpu.utils.address import Address as JaxAddress
 from jylis_tpu_torch.cluster import codec
-from jylis_tpu_torch.models.database import Database
+from jylis_tpu_torch.models.database import SERVED_TYPES, Database
 from jylis_tpu_torch.ops.ujson_host import UJSON
 from jylis_tpu_torch.server.server import Server
 from jylis_tpu_torch.utils.config import Config, config_from_cli
@@ -267,6 +267,17 @@ def test_cli_config_and_identity_match_jax():
     assert (cfg.port, cfg.device) == ("7000", "cpu")
     assert cfg.addr.hash64() == JaxAddress("10.0.0.1", "9999", "node").hash64()
     assert config_from_cli([]).device == "cuda"
+
+
+def test_help_names_every_served_type(capsys):
+    """--help is built from the repo registry, so it names all six types
+    the node serves."""
+    with pytest.raises(SystemExit):
+        config_from_cli(["--help"])
+    text = " ".join(capsys.readouterr().out.split())
+    for name in ("TREG", "TLOG", "GCOUNT", "PNCOUNT", "UJSON", "TENSOR"):
+        assert name in text
+    assert SERVED_TYPES == ("TREG", "TLOG", "GCOUNT", "PNCOUNT", "UJSON", "TENSOR")
 
 
 def _free_port() -> int:

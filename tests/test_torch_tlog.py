@@ -254,6 +254,129 @@ def test_dense_and_sparse_paths_agree(wide):
     assert_rows_equal(dense, jtlog.converge_batch(js, None, ts, vid, cut)[0])
 
 
+# ---- the class boundaries of csrc/tlog_drain.cu ---------------------------------
+
+SMEM_MAX = 232_448  # dynamic shared memory an H100 block may use
+
+
+@pytest.mark.parametrize("b,length,ld,nplanes,kind,rpc,smem,grid,scratch", [
+    # chip_smoke.py's shapes: config 4 (B = K = 16,384, L = 1,024; the
+    # sparse rounds' Ld = 128, the dense ones' Ld = 64, and L = 512)
+    (16384, 1024, 128, 2, "warp", 2, 19_456, 8192, 0),
+    (16384, 1024, 128, 3, "warp", 8, 114_688, 2048, 0),
+    (16384, 1024, 64, 2, "warp", 5, 44_800, 3277, 0),
+    (16384, 1024, 64, 3, "warp", 8, 106_496, 2048, 0),
+    (16384, 512, 64, 2, "warp", 5, 24_320, 3277, 0),
+    (16, 1024, 1, 2, "warp", 1, 8_576, 16, 0),  # a socket TRIM
+    (16, 1024, 1, 3, "warp", 1, 12_800, 16, 0),
+    (4, 65536, 65536, 3, "scratch", 1, 0, 4, 7_340_032),  # past shared memory
+    (4096, 1024, 128, 3, "warp", 8, 114_688, 512, 0),  # a mesh shard's launch
+    (2048, 1024, 256, 2, "warp", 5, 56_320, 410, 0),  # 8 delta entries a lane
+    (2048, 1024, 257, 2, "cta", 1, 14_336, 2048, 0),  # past a warp's registers
+    # the crossovers (WARP_ROW_BYTES = 36 KiB) and one step past each
+    (2048, 4416, 128, 2, "warp", 3, 110_592, 683, 0),
+    (2048, 4420, 128, 2, "cta", 1, 36_896, 2048, 0),
+    (2048, 2900, 128, 3, "warp", 3, 110_544, 683, 0),
+    (2048, 2904, 128, 3, "cta", 1, 36_896, 2048, 0),
+    (2048, 4512, 64, 2, "warp", 3, 110_592, 683, 0),
+    (2048, 4516, 64, 2, "cta", 1, 36_896, 2048, 0),
+])
+def test_drain_plan_at_every_chip_shape_and_crossover(b, length, ld, nplanes, kind, rpc,
+                                                     smem, grid, scratch):
+    """drain_plan's class, rows a CTA, shared memory, grid and scratch at
+    the shapes chip_smoke.py runs and at each crossover: the kernel's
+    work buffers hold L + the delta's slots, a multiple of 4 per plane."""
+    plan = tlog.drain_plan(b, length, ld, nplanes)
+    r = plan.rows
+    assert (r.kind, r.rows_per_cta, r.smem, r.grid, r.scratch) == (
+        kind, rpc, smem, grid, scratch)
+    assert r.smem <= SMEM_MAX and r.threads == (32 * rpc if kind == "warp" else 256)
+    assert plan.slice % 4 == 0 and plan.slice >= length + plan.ldp >= length + ld
+    row_bytes = 4 * (nplanes * plan.slice + -(-plan.ldp // 4) * 4)  # + the bounds
+    assert r.stride == row_bytes or kind == "scratch"
+    if kind == "warp":
+        assert plan.ldp == 32 << plan.log_e and 0 <= plan.log_e <= 3
+    if kind == "warp":
+        assert r.smem == rpc * row_bytes <= tlog.WARP_ROW_BYTES * rpc
+    if kind == "scratch":
+        assert r.scratch == r.grid * r.stride >= r.grid * row_bytes
+
+
+def port_state(rng, wide, k, length, rounds=3, ld=64):
+    """A canonical state filled by the port's plain drain, and the same
+    planes as a JAX state."""
+    ps = tlog.init(k, length, wide, "cpu")
+    ki = torch.arange(k, dtype=torch.int32)
+    for _ in range(rounds):
+        ts, vid, cut = draw_delta(rng, k, ld, wide)
+        tlog.drain_sparse(ps, ki, t64(ts), t64(vid), t64(cut), t64(np.full(k, NOOP)))
+    js = jtlog.TLogState(*(None if p is None else jnp.asarray(p)
+                           for p in convert.tlog_to_jax(ps)))
+    return ps, js
+
+
+def drain_both(rng, ps, js, k, b, ld, wide):
+    """One sparse drain with trims through JAX and the port: overflow
+    flags equal, unflagged rows equal, flagged rows untouched."""
+    live = b - 2
+    ki = pad_rows(b)
+    ki[:live] = rng.choice(k, live, replace=False)
+    ts, vid, cut = draw_delta(rng, b, ld, wide)
+    counts = counts_of(rng, b)
+    before = host(ps)
+    jn, jovf = jtlog.converge_then_trim(js, ki, ts, vid, cut, ki, counts)
+    ovf, out_len, out_cut = tlog.drain_sparse(
+        ps, torch.from_numpy(ki), t64(ts), t64(vid), t64(cut), t64(counts))
+    jovf = np.asarray(jovf)[:live]
+    assert np.array_equal(ovf.numpy()[:live], jovf)
+    assert not ovf[live:].any() and not out_len[live:].any() and not out_cut[live:].any()
+    ok, bad = ki[:live][~jovf], ki[:live][jovf]
+    assert_rows_equal(ps, jn, ok)
+    for got, want in zip(host(ps), before):
+        if got is not None:
+            assert np.array_equal(got[bad], want[bad])
+    assert np.array_equal(out_len.numpy()[:live][~jovf], np.asarray(jn.length)[ok])
+    assert np.array_equal(planes.to_u64_np(out_cut)[:live][~jovf],
+                          np.asarray(jn.cutoff)[ok])
+    return ovf
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
+@pytest.mark.parametrize("ld", [1, 31, 32, 33, 128])
+def test_sparse_drain_matches_jax_where_ld_splits_the_kernel(ld, wide):
+    """Ld = 1, 31 and 32 hold one delta entry a lane of the warp class,
+    33 two, 128 four: the plain drain (the card tests' oracle) against
+    JAX at each, rows of up to ~190 entries at L = 256, every kind of
+    trim count."""
+    rng = np.random.default_rng(40 + ld + wide)
+    ps, js = port_state(rng, wide, K, 256)
+    assert int(ps.length.max()) > 32
+    drain_both(rng, ps, js, K, 8, ld, wide)
+
+
+def warp_max_len(nplanes: int, ld: int, b: int = 2048) -> int:
+    """The widest L (a multiple of 4) the warp class takes at Ld in a
+    launch of b slots: its work buffer (nplanes x (L + 32 x E) u32 and
+    32 x E ints) within WARP_ROW_BYTES."""
+    wl = max(32, ld)
+    length = (tlog.WARP_ROW_BYTES // 4 - wl) // nplanes - wl
+    length -= length % 4
+    assert tlog.drain_plan(b, length, ld, nplanes).rows.kind == "warp"
+    assert tlog.drain_plan(b, length + 4, ld, nplanes).rows.kind == "cta"
+    return length
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
+@pytest.mark.parametrize("step", [0, 4], ids=["at", "past"])
+def test_sparse_drain_matches_jax_at_the_warp_cta_crossover(step, wide):
+    """The widest L the warp class takes at Ld = 128, and the next: the
+    plain drain against JAX there, both layouts."""
+    length = warp_max_len(3 if wide else 2, 128) + step
+    rng = np.random.default_rng(60 + step + wide)
+    ps, js = port_state(rng, wide, 4, length, rounds=2, ld=128)
+    drain_both(rng, ps, js, 4, 4, 128, wide)
+
+
 # ---- trim, trimat, clear -------------------------------------------------------
 
 

@@ -364,3 +364,70 @@ def test_cpu_wrappers_take_the_plain_versions():
     assert (tdev.join_rows.launches, tres.fold_flat.launches) == before
     with pytest.raises(ValueError):
         tdev.join_rows(flat, flat, shift, a_idx=torch.zeros(2, dtype=torch.int32))
+
+
+# ---- the class boundaries of csrc/ujson_join.cu ---------------------------------
+
+SMEM_MAX = 232_448  # dynamic shared memory an H100 block may use
+
+
+@pytest.mark.parametrize("n,la,lb,ca,cb,r,tsize,kind,rpc,smem,grid,scratch", [
+    # chip_smoke.py's shapes: the 5b tree's first, seventh and last
+    # levels (narrow), its sixth and seventh (wide), config 5's tree where
+    # it leaves shared memory, the 5b subset join, config 5's broadcast
+    (16384, 4, 4, 4, 4, 8, 4, "warp", 8, 2_432, 2048, 0),
+    (256, 256, 256, 256, 256, 8, 4, "cta", 1, 10_880, 256, 0),
+    (64, 1024, 1024, 1024, 1024, 8, 4, "cta", 1, 43_136, 64, 0),
+    (512, 128, 128, 128, 128, 8, 8, "warp", 4, 34_304, 128, 0),
+    (256, 256, 256, 256, 256, 8, 8, "cta", 1, 17_024, 256, 0),
+    (8, 4096, 4096, 4096, 4096, 32, 4, "cta", 1, 172_544, 8, 0),
+    (4, 8192, 8192, 8192, 8192, 32, 4, "scratch", 1, 0, 4, 1_378_304),
+    (64, 4096, 2048, 4, 2048, 8, 4, "cta", 1, 80_048, 64, 0),
+    (64, 4, 65536, 4, 65536, 32, 4, "scratch", 1, 0, 64, 88_129_536),
+    # the crossovers (WARP_ROW_BYTES = 16 KiB, WARP_MIN_ROWS = 512) and
+    # one step past each
+    (1024, 384, 384, 384, 384, 8, 4, "warp", 7, 113_792, 147, 0),
+    (1024, 388, 388, 388, 388, 8, 4, "cta", 1, 16_432, 1024, 0),
+    (1024, 244, 244, 244, 244, 8, 8, "warp", 7, 113_680, 147, 0),
+    (1024, 248, 248, 248, 248, 8, 8, "cta", 1, 16_496, 1024, 0),
+    (512, 64, 64, 64, 64, 8, 4, "warp", 4, 11_264, 128, 0),
+    (256, 64, 64, 64, 64, 8, 4, "cta", 1, 2_816, 256, 0),
+])
+def test_join_plan_at_every_chip_shape(n, la, lb, ca, cb, r, tsize, kind, rpc, smem, grid,
+                                       scratch):
+    plan = tdev.join_plan(n, tdev.join_work_bytes(tsize, la, lb, ca, cb, r))
+    assert (plan.kind, plan.rows_per_cta, plan.smem, plan.grid, plan.scratch) == (
+        kind, rpc, smem, grid, scratch)
+    assert plan.smem <= SMEM_MAX and plan.stride % 16 == 0
+    assert plan.threads == (32 * rpc if kind == "warp" else 256)
+
+
+def warp_max_width(tsize: int, n: int = 1024) -> int:
+    """The widest W (a multiple of 4) at which the warp class takes n
+    rows of W dots and W cloud entries joined with the same (R = N_REP)."""
+    def kind(w):
+        return tdev.join_plan(n, tdev.join_work_bytes(tsize, w, w, w, w, N_REP)).kind
+
+    w = 4
+    while kind(w + 4) == "warp":
+        w += 4
+    assert kind(w) == "warp" and kind(w + 4) == "cta"
+    assert tdev.join_work_bytes(tsize, w, w, w, w, N_REP) <= tdev.WARP_ROW_BYTES
+    return w
+
+
+@pytest.mark.parametrize("step", [0, 4], ids=["at", "past"])
+@pytest.mark.parametrize("shift", SHIFTS, ids=SHIFT_IDS)
+def test_join_batch_matches_jax_at_the_warp_cta_crossover(shift, step):
+    """Rows as wide as the warp class takes, and one step wider: the
+    plain join (the card tests' oracle) against JAX's join_batch there,
+    sorted, on documents padded out to those widths."""
+    width = warp_max_width(4 if shift < 32 else 8) + step
+    b = jres._pad_planes_np(docs_np(70 + step, 8, shift, n_ops=9), width, width)
+    assert b.dots.shape[1] == width and b.cloud.shape[1] == width
+    a_np, b_np = rows(b, slice(0, 4)), rows(b, slice(4, 8))
+    assert tdev.join_plan(1024, tdev.join_work_bytes(
+        b.dots.dtype.itemsize, width, width, width, width, N_REP)).kind == (
+            "warp" if step == 0 else "cta")
+    assert_same(tdev.join_batch(pt(a_np), pt(b_np), shift=shift),
+                jdev.join_batch(jx(a_np), jx(b_np), shift=shift))
