@@ -77,11 +77,12 @@ build/jylis_tpu_torch/), then:
    subset join into resident rows of 4,096 dots, at config 5's
    broadcast join (32 replicas, one folded row 65,536 slots wide: past
    shared memory) and its tree; ujson_fold_flat at the node phase's
-   flat leg (K = 4,096 x D = 64, and 64 keys) and at random planes past
-   shared memory (K = 2 x D = 64 x W = 512); ujson_join at the class
-   boundaries of ops/ujson_device.py join_plan (random rows of the
-   widest width the warp class takes, and of the next; the fewest rows
-   it takes, and half as many); narrow and wide, each bit for bit
+   flat leg (K = 4,096 x D = 64, and 64 keys), at random planes of a few
+   wide keys (K = 2 x D = 64 x W = 512) and at the class boundaries of
+   ops/ujson_resident.py flat_plan (UJ_FLAT_BOUNDARIES); ujson_join at
+   the class boundaries of ops/ujson_device.py join_plan (random rows of
+   the widest width the warp class takes, and of the next; the fewest
+   rows it takes, and half as many); narrow and wide, each bit for bit
    against its plain version and timed;
 10. the UJSON store phase (BASELINE config 5, published shape): 32
    replica documents resident on the card, 8 rounds of 1,280 set_doc
@@ -102,8 +103,8 @@ build/jylis_tpu_torch/), then:
    star's 64 replicas x 1,048,576 keys and at S = 7, bit for bit
    against its plain version and timed beside torch.amax over the same
    bytes; the mesh routes of
-   the existing kernels at full width (PNCOUNT 1,048,576 x 64 with a
-   routed drain of B = 65,536 and its pad share, TREG 1,048,576 with
+   the existing kernels at full width (GCOUNT and PNCOUNT 1,048,576 x 64
+   with a routed drain of B = 65,536 and its pad share, TREG 1,048,576 with
    B = 65,536, TLOG config 4 wide with every row and its trim, UJSON's
    row-aligned fold at the flat leg's shape and at D = 130), each
    against its plain versions on the same per-shard slices and against
@@ -125,9 +126,10 @@ phase's compare and timing launches). The line before the last two is
 {"kernels": [...]} (per kernel: "launches" on the single-device node
 phases, replica_join's on the dryrun; "mesh_launches" on the mesh
 node and "dryrun_launches" on the dryrun, each apart; for the row
-kernels tlog_drain and ujson_join, "class" at each shape and
-"launch_classes", the main path's launches by class (a warp or a CTA
-per row, or device scratch: ops/row_plan.py); error
+kernels tlog_drain, ujson_join and ujson_fold_flat, "class" at each
+shape and "launch_classes", the main path's launches by class (a warp
+or a CTA per row, device scratch, or a cluster of CTAs: ops/row_plan.py);
+error
 against the plain version, kernel / plain / bound times at the main
 path's shape, the mesh routes' times under "mesh_routes", the
 counters' times at the north-star size under "north_star",
@@ -2296,20 +2298,50 @@ def uj_join_class(a, b) -> str:
 
 
 def uj_flat_work(grid, out):
-    """(bytes, operations) of one ujson_fold_flat launch by its source
-    note."""
+    """(bytes, operations) of one ujson_fold_flat launch, counted over the
+    function's own work on this input, whatever implements it: each
+    input read once and each output written once; per key D membership
+    and cover checks per live entry (a search of log2 W + log2 C + 3
+    steps each), one placement per kept dot and per kept cloud entry,
+    and D * R for the vv max."""
     from jylis_tpu_torch.ops import ujson_device as udev
-    from jylis_tpu_torch.utils.batching import bucket
 
     k, d, w = grid.dots.shape
     c, r = grid.cloud.shape[-1], grid.vv.shape[-1]
     nbytes = sum(p.numel() * p.element_size() for p in (*grid, *out))
-    valid = int((grid.dots != udev.pad_of(grid.dots)).sum())
-    ep, cp = bucket(d * w, 1), bucket(d * c, 1)
-    se, sc = ep.bit_length() - 1, cp.bit_length() - 1
-    nops = valid * d * (_lg(w) + _lg(c) + 3)
-    nops += k * (ep // 2 * se * (se + 1) // 2 + cp // 2 * sc * (sc + 1) // 2 + d * r)
-    return nbytes, nops
+    pad = udev.pad_of(grid.dots)
+    live = int((grid.dots != pad).sum())
+    kept, ckept = int((out.dots != pad).sum()), int((out.cloud != pad).sum())
+    return nbytes, d * live * (_lg(w) + _lg(c) + 3) + kept + ckept + k * d * r
+
+
+def uj_flat_class(g) -> str:
+    """The class ujson_fold_flat takes for grid ``g`` (ujson_resident.flat_plan):
+    "warp, 2 keys a CTA", "cta" or "cluster of 8"."""
+    from jylis_tpu_torch.ops import ujson_resident as ures
+
+    k, d, w = g.dots.shape
+    p = ures.flat_plan(k, g.dots.element_size(), d, w, g.cloud.shape[-1], g.vv.shape[-1])
+    if p.kind == "warp":
+        return f"warp, {p.rows_per_cta} keys a CTA"
+    return f"cluster of {p.cluster}" if p.kind == "cluster" else p.kind
+
+
+# (k, d, w, c, r) of random delta stacks at each class boundary of
+# ops/ujson_resident.py flat_plan and one step past it, by dot size (4
+# narrow, 8 wide; tests/test_torch_ujson.py checks they are its
+# boundaries): the widest deltas the warp class takes and 4 wider (a
+# CTA); in a launch of 16 keys, the widest key a CTA takes there
+# (FLAT_SPREAD_BYTES) and 4 wider (a cluster); in a launch that fills the
+# card (132 keys), the widest key a CTA's shared memory holds and 4 wider
+# (a cluster). Widths are multiples of 4; past the warp class the clouds
+# hold 16 entries.
+UJ_FLAT_BOUNDARIES = {
+    4: [(4096, 64, 8, 8, 8), (4096, 64, 12, 12, 8), (16, 64, 28, 16, 8), (16, 64, 32, 16, 8),
+        (132, 64, 720, 16, 8), (132, 64, 724, 16, 8)],
+    8: [(4096, 64, 8, 8, 8), (4096, 64, 12, 12, 8), (16, 64, 4, 16, 8), (16, 64, 8, 16, 8),
+        (132, 64, 360, 16, 8), (132, 64, 364, 16, 8)],
+}
 
 
 def uj_case(torch, name, shape, card, run_k, run_p, work, reset_k=None, reset_p=None,
@@ -2393,13 +2425,15 @@ def ujson_phases(torch, card: str, flat_groups) -> dict:
     resident entries + 512); config 5's broadcast join (32 resident
     rows, one folded row of 10,240 deltas, 65,536 slots wide: past
     shared memory, the device-scratch path) and its 14-level tree;
+    ujson_join at the class boundaries of ujson_device.join_plan;
     ujson_fold_flat at the node phase's flat leg (K = 4,096 x D = 64, and
-    its first 64 keys), and random planes at K = 2 x D = 64 x W = 512
-    (past shared memory); then ujson_join at the class boundaries of
-    ujson_device.join_plan."""
+    its first 64 keys), random planes at K = 2 x D = 64 x W = 512 (a
+    cluster of CTAs a key; the parent layout's device-scratch case), and
+    random planes at the class boundaries of ujson_resident.flat_plan."""
     from jylis_tpu_torch.ops import ujson_device as udev, ujson_resident as ures
 
     rng = np.random.default_rng(SEED + 30)
+    brng = np.random.default_rng(SEED + 31)
     join_rows, flat_rows = [], []
     for wide in (False, True):
         lay = "wide" if wide else "narrow"
@@ -2521,17 +2555,25 @@ def ujson_phases(torch, card: str, flat_groups) -> dict:
                 f"flat leg: K={kk} x D={g.dots.shape[1]} x W={g.dots.shape[2]} "
                 f"C={g.cloud.shape[2]} R={g.vv.shape[2]}, {lay}",
                 card, lambda: ures.fold_flat(g, shift),
-                lambda: ures.fold_flat_plain(g, shift), uj_flat_work(g, fo)))
-        g = uj_random_planes(torch, rng, (2, 64), 512, 64, 8, 32 if wide else 28)
-        shift = 32 if wide else 28
-        if ures.flat_work_bytes(g.dots.element_size(), 64, 512, 64, 8) <= udev.SMEM_LIMIT:
-            raise AssertionError("the wide flat case fits shared memory")
-        flat_rows.append(uj_case(
-            torch, "ujson_fold_flat",
-            f"random planes past shared memory: K=2 x D=64 x W=512 C=64, {lay}",
-            card, lambda: ures.fold_flat(g, shift), lambda: ures.fold_flat_plain(g, shift),
-            uj_flat_work(g, ures.fold_flat_plain(g, shift))))
-        del stf, gridf, g
+                lambda: ures.fold_flat_plain(g, shift), uj_flat_work(g, fo),
+                launch_class=uj_flat_class(g)))
+        # random planes: few wide keys (from the phase's generator, so a
+        # tree of the earlier kernel draws the same planes), then the class
+        # boundaries of ujson_resident.flat_plan (from their own generator)
+        tsize = 8 if wide else 4
+        for kk, d, w, c, r in [(2, 64, 512, 64, 8)] + UJ_FLAT_BOUNDARIES[tsize]:
+            shift = 32 if wide else udev.narrow_shift(r)
+            g = (uj_random_planes(torch, rng, (kk, d), w, c, r, shift) if kk == 2 else
+                 uj_random_planes(torch, brng, (kk, d), w, c, r, shift,
+                                  empty=range(0, kk * d, 5)))
+            flat_rows.append(uj_case(
+                torch, "ujson_fold_flat",
+                f"random planes: K={kk} x D={d} x W={w} C={c} R={r} "
+                f"({ures.flat_work_bytes(tsize, d, w, c, r)} B a key), {lay}",
+                card, lambda: ures.fold_flat(g, shift), lambda: ures.fold_flat_plain(g, shift),
+                uj_flat_work(g, ures.fold_flat_plain(g, shift)), launch_class=uj_flat_class(g)))
+            del g
+        del stf, gridf
         torch.cuda.empty_cache()
     # the first row of each kernel is its main path's shape (narrow)
     return {"ujson_join": dict(join_rows[0], other_shapes=join_rows[1:]),
@@ -2633,7 +2675,7 @@ def ujson_node_phase(torch, n5b: int = UJ5B_KEYS, rounds5b: int = UJ5B_ROUNDS,
     replies = 0
     try:
         udev.join_rows.launches = ures.fold_flat.launches = 0
-        udev.join_rows.classes = {}
+        udev.join_rows.classes, ures.fold_flat.classes = {}, {}
 
         def deliver(leg, batch, note=None):
             l0 = (udev.join_rows.launches, ures.fold_flat.launches)
@@ -2792,7 +2834,8 @@ def ujson_node_phase(torch, n5b: int = UJ5B_KEYS, rounds5b: int = UJ5B_ROUNDS,
         # the dump's drain folded the trickles: the phase's launches end here
         launches = {"ujson_join": udev.join_rows.launches,
                     "ujson_fold_flat": ures.fold_flat.launches}
-        classes = {"ujson_join": dict(udev.join_rows.classes)}
+        classes = {"ujson_join": dict(udev.join_rows.classes),
+                   "ujson_fold_flat": dict(ures.fold_flat.classes)}
     finally:
         node.close()
     if DEVICE == "cuda" and min(launches.values()) < 1:
@@ -2943,8 +2986,9 @@ def mesh_route_phases(torch, card: str, devs) -> dict:
     slots; pad slots read 0)."""
     from jylis_tpu_torch import convert
     from jylis_tpu_torch import parallel as par
-    from jylis_tpu_torch.ops import planes, pncount, tlog, treg
+    from jylis_tpu_torch.ops import gcount, planes, pncount, tlog, treg
     from jylis_tpu_torch.ops import ujson_device as udev, ujson_resident as ures
+    from jylis_tpu_torch.parallel.sharded import shard_device
 
     mesh = par.make_mesh(MESH_SHARDS, devices=devs)
     rng = np.random.default_rng(SEED + 50)
@@ -2952,50 +2996,56 @@ def mesh_route_phases(torch, card: str, devs) -> dict:
     gen.manual_seed(SEED + 50)
     out = {}
 
-    # PNCOUNT: K = 1,048,576 x R = 64 (1.07 GB of state), B = 65,536
+    # GCOUNT and PNCOUNT: K = 1,048,576 x R = 64 (0.54 / 1.07 GB of
+    # state), B = 65,536
     k, r, b = K_COUNTER, R_COUNTER, B_LARGE
-    st = pncount.PNCountState(_rand64(torch, (k, r), gen), _rand64(torch, (k, r), gen))
-    shards = par.shard_state(mesh, st)
-    plain = [_clone(s) for s in shards]
-    rows = rng.choice(k, b, replace=False).astype(np.int64)
-    deltas = u64_np(rng, (b, 2 * r))
-    t0 = time.perf_counter()
-    lr, pay, slots = par.route_drain(rows, deltas, MESH_SHARDS, k // MESH_SHARDS)
-    route_s = time.perf_counter() - t0
-    live = slots >= 0
-    l0 = pncount.drain_sparse.launches
-    sums = par.drain_sharded_pn(mesh, shards, lr, pay)
-    launched = pncount.drain_sparse.launches - l0
-    psums = []
-    for p, (ki, (dp, dn)) in zip(plain, _split_slots(lr, (pay[:, :r], pay[:, r:]), MESH_SHARDS)):
-        dev = p.p.device
-        psums.append(pncount.drain_sparse_plain(
-            p, torch.from_numpy(ki).to(dev), planes.to_tensor(dp, dev),
-            planes.to_tensor(dn, dev)).cpu().numpy())
-    ki = torch.from_numpy(rows.astype(np.int32)).to(DEVICE)
-    dp, dn = planes.to_tensor(deltas[:, :r], DEVICE), planes.to_tensor(deltas[:, r:], DEVICE)
-    ssums = pncount.drain_sparse(st, ki, dp, dn).cpu().numpy()
-    pos = np.empty(k, np.int64)
-    pos[rows] = np.arange(b)
-    torch.cuda.synchronize()
-    if launched != on_card(MESH_SHARDS) or not np.array_equal(sums, np.concatenate(psums)) \
-            or not np.array_equal(sums[live], ssums[pos[slots[live]]]) or sums[~live].any():
-        raise AssertionError(f"PNCOUNT mesh route: launches {launched} or sums differ")
-    whole = par.gather_state(shards)
-    if not (_states_equal(torch, whole, st)
-            and _states_equal(torch, par.gather_state(plain), st)):
-        raise AssertionError("PNCOUNT mesh route: state != the single-device drain's")
-    del whole, plain
-    pad = 1 - b / len(slots)
-    out["counter_drain_sparse<2>"] = _route_row(
-        torch, "counter_drain_sparse<2>",
-        f"K={k} x R={r} over {MESH_SHARDS} shards, B={b} routed to {len(slots)} slots",
-        lambda: par.drain_sharded_pn(mesh, shards, lr, pay), "counter_drain_sparse", card,
-        pad, ((2 * b * r * 8 * 3 + len(slots) * 12) / launched,
-              2 * b * r * OPS_PER_COUNTER / launched), route_s=route_s, launches=launched,
-        single_device_ms=time_ms(torch, lambda: pncount.drain_sparse(st, ki, dp, dn)))
-    del st, shards, dp, dn, ki
-    torch.cuda.empty_cache()
+    for name, mod, npl in (("counter_drain_sparse<1>", gcount, 1),
+                           ("counter_drain_sparse<2>", pncount, 2)):
+        st = (gcount.GCountState(_rand64(torch, (k, r), gen)) if npl == 1 else
+              pncount.PNCountState(_rand64(torch, (k, r), gen), _rand64(torch, (k, r), gen)))
+        shards = par.shard_state(mesh, st)
+        plain = [_clone(s) for s in shards]
+        rows = rng.choice(k, b, replace=False).astype(np.int64)
+        deltas = u64_np(rng, (b, npl * r))
+        t0 = time.perf_counter()
+        lr, pay, slots = par.route_drain(rows, deltas, MESH_SHARDS, k // MESH_SHARDS)
+        route_s = time.perf_counter() - t0
+        live = slots >= 0
+        sharded = par.drain_sharded_g if npl == 1 else par.drain_sharded_pn
+        l0 = mod.drain_sparse.launches
+        sums = sharded(mesh, shards, lr, pay)
+        launched = mod.drain_sparse.launches - l0
+        psums = []
+        for p, (ki, cols) in zip(plain, _split_slots(
+                lr, [pay[:, i * r:(i + 1) * r] for i in range(npl)], MESH_SHARDS)):
+            dev = shard_device(p)
+            psums.append(mod.drain_sparse_plain(
+                p, torch.from_numpy(ki).to(dev),
+                *(planes.to_tensor(c, dev) for c in cols)).cpu().numpy())
+        ki = torch.from_numpy(rows.astype(np.int32)).to(DEVICE)
+        dcols = [planes.to_tensor(deltas[:, i * r:(i + 1) * r], DEVICE) for i in range(npl)]
+        ssums = mod.drain_sparse(st, ki, *dcols).cpu().numpy()
+        pos = np.empty(k, np.int64)
+        pos[rows] = np.arange(b)
+        torch.cuda.synchronize()
+        if launched != on_card(MESH_SHARDS) or not np.array_equal(sums, np.concatenate(psums)) \
+                or not np.array_equal(sums[live], ssums[pos[slots[live]]]) or sums[~live].any():
+            raise AssertionError(f"{name} mesh route: launches {launched} or sums differ")
+        whole = par.gather_state(shards)
+        if not (_states_equal(torch, whole, st)
+                and _states_equal(torch, par.gather_state(plain), st)):
+            raise AssertionError(f"{name} mesh route: state != the single-device drain's")
+        del whole, plain
+        out[name] = _route_row(
+            torch, name,
+            f"K={k} x R={r} over {MESH_SHARDS} shards, B={b} routed to {len(slots)} slots",
+            lambda: sharded(mesh, shards, lr, pay), "counter_drain_sparse", card,
+            1 - b / len(slots), ((npl * b * r * 8 * 3 + len(slots) * 12) / max(launched, 1),
+                                 npl * b * r * OPS_PER_COUNTER / max(launched, 1)),
+            route_s=route_s, launches=launched,
+            single_device_ms=time_ms(torch, lambda: mod.drain_sparse(st, ki, *dcols)))
+        del st, shards, dcols, ki
+        torch.cuda.empty_cache()
 
     # TREG: K = 1,048,576, B = 65,536, a third of the deltas tie their row
     k = K_TREG

@@ -44,8 +44,8 @@
 // (ujson_join_cta); and the same with its work buffer in device scratch
 // per CTA, for rows past shared memory. The slot's steps are written once for both groups
 // (warp_ops.cuh): compactions are ballot scans, __ballot_sync + __popc
-// in a warp and one barrier to combine the warps in a CTA (block_ops.cuh's
-// block_scan takes three). The work buffer holds the two rows, the merged
+// in a warp and one barrier to combine the warps in a CTA. The work
+// buffer holds the two rows, the merged
 // cloud and the flags. Steps, each ended by the group's sync: load (the
 // output may alias a's row: a group reads its whole row before it writes
 // any of it); keep/add flags by binary searches (membership in the other

@@ -7,8 +7,7 @@
 //                  between steps and no __syncthreads anywhere;
 //   CtaGroup<NT>   a CTA per row (rows too wide for a warp's slice of
 //                  shared memory): each warp ballots, and one barrier
-//                  combines the warps' counts (block_ops.cuh's
-//                  block_scan takes three).
+//                  combines the warps' counts.
 // Both expose kSize (threads in the group), rank (this thread's index),
 // sync() (every thread of the group waits, and sees the others' shared
 // and global writes), count(f), scan(f, &total) and min(v). Every thread

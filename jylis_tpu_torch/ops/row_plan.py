@@ -3,7 +3,7 @@ csrc/ujson_fold_flat.cu).
 
 A row kernel gives each row of a launch a work buffer of the same size
 (the launch's rows share one width), and the plan puts the rows in one
-of three classes:
+of these classes:
 
 * ``warp``: a warp per row, up to ``WARPS_PER_CTA`` rows a CTA, each
   warp owning a slice of the CTA's shared memory; as many rows a CTA as
@@ -13,7 +13,11 @@ of three classes:
   shared memory;
 * ``scratch``: a CTA per row with its buffer in device scratch the
   wrapper allocates, for rows past ``SMEM_LIMIT``; only as many CTAs as
-  ``SCRATCH_LIMIT`` holds, each striding over the rows.
+  ``SCRATCH_LIMIT`` holds, each striding over the rows;
+* ``cluster`` (``plan_cluster``, the flat fold): a thread-block cluster
+  of up to ``CLUSTER_MAX`` CTAs per row, each taking a share of the
+  row's parts, reading the row from device memory, its flags in device
+  scratch, one region a cluster.
 
 Pure Python, so the CPU tests check the plans the card gets.
 """
@@ -28,6 +32,7 @@ SMEM_LIMIT = 200 * 1024
 SCRATCH_LIMIT = 256 << 20  # bytes of device scratch per launch, at most
 WARPS_PER_CTA = 8
 CTA_THREADS = 256
+CLUSTER_MAX = 8  # CTAs a thread-block cluster holds, portably
 # an H100 SXM: streaming multiprocessors, shared memory an SM holds, and
 # what each resident CTA reserves of it
 SMS = 132
@@ -36,13 +41,15 @@ CTA_RESERVED = 1_024
 
 
 class RowPlan(NamedTuple):
-    kind: str  # "warp", "cta" or "scratch"
+    kind: str  # "warp", "cta", "cluster" or "scratch"
     rows_per_cta: int  # rows a CTA holds at once (1 unless "warp")
     threads: int  # threads a CTA
     smem: int  # dynamic shared-memory bytes a CTA
     grid: int  # CTAs launched
     scratch: int  # bytes of device scratch (0 unless "scratch")
-    stride: int  # bytes between two rows' work buffers
+    stride: int  # bytes between two rows' (or clusters') work buffers
+    cluster: int = 1  # CTAs a row (plan_cluster)
+    held: int = 0  # parts of a row a CTA takes (plan_cluster; the flat fold: deltas)
 
 
 def align(n: int, a: int) -> int:
@@ -75,3 +82,20 @@ def plan_rows(nrows: int, warp_bytes: Optional[int], cta_bytes: int,
     stride = align(cta_bytes, 256)
     grid = max(1, min(nrows, SCRATCH_LIMIT // stride))
     return RowPlan("scratch", 1, CTA_THREADS, 0, grid, grid * stride, stride)
+
+
+def plan_cluster(nrows: int, parts: int, smem, scratch_bytes: int) -> RowPlan:
+    """A thread-block cluster of n CTAs per row, CTA q taking parts
+    [q * held, (q + 1) * held) of the row's ``parts`` with ``smem(held)``
+    bytes of shared memory: n as large as covers the card's SMs with the
+    launch's clusters (at least 2 and at most ``CLUSTER_MAX``, at most one
+    CTA a part);
+    each cluster with ``scratch_bytes`` of device scratch, as many
+    clusters as ``SCRATCH_LIMIT`` holds, striding over the rows."""
+    n = min(max(2, SMS // max(nrows, 1)), CLUSTER_MAX, parts)
+    held = -(-parts // n)
+    n = -(-parts // held)
+    stride = align(scratch_bytes, 256)
+    clusters = max(1, min(nrows, SCRATCH_LIMIT // stride))
+    return RowPlan("cluster", 1, CTA_THREADS, smem(held), clusters * n, clusters * stride,
+                   stride, n, held)

@@ -109,21 +109,59 @@ def _fold_flat_block(g: DocBatch, shift: int) -> DocBatch:
     return DocBatch(d2, p2, vv, _sort_rows(torch.where(cdup, pad, cl))[0])
 
 
+# the launch plan (csrc/ujson_fold_flat.cu): a warp per key, the deltas in
+# registers, while D <= 64 and W, C <= 8 (the kernel's limit; at every key
+# count measured, 64 to 4,096, the warp beat a CTA); else a CTA per key
+# while its rows fit row_plan.SMEM_LIMIT of shared memory and either the
+# launch fills the card or the key is under FLAT_SPREAD_BYTES; else a
+# thread-block cluster per key (crossovers measured on an H100: PERF.md
+# §6). FLAT_CLASS, when set, sends a launch to that class wherever the
+# class can take it (the tests and the sweep force each class so).
+FLAT_SPREAD_BYTES = 16 * 1024
+FLAT_CLASS = None
+_FLAT_KINDS = {"warp": 0, "cta": 1, "cluster": 2}
+
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
-_FLAT_ARGS = [ctypes.c_int] + [_P] * 4 + [_LL] * 7 + [_P] * 5 + [_LL] * 4 + [_P]
+_FLAT_ARGS = [ctypes.c_int] + [_P] * 4 + [_LL] * 5 + [_P] * 4 + [_LL] * 4 + [_P] \
+    + [_LL] * 4 + [_P]
 
 
 def flat_work_bytes(tsize: int, d: int, w: int, c: int, r: int) -> int:
-    """Bytes of one CTA's work buffer in csrc/ujson_fold_flat.cu."""
-    ep, cp = bucket(d * w, 1), bucket(d * c, 1)
-    return row_plan.align(tsize * (d * w + cp + ep) + 4 * (ep + d * r), 16)
+    """Bytes of a CTA's work buffer in csrc/ujson_fold_flat.cu: the key's
+    dots, clouds and vv, their kept bits and per-word prefix counts, four
+    counts per delta and the live-prefix scans."""
+    words = -(-w // 32) + -(-c // 32)
+    return row_plan.align(tsize * d * (w + c) + 4 * d * r + 8 * d * words + 16 * d
+                          + 8 * (d + 1), 16)
+
+
+def flat_plan(nkeys: int, tsize: int, d: int, w: int, c: int, r: int) -> row_plan.RowPlan:
+    """How ``ujson_fold_flat`` runs ``nkeys`` keys of (d, w, c, r) planes:
+    the class, keys a CTA, shared memory, grid, CTAs a key (cluster) and
+    deltas a CTA takes, and device scratch."""
+    force = FLAT_CLASS
+    if d <= 64 and max(w, c) <= 8 and force in (None, "warp"):
+        cap = d * (4 if max(w, c) <= 4 else 8)  # a list's items
+        slice_ = row_plan.align(2 * tsize * cap + 16 * cap + 4 * d * (r | 1), 16)
+        plan = row_plan.plan_rows(nkeys, slice_, slice_, row_plan.SMEM_LIMIT, 1)
+        if plan.kind == "warp":
+            return plan._replace(held=d)
+    whole = flat_work_bytes(tsize, d, w, c, r)
+    spread = nkeys >= row_plan.SMS or whole <= FLAT_SPREAD_BYTES or force == "cta"
+    if whole <= row_plan.SMEM_LIMIT and spread and force != "cluster":
+        return row_plan.RowPlan("cta", 1, row_plan.CTA_THREADS, whole, nkeys, 0, whole,
+                                1, d)
+    words = -(-w // 32) + -(-c // 32)
+    return row_plan.plan_cluster(nkeys, d, lambda held: row_plan.align(8 * (held + 1), 16),
+                                 8 * d * words + 16 * d)
 
 
 def fold_flat(grid: DocBatch, shift: int) -> DocBatch:
     """The flat fold of a (K, D, W) grid (D <= FLAT_MAX on the store's
     path): a CPU tensor runs `fold_flat_plain`; a CUDA tensor launches
-    csrc/ujson_fold_flat.cu or raises."""
+    csrc/ujson_fold_flat.cu (one CUDA kernel a call, in the class
+    ``flat_plan`` picks) or raises."""
     if grid.dots.device.type == "cpu":
         return fold_flat_plain(grid, shift)
     device = grid.dots.device
@@ -147,21 +185,24 @@ def fold_flat(grid: DocBatch, shift: int) -> DocBatch:
                    torch.empty((k, d * w), dtype=torch.int32, device=device),
                    torch.empty((k, r), dtype=torch.int32, device=device),
                    torch.empty((k, d * c), dtype=dtype, device=device))
-    plan = row_plan.plan_rows(k, None, flat_work_bytes(8 if wide else 4, d, w, c, r), 0)
+    plan = flat_plan(k, 8 if wide else 4, d, w, c, r)
     scratch = (torch.empty(plan.scratch, dtype=torch.uint8, device=device)
                if plan.scratch else None)
     fn = _build.function("ujson_fold_flat", "jt_ujson_fold_flat", _FLAT_ARGS)
     with torch.cuda.device(device):
         rc = fn(int(wide), *(t.data_ptr() for t in grid), d, w, c, r, shift,
-                bucket(d * w, 1), bucket(d * c, 1), *(t.data_ptr() for t in out),
-                None if scratch is None else scratch.data_ptr(), plan.stride, k,
-                plan.grid, plan.smem, torch.cuda.current_stream(device).cuda_stream)
+                *(t.data_ptr() for t in out), _FLAT_KINDS[plan.kind], plan.rows_per_cta,
+                plan.cluster, plan.held, None if scratch is None else scratch.data_ptr(),
+                plan.stride, k, plan.grid, plan.smem,
+                torch.cuda.current_stream(device).cuda_stream)
     _build.check(rc, "ujson_fold_flat")
     fold_flat.launches += 1
+    fold_flat.classes[plan.kind] = fold_flat.classes.get(plan.kind, 0) + 1
     return out
 
 
 fold_flat.launches = 0
+fold_flat.classes = {}  # launches by flat_plan class
 
 
 # ---- the fused drains ------------------------------------------------------------

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Per-launch device times of the port's row kernels on an NVIDIA GPU.
 
-    python3 scripts/row_kernel_profile.py [--root DIR] [--sweep]
+    python3 scripts/row_kernel_profile.py [--root DIR] [--flat] [--sweep [flat|tlog|join ...]]
 
 Measures the ``jylis_tpu_torch`` package found under ``--root`` (default:
 this checkout), so one call can hold two trees side by side, e.g. a
@@ -19,10 +19,19 @@ Prints one JSON line per measurement:
   widths, its device time (torch.profiler, CUPTI; the mean of 3 traced
   folds) and, where the tree has ``ujson_device.join_plan``, the class
   the launch took;
+* with ``--flat``: ``ujson_fold_flat`` at ``chip_smoke.py``'s
+  class-boundary shapes on the planes it draws there: each class forced
+  in turn as ``--sweep flat`` does, or, on a tree without classes (a
+  parent), a launch's device time;
 * with ``--sweep`` (trees that have ``ops/row_plan.py``): the warp and
   CTA classes of ``tlog_drain`` and ``ujson_join`` forced in turn at
   widths around their crossovers, each launch's device time, and the two
-  classes' outputs compared bit for bit.
+  classes' outputs compared bit for bit; ``--sweep flat`` (or ``tlog``,
+  ``join``) sweeps only that kernel. The flat fold's sweep (trees that
+  have ``ujson_resident.flat_plan``) forces each of its three classes (a
+  warp per key, its deltas in registers; a CTA, its rows in shared
+  memory; a cluster of CTAs reading device memory) at key counts and
+  widths around its crossovers.
 
 The card's name and power limit come first, as nvidia-smi gives them.
 """
@@ -207,12 +216,110 @@ def ujson_sweep(torch, cs, udev) -> None:
             torch.cuda.empty_cache()
 
 
+FLAT_CLASSES = ("warp", "cta", "cluster")
+
+
+def flat_boundaries(torch, cs, ures) -> None:
+    """ujson_fold_flat at chip_smoke.py's class-boundary shapes
+    (cs.UJ_FLAT_BOUNDARIES), narrow then wide, on the planes its UJSON
+    kernel phase draws there (the same generator and seed): on a tree
+    with ``ujson_resident.FLAT_CLASS``, each class that can take the
+    shape forced in turn (``_flat_classes``); on any other tree whose
+    ``fold_flat`` takes a (K, D, W) grid (a parent), a launch's device
+    time, so both are timed on the same planes."""
+    from jylis_tpu_torch.ops import ujson_device as udev
+
+    brng = np.random.default_rng(cs.SEED + 31)
+    for wide in (False, True):
+        layout = "wide" if wide else "narrow"
+        for k, d, w, c, r in cs.UJ_FLAT_BOUNDARIES[8 if wide else 4]:
+            shift = 32 if wide else udev.narrow_shift(r)
+            g = cs.uj_random_planes(torch, brng, (k, d), w, c, r, shift,
+                                    empty=range(0, k * d, 5))
+            if hasattr(ures, "FLAT_CLASS"):
+                _flat_classes(torch, ures, g, shift, "chip_smoke.py boundary", layout)
+            else:
+                t = kernel_times(torch, lambda: ures.fold_flat(g, shift), "ujson_fold_flat")
+                emit({"flat": "boundary", "keys": k, "d": d, "w": w, "c": c, "r": r,
+                      "layout": layout, "device_us": t[0] if t else None})
+            del g
+            torch.cuda.empty_cache()
+
+
+def flat_sweep(torch, cs, ures) -> None:
+    """ujson_fold_flat, each class that can take the shape forced in
+    turn: the flat leg's own deltas (chip_smoke.py's node phase, its
+    first 64, 512 and 4,096 keys), then random delta stacks
+    (cs.uj_random_planes): the flat leg's key (D = 64 x W = 4, C = 4,
+    R = 32) at launches of 64-4,096 keys, wider keys at 4,096, 128, 64
+    and 16, and few keys of 512-4,096 dots a delta."""
+    from jylis_tpu_torch.ops import ujson_device as udev
+
+    # the flat leg's own deltas (chip_smoke.py's node phase), its first K keys
+    flat = cs.uj_flat_data(4096)[1]
+    for wide in (False, True):
+        st = ures.ResidentStore(n_rep=32, device="cuda")
+        st._grow_reps_to(32)
+        if wide:
+            st._widen()
+        grid = st._grid_to_device(st._encode_grid(flat))
+        for k in (64, 512, 4096):
+            g = type(grid)(*(p[:k].contiguous() for p in grid))
+            _flat_classes(torch, ures, g, st._shift, f"flat leg, first {k} keys",
+                          "wide" if wide else "narrow")
+        del st, grid, g
+        torch.cuda.empty_cache()
+    rng = np.random.default_rng(SEED + 92)
+    shapes = [(k, 64, 4, 4, 32) for k in (64, 128, 512, 1024, 4096)]
+    shapes += [(4096, 64, w, w, 8) for w in (8, 12, 16, 64)]
+    shapes += [(k, 64, w, w, 8) for k in (16, 64, 128) for w in (16, 32, 64, 256)]
+    shapes += [(2, 64, 512, 64, 8), (16, 64, 512, 64, 8), (2, 64, 4096, 64, 8)]
+    for k, d, w, c, r in shapes:
+        for wide in (False, True):
+            shift = 32 if wide else udev.narrow_shift(r)
+            g = cs.uj_random_planes(torch, rng, (k, d), w, c, r, shift, empty=range(0, k * d, 5))
+            _flat_classes(torch, ures, g, shift, "random planes", "wide" if wide else "narrow")
+            del g
+            torch.cuda.empty_cache()
+
+
+def _flat_classes(torch, ures, g, shift: int, data: str, layout: str) -> None:
+    """One flat-fold grid in each class that can take it: device time a
+    launch, the plan, and the classes' outputs compared bit for bit."""
+    k, d, w = g.dots.shape
+    c, r = g.cloud.shape[-1], g.vv.shape[-1]
+    out, res = {}, {}
+    for klass in FLAT_CLASSES:
+        ures.FLAT_CLASS = klass
+        try:
+            plan = ures.flat_plan(k, g.dots.element_size(), d, w, c, r)
+            if plan.kind != klass:
+                continue
+            res[klass] = ures.fold_flat(g, shift)
+            torch.cuda.synchronize()
+            t = kernel_times(torch, lambda: ures.fold_flat(g, shift), "ujson_fold_flat")
+            out[klass] = dict(device_us=t[0] if t else None, smem=plan.smem,
+                              keys_per_cta=plan.rows_per_cta, cluster=plan.cluster,
+                              grid=plan.grid)
+        finally:
+            ures.FLAT_CLASS = None
+    outs = list(res.values())
+    same = all(torch.equal(x, y) for o in outs[1:] for x, y in zip(outs[0], o))
+    emit({"sweep": "ujson_fold_flat", "data": data, "keys": k, "d": d, "w": w, "c": c,
+          "r": r, "work_bytes": ures.flat_work_bytes(g.dots.element_size(), d, w, c, r),
+          "layout": layout, "plan": ures.flat_plan(k, g.dots.element_size(), d, w, c, r).kind,
+          "classes": out, "classes_equal": same})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(HERE),
                     help="checkout whose jylis_tpu_torch package is measured")
-    ap.add_argument("--sweep", action="store_true",
-                    help="also force each class of the row kernels around its crossover")
+    ap.add_argument("--sweep", nargs="*", choices=("flat", "tlog", "join"),
+                    help="also force each class of the row kernels (or of the ones "
+                         "named) around its crossover")
+    ap.add_argument("--flat", action="store_true",
+                    help="also time ujson_fold_flat at chip_smoke.py's class-boundary shapes")
     args = ap.parse_args()
     import torch
 
@@ -227,13 +334,24 @@ def main() -> int:
     emit({"card": cs.smi_line(), "root": str(Path(args.root).resolve()),
           "package": str(Path(udev.__file__).resolve().parents[1]),
           "torch": torch.__version__, "cuda": torch.version.cuda})
-    emit({"build_s": _build.build(("tlog_drain", "ujson_join"))})
+    from jylis_tpu_torch.ops import ujson_resident as ures
+
+    emit({"build_s": _build.build(("tlog_drain", "ujson_join", "ujson_fold_flat"))})
     tree_profile(torch, cs, udev)
-    if args.sweep:
+    if args.flat:
+        flat_boundaries(torch, cs, ures)
+    if args.sweep is not None:
+        which = set(args.sweep or ("flat", "tlog", "join"))
         if not hasattr(udev, "join_plan"):
             raise SystemExit("--sweep needs a tree with ops/row_plan.py")
-        tlog_sweep(torch, cs, tlog, planes)
-        ujson_sweep(torch, cs, udev)
+        if "tlog" in which:
+            tlog_sweep(torch, cs, tlog, planes)
+        if "join" in which:
+            ujson_sweep(torch, cs, udev)
+        if "flat" in which:
+            if not hasattr(ures, "flat_plan"):
+                raise SystemExit("--sweep flat needs a tree with ujson_resident.flat_plan")
+            flat_sweep(torch, cs, ures)
     return 0
 
 

@@ -674,28 +674,113 @@ def test_ujson_join_epilogue_matches_plain(dev, layout, cap, n, l, c, lf, cf, r)
     assert not got.vv[~occ].any()
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("layout", ["narrow", "wide"])
-@pytest.mark.parametrize("k,d,w,c,r", [
-    (9, 1, 4, 4, 8), (40, 7, 4, 8, 8), (16, 64, 4, 4, 12), (3, 64, 8, 16, 4),
-    (2, 64, 512, 64, 8),  # past shared memory: device scratch
-])
-def test_ujson_fold_flat_matches_plain(dev, layout, k, d, w, c, r):
-    """Random delta stacks repeat dots across deltas under other payload
-    ids, so the last-copy rule decides; empty keys fold to identity."""
-    rng = np.random.default_rng(k * d + w)
-    shift = UJ_SHIFT[layout](r)
-    grid = _ujson_planes(rng, (k, d), w, c, r, shift, dev, empty=range(d))
-    if w == 512:
-        assert ures.flat_work_bytes(4, d, w, c, r) > udev.SMEM_LIMIT
+def _flat_grid(rng, k, d, w, c, r, shift, dev):
+    """Random delta stacks (dots repeat across deltas under other payload
+    ids, so the last-copy rule decides) with key 0 empty (it folds to the
+    identity); with k >= 3 and d >= 2, key 1 holds the least dot in every
+    delta under other ids (it survives, and the last delta's id is kept),
+    and every entry of key 2 dies (its delta 0 holds no dots and covers
+    every dot: vv at the u32 wrap)."""
+    g = _ujson_planes(rng, (k, d), w, c, r, shift, "cpu", empty=range(d))
+    if k >= 3 and d >= 2:
+        g.dots[1, :, 0] = 0
+        g.pay[1, :, 0] = torch.arange(d, dtype=torch.int32) + 1000
+        g.vv[2] = -1
+        g.dots[2, 0] = udev.pad_of(g.dots)
+        g.pay[2, 0] = -1
+    return udev.DocBatch(*(p.to(dev) for p in g))
+
+
+def _check_flat(grid, shift, klass=None):
     before = ures.fold_flat.launches
+    n_class = ures.fold_flat.classes.get(klass, 0)
     got = ures.fold_flat(grid, shift)
     want = ures.fold_flat_plain(grid, shift)
     torch.cuda.synchronize()
     assert ures.fold_flat.launches == before + 1
+    if klass is not None:
+        assert ures.fold_flat.classes[klass] == n_class + 1
     assert _uj_equal(got, want)
     pad = udev.pad_of(grid.dots)
     assert (got.dots[0] == pad).all() and (got.pay[0] == -1).all()
+    k, d = grid.dots.shape[:2]
+    if k >= 3 and d >= 2:
+        assert got.dots[1, 0].item() == 0 and got.pay[1, 0].item() == 1000 + d - 1
+        assert (got.dots[2] == pad).all()
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["narrow", "wide"])
+@pytest.mark.parametrize("k,d,w,c,r", [
+    (9, 1, 4, 4, 8), (40, 7, 4, 8, 8), (16, 64, 4, 4, 12), (3, 64, 8, 16, 4),
+    (5, 33, 40, 36, 8),  # two 32-entry words a row
+    (2, 64, 512, 64, 8), (2, 64, 1024, 64, 8),  # few wide keys: a cluster of 8
+    (2, 64, 8192, 64, 8),  # past one CTA's shared memory
+    (4096, 64, 4, 4, 32), (64, 64, 4, 4, 32),  # the flat leg's keys
+])
+def test_ujson_fold_flat_matches_plain(dev, layout, k, d, w, c, r):
+    """The flat fold in the class flat_plan picks, bit for bit against
+    the plain fold: empty keys fold to the identity, a dot held by every
+    delta keeps the last delta's payload id, a key whose entries all die
+    folds to pads."""
+    rng = np.random.default_rng(k * d + w)
+    shift = UJ_SHIFT[layout](r)
+    grid = _flat_grid(rng, k, d, w, c, r, shift, dev)
+    plan = ures.flat_plan(k, grid.dots.element_size(), d, w, c, r)
+    if w >= 512:
+        assert plan.kind == "cluster" and plan.cluster == 8
+    if w == 8192:
+        assert ures.flat_work_bytes(4, d, w, c, r) > udev.SMEM_LIMIT
+    _check_flat(grid, shift, plan.kind)
+
+
+FLAT_REG_SHAPES = [(9, 1, 4, 4, 8), (40, 7, 4, 8, 8), (70, 64, 4, 4, 32), (6, 64, 8, 8, 8),
+                   (5, 40, 3, 5, 4)]
+FLAT_WIDE_SHAPES = [(5, 33, 40, 36, 8), (3, 20, 64, 40, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["narrow", "wide"])
+@pytest.mark.parametrize("klass,k,d,w,c,r", [
+    (klass, *shape) for klass in ("warp", "cta", "cluster")
+    for shape in FLAT_REG_SHAPES + ([] if klass == "warp" else FLAT_WIDE_SHAPES)])
+def test_ujson_fold_flat_classes_match_plain(dev, monkeypatch, klass, layout, k, d, w, c, r):
+    """Each class of ujson_fold_flat forced in turn (a warp per key with
+    its deltas in registers, a CTA with its rows in shared memory, a
+    cluster of CTAs reading device memory), bit for bit against the plain
+    fold; the clusters stride over several keys each."""
+    from jylis_tpu_torch.ops import row_plan
+
+    monkeypatch.setattr(ures, "FLAT_CLASS", klass)
+    rng = np.random.default_rng(k * d + w + len(klass))
+    shift = UJ_SHIFT[layout](r)
+    grid = _flat_grid(rng, k, d, w, c, r, shift, dev)
+    plan = ures.flat_plan(k, grid.dots.element_size(), d, w, c, r)
+    if klass == "cluster":  # two clusters: each folds several keys
+        monkeypatch.setattr(row_plan, "SCRATCH_LIMIT", 2 * plan.stride)
+        plan = ures.flat_plan(k, grid.dots.element_size(), d, w, c, r)
+        assert plan.grid == 2 * plan.cluster
+    assert plan.kind == klass
+    _check_flat(grid, shift, klass)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["narrow", "wide"])
+@pytest.mark.parametrize("step", range(6))
+def test_ujson_fold_flat_at_the_class_boundaries(dev, layout, step):
+    """The flat fold at chip_smoke.py's class boundaries of flat_plan and
+    one step past each (a warp, then a CTA; a CTA, then a cluster, at 16
+    and at 132 keys), bit for bit against the plain fold."""
+    import chip_smoke
+
+    k, d, w, c, r = chip_smoke.UJ_FLAT_BOUNDARIES[4 if layout == "narrow" else 8][step]
+    rng = np.random.default_rng(k + w + step)
+    shift = UJ_SHIFT[layout](r)
+    grid = _flat_grid(rng, k, d, w, c, r, shift, dev)
+    plan = ures.flat_plan(k, grid.dots.element_size(), d, w, c, r)
+    assert plan.kind == ["warp", "cta", "cta", "cluster", "cta", "cluster"][step]
+    _check_flat(grid, shift, plan.kind)
 
 
 @pytest.mark.cuda

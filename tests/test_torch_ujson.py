@@ -12,7 +12,11 @@ included), narrow (int32, shift 28) and wide (u64, shift 32). The flat
 fold runs through ``fold_join_subset`` at D <= 64 and the pairwise tree
 at D > 64. Hand-made planes hold one dot under two payload ids (the
 flat fold keeps the last copy in flat order, the tree the first) and
-u32 version vectors at the wrap.
+u32 version vectors at the wrap. A test-local model of the flat fold
+kernel's rule (csrc/ujson_fold_flat.cu: kept flags, per-row prefix
+counts, co-rank placement, no sort) is held against JAX's flat fold on
+random delta stacks, and the kernel's launch plans are checked at the
+shapes chip_smoke.py launches.
 """
 
 import jax
@@ -20,6 +24,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from jylis_tpu.ops import ujson_device as jdev
 from jylis_tpu.ops import ujson_resident as jres
@@ -431,3 +436,181 @@ def test_join_batch_matches_jax_at_the_warp_cta_crossover(shift, step):
             "warp" if step == 0 else "cta")
     assert_same(tdev.join_batch(pt(a_np), pt(b_np), shift=shift),
                 jdev.join_batch(jx(a_np), jx(b_np), shift=shift))
+
+
+# ---- the flat fold kernel's rule and launch plans (csrc/ujson_fold_flat.cu) -----
+
+
+def flat_planes_np(seed: int, k: int, d: int, w: int, c: int, shift: int):
+    """(k, d, w) random delta stacks in the JAX dtypes: per delta a random
+    share of sorted, duplicate-free dots (dots repeat across deltas under
+    other payload ids) and cloud entries, pads after; wide dots mix seqs
+    near 2^32 and columns past 2^31 (bit 63 set); a few vv entries sit at
+    the u32 wrap. Key 0 is empty; key 1 holds the least dot (0) in every
+    delta under other payload ids; every entry of key 2 dies (its delta 0
+    holds no dots and its vv covers every dot); key 3 is one delta and
+    d - 1 identity deltas."""
+    rng = np.random.default_rng(seed)
+    n, wide = k * d, shift == 32
+    dt = np.uint64 if wide else np.int64
+    pad = np.uint64(2**64 - 1) if wide else 0x7FFFFFFF
+
+    def plane(width):
+        col = rng.integers(0, N_REP, (n, width)).astype(dt)
+        seq = rng.integers(1, 40, (n, width)).astype(dt)
+        if wide:
+            seq = np.where(rng.random((n, width)) < 0.2, dt(2**32 - 3) + seq % 3, seq)
+            col = np.where(rng.random((n, width)) < 0.05, dt(2**31) + col % 2, col)
+        v = np.where(rng.random((n, width)) < rng.random((n, 1)) * 1.2,
+                     (col << dt(shift)) | seq, pad)
+        v.sort(1)
+        v[:, 1:][v[:, 1:] == v[:, :-1]] = pad
+        v.sort(1)
+        return (v if wide else v.astype(np.int32)).reshape(k, d, width)
+
+    dots, cloud = plane(w), plane(c)
+    pay = np.where(dots != pad, rng.integers(0, 200, (k, d, w)), -1).astype(np.int32)
+    vv = rng.integers(0, 30, (k, d, N_REP)).astype(np.uint32)
+    vv[rng.random((k, d, N_REP)) < 0.03] = 0xFFFFFFFF
+    dots[0], pay[0], vv[0], cloud[0] = pad, -1, 0, pad
+    dots[1, :, 0], pay[1, :, 0] = 0, 1000 + np.arange(d)
+    vv[2], dots[2, 0], pay[2, 0] = 0xFFFFFFFF, pad, -1
+    dots[3, 1:], pay[3, 1:], vv[3, 1:], cloud[3, 1:] = pad, -1, 0, pad
+    return jdev.DocBatch(dots, pay, vv, cloud)
+
+
+def corank_fold(g, shift: int, jax_columns: bool = False):
+    """The kernel's rule in plain torch on a (k, d, w) grid: entry (i, s)
+    with dot x is kept iff no delta j != i covers x without holding it and
+    no delta j > i holds it; its slot is sum_j P_j[lb_j(x)] (P_j the
+    exclusive prefix count of row j's kept flags); a cloud entry is kept
+    iff no earlier row holds it, placed the same way. ``jax_columns``:
+    decode a dot's vv column as JAX's fold indexes it (the u32 column
+    wrapped to int32, negative indices from the end, then clamped), not
+    as the port's clamp to R - 1; the two differ only for wide columns
+    >= 2^31, which no encoder mints."""
+    k, d, w = g.dots.shape
+    c, r = g.cloud.shape[-1], g.vv.shape[-1]
+    pad, key = tdev.pad_of(g.dots), tdev._key
+
+    def place(rows, first):
+        width = rows.shape[-1]
+        x = rows.reshape(k, 1, d * width).expand(k, d, d * width)
+        lb = torch.searchsorted(key(rows).contiguous(), key(x).contiguous())
+        has = torch.gather(rows, 2, lb.clamp(max=width - 1)) == x
+        j, i = torch.arange(d)[:, None], (torch.arange(d * width) // width)[None, :]
+        return x, lb, has, (j > i) if first else (j < i)
+
+    def slots(kept, lb, width):
+        pre = F.pad(torch.cumsum(kept.reshape(k, d, width).long(), -1), (1, 0))
+        return torch.gather(pre, 2, lb).sum(1)
+
+    x, lb, has, later = place(g.dots, True)
+    col, seq = tdev._col_seq(x, shift, r)
+    if jax_columns:
+        col32 = ((x.to(torch.int64) >> shift) & 0xFFFFFFFF ^ 0x80000000) - 0x80000000
+        col = col32.clamp(max=r - 1)
+        col = torch.where(col < 0, col + r, col).clamp(min=0)
+    cover = (seq <= torch.gather(tdev._u32(g.vv), 2, col)) | tdev._member(
+        g.cloud.reshape(k * d, c), x.reshape(k * d, d * w)).reshape(k, d, d * w)
+    own = later.logical_not() & (torch.arange(d)[:, None] == (torch.arange(d * w) // w))
+    kept = (x[:, 0] != pad) & ~((has & later) | (~has & cover & ~own)).any(1)
+    y, clb, chas, earlier = place(g.cloud, False)
+    ckept = (y[:, 0] != pad) & ~(chas & earlier).any(1)
+    out = [torch.full((k, d * w), pad, dtype=g.dots.dtype), torch.full((k, d * w), -1, dtype=torch.int32),
+           tdev._i32(tdev._u32(g.vv).max(1).values),
+           torch.full((k, d * c), pad, dtype=g.dots.dtype)]
+    kk = torch.arange(k)[:, None]
+    for o, src, m, at in ((0, x[:, 0], kept, slots(kept, lb, w)),
+                          (1, g.pay.reshape(k, d * w), kept, slots(kept, lb, w)),
+                          (3, y[:, 0], ckept, slots(ckept, clb, c))):
+        out[o][kk.expand_as(m)[m], at[m]] = src[m].to(out[o].dtype)
+    return tdev.DocBatch(*out)
+
+
+_JAX_FOLD = jax.jit(jres._fold_grid, static_argnums=1)
+
+
+@pytest.mark.parametrize("k,d,w,c", [(6, 7, 16, 8), (5, 64, 8, 8)], ids=["D7", "D64"])
+@pytest.mark.parametrize("shift", SHIFTS, ids=SHIFT_IDS)
+def test_corank_rule_matches_jax_flat_fold(shift, k, d, w, c):
+    """The co-rank rule against JAX's `_fold_grid` (the flat rule, D <= 64)
+    at tolerance 0, with JAX's column decode; with the port's, against the
+    plain fold the card tests hold the kernel to. Key 3's one delta folds
+    alone (D = 1) to its row of the D-deep fold. JAX compiles its fold at
+    these two shapes only."""
+    g_np = flat_planes_np(100 + d + shift, k, d, w, c, shift)
+    want = _JAX_FOLD(jx(g_np), shift)
+    g = pt(g_np)
+    assert_same(corank_fold(g, shift, jax_columns=True), want)
+    for x, y in zip(corank_fold(g, shift), tres.fold_flat_plain(g, shift)):
+        assert torch.equal(x, y)
+    one = corank_fold(tdev.DocBatch(*(p[3:4, :1] for p in g)), shift, jax_columns=True)
+    got = [np.asarray(p) for p in want]
+    assert_same(one, (got[0][3:4, :w], got[1][3:4, :w], got[2][3:4], got[3][3:4, :c]))
+    pad = jdev._pad_of(g_np.dots.dtype)
+    assert (got[0][0] == pad).all() and (got[0][2] == pad).all()  # empty, all dropped
+    assert got[0][1, 0] == 0 and got[1][1, 0] == 1000 + d - 1  # the last copy's id
+    assert (got[0][3, w:] == pad).all()
+    if shift == 32:  # dots with bit 63 set take part
+        assert (g_np.dots[g_np.dots != pad] >> np.uint64(63)).any()
+
+
+@pytest.mark.parametrize("k,tsize,d,w,c,r,kind,rpc,smem,grid,cluster,scratch", [
+    # chip_smoke.py's shapes: the flat leg (4,096 keys) and its first 64
+    # keys, narrow and wide; a mesh shard's launch of the flat leg; the
+    # node's wide flat round; random planes of 2 keys x 512 dots a delta
+    (4096, 4, 64, 4, 4, 32, "warp", 5, 72_960, 820, 1, 0),
+    (4096, 8, 64, 4, 4, 32, "warp", 1, 16_640, 4096, 1, 0),
+    (64, 4, 64, 4, 4, 32, "warp", 1, 14_592, 64, 1, 0),
+    (64, 8, 64, 4, 4, 32, "warp", 1, 16_640, 64, 1, 0),
+    (1024, 4, 64, 4, 4, 32, "warp", 5, 72_960, 205, 1, 0),
+    (512, 8, 64, 4, 4, 32, "warp", 1, 16_640, 512, 1, 0),
+    (2, 4, 64, 512, 64, 8, "cluster", 1, 80, 16, 8, 20_480),
+    (2, 8, 64, 512, 64, 8, "cluster", 1, 80, 16, 8, 20_480),
+    # the class boundaries and one step past each: the widest deltas the
+    # warp class takes (8 dots); the widest key a CTA takes in a
+    # launch of 16 keys (FLAT_SPREAD_BYTES); the widest a CTA's shared
+    # memory holds (row_plan.SMEM_LIMIT)
+    (4096, 4, 64, 8, 8, 8, "warp", 5, 72_960, 820, 1, 0),
+    (4096, 4, 64, 12, 12, 8, "cta", 1, 10_768, 4096, 1, 0),
+    (16, 4, 64, 28, 16, 8, "cta", 1, 15_888, 16, 1, 0),
+    (16, 4, 64, 32, 16, 8, "cluster", 1, 80, 128, 8, 32_768),
+    (132, 4, 64, 720, 16, 8, "cta", 1, 204_304, 132, 1, 0),
+    (132, 4, 64, 724, 16, 8, "cluster", 1, 272, 264, 2, 1_757_184),
+    (4096, 8, 64, 8, 8, 8, "warp", 6, 112_128, 683, 1, 0),
+    (4096, 8, 64, 12, 12, 8, "cta", 1, 16_912, 4096, 1, 0),
+    (16, 8, 64, 4, 16, 8, "cta", 1, 14_864, 16, 1, 0),
+    (16, 8, 64, 8, 16, 8, "cluster", 1, 80, 128, 8, 32_768),
+    (132, 8, 64, 360, 16, 8, "cta", 1, 202_768, 132, 1, 0),
+    (132, 8, 64, 364, 16, 8, "cluster", 1, 272, 264, 2, 1_013_760),
+])
+def test_flat_plan_at_every_chip_shape(k, tsize, d, w, c, r, kind, rpc, smem, grid, cluster,
+                                       scratch):
+    """The launch plan of csrc/ujson_fold_flat.cu at every shape
+    chip_smoke.py launches it at: the class, keys a CTA, shared memory,
+    CTAs, CTAs a key and device scratch."""
+    plan = tres.flat_plan(k, tsize, d, w, c, r)
+    assert (plan.kind, plan.rows_per_cta, plan.smem, plan.grid, plan.cluster, plan.scratch) == (
+        kind, rpc, smem, grid, cluster, scratch)
+    assert plan.smem <= SMEM_MAX and plan.stride % 16 == 0
+    assert plan.threads == (32 * rpc if kind == "warp" else 256)
+    if kind == "cluster":  # every CTA of a cluster takes deltas; the grid is whole clusters
+        assert plan.grid % cluster == 0 and plan.held * (cluster - 1) < d <= plan.held * cluster
+    else:
+        assert plan.held == d
+
+
+@pytest.mark.parametrize("tsize", [4, 8], ids=SHIFT_IDS)
+def test_flat_plan_boundaries_are_chip_smokes(tsize):
+    """chip_smoke.py's UJ_FLAT_BOUNDARIES are flat_plan's class boundaries
+    and one step past each: each pair differs in width by 4, and the
+    class changes across it (a warp to a CTA; a CTA to a cluster at 16
+    and at 132 keys)."""
+    import chip_smoke
+
+    shapes = chip_smoke.UJ_FLAT_BOUNDARIES[tsize]
+    kinds = [tres.flat_plan(k, tsize, d, w, c, r).kind for k, d, w, c, r in shapes]
+    assert kinds == ["warp", "cta", "cta", "cluster", "cta", "cluster"]
+    for (k0, d0, w0, c0, r0), (k1, d1, w1, c1, r1) in zip(shapes[::2], shapes[1::2]):
+        assert (k1, d1, r1, w1) == (k0, d0, r0, w0 + 4) and c1 in (c0, w1)

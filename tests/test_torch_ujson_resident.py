@@ -241,3 +241,41 @@ def test_live_widths_copy_is_ready_on_the_cpu():
     live = tres._Live(torch.tensor([3, 5], dtype=torch.int32))
     assert live.ready() and live.get() == (3, 5)
     assert store.approx_bytes() == 0 and not store.full()
+
+
+def test_a_drain_with_one_wide_delta_sends_every_key_to_a_cta(monkeypatch):
+    """A store drain of 132 keys (a launch that fills an H100's 132 SMs),
+    four deltas a key, one of which sets a JSON object of ten fields: the
+    launch's deltas share one width, so all 132 keys go past the warp
+    class (8 dots a delta) to a CTA a key (ujson_resident.flat_plan). The
+    folded documents equal the host join."""
+    import json
+
+    rng = np.random.default_rng(11)
+    keys = [b"k%03d" % i for i in range(132)]
+    oracle = {k: UJSON() for k in keys}
+    for i, k in enumerate(keys):
+        oracle[k].ins(1, ("a",), str(i))
+    store = tres.ResidentStore(n_rep=8, device="cpu")
+    store.admit([(k, copy_doc(oracle[k])) for k in keys])
+    pending = {}
+    for i, k in enumerate(keys):
+        pending[k] = make_deltas(rng, copy_doc(oracle[k]), replica=2 + i % 3, n=3)
+        if i == 7:
+            wide = UJSON()
+            copy_doc(oracle[k]).set_doc(5, ("w",), json.dumps({f"f{j}": j for j in range(10)}),
+                                        delta=wide)
+            pending[k].append(wide)
+        for d in pending[k]:
+            oracle[k].converge(d)
+    grids = []
+    fold = tres.fold_flat
+    monkeypatch.setattr(tres, "fold_flat", lambda g, s: grids.append(g) or fold(g, s))
+    store.fold_in(pending)
+    (g,) = grids
+    k, d, w = g.dots.shape
+    assert k >= 132 and d <= tres.FLAT_MAX and w > 8
+    plan = tres.flat_plan(k, g.dots.element_size(), d, w, g.cloud.shape[-1], g.vv.shape[-1])
+    assert plan.kind == "cta"
+    for key in keys:
+        assert store.read(key).render() == oracle[key].render()
