@@ -116,7 +116,21 @@ build/jylis_tpu_torch/), then:
    dump_state compared; no dense drain may launch on the mesh node;
    then, with the counts set to 0 again, parallel.dryrun's
    dryrun_multichip on the mesh's devices (the only path that runs
-   replica_join: no serving repo joins over a rep axis).
+   replica_join: no serving repo joins over a rep axis);
+14. the digest phase: the mesh node phase's script, then MAP (10,000
+   (key, field) pairs over the four inner types, with DELs and foreign
+   field units), BCOUNT (10,000 keys: GRANT, INC, DEC, TRANSFER, foreign
+   escrow, many spends refused OUTOFBOUND) and TENSOR SETs, then a UJSON
+   round left pending (60 resident keys x 64 deltas), into three nodes:
+   single-device on the card, the 4-shard mesh, and on the CPU. Every
+   reply, SYSTEM DIGEST and each line of SYSTEM DIGEST TYPES (over the
+   socket, and the blocking digest) must be equal across the three; on
+   the card the first SYSTEM DIGEST must launch ujson_fold_flat or
+   ujson_join (it folds the pending round before it hashes); a second
+   digest after writes to 100 GCOUNT keys must hash those keys and no
+   other. The CPU node's digest is the one the CPU tests hold to the JAX
+   package's bytes. Its host seconds go on the "digest" line.
+Before 1., the card's launch floor: a one-element fill's device time.
 Each node phase (and the dryrun) sets its kernels' launch counts to 0
 just before it, reads them just after, and fails unless each kernel of
 its path launched.
@@ -125,7 +139,8 @@ Each step prints one JSON line (a kernel phase's "launches" counts that
 phase's compare and timing launches). The line before the last two is
 {"kernels": [...]} (per kernel: "launches" on the single-device node
 phases, replica_join's on the dryrun; "mesh_launches" on the mesh
-node and "dryrun_launches" on the dryrun, each apart; for the row
+node, "dryrun_launches" on the dryrun and "digest_launches" on the
+digest phase's two nodes on the card, each apart; for the row
 kernels tlog_drain, ujson_join and ujson_fold_flat, "class" at each
 shape and "launch_classes", the main path's launches by class (a warp
 or a CTA per row, device scratch, or a cluster of CTAs: ops/row_plan.py);
@@ -286,6 +301,17 @@ def device_ms(torch, fn, kernel: str, calls: int = 5):
         if n:
             return total_us / n / 1e3
     return None
+
+
+def launch_floor(torch) -> dict:
+    """The card's shortest kernel as the sparse drains see it: a
+    one-element fill's device time (the same profiler read as every
+    kernel's) and its CUDA-event time a call."""
+    x = torch.zeros(1, device=DEVICE)
+    out = {"fill_device_ms": device_ms(torch, lambda: x.fill_(1.0), "FillFunctor", calls=20),
+           "fill_event_ms": time_ms(torch, lambda: x.fill_(1.0))}
+    emit({"phase": "launch_floor", **out})
+    return out
 
 
 def max_abs_err(torch, pairs) -> int:
@@ -1082,7 +1108,7 @@ class Node:
     """The port's RESP Server with its state on DEVICE, serving from an
     event loop in a thread, and a raw-socket client to it."""
 
-    def __init__(self, identity: int, mesh=None):
+    def __init__(self, identity: int, mesh=None, device=None):
         from jylis_tpu_torch.models.database import Database
         from jylis_tpu_torch.server.server import Server
         from jylis_tpu_torch.utils.config import Config
@@ -1090,7 +1116,7 @@ class Node:
         self.loop = asyncio.new_event_loop()
         self.thread = threading.Thread(target=self.loop.run_forever, daemon=True)
         self.thread.start()
-        self.db = Database(identity=identity, device=DEVICE, mesh=mesh)
+        self.db = Database(identity=identity, device=device or DEVICE, mesh=mesh)
         self.server = Server(Config(port="0"), self.db)
         self.run(self.server.start())
         self.client = Client(self.server.port)
@@ -2180,11 +2206,13 @@ def uj_flat_deltas(ws, k: int, rnd: int):
     return out
 
 
-def uj_random_planes(torch, rng, lead, l, c, r, shift, empty=()):
+def uj_random_planes(torch, rng, lead, l, c, r, shift, empty=(), wrap=False):
     """Random DocBatch planes on the card shaped lead + (width,): per row
     a random share of sorted, duplicate-free dots (random payload ids)
     and cloud entries, pads after; rows in ``empty`` hold nothing. Wide
-    rows mix seqs near 2^32 and columns past 2^31 (bit 63 set)."""
+    rows mix seqs near 2^32 and columns past 2^31 (bit 63 set: 2^31 and
+    2^31 + 1, and with ``wrap`` 2^32 - 4 to 2^32 - 2, the columns the
+    flat fold indexes from the end of vv as JAX does)."""
     from jylis_tpu_torch.ops import ujson_device as udev
 
     n = int(np.prod(lead))
@@ -2198,6 +2226,8 @@ def uj_random_planes(torch, rng, lead, l, c, r, shift, empty=()):
         if wide:
             seq = np.where(rng.random((n, width)) < 0.2, dt(2**32 - 3) + seq % 3, seq)
             col = np.where(rng.random((n, width)) < 0.05, dt(2**31) + col % 2, col)
+            if wrap:
+                col = np.where(rng.random((n, width)) < 0.05, dt(2**32 - 2) - col % 3, col)
         v = (col << dt(shift)) | seq
         keep = rng.random((n, width)) < rng.random((n, 1)) * 1.2
         keep[list(empty)] = False
@@ -2565,7 +2595,7 @@ def ujson_phases(torch, card: str, flat_groups) -> dict:
             shift = 32 if wide else udev.narrow_shift(r)
             g = (uj_random_planes(torch, rng, (kk, d), w, c, r, shift) if kk == 2 else
                  uj_random_planes(torch, brng, (kk, d), w, c, r, shift,
-                                  empty=range(0, kk * d, 5)))
+                                  empty=range(0, kk * d, 5), wrap=True))
             flat_rows.append(uj_case(
                 torch, "ujson_fold_flat",
                 f"random planes: K={kk} x D={d} x W={w} C={c} R={r} "
@@ -3218,10 +3248,11 @@ def mesh_route_phases(torch, card: str, devs) -> dict:
     return out
 
 
-def mesh_node_script(rng):
+def mesh_node_script(rng, writers=None):
     """The mesh node phase's RESP script and delta stream, made afresh
     from ``rng`` for each node (UJSON deltas are objects): a list of
-    ("cmds", [commands]) and ("conv", type, batch) steps."""
+    ("cmds", [commands]) and ("conv", type, batch) steps. ``writers``, a
+    list, gets the flat round's writer documents (A, B, C per key)."""
     from jylis_tpu_torch.ops.ujson_host import UJSON
 
     steps = []
@@ -3278,6 +3309,8 @@ def mesh_node_script(rng):
         w = [UJSON(), UJSON(), UJSON()]
         groups.append(uj_flat_deltas(w, k, 0))
         ws.append(w)
+    if writers is not None:
+        writers.extend(ws)
     ukeys = [b"u%04d" % k for k in range(MESH_UJ_FLAT)]
     steps.append(("conv", "UJSON", [(k, d) for k, g in zip(ukeys, groups) for d in g]))
     docs = [UJSON() for _ in range(MESH_UJ_TREE)]
@@ -3400,6 +3433,175 @@ def mesh_node_phase(torch, devs) -> dict:
     return out
 
 
+# ---- the digest phase: SYSTEM DIGEST on the card ---------------------------------
+
+# MAP: (key, field) pairs over the four inner types; BCOUNT: keys; the
+# UJSON round left pending for the first digest to fold (flat-leg keys x
+# 64 deltas: under PENDING_TOTAL_MAX and DEVICE_FANIN_MIN, so no
+# converge drains it, and each key over SEG_FANIN_MIN, so the digest's
+# drain folds them on the device in one resident fold)
+DIGEST_MAP_PAIRS, DIGEST_BCOUNT_KEYS, DIGEST_UJ_PENDING = 10_000, 10_000, 60
+DIGEST_FOREIGN = (0x1111, 0x2222, 0x3333)
+DIGEST_INCREMENTAL = 100  # GCOUNT keys written before the second digest
+MAP_INNER = ("TREG", "TLOG", "GCOUNT", "PNCOUNT")
+
+
+def more_types_script(rng):
+    """The types the mesh node script leaves out, as its steps: MAP over
+    DIGEST_MAP_PAIRS (key, field) pairs of the four inner types (SETs,
+    foreign field units, DELs of a tenth, GETs and KEYS), BCOUNT over
+    DIGEST_BCOUNT_KEYS keys (GRANT, INC, DEC, TRANSFER to and from
+    foreign replicas, foreign escrow views, GETs; many spends refused
+    OUTOFBOUND), and TENSOR SETs of 64 dims in its three modes."""
+    from jylis_tpu_torch.ops.compose import pack_field
+
+    steps, u = [], (1 << 64) - 1
+    n_keys = DIGEST_MAP_PAIRS // 4
+    pairs = [(b"mk%05d" % k, b"%s.%d" % (t.encode(), k % 3), t)
+             for k in range(n_keys) for t in MAP_INNER]
+    cmds = []
+    for i, (key, field, t) in enumerate(pairs):
+        if t in ("TREG", "TLOG"):
+            args = [b"v%d" % (i % 7), int(rng.integers(0, 1 << 63)) if i % 5 else u]
+        elif t == "GCOUNT":
+            args = [int(rng.integers(1, 1 << 62)) if i % 7 else u]
+        else:
+            args = [b"-%d" % rng.integers(1, 1000) if i % 2 else b"%d" % rng.integers(1, 1000)]
+        cmds.append(("MAP", t, "SET", key, field, *args))
+    steps.append(("cmds", cmds))
+    units = []
+    for i in range(0, len(pairs), 3):
+        key, field, t = pairs[i]
+        rid = DIGEST_FOREIGN[i % 3]
+        val = {"TREG": (b"w%d" % (i % 5), int(rng.integers(0, 1 << 63))),
+               "TLOG": (((b"e%d" % (i % 4), int(rng.integers(0, 1 << 40))),), 0),
+               "GCOUNT": {rid: int(rng.integers(1, 1 << 63))},
+               "PNCOUNT": ({rid: 5}, {rid: int(rng.integers(1, 1 << 63))})}[t]
+        units.append((pack_field(key, field), (t, {rid: 1 + i % 3}, {}, val)))
+    steps += [("conv", "MAP", units[i:i + 2000]) for i in range(0, len(units), 2000)]
+    steps.append(("cmds", [("MAP", t, "DEL", key, field) for key, field, t in pairs[::10]]))
+    steps.append(("cmds", [("MAP", t, "GET", key, field) for key, field, t in pairs[:2000]]
+                  + [("MAP", t, "KEYS", b"mk%05d" % k) for k in range(0, n_keys, 5)
+                     for t in MAP_INNER]))
+    bkeys = [b"bk%05d" % k for k in range(DIGEST_BCOUNT_KEYS)]
+    steps.append(("cmds", [("BCOUNT", "GRANT", k, int(rng.integers(1, 100))) for k in bkeys]))
+    steps.append(("cmds", [("BCOUNT", "INC", k, int(rng.integers(1, 150))) for k in bkeys]
+                  + [("BCOUNT", "DEC", k, int(rng.integers(1, 60))) for k in bkeys[::2]]))
+    views = []
+    for i, k in enumerate(bkeys[::3]):
+        rid = DIGEST_FOREIGN[i % 3]
+        views.append((k, ({rid: 1000}, {rid: 40}, {rid: 10}, {(rid, 0x5EED): 30},
+                          {(rid, 0x5EED): 20} if i % 2 else {})))
+    steps += [("conv", "BCOUNT", views[i:i + 2000]) for i in range(0, len(views), 2000)]
+    steps.append(("cmds", [("BCOUNT", "TRANSFER", k, DIGEST_FOREIGN[i % 3],
+                            int(rng.integers(1, 40)), ("INC", "DEC")[i % 2])
+                           for i, k in enumerate(bkeys[:2000])]
+                  + [("BCOUNT", "GET", k) for k in bkeys[::4]]))
+    vals = rng.standard_normal((300, 64)).astype("<f4")
+    steps.append(("cmds", [("TENSOR", "SET", b"tk%03d" % (i % 100), ("LWW", "MAX", "AVG")[i % 3],
+                            i, vals[i].tobytes()) for i in range(300)]))
+    return steps
+
+
+def digest_node_run(node, rng, counters) -> tuple:
+    """Drive one node through the digest phase: the mesh node phase's
+    script, MAP and BCOUNT, then a UJSON round left pending; the first
+    SYSTEM DIGEST (which must fold it, on the card through the UJSON
+    kernels), SYSTEM DIGEST TYPES, the blocking digest, then writes to
+    DIGEST_INCREMENTAL GCOUNT keys and a second SYSTEM DIGEST that must
+    hash those keys and nothing else. Returns (host seconds and counts,
+    the replies, the three digest replies)."""
+    out = {}
+    ws = []
+    steps = mesh_node_script(rng, writers=ws) + more_types_script(rng)
+    t0 = time.perf_counter()
+    replies = run_script(node, steps)
+    out["script_s"] = time.perf_counter() - t0
+    pend = [(b"u%04d" % k, d) for k in range(DIGEST_UJ_PENDING) for d in uj_flat_deltas(ws[k], k, 1)]
+    node.converge("UJSON", pend)
+    uj = node.repo("UJSON")
+    held = sum(len(v) for v in uj._pend.values())
+    if held != len(pend) or not all(uj._is_resident(k) for k, _ in pend[:1]):
+        raise AssertionError(f"the pending UJSON round was drained early: {held} of {len(pend)}")
+    before = {n: c.launches for n, c in counters.items()}
+    t0 = time.perf_counter()
+    digest = node.client.pipeline([("SYSTEM", "DIGEST")])[0]
+    out["first_digest_s"] = time.perf_counter() - t0
+    out["first_digest_launches"] = {n: c.launches - before[n] for n, c in counters.items()
+                                    if c.launches - before[n]}
+    if uj._pend:
+        raise AssertionError("SYSTEM DIGEST left UJSON deltas pending")
+    types = node.client.pipeline([("SYSTEM", "DIGEST", "TYPES")])[0]
+    t0 = time.perf_counter()
+    blocking = node.db._sync_digest_blocking().hex().encode()
+    out["blocking_digest_s"] = time.perf_counter() - t0
+    if digest != bulk(blocking):
+        raise AssertionError("SYSTEM DIGEST over the socket != the blocking digest")
+    replies += node.client.pipeline([("GCOUNT", "INC", b"m%06d" % i, 1)
+                                     for i in range(DIGEST_INCREMENTAL)])
+    hashed = {}
+    for name in node.db.DATA_TYPES:
+        repo = node.repo(name)
+        orig = repo.sync_canon
+        repo.sync_canon = lambda key, orig=orig, name=name: (
+            hashed.__setitem__(name, hashed.get(name, 0) + 1) or orig(key))
+    t0 = time.perf_counter()
+    digest2 = node.client.pipeline([("SYSTEM", "DIGEST")])[0]
+    out["incremental_digest_s"] = time.perf_counter() - t0
+    for name in node.db.DATA_TYPES:
+        del node.repo(name).sync_canon
+    if hashed != {"GCOUNT": DIGEST_INCREMENTAL}:
+        raise AssertionError(f"the second digest hashed {hashed}, not only the written keys")
+    out["hashed_keys"] = {n: len(h) for n, h in node.db._sync_hash.items()}
+    return out, replies, (digest, types, digest2)
+
+
+def digest_phase(torch, devs) -> dict:
+    """SYSTEM DIGEST on the card: one script (the mesh node phase's, with
+    MAP and BCOUNT, then a pending UJSON round) into a single-device node
+    on DEVICE, a node on the 4-shard mesh and a node on the CPU. Every
+    reply, SYSTEM DIGEST and each line of SYSTEM DIGEST TYPES must be
+    equal across the three; on the card the first digest must launch a
+    UJSON kernel (it folds the pending round before it hashes)."""
+    from jylis_tpu_torch import parallel as par
+
+    counters = launch_counters()
+    out, results = {}, {}
+    for label, kw in (("single", {}), ("mesh", {"mesh": par.make_mesh(MESH_SHARDS, devices=devs)}),
+                      ("cpu", {"device": "cpu"})):
+        node = Node(0x5EED, **kw)
+        try:
+            t0 = time.perf_counter()
+            (info, replies, digests), launches = counted(
+                counters, lambda: digest_node_run(node, np.random.default_rng(SEED + 80), counters))
+            info["node_s"] = time.perf_counter() - t0
+        finally:
+            node.close()
+        if DEVICE == "cuda" and label != "cpu":
+            first = info["first_digest_launches"]
+            if not (first.get("ujson_fold_flat") or first.get("ujson_join")):
+                raise AssertionError(f"{label}: the first SYSTEM DIGEST launched no UJSON "
+                                     f"kernel: {first}")
+            info["launches"] = {n: c for n, c in launches.items() if c}
+        results[label] = (replies, digests)
+        out[label] = info
+    want_replies, want = results["cpu"]
+    for label in ("single", "mesh"):
+        replies, got = results[label]
+        check_replies(f"digest phase: {label} node vs cpu node", replies, want_replies)
+        for what, g, w in zip(("SYSTEM DIGEST", "SYSTEM DIGEST TYPES", "second SYSTEM DIGEST"),
+                              got, want):
+            if g != w:
+                raise AssertionError(f"{what}: {label} node {g[:200]!r} != cpu node {w[:200]!r}")
+    out["replies"] = len(want_replies)
+    out["digest"] = want[0].split(b"\r\n")[1].decode()
+    out["types"] = [ln.decode() for ln in want[1].split(b"\r\n") if ln[:1] not in (b"*", b"$", b"")]
+    out["launches"] = {n: out["single"].get("launches", {}).get(n, 0)
+                       + out["mesh"].get("launches", {}).get(n, 0) for n in counters}
+    emit({"phase": "digest", **out})
+    return out
+
+
 # ---- main ----------------------------------------------------------------------
 
 KERNELS = {
@@ -3487,6 +3689,7 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_source_s": per_source, "dir": str(_build.BUILD_DIR)})
 
+    launch_floor(torch)
     rows = counter_phases(torch, card)
     rows.update(tensor_phase(torch, card))
     sweep = tensor_sweep(torch)
@@ -3511,6 +3714,7 @@ def main() -> int:
     ujson_store_phase(torch)
     ujson_node = ujson_node_phase(torch, flat=flat)
     mesh_node = mesh_node_phase(torch, devs)
+    digest = digest_phase(torch, devs)
 
     launches = dict(node["launches"], tensor_join_dense=sweep["launches"],
                     **treg_node["launches"], **tensor_node["launches"],
@@ -3534,6 +3738,7 @@ def main() -> int:
             "launches": launches.get(kname, 0),
             "mesh_launches": mesh_launches.get(kname, 0),
             "dryrun_launches": dryrun_launches.get(kname, 0),
+            "digest_launches": digest["launches"].get(kname, 0),
             "max_abs_err": max([r["max_abs_err"]] + [
                 x["max_abs_err"] for x in ([ns] if ns else []) + others]),
             "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],

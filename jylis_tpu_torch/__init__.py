@@ -6,15 +6,20 @@ device work in PyTorch and in CUDA kernels written by hand for Hopper
 imports no JAX and nothing of ``jylis_tpu``: it keeps its own copy of
 every module it needs.
 
-So far it serves TREG, TLOG, GCOUNT, PNCOUNT, UJSON and TENSOR on one
-device, or keys-sharded over the cards of one host (mesh mode):
+It serves all eight data types of the JAX node -- TREG, TLOG, GCOUNT,
+PNCOUNT, UJSON, TENSOR, MAP and BCOUNT -- and SYSTEM, on one device, or
+keys-sharded over the cards of one host (mesh mode), and computes the
+JAX node's ``SYSTEM DIGEST`` bytes:
 
-  utils/     batching, config, logging, node address, wire primitives
+  utils/     batching, config, logging, drain metrics, node address, wire
+             primitives
+  obs/       the per-Database metrics registry: histograms, trace ring
   ops/       register, log, counter and tensor lattices, the string interner,
              the UJSON host lattice, document batch (ujson_device) and
-             device-resident store (ujson_resident), the CUDA kernel
-             launches
-  models/    per-type repos and host tables, repo manager, database router
+             device-resident store (ujson_resident), the MAP and BCOUNT
+             host lattices (compose, bcount), the CUDA kernel launches
+  models/    per-type repos and host tables, repo manager, SYSTEM, the
+             database router and its sync digest
   parallel/  the mesh: routing, per-shard drains, the replica-axis join,
              the multi-device dryrun
   cluster/   the TENSOR delta codec (MRG payloads)

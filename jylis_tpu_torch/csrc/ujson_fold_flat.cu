@@ -13,12 +13,12 @@
 // version vector and (D, C) sorted, duplicate-free, pad-filled clouds.
 // Per key, over its E = D * W entries in flat (delta, slot) order: an
 // entry survives iff it is valid and every delta either contains it (is
-// in that delta's dots) or does not cover it (seq <= vv[min(col, R-1)]
-// or the entry is in that delta's cloud). The survivors are sorted
-// ascending, and of equal dots the LAST in flat order keeps its payload
-// id (JAX's stable argsort, then dropping each entry equal to its right
-// neighbour; ujson_resident.py:119-127); pads and -1 ids fill the rest of
-// the E slots. vv = the max over the D rows; cloud = the D * C entries
+// in that delta's dots) or does not cover it (seq <= vv[col], col as
+// col_of decodes it, or the entry is in that delta's cloud). The
+// survivors are sorted ascending, and of equal dots the LAST in flat
+// order keeps its payload id (JAX's stable argsort, then dropping each
+// entry equal to its right neighbour; ujson_resident.py:119-127); pads
+// and -1 ids fill the rest of the E slots. vv = the max over the D rows; cloud = the D * C entries
 // sorted and deduplicated, pads after.
 //
 // Design: no sort. Survival depends on the dot alone, so equal dots
@@ -116,10 +116,14 @@ struct Args {
   int rpr;     // deltas a cluster CTA probes
 };
 
+// a dot's vv column as JAX's fold indexes vv (ujson_resident.py:107): the
+// column's low 32 bits as int32, min(., r - 1), then a negative index
+// counted from the end and clamped to 0 (columns >= 2^31, bit 63 of a
+// wide dot, land on r - 1 .. 0 or on 0)
 template <typename T>
 __device__ __forceinline__ int col_of(T x, int shift, int r) {
-  const u64 c = Layout<T>::bits(x) >> shift;
-  return c < static_cast<u64>(r - 1) ? static_cast<int>(c) : r - 1;
+  const int c = min(static_cast<int>(static_cast<u32>(Layout<T>::bits(x) >> shift)), r - 1);
+  return c < 0 ? max(c + r, 0) : c;
 }
 
 template <typename T>

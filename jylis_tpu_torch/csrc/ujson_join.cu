@@ -97,10 +97,18 @@ struct Layout<u64> {
   __device__ static u64 bits(u64 x) { return x; }
 };
 
+// a dot's column as JAX's join and context compaction decode it (column
+// masks: ujson_device.py `_covered`, ujson_resident.py `_compact_ctx_row`):
+// the column's low 32 bits as int32, min(., r - 1). A negative column (a
+// wide column >= 2^31, bit 63 set) matches no column: vv_at reads 0 and
+// nothing absorbs into it.
 template <typename T>
 __device__ __forceinline__ int col_of(T x, int shift, int r) {
-  const u64 c = Layout<T>::bits(x) >> shift;
-  return c < static_cast<u64>(r - 1) ? static_cast<int>(c) : r - 1;
+  return min(static_cast<int>(static_cast<u32>(Layout<T>::bits(x) >> shift)), r - 1);
+}
+
+__device__ __forceinline__ u32 vv_at(const u32* vv, int col) {
+  return col < 0 ? 0u : vv[col];
 }
 
 template <typename T>
@@ -111,7 +119,7 @@ __device__ __forceinline__ u32 seq_of(T x, int shift) {
 template <typename T>
 __device__ __forceinline__ bool covered(const u32* vv, const T* cloud, int c,
                                         T x, int shift, int r) {
-  return seq_of(x, shift) <= vv[col_of(x, shift, r)] || jt::member(cloud, c, x);
+  return seq_of(x, shift) <= vv_at(vv, col_of(x, shift, r)) || jt::member(cloud, c, x);
 }
 
 // the per-CTA work buffer, carved the same way the wrapper sizes it
@@ -316,7 +324,7 @@ __device__ void join_slot(G& g, const Work<T>& w, long long s, const T* a_dots,
     bool keep = false;
     if (p < nc) {
       const T x = w.mc[p];
-      keep = seq_of(x, shift) > w.vo[col_of(x, shift, r)];
+      keep = seq_of(x, shift) > vv_at(w.vo, col_of(x, shift, r));
     }
     int tot;
     const int pos = g.scan(keep, &tot);
@@ -335,15 +343,19 @@ __device__ void join_slot(G& g, const Work<T>& w, long long s, const T* a_dots,
       x = w.mc[p];
       const int c = col_of(x, shift, r);
       const u32 sq = seq_of(x, shift);
-      const u32 vc = w.vo[c];
+      const u32 vc = vv_at(w.vo, c);
       if (sq > vc) {
-        // the column's segment starts at the first entry whose
-        // (clamped) column is c: a search for (c << shift)
-        const T lo_x = static_cast<T>(static_cast<u64>(c) << shift);
+        // the column's segment starts at the first entry whose decoded
+        // column is c: a search for (c << shift), c as its u32 field (a
+        // negative column is its field's alone)
+        const T lo_x = static_cast<T>(static_cast<u64>(static_cast<u32>(c)) << shift);
         const int start = jt::lower_bound(w.mc, nc, lo_x);
         const u32 rank = static_cast<u32>(w.kb[p] - w.kb[start]);
-        if (sq == vc + rank + 1u) atomicAdd(&w.cnt[c], 1u);
-        else surv = true;
+        if (sq == vc + rank + 1u) {
+          if (c >= 0) atomicAdd(&w.cnt[c], 1u);  // absorbed (nowhere, if negative)
+        } else {
+          surv = true;
+        }
       }
     }
     int tot;

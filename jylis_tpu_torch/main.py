@@ -1,12 +1,14 @@
 """Process entry point: ``python -m jylis_tpu_torch --port P``.
 
-Builds the Database (the types of ``models.database.DATA_REPO_CLASSES``
-on ``--device``, default cuda; keys-sharded over every card when the
-device names no card and the host has more than one) and the RESP
-Server, serves until SIGINT/SIGTERM, then stops intake, waits out any
-in-flight drain and closes the listener (after the reference's
-main.pony and dispose.pony). There is no cluster yet, so
-nothing is flushed to peers.
+Builds the Database (the eight types of
+``models.database.DATA_REPO_CLASSES`` and SYSTEM, on ``--device``,
+default cuda; keys-sharded over every card when the device names no card
+and the host has more than one) and the RESP Server, serves until
+SIGINT/SIGTERM, then stops intake, waits out any in-flight drain, ends
+the drain profiler's session (``JYLIS_PROFILE_DIR``) and closes the
+listener (after the reference's main.pony and dispose.pony). There is no
+cluster yet, so nothing is flushed to peers; ``SYSTEM DIGEST`` answers
+with the bytes a JAX node holding the same data gives.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import sys
 
 from .models.database import SERVED_TYPES, Database
 from .server.server import Server
+from .utils import metrics
 from .utils.config import config_from_cli
 
 
@@ -39,6 +42,7 @@ async def run(argv: list[str] | None = None) -> None:
     try:
         await database.clean_shutdown_async()
     finally:
+        metrics.stop_profiling()
         await server.dispose()
 
 

@@ -1,39 +1,71 @@
-"""Database: keyspace router over the per-type repos.
+"""Database: keyspace router over the per-type repos, and the sync digest.
 
-The port of jylis_tpu/models/database.py for this slice (reference
-analog: database.pony:5-65): routes cmd[0] to the matching repo manager
-(case sensitive) and renders the data-type help for any other first
-word, exactly as the JAX node does for an unknown one. The repos here
-are TREG, TLOG, GCOUNT, PNCOUNT, UJSON and TENSOR (the JAX registry's
-order). Their device state lives on one torch device, or, in mesh mode,
-split over the keys shards of a mesh (parallel/mesh.py):
-``mesh="auto"`` shards every plane-backed type over all visible cards
-when a host has more than one, as a JAX node does on more than one
-device. TENSOR has no mesh mode in either package: it stays on the
-mesh's first device.
+The port of jylis_tpu/models/database.py (reference analog:
+database.pony:5-65): routes cmd[0] to the matching repo manager (case
+sensitive) and renders the data-type help for any other first word,
+exactly as the JAX node does for an unknown one. It serves the eight
+data types of ``DATA_REPO_CLASSES`` in the JAX registry's order, plus
+SYSTEM. The device state of the plane-backed types lives on one torch
+device, or, in mesh mode, split over the keys shards of a mesh
+(parallel/mesh.py): ``mesh="auto"`` shards every plane-backed type over
+all visible cards when a host has more than one, as a JAX node does on
+more than one device. TENSOR has no mesh mode in either package: it
+stays on the mesh's first device. MAP, BCOUNT and SYSTEM are host-only
+in both packages.
 
 ``converge`` / ``converge_async`` take one type's anti-entropy delta
-batch — the entry the cluster calls.
+batch -- the entry the cluster calls.
+
+The sync digest (jylis_tpu/models/database.py:26-37, :126-311) is the
+JAX node's, byte for byte: per type, a map of key -> sha256(canonical
+per-key state) and the running XOR of those hashes, folded in O(keys
+dirty since the last pass), and 256 digest-tree leaves by
+``sync_bucket``. ``SYSTEM DIGEST`` is the sha256 of the eight XORs in
+registry order. The canon is host state (and UJSON's row decode), so a
+mesh node and a single-device node give equal bytes.
 """
 
 from __future__ import annotations
 
+import asyncio
+import contextlib
+import hashlib
+
 import torch
 
+from ..obs.registry import MetricsRegistry
 from ..parallel.mesh import resolve_mesh
 from .help import DATATYPE_HELP, respond_help
 from .manager import RepoManager
+from .repo_bcount import RepoBCOUNT
 from .repo_counters import RepoGCOUNT, RepoPNCOUNT
+from .repo_map import RepoMAP
+from .repo_system import RepoSYSTEM
 from .repo_tensor import RepoTENSOR
 from .repo_tlog import RepoTLOG
 from .repo_treg import RepoTREG
 from .repo_ujson import RepoUJSON
 
-# the served types TREG, TLOG, GCOUNT, PNCOUNT, UJSON and TENSOR, in the
-# JAX package's registry order (jylis_tpu/models/database.py:55-64; it is
-# wire-positional there); MAP and BCOUNT follow with their slice
+# keyspace-range fanout of the anti-entropy digest tree: every key lands
+# in one of 256 stable buckets by the first byte of sha256(key) -- a
+# function of the KEY alone, so converged replicas bucket identically
+# regardless of write order or backend
+SYNC_FANOUT = 256
+
+
+def sync_bucket(key: bytes) -> int:
+    """The digest-tree leaf a key belongs to (stable across replicas)."""
+    return hashlib.sha256(key).digest()[0]
+
+
+# THE data-type registry: every serving repo class, in the JAX package's
+# fixed order (jylis_tpu/models/database.py:55-64), which is the digest
+# vector's order; SYSTEM rides separately. Everything that enumerates
+# types -- SERVED_TYPES, the digest, SYSTEM DIGEST TYPES -- derives from
+# this tuple.
 DATA_REPO_CLASSES = (
     RepoTREG, RepoTLOG, RepoGCOUNT, RepoPNCOUNT, RepoUJSON, RepoTENSOR,
+    RepoMAP, RepoBCOUNT,
 )
 SERVED_TYPES = tuple(cls.name for cls in DATA_REPO_CLASSES)
 
@@ -56,6 +88,16 @@ class Database:
         # JAX's Database takes no mesh: JAX picks its devices process-wide;
         # the explicit argument is the torch counterpart of that hook
         self.mesh = resolve_mesh(mesh, self.device)
+        # THIS instance's observability surface (obs/registry.py): drain
+        # counters, latency histograms, trace ring; every repo records
+        # into it through its `metrics` attribute
+        self.metrics = MetricsRegistry()
+        self.system = RepoSYSTEM(identity)
+        # SYSTEM METRICS' "cmds" lines: this instance's tally (the port
+        # has no native engine, so every command is on the Python path)
+        self._served_py: dict[str, int] = {}
+        self.system.served_fn = lambda: dict(self._served_py)
+        self.system.serving_fn = self.serving_totals
         self._map: dict[bytes, RepoManager] = {}
         for cls in DATA_REPO_CLASSES:
             if cls is RepoTENSOR:
@@ -63,10 +105,168 @@ class Database:
                 repo = cls(identity, device=dev)
             else:
                 repo = cls(identity, device=self.device, mesh=self.mesh)
-            self._map[repo.name.encode()] = RepoManager(repo.name, repo, repo.help)
+            self._add(repo)
+        self._add(self.system)
+
+        # the incremental sync digest: per data type, key -> sha256(canon)
+        # and the running XOR of those hashes, the 256 digest-tree leaf
+        # accumulators (leaf b = XOR over the keys of bucket b, so the XOR
+        # of all leaves IS the type's XOR) and bucket -> live keys
+        self.DATA_TYPES = SERVED_TYPES
+        self._sync_hash: dict[str, dict[bytes, bytes]] = {
+            n: {} for n in self.DATA_TYPES
+        }
+        self._sync_xor: dict[str, bytes] = {
+            n: bytes(32) for n in self.DATA_TYPES
+        }
+        self._sync_leaf: dict[str, list[int]] = {
+            n: [0] * SYNC_FANOUT for n in self.DATA_TYPES
+        }
+        self._sync_bkeys: dict[str, list[set]] = {
+            n: [set() for _ in range(SYNC_FANOUT)] for n in self.DATA_TYPES
+        }
+        # SYSTEM DIGEST [TYPES] on the single-threaded path; the serving
+        # path intercepts them in apply_async, under the repo locks
+        self.system.digest_fn = self._sync_digest_blocking
+        self.system.digest_types_fn = self._sync_digest_types_blocking
+
+    def _add(self, repo) -> None:
+        repo.metrics = self.metrics  # timed_drain resolves through this
+        mgr = RepoManager(repo.name, repo, repo.help, served=self._served_py)
+        mgr.registry = self.metrics
+        self._map[repo.name.encode()] = mgr
+
+    def serving_totals(self) -> dict[str, int]:
+        """The native-vs-demoted serving split of SYSTEM METRICS' SERVING
+        lines: the port has no native engine, so every command counts as
+        served on the Python dispatch path."""
+        return {
+            "native_cmds": 0,
+            "demoted_cmds": sum(self._served_py.values()),
+            "demotions": self.metrics.serving_counters["demotions"],
+            "busy_refusals": self.metrics.serving_counters["busy_refusals"],
+        }
+
+    # ---- the sync digest (jylis_tpu/models/database.py:202-311) -----------
+
+    def _device_scope(self):
+        """The node's CUDA device as the current one: the digest runs in
+        a worker thread, whose current device is not the node's."""
+        if self.device.type == "cuda":
+            return torch.cuda.device(self.device)
+        return contextlib.nullcontext()
+
+    def _sync_update_repo(self, name: str, repo) -> None:
+        """Fold the repo's dirty keys into its digest accumulator (worker
+        thread, repo lock held by the caller)."""
+        with self._device_scope():
+            prep = getattr(repo, "sync_prepare", None)
+            if prep is not None:
+                prep()
+            dirty = repo.sync_dirty_keys()
+            if not dirty:
+                return
+            hmap = self._sync_hash[name]
+            leaves = self._sync_leaf[name]
+            bkeys = self._sync_bkeys[name]
+            x = int.from_bytes(self._sync_xor[name], "big")
+            tag = name.encode()
+            for key in dirty:
+                bucket = sync_bucket(key)
+                old = hmap.pop(key, None)
+                if old is not None:
+                    o = int.from_bytes(old, "big")
+                    x ^= o
+                    leaves[bucket] ^= o
+                canon = repo.sync_canon(key)
+                if canon is not None:
+                    h = hashlib.sha256(
+                        tag + b"\x00" + len(key).to_bytes(4, "big") + key + canon
+                    ).digest()
+                    hmap[key] = h
+                    hi = int.from_bytes(h, "big")
+                    x ^= hi
+                    leaves[bucket] ^= hi
+                    bkeys[bucket].add(key)
+                else:
+                    bkeys[bucket].discard(key)
+            self._sync_xor[name] = x.to_bytes(32, "big")
+
+    async def sync_type_digests_async(self) -> tuple[bytes, ...]:
+        """One 32-byte digest PER data type (DATA_TYPES order). Each repo
+        folds only its dirty keys, under its own lock, in a worker
+        thread."""
+        for name in self.DATA_TYPES:
+            mgr = self._map[name.encode()]
+            async with mgr._lock:
+                await asyncio.to_thread(self._sync_update_repo, name, mgr.repo)
+        return tuple(self._sync_xor[n] for n in self.DATA_TYPES)
+
+    async def sync_digest_async(self) -> bytes:
+        """The combined 32-byte digest over every data type."""
+        return hashlib.sha256(
+            b"".join(await self.sync_type_digests_async())
+        ).digest()
+
+    async def sync_tree_async(self, name: str) -> tuple:
+        """One type's keyspace-range digest tree as SPARSE leaves:
+        ((bucket, 32-byte digest), ...) for the non-empty buckets only.
+        Folds the type's dirty keys first."""
+        mgr = self._map[name.encode()]
+        async with mgr._lock:
+            await asyncio.to_thread(self._sync_update_repo, name, mgr.repo)
+        return tuple(
+            (i, v.to_bytes(32, "big"))
+            for i, v in enumerate(self._sync_leaf[name])
+            if v
+        )
+
+    async def dump_range_async(self, name: str, buckets) -> list:
+        """One type's state RESTRICTED to the given digest-tree buckets,
+        in the wire-delta shape; key selection goes through the bucket
+        index (folded current first)."""
+        mgr = self._map[name.encode()]
+
+        def dump_filtered():
+            self._sync_update_repo(name, mgr.repo)
+            bkeys = self._sync_bkeys[name]
+            wanted = set()
+            for b in buckets:
+                if 0 <= b < len(bkeys):
+                    wanted |= bkeys[b]
+            with self._device_scope():
+                return [
+                    (key, delta)
+                    for key, delta in mgr.repo.dump_state()
+                    if key in wanted
+                ]
+
+        async with mgr._lock:
+            return await asyncio.to_thread(dump_filtered)
+
+    def _sync_digest_blocking(self) -> bytes:
+        """The combined digest for SINGLE-THREADED callers: same bytes as
+        sync_digest_async, no locks."""
+        for name in self.DATA_TYPES:
+            self._sync_update_repo(name, self._map[name.encode()].repo)
+        return hashlib.sha256(
+            b"".join(self._sync_xor[n] for n in self.DATA_TYPES)
+        ).digest()
+
+    def _sync_digest_types_blocking(self) -> list[tuple[str, bytes]]:
+        """Per-type digests for SINGLE-THREADED callers (the sync-path
+        SYSTEM DIGEST TYPES)."""
+        for name in self.DATA_TYPES:
+            self._sync_update_repo(name, self._map[name.encode()].repo)
+        return [(n, self._sync_xor[n]) for n in self.DATA_TYPES]
+
+    # ---- routing ----------------------------------------------------------
 
     def manager(self, name: str) -> RepoManager:
         return self._map[name.encode()]
+
+    def managers(self):
+        return self._map.values()
 
     def apply(self, resp, cmd: list[bytes]) -> None:
         mgr = self._map.get(cmd[0]) if cmd else None
@@ -76,7 +276,21 @@ class Database:
         mgr.apply(resp, cmd)
 
     async def apply_async(self, resp, cmd: list[bytes]) -> None:
-        """Serving path: per-repo locking + threaded drains (manager.py)."""
+        """Serving path: per-repo locking + threaded drains (manager.py).
+        SYSTEM DIGEST [TYPES] is served here, not in RepoSYSTEM.apply
+        (which is sync): the digest takes every data repo's lock in turn,
+        which only the async path can await."""
+        if len(cmd) == 3 and cmd[0] == b"SYSTEM" and cmd[1] == b"DIGEST" \
+                and cmd[2] == b"TYPES":
+            digests = await self.sync_type_digests_async()
+            resp.array_start(len(self.DATA_TYPES))
+            for name, digest in zip(self.DATA_TYPES, digests):
+                resp.string(f"{name} {digest.hex()}".encode())
+            return
+        if len(cmd) == 2 and cmd[0] == b"SYSTEM" and cmd[1] == b"DIGEST":
+            digest = await self.sync_digest_async()
+            resp.string(digest.hex().encode())
+            return
         mgr = self._map.get(cmd[0]) if cmd else None
         if mgr is None:
             respond_help(resp, DATATYPE_HELP)
@@ -99,6 +313,10 @@ class Database:
     def flush_deltas(self, fn) -> None:
         for mgr in self._map.values():
             mgr.flush_deltas(fn)
+
+    def drain_all(self) -> None:
+        for mgr in self._map.values():
+            mgr.repo.drain()
 
     def stop_intake(self) -> None:
         """Reject new commands immediately (safe from a signal callback)."""

@@ -12,6 +12,11 @@ keeps is the behavioral contract:
 * flush_deltas registers the delta sink and drains if non-empty (:86-90),
 * clean_shutdown stops intake and performs a final flush (:95-108).
 
+It also keeps the per-Database commands-served tally (SYSTEM METRICS'
+"cmds" lines) and counts each flushed key's digest-tree bucket as write
+heat in the Database's registry (SYSTEM OBSERVE), as the JAX manager
+does.
+
 Concurrency: commands that will hit the device (the repo's
 ``may_drain`` predicate) run in a worker thread via
 ``asyncio.to_thread`` so a drain never stalls the event loop. The
@@ -59,11 +64,17 @@ SHUTDOWN_ERR = "SHUTDOWN (server is shutting down, rejecting all requests)"
 
 
 class RepoManager:
-    def __init__(self, name: str, repo, help_obj, clock=time.monotonic):
+    def __init__(
+        self, name: str, repo, help_obj, clock=time.monotonic, served=None
+    ):
         self.name = name
         self.repo = repo
         self.help = help_obj
         self._clock = clock
+        # per-Database commands-served tally (SYSTEM METRICS "cmds")
+        self._served = served if served is not None else {}
+        # the Database's MetricsRegistry (write heat), when it has one
+        self.registry = None
         self._deltas_fn = None
         self._last_proactive = None
         self._shutdown = False
@@ -79,6 +90,7 @@ class RepoManager:
             self._maybe_proactive_flush()
 
     def _apply_core(self, resp, cmd: list[bytes]) -> bool:
+        self._served[self.name] = self._served.get(self.name, 0) + 1
         try:
             return self.repo.apply(resp, cmd[1:])
         except ParseError:
@@ -96,7 +108,8 @@ class RepoManager:
         if self._shutdown:
             resp.err(SHUTDOWN_ERR)
             return
-        if not self._lock.locked() and not self.repo.may_drain(cmd[1:]):
+        may = getattr(self.repo, "may_drain", None)  # host-only repos have none
+        if not self._lock.locked() and (may is None or not may(cmd[1:])):
             if self._apply_core(resp, cmd):
                 self._maybe_proactive_flush()
             return
@@ -107,7 +120,7 @@ class RepoManager:
                 # would acknowledge a write that never replicates
                 resp.err(SHUTDOWN_ERR)
                 return
-            if self.repo.may_drain(cmd[1:]):
+            if may is not None and may(cmd[1:]):
                 replay = _ReplayResp()
                 changed = await asyncio.to_thread(self._apply_core, replay, cmd)
                 replay.replay(resp)
@@ -154,14 +167,26 @@ class RepoManager:
             or now - self._last_proactive >= PROACTIVE_FLUSH_INTERVAL
         ):
             # unconditional, like the reference's proactive path (:81)
-            self._deltas_fn((self.name, self.repo.flush_deltas()))
+            self._emit(self.repo.flush_deltas())
             self._last_proactive = now
 
     def flush_deltas(self, fn) -> None:
         """Heartbeat entry point: registers the sink, drains if non-empty."""
         self._deltas_fn = fn
         if self.repo.deltas_size() > 0:
-            fn((self.name, self.repo.flush_deltas()))
+            self._emit(self.repo.flush_deltas())
+
+    def _emit(self, batch) -> None:
+        """Every flushed batch leaves through here: each key counts as
+        write heat against its sync_bucket (the digest tree's shard,
+        models/database.py), then the batch goes to the sink."""
+        if self.registry is not None and self.registry.enabled and batch:
+            from .database import sync_bucket  # database imports this module
+
+            note = self.registry.note_write_heat
+            for key, _delta in batch:
+                note(self.name, sync_bucket(key))
+        self._deltas_fn((self.name, batch))
 
     def converge_deltas(self, batch) -> None:
         for key, delta in batch:

@@ -33,6 +33,7 @@ import torch
 
 from ..ops import gcount, planes, pncount
 from ..parallel import Keyspace, drain_sharded_g, drain_sharded_pn, resolve_mesh
+from ..utils.metrics import timed_drain
 from .base import ParseError, bucket, need, pad_rows, parse_u64, U64_MAX
 from .counter_table import PyTable
 from .help import RepoHelp
@@ -100,6 +101,12 @@ class _CounterRepo:
         # foreign delta columns buffered per row per polarity (sparse
         # {col: max-value} maps from cluster converges)
         self._pending_f: tuple[dict[int, dict[int, int]], ...] = ({}, {})
+        # sync-digest bookkeeping: a CUMULATIVE join of every foreign
+        # column ever converged, keyed by replica id -- unlike _pending_f
+        # it never clears, so the per-key canonical state (own joined
+        # with foreign) reads host-side with no device pull
+        self._sync_f: tuple[dict[int, dict[int, int]], ...] = ({}, {})
+        self._sync_dirty_extra: set[int] = set()  # converge-path rows
 
     def _get_raw(self, key: bytes) -> int:
         """Serving value bits for a key (drains first when foreign deltas
@@ -143,13 +150,26 @@ class _CounterRepo:
         row = self._tbl.find(args[1])
         return row >= 0 and self._tbl.is_foreign(row)
 
+    def _pend_size(self) -> int:
+        """Exact drain batch size: own-pending rows unioned with the
+        buffered foreign rows (metrics, read before the drain runs)."""
+        own_rows, _vp, _vn = self._tbl.export_pending(clear=False)
+        rows = set(own_rows)
+        rows.update(self._pending_f[0])
+        rows.update(self._pending_f[1])
+        return len(rows)
+
     def converge_polarity(self, key: bytes, polarity: int, delta: dict) -> None:
         row = self._tbl.upsert(key)
         p = self._pending_f[polarity].setdefault(row, {})
+        sf = self._sync_f[polarity].setdefault(row, {})
         for rid, v in delta.items():
             col = self._col_for(rid)
             if v > p.get(col, 0):
                 p[col] = v
+            if v > sf.get(rid, 0):
+                sf[rid] = v
+        self._sync_dirty_extra.add(row)
         self._tbl.set_foreign(row)
 
     def _collect_rows(self):
@@ -183,7 +203,7 @@ class _CounterRepo:
                 plane[slot, col] = v
         return planes.to_tensor(plane, self._device)
 
-    def drain(self) -> None:
+    def _drain(self) -> None:
         """Join every pending row into the device state in one launch
         (dense when the batch covers >= 1/DENSE_FRACTION of the keyspace,
         else sparse; with a mesh, one sparse launch per shard) and hand
@@ -226,6 +246,27 @@ class _CounterRepo:
         self._pending_f[0].clear()
         self._pending_f[1].clear()
 
+    # -- sync digest (models/database.py) ------------------------------------
+
+    def sync_dirty_keys(self) -> list[bytes]:
+        """Keys whose canonical state may have changed since the last
+        digest pass (local INC/DEC and converges); clears."""
+        rows = set(self._tbl.export_sync_dirty())
+        rows.update(self._sync_dirty_extra)
+        self._sync_dirty_extra.clear()
+        return [self._tbl.key_of(r) for r in rows]
+
+    def _sync_cols(self, row: int, polarity: int) -> list[tuple[int, int]]:
+        """{rid: max} for one polarity: own contribution joined with the
+        cumulative foreign mirror -- exactly the column state the device
+        converges to, with no device read."""
+        d = dict(self._sync_f[polarity].get(row, ()))
+        if self._tbl.own_set(row) & (1 << polarity):
+            own = self._tbl.own(row, polarity)
+            if own > d.get(self._identity, 0):
+                d[self._identity] = own
+        return sorted((rid, v) for rid, v in d.items() if v)
+
     def _sorted_keys(self):
         return sorted(
             (self._tbl.key_of(r), r) for r in range(self._tbl.rows())
@@ -249,6 +290,9 @@ class RepoGCOUNT(_CounterRepo):
     _polarities = 1
     _sharded = staticmethod(drain_sharded_g)
 
+    # the JAX package times each type's drain under its own name
+    drain = timed_drain("GCOUNT", _CounterRepo._pend_size)(_CounterRepo._drain)
+
     def _dense(self, d):
         return _drain_g_dense(self._state, d)
 
@@ -257,6 +301,13 @@ class RepoGCOUNT(_CounterRepo):
 
     def _get_value(self, key: bytes) -> int:
         return self._get_raw(key)
+
+    def sync_canon(self, key: bytes) -> bytes | None:
+        row = self._tbl.find(key)
+        if row < 0:
+            return None
+        cols = self._sync_cols(row, 0)
+        return repr(cols).encode() if cols else None
 
     # -- commands (repo_gcount.pony:25-60) ---------------------------------
 
@@ -299,6 +350,8 @@ class RepoPNCOUNT(_CounterRepo):
     _polarities = 2
     _sharded = staticmethod(drain_sharded_pn)
 
+    drain = timed_drain("PNCOUNT", _CounterRepo._pend_size)(_CounterRepo._drain)
+
     def _dense(self, dp, dn):
         return _drain_pn_dense(self._state, dp, dn)
 
@@ -307,6 +360,14 @@ class RepoPNCOUNT(_CounterRepo):
 
     def _get_value(self, key: bytes) -> int:
         return _wrap_i64(self._get_raw(key))
+
+    def sync_canon(self, key: bytes) -> bytes | None:
+        row = self._tbl.find(key)
+        if row < 0:
+            return None
+        p = self._sync_cols(row, 0)
+        n = self._sync_cols(row, 1)
+        return repr((p, n)).encode() if p or n else None
 
     # -- commands (repo_pncount.pony:26-67) --------------------------------
 

@@ -37,6 +37,7 @@ from ..ops.tensor_host import (
     MODES_BY_NAME,
     Tensor,
 )
+from ..utils.metrics import timed_drain
 from .base import ParseError, bucket, need, pad_rows, parse_u64
 from .help import RepoHelp
 from .tensor_table import PyTensorTable
@@ -201,6 +202,18 @@ class RepoTENSOR:
     def drain_overdue(self) -> bool:
         return self._tbl.pend_count() >= PENDING_DRAIN_THRESHOLD
 
+    # -- sync digest (models/database.py) ------------------------------------
+
+    def sync_dirty_keys(self) -> list[bytes]:
+        return [self._tbl.key_of(r) for r in self._tbl.export_sync_dirty()]
+
+    def sync_canon(self, key: bytes) -> bytes | None:
+        row = self._tbl.find(key)
+        w = self._tbl.winner(row) if row >= 0 else None
+        if w is None or w.mode == 0:
+            return None
+        return repr(w.canon()).encode()
+
     def dump_state(self):
         """Full state in the wire-delta shape, keys sorted: the host
         truth IS the join the device converges to; the drain brings the
@@ -219,6 +232,7 @@ class RepoTENSOR:
             m[contrib] = dev
         return dev
 
+    @timed_drain("TENSOR", lambda self: self._tbl.pend_count())
     def drain(self) -> None:
         pend = self._tbl.export_pend()
         if not pend:

@@ -33,6 +33,7 @@ import torch
 from ..ops import planes, tlog
 from ..ops.interner import Interner
 from ..parallel import Keyspace, drain_sharded_tlog, resolve_mesh
+from ..utils.metrics import timed_drain
 from .base import PAD_ROW, ParseError, bucket, need, parse_opt_count, parse_u64
 from .help import RepoHelp
 from .tlog_table import PENDING_DRAIN_THRESHOLD, ROW_DRAIN_THRESHOLD, PyTlogTable
@@ -301,6 +302,23 @@ class RepoTLOG:
     def flush_deltas(self):
         return self._tbl.flush_deltas()
 
+    # -- sync digest (models/database.py) ------------------------------------
+
+    def sync_dirty_keys(self) -> list[bytes]:
+        return [self._tbl.key_of(r) for r in self._tbl.export_sync_dirty()]
+
+    def sync_canon(self, key: bytes) -> bytes | None:
+        """Canonical per-key state: the merged view (the exact post-drain
+        lattice content, pending included) plus the grow-only cutoff --
+        host-side except for the rare base-invalid row's one-row gather."""
+        row = self._tbl.find(key)
+        if row < 0:
+            return None
+        ents, cut = self._merged_view(row)
+        if not ents and not cut:
+            return None
+        return repr((ents, cut)).encode()
+
     # -- snapshot: full state in the wire-delta shape -------------------------
 
     def _host_planes(self):
@@ -370,6 +388,7 @@ class RepoTLOG:
             return planes.to_tensor(x, self._device)
         return torch.from_numpy(x).to(self._device)
 
+    @timed_drain("TLOG", lambda self: self._tbl.touched_count())
     def drain(self, trim: tuple[int, int] | None = None) -> None:
         """Flush pending entries/cutoffs in one launch; with ``trim`` =
         (row, count), the TRIM/CLR of that row fuses into the SAME launch

@@ -29,6 +29,7 @@ import torch
 from ..ops import planes, treg
 from ..ops.interner import Interner, prefix_rank
 from ..parallel import Keyspace, drain_sharded_treg, patch_sharded_treg, resolve_mesh
+from ..utils.metrics import timed_drain
 from .base import ParseError, bucket, need, pad_rows, parse_u64
 from .help import RepoHelp
 from .treg_table import PyTregTable
@@ -151,6 +152,19 @@ class RepoTREG:
     def flush_deltas(self):
         return self._tbl.flush_deltas()
 
+    # -- sync digest (models/database.py) ------------------------------------
+
+    def sync_dirty_keys(self) -> list[bytes]:
+        return [self._tbl.key_of(r) for r in self._tbl.export_sync_dirty()]
+
+    def sync_canon(self, key: bytes) -> bytes | None:
+        """Canonical per-key state: the LWW winner -- an O(1) host read
+        (every converged replica agrees on it by the exact (ts, value)
+        rule)."""
+        row = self._tbl.find(key)
+        w = self._tbl.winner(row) if row >= 0 else None
+        return None if w is None else repr(w).encode()
+
     def dump_state(self):
         """Full state in the wire-delta shape, keys sorted: the host
         winner IS the join the device converges to; the drain brings the
@@ -160,6 +174,7 @@ class RepoTREG:
 
     # -- device drain -------------------------------------------------------
 
+    @timed_drain("TREG", lambda self: self._tbl.pend_count())
     def drain(self) -> None:
         pend = self._tbl.export_pend()  # [(row, ts, value)], not yet cleared
         if not pend:

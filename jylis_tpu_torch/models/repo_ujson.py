@@ -89,6 +89,7 @@ class RepoUJSON:
         # GET-path trickle), so repeat reads don't re-walk the doc
         self._res_applied: dict[bytes, int] = {}
         self._host_only: set[bytes] = set()  # seqs past u32: never promote
+        self._sync_dirty: set[bytes] = set()  # since last digest pass
 
     # -- mode plumbing -------------------------------------------------------
 
@@ -149,6 +150,8 @@ class RepoUJSON:
 
     def apply(self, resp, args: list[bytes]) -> bool:
         op = need(args, 0)
+        if op in (b"SET", b"CLR", b"INS", b"RM") and len(args) >= 2:
+            self._sync_dirty.add(args[1])
         if op == b"GET":
             key = need(args, 1)
             self._drain_key(key)
@@ -207,6 +210,7 @@ class RepoUJSON:
         lst = self._pend.setdefault(key, [])
         lst.append(delta)
         self._pend_total += 1
+        self._sync_dirty.add(key)
         if len(lst) >= DEVICE_FANIN_MIN:
             self._overdue = True
 
@@ -327,6 +331,35 @@ class RepoUJSON:
                 self._res_cache.pop(k, None)
                 self._res_applied.pop(k, None)
         return fallback
+
+    # -- sync digest (models/database.py) ------------------------------------
+
+    def sync_prepare(self) -> None:
+        """Fold all pending deltas in ONE device/host pass before the
+        canon reads (a per-key fold would launch per dirty key); on the
+        card this is where the digest runs the fold kernels."""
+        self.drain()
+
+    def sync_dirty_keys(self) -> list[bytes]:
+        out = list(self._sync_dirty)
+        self._sync_dirty.clear()
+        return out
+
+    def sync_canon(self, key: bytes) -> bytes | None:
+        """Canonical per-key state: the doc's dot-store + causal context
+        with every unordered container sorted, so converged replicas
+        (whose dict/set iteration orders differ) hash identically. A
+        resident key decodes its row from the device (through the read
+        cache)."""
+        doc = self._view(key)
+        if doc is None or not (doc.entries or doc.ctx.vv or doc.ctx.cloud):
+            return None
+        ents = sorted(
+            (dot, path, token) for dot, (path, token) in doc.entries.items()
+        )
+        return repr(
+            (ents, sorted(doc.ctx.vv.items()), sorted(doc.ctx.cloud))
+        ).encode()
 
     # -- snapshot: full state in the wire-delta shape ------------------------
 

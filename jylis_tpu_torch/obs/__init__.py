@@ -1,0 +1,61 @@
+"""Node observability: latency histograms and a bounded trace ring.
+
+The port's copy of what ``MetricsRegistry`` needs of jylis_tpu/obs/
+(the JAX package's ``obs/__init__.py`` :1-104, ``hist.py``, ``trace.py``,
+``registry.py`` and the ``SpanStats`` part of ``jtrace.py``), unchanged in
+behaviour. The Prometheus endpoint (``prom.py``) and the span wire
+format of ``jtrace.py`` come with the cluster.
+
+* **Fixed-bucket log2 latency histograms** (`hist.Histogram`): 64
+  power-of-two nanosecond buckets, record = one index computation + one
+  list increment, cheap enough to stay armed on the serving path. The
+  per-type drains record into them (utils/metrics.timed_drain).
+* **A bounded structured trace ring** (`trace.TraceRing`), dumped by
+  `SYSTEM TRACE [count]`.
+
+Every histogram and gauge name is pre-registered below, the same
+tuples as the JAX package's, so `SYSTEM LATENCY` shows the same seams
+(with zero counts) from boot.
+"""
+
+from __future__ import annotations
+
+# Every latency histogram seam, pre-created in each MetricsRegistry so
+# SYSTEM LATENCY shows the complete surface from boot (zero counts
+# included); the JAX package's tuple, so both nodes list the same seams.
+SEAMS = (
+    "drain.TREG",
+    "drain.TLOG",
+    "drain.GCOUNT",
+    "drain.PNCOUNT",
+    "drain.TENSOR",
+    "drain.MAP",
+    "drain.BCOUNT",
+    "server.native_burst",
+    "server.py_dispatch",
+    "journal.append",
+    "journal.fsync",
+    "cluster.rtt",
+    "cluster.converge_lag",
+    # the serving pipeline's per-stage timers (accept, read, parse,
+    # classify, dispatch, reply_write)
+    "pipeline.accept",
+    "pipeline.read",
+    "pipeline.parse",
+    "pipeline.classify",
+    "pipeline.dispatch",
+    "pipeline.reply_write",
+)
+
+# Node-wide gauges, the JAX package's names (cluster convergence lag
+# and backlog, range-repair debt, bridge role and relay depth, overload
+# state and queued reply bytes).
+GAUGES = (
+    "cluster.converge_lag_ms",
+    "cluster.backlog_ms",
+    "cluster.interval_dirty_peers",
+    "cluster.bridge_is_self",
+    "cluster.relay_queue_bytes",
+    "serving.overload",
+    "serving.queued_bytes",
+)

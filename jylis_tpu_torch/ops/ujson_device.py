@@ -124,12 +124,25 @@ def _i32(x: torch.Tensor) -> torch.Tensor:
     return (((x & M32) ^ 0x80000000) - 0x80000000).to(torch.int32)
 
 
-def _col_seq(x: torch.Tensor, shift: int, r: int):
-    """(column clamped to r-1, seq as u32) of each dot, in int64; the
-    column by a logical shift of the unsigned bits."""
+def _mask_col_seq(x: torch.Tensor, shift: int, r: int):
+    """(column, seq as u32) of each dot as JAX's join and context
+    compaction decode them (jylis_tpu/ops/ujson_device.py `_covered`,
+    ops/ujson_resident.py `_compact_ctx_row`): the column's low 32 bits
+    as int32, then min(., r - 1); those look vv up through a per-column
+    mask, so a negative column (a wide column >= 2^31, which no encoder
+    mints) matches no column: its vv entry reads 0 and nothing absorbs
+    into it (``_vv_at``). The wide pad decodes to -1, the narrow one to
+    r - 1; callers mask pads out."""
     bits = x.to(torch.int64)
-    col = (bits >> shift) & ((1 << (64 - shift)) - 1)
+    col = (((bits >> shift) & M32) ^ 0x80000000) - 0x80000000
     return torch.clamp(col, max=r - 1), bits & ((1 << shift) - 1) & M32
+
+
+def _vv_at(vv: torch.Tensor, col: torch.Tensor) -> torch.Tensor:
+    """vv[col] as u32 values, 0 where the column is negative (matches no
+    column, as JAX's column mask)."""
+    got = torch.gather(_u32(vv), -1, torch.clamp(col, min=0))
+    return torch.where(col < 0, torch.zeros_like(got), got)
 
 
 def _sort_rows(x: torch.Tensor, *ride):
@@ -149,8 +162,8 @@ def _member(rows: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
 
 def _covered(vv, cloud, dots, shift: int) -> torch.Tensor:
     """ctx.contains per dot: seq <= vv[col] or the dot is in the cloud."""
-    col, seq = _col_seq(dots, shift, vv.shape[-1])
-    return (seq <= torch.gather(_u32(vv), -1, col)) | _member(cloud, dots)
+    col, seq = _mask_col_seq(dots, shift, vv.shape[-1])
+    return (seq <= _vv_at(vv, col)) | _member(cloud, dots)
 
 
 def _dedup_sorted(cl: torch.Tensor) -> torch.Tensor:
@@ -182,9 +195,9 @@ def compact_ctx_rows(vv, cloud, shift: int):
     pad = pad_of(cloud)
     r = vv.shape[-1]
     valid = cloud != pad
-    col, seq = _col_seq(cloud, shift, r)
+    col, seq = _mask_col_seq(cloud, shift, r)
     vvu = _u32(vv)
-    vvc = torch.gather(vvu, -1, col)
+    vvc = _vv_at(vv, col)
     drop = valid & (seq <= vvc)
     keep = valid & ~drop
     prev_col = torch.full_like(col, -1)
@@ -196,7 +209,8 @@ def compact_ctx_rows(vv, cloud, shift: int):
     seg_base = torch.clamp(torch.cummax(marked, -1).values, min=0)
     rank = kept_before - seg_base
     absorb = keep & (seq == ((vvc + rank + 1) & M32))
-    add = torch.zeros_like(vvu).scatter_add_(-1, col, absorb.to(torch.int64))
+    add = torch.zeros_like(vvu).scatter_add_(
+        -1, torch.clamp(col, min=0), (absorb & (col >= 0)).to(torch.int64))
     new_cloud = _sort_rows(torch.where(absorb | drop, pad, cloud))[0]
     return _i32(vvu + add), new_cloud
 

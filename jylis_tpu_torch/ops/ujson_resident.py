@@ -57,7 +57,7 @@ from ..utils.batching import bucket
 from . import _build, row_plan
 from . import ujson_device as dev
 from .ujson_device import (  # noqa: F401 (clear_rows: the JAX module's name)
-    PAD32, DocBatch, _col_seq, _i32, _member, _pad_of, _sort_rows, _u32,
+    PAD32, DocBatch, _i32, _member, _pad_of, _sort_rows, _u32,
     clear_rows, fit, pad_of,
 )
 
@@ -65,6 +65,18 @@ FLAT_MAX = 64  # deepest stack the flat rule folds (the JAX crossover)
 
 
 # ---- the flat fold: kernel and plain version -------------------------------------
+
+
+def _flat_col_seq(x: torch.Tensor, shift: int, r: int):
+    """(vv column, seq as u32) of each dot as JAX's `_fold_flat_one`
+    decodes them (jylis_tpu/ops/ujson_resident.py:107-108): the column
+    wrapped to int32, then min(., r - 1), then indexed as JAX indexes,
+    a negative index counting from the end and clamped to 0. The join's
+    decode (ujson_device._mask_col_seq) differs only for a negative
+    column (a wide column >= 2^31, which no encoder mints): there it
+    matches no column."""
+    col, seq = dev._mask_col_seq(x, shift, r)
+    return torch.clamp(torch.where(col < 0, col + r, col), min=0), seq
 
 
 def fold_flat_plain(grid: DocBatch, shift: int) -> DocBatch:
@@ -89,7 +101,7 @@ def _fold_flat_block(g: DocBatch, shift: int) -> DocBatch:
     dots = g.dots.reshape(k, d * w)
     pay = g.pay.reshape(k, d * w)
     valid = dots != pad
-    col, seq = _col_seq(dots, shift, r)
+    col, seq = _flat_col_seq(dots, shift, r)
     # (k, D, E): does delta j cover entry e? does it contain it?
     vvj = torch.gather(_u32(g.vv), 2, col[:, None, :].expand(k, d, d * w))
     q = dots[:, None, :].expand(k, d, d * w).reshape(k * d, d * w)

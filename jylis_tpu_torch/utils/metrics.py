@@ -1,0 +1,176 @@
+"""Merge-path metrics + opt-in torch.profiler tracing.
+
+The port's copy of jylis_tpu/utils/metrics.py (:1-213), with the JAX
+profiler replaced by torch.profiler behind the same switch. The
+counters themselves live in a per-Database
+:class:`~jylis_tpu_torch.obs.registry.MetricsRegistry`: every repo
+carries a ``metrics`` attribute pointing at its Database's registry,
+and registry-less direct drives (standalone repos) fall back to the
+process-wide ``DEFAULT`` instance below. Two pieces stay here:
+
+* every drain runs under `timed_drain`, accumulating per-type batch
+  counts / batched-key counts / seconds AND a log2 latency histogram
+  per type (``drain.<TYPE>`` in SYSTEM LATENCY);
+* set ``JYLIS_PROFILE_DIR=/some/dir`` to record the drains in one
+  long-lived torch.profiler session (CPU and, on a GPU, CUDA activity),
+  each drain under a ``record_function("drain_<TYPE>")`` range; the
+  trace is written to that directory by ``stop_profiling`` (clean
+  shutdown), for TensorBoard or chrome://tracing.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import functools
+import os
+import time
+
+from ..obs.registry import JOURNAL_KEYS as _JOURNAL_KEYS
+from ..obs.registry import MetricsRegistry
+
+_PROFILE_DIR = os.environ.get("JYLIS_PROFILE_DIR", "")
+_profiler = None
+
+
+def _drain_scope(name: str):
+    """One long-lived profiler session (started lazily at the first
+    drain), with a record_function range per drain: a session per drain
+    would write a whole trace per batch and distort the timings."""
+    global _profiler
+    if not _PROFILE_DIR:
+        return contextlib.nullcontext()
+    import torch
+
+    if _profiler is None:
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        _profiler = torch.profiler.profile(
+            activities=acts,
+            on_trace_ready=torch.profiler.tensorboard_trace_handler(_PROFILE_DIR),
+        )
+        _profiler.start()
+    return torch.profiler.record_function(f"drain_{name}")
+
+
+# The process-wide fallback registry for callers constructed without an
+# explicit one (standalone repos in unit tests).
+DEFAULT = MetricsRegistry()
+
+
+def resolve_registry(obj) -> MetricsRegistry:
+    """The registry ``obj`` carries (its owning Database's, wired as the
+    ``metrics`` attribute), or the process DEFAULT for registry-less
+    direct drives -- THE fallback policy, shared by every consumer
+    (timed_drain, RepoSYSTEM) so it cannot drift."""
+    return getattr(obj, "metrics", None) or DEFAULT
+
+
+def timed_drain(name: str, key_count):
+    """Decorator for repo drain() methods: per-batch counters, a log2
+    latency histogram (``drain.<name>``), and an optional profiler
+    range. ``key_count(self)`` returns the pending batch size. The
+    registry resolves per call from the repo's ``metrics`` attribute
+    (set by Database), so one decorated class serves any number of
+    registry-carrying instances.
+
+    The seconds recorded are the host's seconds of the drain call, as
+    the JAX package's are: no ``torch.cuda.synchronize()`` is added, so
+    on the card a drain whose results are not read back before it
+    returns counts its launches, not their completion."""
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(self, *args, **kwargs):
+            reg = resolve_registry(self)
+            if not reg.enabled:
+                return fn(self, *args, **kwargs)
+            n = key_count(self)
+            # a drain invoked with explicit work (e.g. TLOG's fused
+            # trim=(row, count)) dispatches even with nothing pending --
+            # time it as one key so pure-trim cost stays visible
+            if n == 0 and not args and not any(
+                v is not None for v in kwargs.values()
+            ):
+                return fn(self, *args, **kwargs)
+            with _drain_scope(name):
+                t0 = time.perf_counter()
+                out = fn(self, *args, **kwargs)
+                reg.note_drain(name, max(n, 1), time.perf_counter() - t0)
+            return out
+
+        return inner
+
+    return wrap
+
+
+def stop_profiling() -> None:
+    """End the long-lived profiler session and write its trace (called
+    at clean shutdown)."""
+    global _profiler
+    if _profiler is not None:
+        _profiler.stop()
+        _profiler = None
+
+
+def metric_lines(
+    served: dict[str, int] | None = None,
+    serving: dict[str, int] | None = None,
+    cluster: dict[str, int] | None = None,
+    registry: MetricsRegistry | None = None,
+    lane: dict[str, int] | None = None,
+    session: dict[str, int] | None = None,
+    overload: dict[str, int] | None = None,
+) -> list[str]:
+    """Flat `type counter value` lines -- the SYSTEM METRICS reply body,
+    section for section the JAX package's. ``served`` is the node's
+    per-type commands-served totals. ``serving`` is the native-vs-
+    demoted split (native_cmds / demoted_cmds / demotions /
+    busy_refusals), emitted with the live fallback_frac. ``cluster``,
+    ``lane``, ``session`` and ``overload`` are the CLUSTER, LANE,
+    SESSION and OVERLOAD sections, which a port node does not have yet
+    (None: no section). ``registry`` is the node's MetricsRegistry
+    (drain/journal counters + the latency histograms, emitted as
+    `LATENCY <seam>.<stat>` lines); None falls back to the process
+    DEFAULT."""
+    reg = registry if registry is not None else DEFAULT
+    lines = [
+        f"{name} cmds {n}" for name, n in sorted((served or {}).items()) if n
+    ]
+    if lane is not None:
+        lines.insert(0, f"LANE count {lane.get('count', 0)}")
+        lines.insert(0, f"LANE id {lane.get('id', 0)}")
+    if serving and any(serving.values()):
+        for k in ("native_cmds", "demoted_cmds", "demotions", "busy_refusals"):
+            lines.append(f"SERVING {k} {serving.get(k, 0)}")
+        total = serving.get("native_cmds", 0) + serving.get("demoted_cmds", 0)
+        if total:
+            frac = serving.get("demoted_cmds", 0) / total
+            lines.append(f"SERVING fallback_frac {frac:.4f}")
+    if session is not None and any(session.values()):
+        lines.extend(
+            f"SESSION {k} {v}" for k, v in sorted(session.items())
+        )
+    if overload is not None and overload.get("armed"):
+        lines.extend(
+            f"OVERLOAD {k} {v}"
+            for k, v in overload.items()
+            if k != "armed"
+        )
+    if cluster is not None:
+        lines.extend(f"CLUSTER {k} {v}" for k, v in cluster.items())
+    for name, drains, keys, ms in reg.type_stats():
+        lines.append(f"{name} drains {drains}")
+        lines.append(f"{name} keys {keys}")
+        lines.append(f"{name} device_ms {ms:.1f}")
+    if reg.journal_enabled or any(reg.journal_counters.values()):
+        for k in _JOURNAL_KEYS:
+            lines.append(f"JOURNAL {k} {reg.journal_counters[k]}")
+    for name, snap in reg.seam_stats():
+        if snap["count"]:
+            lines.append(f"LATENCY {name}.p50_us {snap['p50_s'] * 1e6:.0f}")
+            lines.append(f"LATENCY {name}.p90_us {snap['p90_s'] * 1e6:.0f}")
+            lines.append(f"LATENCY {name}.p99_us {snap['p99_s'] * 1e6:.0f}")
+            lines.append(f"LATENCY {name}.max_us {snap['max_s'] * 1e6:.0f}")
+            lines.append(f"LATENCY {name}.count {snap['count']}")
+    return lines

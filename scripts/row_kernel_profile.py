@@ -235,7 +235,7 @@ def flat_boundaries(torch, cs, ures) -> None:
         for k, d, w, c, r in cs.UJ_FLAT_BOUNDARIES[8 if wide else 4]:
             shift = 32 if wide else udev.narrow_shift(r)
             g = cs.uj_random_planes(torch, brng, (k, d), w, c, r, shift,
-                                    empty=range(0, k * d, 5))
+                                    empty=range(0, k * d, 5), wrap=True)
             if hasattr(ures, "FLAT_CLASS"):
                 _flat_classes(torch, ures, g, shift, "chip_smoke.py boundary", layout)
             else:

@@ -565,12 +565,14 @@ def test_cpu_tensors_run_the_plain_versions():
 # ---- UJSON -------------------------------------------------------------------
 
 
-def _ujson_planes(rng, lead, l, c, r, shift, device, empty=()):
+def _ujson_planes(rng, lead, l, c, r, shift, device, empty=(), wrap=False):
     """Random DocBatch planes shaped lead + (width,): per row a random
     share of sorted, duplicate-free dots (random payload ids) and cloud
     entries, pads after; rows in ``empty`` hold nothing. Wide rows mix
-    seqs near 2^32 and columns past 2^31 (bit 63 set); a few vv entries
-    sit at the u32 wrap."""
+    seqs near 2^32 and columns past 2^31 (bit 63 set), with ``wrap`` also
+    columns 2^32 - 4 to 2^32 - 2 (the flat fold indexes vv from its end
+    with them, the join matches no column); a few vv entries sit at the
+    u32 wrap."""
     n = int(np.prod(lead))
     wide = shift == 32
     dt = np.uint64 if wide else np.int64
@@ -582,6 +584,8 @@ def _ujson_planes(rng, lead, l, c, r, shift, device, empty=()):
         if wide:
             seq = np.where(rng.random((n, width)) < 0.2, dt(2**32 - 3) + seq % 3, seq)
             col = np.where(rng.random((n, width)) < 0.05, dt(2**31) + col % 2, col)
+            if wrap:  # columns the flat fold indexes from the end of vv
+                col = np.where(rng.random((n, width)) < 0.05, dt(2**32 - 2) - col % 3, col)
         v = (col << dt(shift)) | seq
         keep = rng.random((n, width)) < rng.random((n, 1)) * 1.2
         keep[list(empty)] = False
@@ -618,8 +622,8 @@ UJ_SHIFT = {"narrow": lambda r: udev.narrow_shift(r), "wide": lambda r: 32}
 def test_ujson_join_matches_plain(dev, layout, n, la, lb, ca, cb, r):
     rng = np.random.default_rng(n + la + r)
     shift = UJ_SHIFT[layout](r)
-    a = _ujson_planes(rng, (n,), la, ca, r, shift, dev, empty=[0])
-    b = _ujson_planes(rng, (n,), lb, cb, r, shift, dev, empty=[1 % n])
+    a = _ujson_planes(rng, (n,), la, ca, r, shift, dev, empty=[0], wrap=True)
+    b = _ujson_planes(rng, (n,), lb, cb, r, shift, dev, empty=[1 % n], wrap=True)
     if la == 16384:
         assert udev.join_work_bytes(4, la, lb, ca, cb, r) > udev.SMEM_LIMIT
     for sort_output in (True, False):
@@ -644,9 +648,10 @@ def test_ujson_join_epilogue_matches_plain(dev, layout, cap, n, l, c, lf, cf, r)
     slots at identity row 0; then the broadcast with free rows."""
     rng = np.random.default_rng(cap * n + lf)
     shift = UJ_SHIFT[layout](r)
-    res = _ujson_planes(rng, (cap,), l, c, r, shift, dev, empty=[0])
+    res = _ujson_planes(rng, (cap,), l, c, r, shift, dev, empty=[0], wrap=True)
     live = min(n - 1, cap - 1)
-    folded = _ujson_planes(rng, (n,), lf, cf, r, shift, dev, empty=range(live, n))
+    folded = _ujson_planes(rng, (n,), lf, cf, r, shift, dev, empty=range(live, n),
+                           wrap=True)
     idx = np.zeros(n, np.int32)
     idx[:live] = rng.choice(np.arange(1, cap), live, replace=False)
     idx = torch.from_numpy(idx).to(dev)
@@ -681,7 +686,7 @@ def _flat_grid(rng, k, d, w, c, r, shift, dev):
     delta under other ids (it survives, and the last delta's id is kept),
     and every entry of key 2 dies (its delta 0 holds no dots and covers
     every dot: vv at the u32 wrap)."""
-    g = _ujson_planes(rng, (k, d), w, c, r, shift, "cpu", empty=range(d))
+    g = _ujson_planes(rng, (k, d), w, c, r, shift, "cpu", empty=range(d), wrap=True)
     if k >= 3 and d >= 2:
         g.dots[1, :, 0] = 0
         g.pay[1, :, 0] = torch.arange(d, dtype=torch.int32) + 1000

@@ -25,6 +25,7 @@ import pytest
 import torch
 
 from jylis_tpu.cluster import codec as jax_codec
+from jylis_tpu.models.database import DATA_TYPE_NAMES as JAX_DATA_TYPE_NAMES
 from jylis_tpu.models.database import Database as JaxDatabase
 from jylis_tpu.ops.tensor_host import Tensor as JaxTensor
 from jylis_tpu.ops.ujson_host import UJSON as JaxUJSON
@@ -270,14 +271,15 @@ def test_cli_config_and_identity_match_jax():
 
 
 def test_help_names_every_served_type(capsys):
-    """--help is built from the repo registry, so it names all six types
-    the node serves."""
+    """--help is built from the repo registry, so it names all eight types
+    the node serves, in the JAX registry's order."""
     with pytest.raises(SystemExit):
         config_from_cli(["--help"])
     text = " ".join(capsys.readouterr().out.split())
-    for name in ("TREG", "TLOG", "GCOUNT", "PNCOUNT", "UJSON", "TENSOR"):
+    for name in ("TREG", "TLOG", "GCOUNT", "PNCOUNT", "UJSON", "TENSOR", "MAP", "BCOUNT"):
         assert name in text
-    assert SERVED_TYPES == ("TREG", "TLOG", "GCOUNT", "PNCOUNT", "UJSON", "TENSOR")
+    assert SERVED_TYPES == ("TREG", "TLOG", "GCOUNT", "PNCOUNT", "UJSON", "TENSOR", "MAP",
+                            "BCOUNT") == JAX_DATA_TYPE_NAMES
 
 
 def _free_port() -> int:
@@ -355,9 +357,9 @@ JAX_FREE_NODE = textwrap.dedent("""
 
 
 def test_serves_treg_and_tensor_without_jax():
-    """The port serves TREG, TENSOR, TLOG and UJSON in a process where
-    ``import jax`` raises, and loads nothing of ``jylis_tpu``; its replies
-    equal the JAX database's."""
+    """The port serves TREG, TENSOR, TLOG, UJSON, MAP, BCOUNT and SYSTEM
+    DIGEST in a process where ``import jax`` raises, and loads nothing of
+    ``jylis_tpu``; its replies equal the JAX database's."""
     request = (
         arr("TREG", "SET", "r", "v1", 3) + arr("TREG", "SET", "r", "v0", 3)
         + arr("TREG", "GET", "r") + arr("TENSOR", "SET", "t", "MAX", 0, vec(1, 2))
@@ -370,6 +372,12 @@ def test_serves_treg_and_tensor_without_jax():
         + arr("UJSON", "SET", "u", "a", '{"b": [1, "x"]}') + arr("UJSON", "INS", "u", "a", "c", 2)
         + arr("UJSON", "RM", "u", "a", "b", 1) + arr("UJSON", "GET", "u")
         + arr("UJSON", "CLR", "u", "a", "c") + arr("UJSON", "GET", "u", "a")
+        + arr("MAP", "TLOG", "SET", "m", "f", "x", 3) + arr("MAP", "GCOUNT", "SET", "m", "g", 4)
+        + arr("MAP", "GCOUNT", "DEL", "m", "g") + arr("MAP", "TLOG", "GET", "m", "f")
+        + arr("MAP", "GCOUNT", "KEYS", "m") + arr("BCOUNT", "GRANT", "b", 5)
+        + arr("BCOUNT", "INC", "b", 7) + arr("BCOUNT", "INC", "b", 4)
+        + arr("BCOUNT", "DEC", "b", 1) + arr("BCOUNT", "GET", "b")
+        + arr("SYSTEM", "DIGEST") + arr("SYSTEM", "DIGEST", "TYPES") + arr("SYSTEM", "VERSION")
     )
     db = JaxDatabase(identity=1, engine="python")
     out = bytearray()
@@ -388,4 +396,7 @@ def test_serves_treg_and_tensor_without_jax():
     assert b"*2\r\n$2\r\nv1\r\n:3" in proc.stdout
     assert (b"*2\r\n*2\r\n$1\r\nc\r\n:1099511627776\r\n*2\r\n$1\r\nb\r\n:6\r\n"
             b":2\r\n:6\r\n") in proc.stdout
-    assert proc.stdout.endswith(b'$21\r\n{"a":{"b":"x","c":2}}\r\n+OK\r\n$9\r\n{"b":"x"}\r\n')
+    assert b'$21\r\n{"a":{"b":"x","c":2}}\r\n+OK\r\n$9\r\n{"b":"x"}\r\n' in proc.stdout
+    assert (b"*1\r\n*2\r\n$1\r\nx\r\n:3\r\n*0\r\n+OK\r\n-OUTOFBOUND (insufficient local inc "
+            b"escrow: rights 5 < amount 7") in proc.stdout
+    assert b"*2\r\n:3\r\n:5\r\n$64\r\n" in proc.stdout and b"\r\n$68\r\nMAP " in proc.stdout

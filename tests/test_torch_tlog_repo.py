@@ -256,4 +256,4 @@ def test_threshold_drain_and_database_routing():
         b"command)\nThis operation expects the arguments in the following "
         b"form:\nTLOG TRIM key count\r\n")
     assert [m.decode() for m in db._map] == [
-        "TREG", "TLOG", "GCOUNT", "PNCOUNT", "UJSON", "TENSOR"]
+        "TREG", "TLOG", "GCOUNT", "PNCOUNT", "UJSON", "TENSOR", "MAP", "BCOUNT", "SYSTEM"]

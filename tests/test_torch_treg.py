@@ -364,4 +364,4 @@ def test_set_threshold_drain_and_database_routing():
         b"TREG SET key value timestamp\r\n"
     )
     assert [m.decode() for m in db._map] == [
-        "TREG", "TLOG", "GCOUNT", "PNCOUNT", "UJSON", "TENSOR"]
+        "TREG", "TLOG", "GCOUNT", "PNCOUNT", "UJSON", "TENSOR", "MAP", "BCOUNT", "SYSTEM"]

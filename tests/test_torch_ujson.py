@@ -320,6 +320,43 @@ def test_compact_ctx_row_matches_jax(shift):
     assert not np.array_equal(np.asarray(want[0]), vv)  # something absorbed
 
 
+@pytest.mark.parametrize("case", ["join", "compaction"])
+def test_bit63_columns_match_jax_join_and_compaction(case):
+    """Wide dots whose column field is 2^31 or more (bit 63 set; no
+    encoder mints one). JAX's join (`_covered`) and context compaction
+    (`_compact_ctx_row`) look vv up through a column mask, so such a
+    column matches none: its vv entry reads 0 and nothing absorbs into
+    it, though an absorbable run still leaves the cloud. The port's plain
+    join and compaction (``tdev._mask_col_seq``) decode them the same,
+    at tolerance 0."""
+    g = flat_planes_np(300, 16, 2, 16, 16, 32)
+    if case == "join":
+        a, b = rows(g, (slice(None), 0)), rows(g, (slice(None), 1))
+        assert_same(tdev.join_batch(pt(a), pt(b), shift=32),
+                    jdev.join_batch(jx(a), jx(b), shift=32))
+        return
+    vv, cloud = g.vv[:, 0].copy(), g.cloud[:, 0].copy()
+    pad = jdev._pad_of(cloud.dtype)
+    # runs that absorb: above vv[7] in column 7, and above 0 in the
+    # unmatched columns 2^31 and 2^32 - 2
+    vv[0, 7] = 4
+    run = [(7 << 32) | s for s in (5, 6, 9)] + [(2**31 << 32) | s for s in (1, 2)] + [
+        ((2**32 - 2) << 32) | s for s in (1, 3)]
+    cloud[0] = pad
+    cloud[0, : len(run)] = np.array(run, np.uint64)
+    cols = cloud[cloud != pad] >> np.uint64(32)
+    assert (cols >= 2**31).any()
+    want = jax.vmap(lambda v, cl: jres._compact_ctx_row(v, cl, 32))(
+        jnp.asarray(vv), jnp.asarray(cloud))
+    port = pt((np.zeros((16, 1), np.uint64), np.zeros((16, 1), np.int32), vv, cloud))
+    got_vv, got_cloud = tdev.compact_ctx_rows(port.vv, port.cloud, 32)
+    assert np.array_equal(got_vv.numpy().view(np.uint32), np.asarray(want[0]))
+    assert np.array_equal(convert.docbatch_to_jax(
+        port._replace(cloud=got_cloud))[3], np.asarray(want[1]))
+    assert np.asarray(want[0])[0, 7] == 6  # 5 and 6 absorbed, 9 kept
+    assert list(np.asarray(want[1])[0, :2]) == [(7 << 32) | 9, ((2**32 - 2) << 32) | 3]
+
+
 @pytest.mark.parametrize("shift", SHIFTS, ids=SHIFT_IDS)
 def test_layout_helpers_match_jax(shift):
     res = resident_np(95, 12, shift)
@@ -348,13 +385,20 @@ def test_layout_helpers_match_jax(shift):
 
 
 def test_wide_pad_decodes_to_the_last_column():
-    """The wide pad is -1 as int64 bits: its column decodes logically to
-    0xFFFFFFFF and clamps to R-1 (JAX's u64 shift), never to -1, and it
-    sorts after every dot."""
-    x = torch.tensor([[-1, (3 << 32) | 7]], dtype=torch.int64)
-    col, seq = tdev._col_seq(x, 32, N_REP)
-    assert col.tolist() == [[N_REP - 1, 3]] and seq.tolist() == [[0xFFFFFFFF, 7]]
-    assert tdev._sort_rows(x)[0].tolist() == [[(3 << 32) | 7, -1]]
+    """The wide pad is -1 as int64 bits: its column field is 0xFFFFFFFF,
+    -1 as JAX's int32 column. The flat fold indexes vv with it from the
+    end (R-1, the last column); the join's column mask matches no column
+    (-1, vv reads 0); it sorts after every dot."""
+    big = (((2**32 - 3) << 32) | 5) - 2**64  # bit 63 set, as int64 bits
+    x = torch.tensor([[-1, (3 << 32) | 7, big]], dtype=torch.int64)
+    col, seq = tres._flat_col_seq(x, 32, N_REP)
+    assert col.tolist() == [[N_REP - 1, 3, N_REP - 3]]
+    assert seq.tolist() == [[0xFFFFFFFF, 7, 5]]
+    col, seq = tdev._mask_col_seq(x, 32, N_REP)
+    assert col.tolist() == [[-1, 3, -3]] and seq.tolist() == [[0xFFFFFFFF, 7, 5]]
+    vv = torch.arange(1, N_REP + 1, dtype=torch.int32)[None]
+    assert tdev._vv_at(vv, col).tolist() == [[0, 4, 0]]
+    assert tdev._sort_rows(x)[0].tolist() == [[(3 << 32) | 7, big, -1]]
 
 
 def test_cpu_wrappers_take_the_plain_versions():
@@ -445,11 +489,12 @@ def flat_planes_np(seed: int, k: int, d: int, w: int, c: int, shift: int):
     """(k, d, w) random delta stacks in the JAX dtypes: per delta a random
     share of sorted, duplicate-free dots (dots repeat across deltas under
     other payload ids) and cloud entries, pads after; wide dots mix seqs
-    near 2^32 and columns past 2^31 (bit 63 set); a few vv entries sit at
-    the u32 wrap. Key 0 is empty; key 1 holds the least dot (0) in every
-    delta under other payload ids; every entry of key 2 dies (its delta 0
-    holds no dots and its vv covers every dot); key 3 is one delta and
-    d - 1 identity deltas."""
+    near 2^32 and columns past 2^31 (bit 63 set: 2^31 and 2^31 + 1, which
+    wrap to indices below -R, and 2^32 - 4 to 2^32 - 2, which count from
+    the end); a few vv entries sit at the u32 wrap. Key 0 is empty; key 1
+    holds the least dot (0) in every delta under other payload ids; every
+    entry of key 2 dies (its delta 0 holds no dots and its vv covers every
+    dot); key 3 is one delta and d - 1 identity deltas."""
     rng = np.random.default_rng(seed)
     n, wide = k * d, shift == 32
     dt = np.uint64 if wide else np.int64
@@ -461,6 +506,7 @@ def flat_planes_np(seed: int, k: int, d: int, w: int, c: int, shift: int):
         if wide:
             seq = np.where(rng.random((n, width)) < 0.2, dt(2**32 - 3) + seq % 3, seq)
             col = np.where(rng.random((n, width)) < 0.05, dt(2**31) + col % 2, col)
+            col = np.where(rng.random((n, width)) < 0.05, dt(2**32 - 2) - col % 3, col)
         v = np.where(rng.random((n, width)) < rng.random((n, 1)) * 1.2,
                      (col << dt(shift)) | seq, pad)
         v.sort(1)
@@ -479,16 +525,15 @@ def flat_planes_np(seed: int, k: int, d: int, w: int, c: int, shift: int):
     return jdev.DocBatch(dots, pay, vv, cloud)
 
 
-def corank_fold(g, shift: int, jax_columns: bool = False):
+def corank_fold(g, shift: int):
     """The kernel's rule in plain torch on a (k, d, w) grid: entry (i, s)
     with dot x is kept iff no delta j != i covers x without holding it and
     no delta j > i holds it; its slot is sum_j P_j[lb_j(x)] (P_j the
     exclusive prefix count of row j's kept flags); a cloud entry is kept
-    iff no earlier row holds it, placed the same way. ``jax_columns``:
-    decode a dot's vv column as JAX's fold indexes it (the u32 column
-    wrapped to int32, negative indices from the end, then clamped), not
-    as the port's clamp to R - 1; the two differ only for wide columns
-    >= 2^31, which no encoder mints."""
+    iff no earlier row holds it, placed the same way. A dot's vv column
+    is decoded as JAX's fold indexes it (tres._flat_col_seq: the u32
+    column wrapped to int32, negative indices from the end, then clamped
+    to 0)."""
     k, d, w = g.dots.shape
     c, r = g.cloud.shape[-1], g.vv.shape[-1]
     pad, key = tdev.pad_of(g.dots), tdev._key
@@ -506,11 +551,7 @@ def corank_fold(g, shift: int, jax_columns: bool = False):
         return torch.gather(pre, 2, lb).sum(1)
 
     x, lb, has, later = place(g.dots, True)
-    col, seq = tdev._col_seq(x, shift, r)
-    if jax_columns:
-        col32 = ((x.to(torch.int64) >> shift) & 0xFFFFFFFF ^ 0x80000000) - 0x80000000
-        col = col32.clamp(max=r - 1)
-        col = torch.where(col < 0, col + r, col).clamp(min=0)
+    col, seq = tres._flat_col_seq(x, shift, r)
     cover = (seq <= torch.gather(tdev._u32(g.vv), 2, col)) | tdev._member(
         g.cloud.reshape(k * d, c), x.reshape(k * d, d * w)).reshape(k, d, d * w)
     own = later.logical_not() & (torch.arange(d)[:, None] == (torch.arange(d * w) // w))
@@ -534,26 +575,27 @@ _JAX_FOLD = jax.jit(jres._fold_grid, static_argnums=1)
 @pytest.mark.parametrize("k,d,w,c", [(6, 7, 16, 8), (5, 64, 8, 8)], ids=["D7", "D64"])
 @pytest.mark.parametrize("shift", SHIFTS, ids=SHIFT_IDS)
 def test_corank_rule_matches_jax_flat_fold(shift, k, d, w, c):
-    """The co-rank rule against JAX's `_fold_grid` (the flat rule, D <= 64)
-    at tolerance 0, with JAX's column decode; with the port's, against the
-    plain fold the card tests hold the kernel to. Key 3's one delta folds
-    alone (D = 1) to its row of the D-deep fold. JAX compiles its fold at
-    these two shapes only."""
+    """The port's plain fold (which the card tests hold the kernel to) and
+    the kernel's co-rank rule, each against JAX's `_fold_grid` (the flat
+    rule, D <= 64) at tolerance 0, on stacks whose wide dots carry
+    columns past 2^31 (bit 63 set), which both decode as JAX does. Key 3's
+    one delta folds alone (D = 1) to its row of the D-deep fold. JAX
+    compiles its fold at these two shapes only."""
     g_np = flat_planes_np(100 + d + shift, k, d, w, c, shift)
     want = _JAX_FOLD(jx(g_np), shift)
     g = pt(g_np)
-    assert_same(corank_fold(g, shift, jax_columns=True), want)
-    for x, y in zip(corank_fold(g, shift), tres.fold_flat_plain(g, shift)):
-        assert torch.equal(x, y)
-    one = corank_fold(tdev.DocBatch(*(p[3:4, :1] for p in g)), shift, jax_columns=True)
+    assert_same(tres.fold_flat_plain(g, shift), want)
+    assert_same(corank_fold(g, shift), want)
+    one = corank_fold(tdev.DocBatch(*(p[3:4, :1] for p in g)), shift)
     got = [np.asarray(p) for p in want]
     assert_same(one, (got[0][3:4, :w], got[1][3:4, :w], got[2][3:4], got[3][3:4, :c]))
     pad = jdev._pad_of(g_np.dots.dtype)
     assert (got[0][0] == pad).all() and (got[0][2] == pad).all()  # empty, all dropped
     assert got[0][1, 0] == 0 and got[1][1, 0] == 1000 + d - 1  # the last copy's id
     assert (got[0][3, w:] == pad).all()
-    if shift == 32:  # dots with bit 63 set take part
-        assert (g_np.dots[g_np.dots != pad] >> np.uint64(63)).any()
+    if shift == 32:  # dots with bit 63 set take part: both kinds of wrapped column
+        cols = g_np.dots[g_np.dots != pad] >> np.uint64(32)
+        assert (cols == 2**31).any() and ((cols >= 2**32 - 4) & (cols <= 2**32 - 2)).any()
 
 
 @pytest.mark.parametrize("k,tsize,d,w,c,r,kind,rpc,smem,grid,cluster,scratch", [
