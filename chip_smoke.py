@@ -109,11 +109,30 @@ build/jylis_tpu_torch/), then:
    row-aligned fold at the flat leg's shape and at D = 130), each
    against its plain versions on the same per-shard slices and against
    the single-device drain of the same batch;
+12b. the staged calls of the sparse drains: a 64 MB
+   copy to the card from pinned and from pageable memory and back to
+   pinned memory (the "transfer" line: the rates the call is bounded
+   by); then counter_drain_sparse<1> and <2> at K = 1,048,576 x R = 64
+   with B = 1,024 and 65,536 on one device and B = 65,536 over the
+   4-shard mesh, and treg_drain_sparse at K = 1,048,576 with B = 8,192
+   and 65,536 and B = 65,536 over the mesh, each through the repos'
+   staged, unrouted call (parallel.drain_unrouted_*: one staged copy,
+   one launch and one read-back per card, no pad slot) from a host
+   batch to host results, bit for bit against its plain version and
+   against the old path on the same data (on one device the repos'
+   earlier pageable sequence, padded to bucket(B), with the earlier
+   wrapper's torch.empty outputs; on the mesh route_drain +
+   drain_sharded_*), then both timed in turns on the
+   CUDA-event clock with the new launch's device time, the kernel's
+   bound and the call's bound (the kernel's plus the staged bytes at
+   the measured pinned rates; TREG also its layout's sector bound);
 13. the mesh node phase: a Database on the mesh and a single-device
    one fed the same RESP script and delta stream (config 2's counters,
    100,000 TREG keys with prefix ties, 2,000 TLOG keys with trims,
    UJSON's flat and tree rounds), every reply and each repo's
-   dump_state compared; no dense drain may launch on the mesh node;
+   dump_state compared; no dense drain may launch on the mesh node (its
+   counter and TREG drains are the staged, unrouted ones, a launch a
+   drain; TLOG's and UJSON's routed, a launch a shard);
    then, with the counts set to 0 again, parallel.dryrun's
    dryrun_multichip on the mesh's devices (the only path that runs
    replica_join: no serving repo joins over a rep axis);
@@ -146,7 +165,8 @@ shape and "launch_classes", the main path's launches by class (a warp
 or a CTA per row, device scratch, or a cluster of CTAs: ops/row_plan.py);
 error
 against the plain version, kernel / plain / bound times at the main
-path's shape, the mesh routes' times under "mesh_routes", the
+path's shape, the mesh routes' times under "mesh_routes", the staged
+calls' old and new times under "staged_calls", the
 counters' times at the north-star size under "north_star",
 other shapes' times under "other_shapes"); then the card's name
 and power limit as nvidia-smi reports them; the last line is
@@ -3248,6 +3268,319 @@ def mesh_route_phases(torch, card: str, devs) -> dict:
     return out
 
 
+# ---- the staged calls: host batch to host results, the old path and the new ----
+
+XFER_BYTES = 64 << 20  # the transfer line's copy
+
+
+def transfer_phase(torch) -> dict:
+    """The copy rates a staged call is bounded by: 64 MB host to device
+    from pinned and from pageable memory, and device to pinned host
+    memory, each on the CUDA-event clock."""
+    dev_buf = torch.empty(XFER_BYTES, dtype=torch.uint8, device=DEVICE)
+    pinned = torch.ones(XFER_BYTES, dtype=torch.uint8, pin_memory=True)
+    pageable = torch.ones(XFER_BYTES, dtype=torch.uint8)
+    out = {}
+    for name, fn in (("h2d_pinned", lambda: dev_buf.copy_(pinned, non_blocking=True)),
+                     ("h2d_pageable", lambda: dev_buf.copy_(pageable)),
+                     ("d2h_pinned", lambda: pinned.copy_(dev_buf, non_blocking=True))):
+        ms = time_ms(torch, fn)
+        out[f"{name}_ms"] = ms
+        out[f"{name}_bytes_per_s"] = XFER_BYTES / ms * 1e3
+    emit({"phase": "transfer", "bytes": XFER_BYTES, **out})
+    del dev_buf, pinned, pageable
+    return out
+
+
+def _turns(torch, old, new, reset_old=None, reset_new=None):
+    """CUDA-event ms a call of the old and of the new path, timed in turns
+    (old, new, new, old; each a median of TIMED_RUNS): (old, new, the
+    four medians)."""
+    t = [time_ms(torch, fn, reset=rs) for fn, rs in
+         ((old, reset_old), (new, reset_new), (new, reset_new), (old, reset_old))]
+    return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2, t
+
+
+def _fill_ms(ks, rows, fill, fields) -> float:
+    """Host ms of writing the batch into one card's pinned staging (the
+    part of a new call that the old path spends building its planes)."""
+    stage = ks.stages[0]
+    runs = []
+    for _ in range(TIMED_RUNS):
+        t0 = time.perf_counter()
+        views = stage.host_in(len(rows), [(np.int32, ()), *fields])
+        views[0][...] = rows
+        fill(views[1:], slice(None))
+        runs.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(runs)
+
+
+def _keyspaces(par, mesh, state, n):
+    """``n`` keyspaces over ``mesh`` (None: one device), each holding its
+    own copy of ``state``."""
+    out = []
+    for _ in range(n):
+        ks = par.Keyspace(mesh, DEVICE)
+        ks.place(_clone(state) if mesh is None else state)  # a mesh copies
+        out.append(ks)
+    return out
+
+
+def _staging_bytes(ks) -> dict:
+    """Pinned host and device bytes the keyspace's staging holds (its
+    peak: the buffers only grow, up to staging.MAX_STAGE_BYTES each)."""
+    held = {"host": 0, "dev": 0}
+    for stage in ks.stages:
+        for name, buf in stage._bufs.items():
+            held[name.split("_")[0]] += buf.numel()
+    return {"staging_pinned_bytes": held["host"], "staging_device_bytes": held["dev"]}
+
+
+def _check_equal(torch, what, new, plain, old, sel, states) -> int:
+    """max_abs_err of the new path's per-slot outputs against the plain
+    version's and (at the old path's live slots, ``sel``) the old path's,
+    and of the states (new, plain, old); raises unless all are 0."""
+    t = torch.from_numpy
+    err_out = max_abs_err(torch, [p for a, b, c in zip(new, plain, old)
+                                  for p in ((t(a), t(b)), (t(a[sel]), t(c)))])
+    err_state = max_abs_err(torch, [(x.to(y.device), y) for w in states[1:]
+                                    for x, y in zip(states[0], w) if x is not None])
+    if err_out or err_state:
+        raise AssertionError(f"{what}: outputs differ by {err_out}, states by {err_state}")
+    return max(err_out, err_state)
+
+
+def _call_row(name, shape, card, xfer, times, launches, dev_ms, kwork, in_fields, out_fields,
+              b, err, **extra):
+    """One staged-call row: both paths' call times, the new path's device
+    time a launch beside the kernel's bound, and the call's bound (the
+    kernel's plus the staged bytes at the measured pinned copy rates)."""
+    from jylis_tpu_torch.ops import staging
+
+    k_ms, k_by = bound(kwork[0], kwork[1], card)
+    in_b = staging.layout(b, [(np.int32, ()), *in_fields])[1]
+    out_b = staging.layout(b, out_fields)[1]
+    call_bound = (k_ms + in_b / xfer["h2d_pinned_bytes_per_s"] * 1e3
+                  + out_b / xfer["d2h_pinned_bytes_per_s"] * 1e3)
+    row = dict(shape=shape, old_call_ms=times[0], new_call_ms=times[1], call_runs_ms=times[2],
+               old_launches=launches[0], new_launches=launches[1],
+               device_ms_per_launch=dev_ms[1], old_device_ms_per_launch=dev_ms[0],
+               bound_ms=k_ms, bound_by=k_by, bytes=kwork[0], staged_bytes=in_b + out_b,
+               call_bound_ms=call_bound, max_abs_err=err, **extra)
+    emit({"phase": f"staged_call {name}", **row, "card": card})
+    return row
+
+
+def counter_call_cases(torch, card: str, devs, xfer) -> dict:
+    """counter_drain_sparse<1> and <2> through the staged call at
+    K = 1,048,576 x R = 64: B = 1,024 and 65,536 on one device, and
+    B = 65,536 over the 4-shard mesh on the card. The new path
+    (drain_unrouted_g / _pn, the repos' drain) against its plain version
+    (the same call with the plain step) and against the old path on the
+    same data: on one device the repo's pageable sequence before the
+    staged call (np.zeros planes padded to bucket(B), one pageable copy
+    a plane and the rows, the drain into a torch.empty output as the
+    parent's wrapper allocated it, one read-back; the card's table is
+    built once, outside the call, as the parent's kernel took the
+    state's pointers), on the mesh route_drain + drain_sharded_g / _pn.
+    Bit for bit: per-slot sums (the old path's live slots) and the
+    states. Then both timed."""
+    from jylis_tpu_torch import parallel as par
+    from jylis_tpu_torch.ops import gcount, planes, pncount
+    from jylis_tpu_torch.ops.staging import ShardTable
+    from jylis_tpu_torch.utils.batching import bucket, pad_rows
+
+    mesh = par.make_mesh(MESH_SHARDS, devices=devs)
+    rng = np.random.default_rng(SEED + 90)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 90)
+    k, r = K_COUNTER, R_COUNTER
+    out = {}
+    for npl, mod in ((1, gcount), (2, pncount)):
+        name = f"counter_drain_sparse<{npl}>"
+        st = mod.GCountState(_rand64(torch, (k, r), gen)) if npl == 1 else \
+            mod.PNCountState(_rand64(torch, (k, r), gen), _rand64(torch, (k, r), gen))
+        unrouted = par.drain_unrouted_g if npl == 1 else par.drain_unrouted_pn
+        sharded = par.drain_sharded_g if npl == 1 else par.drain_sharded_pn
+        fields = [(np.uint64, (r,))] * npl
+        rows_out = []
+        for b, m in ((B_ENTRY, None), (B_LARGE, None), (B_LARGE, mesh)):
+            rows = rng.choice(k, b, replace=False).astype(np.int64)
+            deltas = [u64_np(rng, (b, r)) for _ in range(npl)]
+            fill = par.fill_from(*deltas)
+            ks, ks_plain = _keyspaces(par, m, st, 2)
+            pos = np.empty(k, np.int64)
+            pos[rows] = np.arange(b)
+            if m is None:
+                old_state = _clone(st)
+                old_table = ShardTable.of(old_state)
+
+                def old(old_table=old_table, rows=rows, deltas=deltas, b=b):
+                    bb = bucket(b)
+                    ki = pad_rows(bb)
+                    ki[:b] = rows
+                    dl = []
+                    for d in deltas:
+                        plane = np.zeros((bb, r), np.uint64)
+                        plane[:b] = d
+                        dl.append(planes.to_tensor(plane, DEVICE))
+                    ki = torch.from_numpy(ki).to(DEVICE)
+                    sums = torch.empty(bb, dtype=torch.int64, device=DEVICE)
+                    return mod.drain_sparse(old_table, ki, *dl, sums).cpu().numpy()[:b], rows
+
+                old_whole = lambda old_state=old_state: old_state  # noqa: E731
+            else:
+                old_shards = par.shard_state(m, st)
+                stacked = np.concatenate(deltas, 1)
+
+                def old(old_shards=old_shards, rows=rows, stacked=stacked):
+                    lr, pay, slots = par.route_drain(rows, stacked, MESH_SHARDS,
+                                                     k // MESH_SHARDS)
+                    sums = sharded(m, old_shards, lr, pay)
+                    live = slots >= 0
+                    return sums[live], slots[live]
+
+                old_whole = lambda old_shards=old_shards: par.gather_state(old_shards)  # noqa: E731
+            new = lambda ks=ks, rows=rows, fill=fill: unrouted(ks, rows, fill)  # noqa: E731
+            l0 = mod.drain_sparse.launches
+            got = new()
+            l1 = mod.drain_sparse.launches
+            plain = unrouted(ks_plain, rows, fill, mod.drain_sparse_plain)
+            l2 = mod.drain_sparse.launches
+            osums, orows = old()
+            l3 = mod.drain_sparse.launches
+            torch.cuda.synchronize()
+            shape = (f"K={k} x R={r}" + (f" over {MESH_SHARDS} shards on {len(ks.cards)} card(s)"
+                                        if m is not None else "") + f", B={b}")
+            if l1 - l0 != on_card(len(ks.cards)) or l2 != l1:
+                raise AssertionError(f"{name} staged call {shape}: launches {l1 - l0}, "
+                                     f"plain {l2 - l1}")
+            err = _check_equal(torch, f"{name} staged call {shape}", [got], [plain], [osums],
+                               pos[orows], [ks.whole(), ks_plain.whole(), old_whole()])
+            del ks_plain
+            times = _turns(torch, old, new)
+            dev_ms = (device_ms(torch, old, "counter_drain_sparse", calls=3),
+                      device_ms(torch, new, "counter_drain_sparse", calls=3))
+            rows_out.append(_call_row(
+                name, shape, card, xfer, times, (l3 - l2, l1 - l0), dev_ms,
+                (npl * b * r * 8 * 3 + b * 12, npl * b * r * OPS_PER_COUNTER),
+                fields, [(np.int64, ())], b, err, mesh=m is not None,
+                fill_ms=_fill_ms(ks, rows, fill, fields), **_staging_bytes(ks)))
+            del ks, old, new
+            torch.cuda.empty_cache()
+        out[name] = rows_out
+        del st
+        torch.cuda.empty_cache()
+    return out
+
+
+def treg_call_cases(torch, card: str, devs, xfer) -> dict:
+    """treg_drain_sparse through the staged call at K = 1,048,576:
+    B = 8,192 and 65,536 on one device, B = 65,536 over the 4-shard mesh
+    on the card; a third of the deltas tie their row. New path against
+    its plain version and the old path (on one device the repo's
+    sequence before the staged call: planes padded to bucket(B), four
+    pageable copies, torch.empty outputs as the parent's wrapper
+    allocated them, the table built once outside the call, three
+    read-backs; on the mesh route_drain + drain_sharded_treg), bit for
+    bit: per-slot (tie, ts, vid) and the states; then both timed, each
+    call on a fresh copy of its state."""
+    from jylis_tpu_torch import parallel as par
+    from jylis_tpu_torch.ops import planes, treg
+    from jylis_tpu_torch.ops.staging import ShardTable
+    from jylis_tpu_torch.utils.batching import bucket, pad_rows
+
+    mesh = par.make_mesh(MESH_SHARDS, devices=devs)
+    rng = np.random.default_rng(SEED + 95)
+    k = K_TREG
+    st_np = treg_planes(rng, k)
+    st = treg.TRegState(*treg_tensors(torch, st_np, DEVICE))
+    fields = [(np.uint64, ()), (np.uint64, ()), (np.int32, ())]
+    outs = [(np.bool_, ()), (np.int64, ()), (np.int32, ())]
+    rows_out = []
+    for b, m in ((B_TREG_NODE, None), (B_LARGE, None), (B_LARGE, mesh)):
+        rows = rng.choice(k, b, replace=False).astype(np.int64)
+        d_ts, d_rank, d_vid = treg_deltas(rng, st_np, rows)
+        fill = par.fill_from(d_ts, d_rank, d_vid)
+        ks, ks_plain = _keyspaces(par, m, st, 2)
+        pos = np.empty(k, np.int64)
+        pos[rows] = np.arange(b)
+        if m is None:
+            old_parts = [_clone(st)]
+
+            def old(table=ShardTable.of(old_parts[0]), rows=rows, b=b, d=(d_ts, d_rank, d_vid)):
+                bb = bucket(b)
+                ts = np.zeros(bb, np.uint64)
+                rank = np.zeros(bb, np.uint64)
+                vid = np.full(bb, -1, np.int32)
+                ts[:b], rank[:b], vid[:b] = d
+                ki = pad_rows(bb)
+                ki[:b] = rows
+                out = (torch.empty(bb, dtype=torch.bool, device=DEVICE),
+                       torch.empty(bb, dtype=torch.int64, device=DEVICE),
+                       torch.empty(bb, dtype=torch.int32, device=DEVICE))
+                tie, o_ts, o_vid = treg.drain_sparse(
+                    table, torch.from_numpy(ki).to(DEVICE), planes.to_tensor(ts, DEVICE),
+                    planes.to_tensor(rank, DEVICE), torch.from_numpy(vid).to(DEVICE), out)
+                return (tie.cpu().numpy()[:b], o_ts.cpu().numpy()[:b],
+                        o_vid.cpu().numpy()[:b]), rows
+
+            old_whole = lambda old_parts=old_parts: old_parts[0]  # noqa: E731
+        else:
+            old_parts = par.shard_state(m, st)
+            payload = np.stack([d_ts, d_rank, d_vid.astype(np.int64).view(np.uint64)], 1)
+
+            def old(old_parts=old_parts, rows=rows, payload=payload):
+                lr, pay, slots = par.route_drain(rows, payload, MESH_SHARDS, k // MESH_SHARDS)
+                res = par.drain_sharded_treg(m, old_parts, lr, pay)
+                live = slots >= 0
+                return tuple(x[live] for x in res), slots[live]
+
+            old_whole = lambda old_parts=old_parts: par.gather_state(old_parts)  # noqa: E731
+        new = lambda ks=ks, rows=rows, fill=fill: par.drain_unrouted_treg(ks, rows, fill)  # noqa: E731
+        pristine = [_clone(p) for p in ks.parts]
+        reset_new = lambda ks=ks, pristine=pristine: [  # noqa: E731
+            restorer(p, q)() for p, q in zip(ks.parts, pristine)]
+        reset_old = lambda parts=old_parts, pristine=pristine: [  # noqa: E731
+            restorer(p, q)() for p, q in zip(parts, pristine)]
+        l0 = treg.drain_sparse.launches
+        got = new()
+        l1 = treg.drain_sparse.launches
+        plain = par.drain_unrouted_treg(ks_plain, rows, fill, treg.drain_sparse_plain)
+        l2 = treg.drain_sparse.launches
+        ores, orows = old()
+        l3 = treg.drain_sparse.launches
+        torch.cuda.synchronize()
+        shape = (f"K={k}" + (f" over {MESH_SHARDS} shards on {len(ks.cards)} card(s)"
+                             if m is not None else "") + f", B={b}")
+        ties = int(got[0].sum())
+        if l1 - l0 != on_card(len(ks.cards)) or l2 != l1 or not ties:
+            raise AssertionError(f"treg staged call {shape}: launches {l1 - l0}, "
+                                 f"plain {l2 - l1}, ties {ties}")
+        whole = ks.whole()
+        err = _check_equal(torch, f"treg staged call {shape}", got, plain, ores, pos[orows],
+                           [whole, ks_plain.whole(), old_whole()])
+        wins = changed(torch, st, whole)
+        del ks_plain, whole
+        times = _turns(torch, old, new, reset_old, reset_new)
+        dev_ms = (device_ms(torch, lambda: (reset_old(), old()), "treg_drain_sparse", calls=3),
+                  device_ms(torch, lambda: (reset_new(), new()), "treg_drain_sparse", calls=3))
+        # the layout's floor: one random 32-byte sector a plane per slot
+        # gathered and per winner scattered, beside the streamed batch
+        sector_bytes = (b + wins) * 3 * 32 + b * (4 + 20 + 1 + 12)
+        rows_out.append(_call_row(
+            "treg_drain_sparse", shape, card, xfer, times, (l3 - l2, l1 - l0), dev_ms,
+            (b * (4 + 1 + 12 + 20 + 20) + wins * 20, b * OPS_PER_REGISTER), fields, outs, b,
+            err, mesh=m is not None, ties=ties, wins=wins,
+            sector_bound_ms=bound(sector_bytes, 0, card)[0], sector_bytes=sector_bytes,
+            fill_ms=_fill_ms(ks, rows, fill, fields), **_staging_bytes(ks)))
+        del ks, old, new, old_parts, pristine
+        torch.cuda.empty_cache()
+    del st
+    torch.cuda.empty_cache()
+    return {"treg_drain_sparse": rows_out}
+
+
 def mesh_node_script(rng, writers=None):
     """The mesh node phase's RESP script and delta stream, made afresh
     from ``rng`` for each node (UJSON deltas are objects): a list of
@@ -3370,8 +3703,9 @@ def mesh_node_phase(torch, devs) -> dict:
     """Two nodes on the card fed the same RESP script and delta stream:
     one Database on the 4-shard mesh, one single-device. Every reply and
     every repo's dump_state must be equal; the mesh node's drains must
-    all be routed (no dense kernel launches there) and each kernel of the
-    mesh path must launch. Then, counted on its own, dryrun_multichip on
+    all be sparse (no dense kernel launches there: the counter and TREG
+    drains staged and unrouted, TLOG's and UJSON's routed) and each
+    kernel of the mesh path must launch. Then, counted on its own, dryrun_multichip on
     the mesh's devices, which must launch replica_join."""
     from jylis_tpu_torch import parallel as par
     from jylis_tpu_torch.parallel.dryrun import dryrun_multichip
@@ -3706,6 +4040,9 @@ def main() -> int:
           "cards": "one card, 4 shards on it" if len(set(devs)) == 1 else "4 cards"})
     rows.update(replica_join_phase(torch, card))
     routes = mesh_route_phases(torch, card, devs)
+    xfer = transfer_phase(torch)
+    calls = counter_call_cases(torch, card, devs, xfer)
+    calls.update(treg_call_cases(torch, card, devs, xfer))
     # the main paths, each with its launch counts set to 0 just before it
     node = node_phase(torch)
     treg_node = treg_node_phase(torch)
@@ -3752,6 +4089,7 @@ def main() -> int:
             **({"other_shapes": [{k: x[k] for k in timing if k in x} for x in others]}
                if others else {}),
             **({"mesh_routes": routes[kname]} if kname in routes else {}),
+            **({"staged_calls": calls[kname]} if kname in calls else {}),
         })
     emit({"kernels": kernels})
     print(smi_line(), flush=True)

@@ -17,13 +17,18 @@ Delta wire shape: GCOUNT -> dict {replica_id: u64}; PNCOUNT -> a
 (absolute values — joinable delta-state), which the table tracks exactly,
 so flushes never need a device read.
 
+Sparse drains are staged (ops/staging.py, parallel/sharded.py
+``drain_unrouted_g`` / ``_pn``): the batch's rows and delta columns are
+written straight into pinned host memory, copied to the card in one
+transfer, joined in one launch and read back in one copy.
+
 Mesh mode (``mesh``, parallel/mesh.py): the keyspace lives as one state
-per keys shard, a contiguous block of key rows on that shard's device,
-and every drain routes the batch to its shards and launches the sparse
-drain once per shard (parallel/sharded.drain_sharded_g / _pn): the
-per-type actor keyspace of repo_manager.pony:92-93 becomes per-device
-key blocks. Without a mesh (one visible card, or a CPU device) the
-single-device drains below run untouched.
+per keys shard, a contiguous block of key rows on that shard's device
+(the per-type actor keyspace of repo_manager.pony:92-93 becomes
+per-device key blocks). The sparse drain is the same unrouted call: the
+kernel finds each row's shard among the card's shards itself, so the
+host routes nothing and pads nothing, and a drain makes one launch per
+card. Dense drains run only without a mesh.
 """
 
 from __future__ import annotations
@@ -32,9 +37,9 @@ import numpy as np
 import torch
 
 from ..ops import gcount, planes, pncount
-from ..parallel import Keyspace, drain_sharded_g, drain_sharded_pn, resolve_mesh
+from ..parallel import Keyspace, drain_unrouted_g, drain_unrouted_pn, resolve_mesh
 from ..utils.metrics import timed_drain
-from .base import ParseError, bucket, need, pad_rows, parse_u64, U64_MAX
+from .base import ParseError, bucket, need, parse_u64, U64_MAX
 from .counter_table import PyTable
 from .help import RepoHelp
 
@@ -47,13 +52,14 @@ PNCOUNT_HELP = RepoHelp(
 # The four drains of jylis_tpu/models/repo_counters.py:54-79. Each joins
 # the batch into the state IN PLACE and returns the row sums as int64
 # bits: the in-place update takes the place of JAX's donate_argnums.
-# On a CUDA state each launches one hand-written kernel.
-def _drain_g(state, ki, d):
-    return gcount.drain_sparse(state, ki, d)
+# On a CUDA state each launches one hand-written kernel. The sparse two
+# also take the ShardTable of one card's shards, and the staged ``out``.
+def _drain_g(state, ki, d, out=None):
+    return gcount.drain_sparse(state, ki, d, out)
 
 
-def _drain_pn(state, ki, dp, dn):
-    return pncount.drain_sparse(state, ki, dp, dn)
+def _drain_pn(state, ki, dp, dn, out=None):
+    return pncount.drain_sparse(state, ki, dp, dn, out)
 
 
 # dense drains: when a batch covers most of the keyspace (a full
@@ -194,51 +200,41 @@ class _CounterRepo:
         rows = list(dict.fromkeys(list(per_pol[0]) + list(per_pol[1])))
         return rows, per_pol
 
-    def _delta_plane(self, n: int, slots, pending) -> torch.Tensor:
-        """(n, R) u64 delta plane on the device: row ``slot`` of it holds
-        the pending columns of ``row`` for each (slot, row) in ``slots``."""
-        plane = np.zeros((n, self._rep_cap), np.uint64)
-        for slot, row in slots:
+    def _delta_plane(self, rows, pending) -> torch.Tensor:
+        """(K, R) u64 delta plane on the device for the dense drain: each
+        of ``rows`` holds its pending columns, every other row zeros."""
+        plane = np.zeros((self._key_cap, self._rep_cap), np.uint64)
+        for row in rows:
             for col, v in pending.get(row, {}).items():
-                plane[slot, col] = v
+                plane[row, col] = v
         return planes.to_tensor(plane, self._device)
 
     def _drain(self) -> None:
-        """Join every pending row into the device state in one launch
-        (dense when the batch covers >= 1/DENSE_FRACTION of the keyspace,
-        else sparse; with a mesh, one sparse launch per shard) and hand
+        """Join every pending row into the device state in one launch per
+        card (dense when the batch covers >= 1/DENSE_FRACTION of a
+        single device's keyspace, else the staged sparse drain) and hand
         the rows' sums to the table as u64 values."""
         rows, per_pol = self._collect_rows()
         if not rows:
             return
         self._grow_to_fit()
         per_pol = per_pol[: self._polarities]
-        if self._ks.mesh is not None:
-            # polarity-stacked (B, NP * R): one routing pass serves both
-            r = self._rep_cap
-            stacked = np.zeros((len(rows), len(per_pol) * r), np.uint64)
-            for p, pending in enumerate(per_pol):
-                for i, row in enumerate(rows):
-                    for col, v in pending.get(row, {}).items():
-                        stacked[i, p * r + col] = v
-            lr, payload, slots = self._ks.route(rows, stacked)
-            sums = self._sharded(self._ks.mesh, self._ks.parts, lr, payload).view(np.uint64)
-            live = slots >= 0
-            self._finish_drain(slots[live].tolist(), list(sums[live]))
-        elif len(rows) * DENSE_FRACTION >= self._key_cap:
-            slots = [(row, row) for row in rows]
-            deltas = [self._delta_plane(self._key_cap, slots, p) for p in per_pol]
+        if self._ks.mesh is None and len(rows) * DENSE_FRACTION >= self._key_cap:
+            deltas = [self._delta_plane(rows, p) for p in per_pol]
             sums = self._dense(*deltas).cpu().numpy().view(np.uint64)
             self._finish_drain(rows, [sums[row] for row in rows])
-        else:
-            b = bucket(len(rows))
-            ki = pad_rows(b)
-            ki[: len(rows)] = rows
-            slots = list(enumerate(rows))
-            deltas = [self._delta_plane(b, slots, p) for p in per_pol]
-            ki = torch.from_numpy(ki).to(self._device)
-            sums = self._sparse(ki, *deltas).cpu().numpy().view(np.uint64)
-            self._finish_drain(rows, [sums[i] for i in range(len(rows))])
+            return
+        rows_np = np.asarray(rows, np.int64)
+
+        def fill(views, sel):  # the pending columns, straight into staging
+            for view, pending in zip(views, per_pol):
+                view.fill(0)
+                for slot, row in enumerate(rows_np[sel].tolist()):
+                    for col, v in pending.get(row, {}).items():
+                        view[slot, col] = v
+
+        sums = self._sparse(rows_np, fill).view(np.uint64)
+        self._finish_drain(rows, list(sums))
 
     def _finish_drain(self, rows, values_bits) -> None:
         self._tbl.apply_drain(rows, values_bits)
@@ -288,7 +284,6 @@ class RepoGCOUNT(_CounterRepo):
     help = GCOUNT_HELP
     _ops = gcount
     _polarities = 1
-    _sharded = staticmethod(drain_sharded_g)
 
     # the JAX package times each type's drain under its own name
     drain = timed_drain("GCOUNT", _CounterRepo._pend_size)(_CounterRepo._drain)
@@ -296,8 +291,8 @@ class RepoGCOUNT(_CounterRepo):
     def _dense(self, d):
         return _drain_g_dense(self._state, d)
 
-    def _sparse(self, ki, d):
-        return _drain_g(self._state, ki, d)
+    def _sparse(self, rows, fill):
+        return drain_unrouted_g(self._ks, rows, fill, _drain_g)
 
     def _get_value(self, key: bytes) -> int:
         return self._get_raw(key)
@@ -348,15 +343,14 @@ class RepoPNCOUNT(_CounterRepo):
     help = PNCOUNT_HELP
     _ops = pncount
     _polarities = 2
-    _sharded = staticmethod(drain_sharded_pn)
 
     drain = timed_drain("PNCOUNT", _CounterRepo._pend_size)(_CounterRepo._drain)
 
     def _dense(self, dp, dn):
         return _drain_pn_dense(self._state, dp, dn)
 
-    def _sparse(self, ki, dp, dn):
-        return _drain_pn(self._state, ki, dp, dn)
+    def _sparse(self, rows, fill):
+        return drain_unrouted_pn(self._ks, rows, fill, _drain_pn)
 
     def _get_value(self, key: bytes) -> int:
         return _wrap_i64(self._get_raw(key))

@@ -12,11 +12,14 @@ Host bookkeeping (keys, winner, pending window, delta accumulator) lives
 in treg_table.PyTregTable. GET never pays a device round-trip: the
 winner is an O(1) host compare.
 
-Mesh mode (``mesh``, parallel/mesh.py) mirrors the counter repos: the
-three planes live as one block of key rows per keys shard, and a drain
-routes its rows to the shards and launches the sparse drain once per
-shard (parallel/sharded.drain_sharded_treg); ties patch through the
-routed vid scatter.
+Sparse drains are staged (ops/staging.py, parallel/sharded.py
+``drain_unrouted_treg``): rows, timestamps, ranks and vids are written
+straight into pinned host memory, copied to the card in one transfer,
+joined in one launch and the packed (tie, ts, vid) read back in one
+copy. Mesh mode (``mesh``, parallel/mesh.py) mirrors the counter repos:
+the three planes live as one block of key rows per keys shard, and the
+same unrouted drain makes one launch per card, the kernel finding each
+row's shard itself; ties patch each shard's vid plane directly.
 
 Delta wire shape: (value: bytes, ts: u64).
 """
@@ -28,9 +31,9 @@ import torch
 
 from ..ops import planes, treg
 from ..ops.interner import Interner, prefix_rank
-from ..parallel import Keyspace, drain_sharded_treg, patch_sharded_treg, resolve_mesh
+from ..parallel import Keyspace, drain_unrouted_treg, fill_from, resolve_mesh
 from ..utils.metrics import timed_drain
-from .base import ParseError, bucket, need, pad_rows, parse_u64
+from .base import ParseError, bucket, need, parse_u64
 from .help import RepoHelp
 from .treg_table import PyTregTable
 
@@ -54,9 +57,10 @@ DENSE_FRACTION = 4
 # The three device steps of jylis_tpu/models/repo_treg.py:57-71. Each
 # updates the state IN PLACE (JAX donates it). On a CUDA state the two
 # drains launch one hand-written kernel each.
-def _drain(state, ki, d_ts, d_rank, d_vid):
-    """Sparse drain: (tie, out_ts, out_vid) per slot."""
-    return treg.drain_sparse(state, ki, d_ts, d_rank, d_vid)
+def _drain(state, ki, d_ts, d_rank, d_vid, out=None):
+    """Sparse drain over a state or one card's ShardTable: (tie, out_ts,
+    out_vid) per slot, into ``out`` when given (the staged outputs)."""
+    return treg.drain_sparse(state, ki, d_ts, d_rank, d_vid, out)
 
 
 def _drain_dense(state, d_ts, d_rank, d_vid):
@@ -66,11 +70,12 @@ def _drain_dense(state, d_ts, d_rank, d_vid):
     return tie, state.ts, state.vid
 
 
-def _patch_vids(state, ki, vids) -> None:
-    """Scatter host-resolved vids; pad rows (>= K) are dropped, as JAX's
-    mode="drop" scatter drops them."""
-    live = planes.live_rows(ki, state.vid.shape[0])
-    state.vid[ki[live].long()] = vids[live]
+def _patch_vids(ks, rows, vids) -> None:
+    """Scatter host-resolved vids at global ``rows`` into the vid plane of
+    the shard holding each (plain torch: prefix ties are rare)."""
+    for part, sel, local in ks.split_rows(rows):
+        dev = part.vid.device
+        part.vid[torch.from_numpy(local).to(dev)] = torch.from_numpy(vids[sel]).to(dev)
 
 
 class RepoTREG:
@@ -184,56 +189,40 @@ class RepoTREG:
             self._key_cap = cap
             self._ks.grow(lambda st: treg.grow(st, cap))
         self._maybe_compact_interner()
-        if self._ks.mesh is not None:
-            self._drain_sharded(pend)
-            self._tbl.fold_pend()
-            return
         n = len(pend)
         rows = np.fromiter((p[0] for p in pend), np.int64, n)
-        dense = n * DENSE_FRACTION >= self._key_cap
-        b = self._key_cap if dense else bucket(n)
-        slots = rows if dense else np.arange(n)
-        d_ts = np.zeros(b, np.uint64)
-        d_rank = np.zeros(b, np.uint64)
-        d_vid = np.full(b, -1, np.int32)
         vids = np.fromiter(
             (self._interner.intern(p[2]) for p in pend), np.int32, n
         )
-        d_ts[slots] = np.fromiter((p[1] for p in pend), np.uint64, n)
-        d_rank[slots] = np.fromiter((prefix_rank(p[2]) for p in pend), np.uint64, n)
-        d_vid[slots] = vids
-        dev = self._device
-        deltas = (planes.to_tensor(d_ts, dev), planes.to_tensor(d_rank, dev),
-                  torch.from_numpy(d_vid).to(dev))
-        if dense:
-            tie, out_ts, out_vid = _drain_dense(self._state, *deltas)
+        ts = np.fromiter((p[1] for p in pend), np.uint64, n)
+        rank = np.fromiter((prefix_rank(p[2]) for p in pend), np.uint64, n)
+        if self._ks.mesh is None and n * DENSE_FRACTION >= self._key_cap:
+            k, dev = self._key_cap, self._device
+            d_ts = np.zeros(k, np.uint64)
+            d_rank = np.zeros(k, np.uint64)
+            d_vid = np.full(k, -1, np.int32)
+            d_ts[rows], d_rank[rows], d_vid[rows] = ts, rank, vids
+            tie, out_ts, out_vid = _drain_dense(
+                self._state, planes.to_tensor(d_ts, dev),
+                planes.to_tensor(d_rank, dev), torch.from_numpy(d_vid).to(dev))
+            tie = tie.cpu().numpy()[rows]
+            out_ts = planes.to_u64_np(out_ts)[rows]
+            out_vid = out_vid.cpu().numpy()[rows]  # a copy: patched below
         else:
-            ki = pad_rows(b)
-            ki[:n] = rows
-            tie, out_ts, out_vid = _drain(
-                self._state, torch.from_numpy(ki).to(dev), *deltas
-            )
-        tie = tie.cpu().numpy()[slots]
-        out_ts = planes.to_u64_np(out_ts)[slots]
-        out_vid = out_vid.cpu().numpy()[slots]  # a copy: patched below
+            tie, out_ts, out_vid = drain_unrouted_treg(
+                self._ks, rows, fill_from(ts, rank, vids), _drain)
+            out_ts = out_ts.view(np.uint64)
         if tie.any():
             # prefix collision: the full-string compare decides; patch
             # the rows where the delta's value is the greater
-            patch_ki, patch_vid = [], []
+            patch = []
             for i in np.flatnonzero(tie):
                 cur_val = self._interner.lookup(int(out_vid[i]))
                 if pend[i][2] > cur_val:
-                    patch_ki.append(int(rows[i]))
-                    patch_vid.append(int(vids[i]))
+                    patch.append(i)
                     out_vid[i] = vids[i]
-            if patch_ki:
-                pb = bucket(len(patch_ki))
-                pk = pad_rows(pb)  # distinct out-of-range pads drop
-                pv = np.full(pb, -1, np.int32)
-                pk[: len(patch_ki)] = patch_ki
-                pv[: len(patch_vid)] = patch_vid
-                _patch_vids(self._state, torch.from_numpy(pk).to(dev),
-                            torch.from_numpy(pv).to(dev))
+            if patch:
+                _patch_vids(self._ks, rows[patch], vids[patch])
         self._cache.update(
             zip(rows.tolist(), zip(out_ts.tolist(), out_vid.tolist()))
         )
@@ -260,37 +249,3 @@ class RepoTREG:
         for row, (_ts, vid) in self._cache.items():
             vids_by_row[row] = vid
         self._ks.set_plane("vid", vids_by_row)
-
-    def _drain_sharded(self, pend) -> None:
-        """Mesh-mode drain: payload columns [ts, rank, vid] route to the
-        key blocks; ties come back per slot and resolve on the host as
-        the single-device path resolves them, patched with a routed vid
-        scatter."""
-        rows = [row for row, _ts, _v in pend]
-        payload = np.zeros((len(rows), 3), np.uint64)
-        values: dict[int, bytes] = {}
-        for i, (row, ts, value) in enumerate(pend):
-            payload[i, 0] = ts
-            payload[i, 1] = prefix_rank(value)
-            payload[i, 2] = self._interner.intern(value)  # vids are >= 0
-            values[row] = value
-        ks = self._ks
-        lr, pay, slots = ks.route(rows, payload)
-        tie, out_ts, out_vid = drain_sharded_treg(ks.mesh, ks.parts, lr, pay)
-        out_ts = out_ts.view(np.uint64)
-        patch_rows: list[int] = []
-        patch_vids: list[int] = []
-        for j in np.flatnonzero(slots >= 0):
-            row = int(slots[j])
-            if tie[j]:
-                cur_val = self._interner.lookup(int(out_vid[j]))
-                if values[row] > cur_val:
-                    my_vid = self._interner.intern(values[row])
-                    patch_rows.append(row)
-                    patch_vids.append(my_vid)
-                    out_vid[j] = my_vid
-            self._cache[row] = (int(out_ts[j]), int(out_vid[j]))
-        if patch_rows:
-            pp = np.asarray(patch_vids, np.uint64).reshape(-1, 1)
-            lr2, p2, _slots = ks.route(patch_rows, pp)
-            patch_sharded_treg(ks.mesh, ks.parts, lr2, p2[:, 0].astype(np.int32))

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from . import planes
+from .staging import ShardTable
 
 
 class GCountState(NamedTuple):
@@ -120,27 +121,39 @@ drain_dense.launches = 0
 
 
 def drain_sparse_plain(
-    state: GCountState, key_idx: torch.Tensor, deltas: torch.Tensor
+    shards, key_idx: torch.Tensor, deltas: torch.Tensor, out=None
 ) -> torch.Tensor:
-    """``converge_batch`` then the joined rows' sums; 0 at pad slots."""
-    live = planes.live_rows(key_idx, state.counts.shape[0])
-    converge_batch(state, key_idx, deltas)
-    sums = torch.zeros(key_idx.shape[0], dtype=torch.int64, device=deltas.device)
-    sums[live] = read(state, key_idx[live])
-    return sums
+    """The plain version of ``drain_sparse``: per part of the table,
+    ``converge_batch`` at the local rows of its slots, then the joined
+    rows' sums at those slots."""
+    table = ShardTable.of(shards)
+    if out is None:
+        out = torch.zeros(key_idx.shape[0], dtype=torch.int64, device=deltas.device)
+    for part, sel, local in table.split(key_idx):
+        converge_batch(part, local, deltas[sel])
+        out[sel] = read(part, local)
+    return out
 
 
 def drain_sparse(
-    state: GCountState, key_idx: torch.Tensor, deltas: torch.Tensor
+    shards, key_idx: torch.Tensor, deltas: torch.Tensor, out=None
 ) -> torch.Tensor:
-    """Batched drain at UNIQUE rows ``key_idx`` ((B,) int32, pads >= K):
-    join the (B, R) ``deltas`` in place and return the (B,) sums of the
-    joined rows as int64 bits (0 at pad slots)."""
-    if state.counts.device.type == "cpu":
-        return drain_sparse_plain(state, key_idx, deltas)
-    sums = planes.launch_drain_sparse((state.counts,), key_idx, (deltas,))
-    drain_sparse.launches += 1
-    return sums
+    """Batched drain at UNIQUE global rows ``key_idx`` ((B,) int32) over
+    ``shards``: a GCountState (one shard holding all of its rows) or the
+    ``ShardTable`` of the shards on one card. Joins the (B, R) ``deltas``
+    into the shard holding each row, in place, and writes the joined
+    rows' sums as int64 bits into ``out`` (B,) at each slot whose shard is
+    in the table; with ``out`` None it is allocated zeroed, so a slot off
+    the table (the routed callers' pads: rows >= K) reads 0."""
+    table = ShardTable.of(shards)
+    if table.device.type == "cpu":
+        return drain_sparse_plain(table, key_idx, deltas, out)
+    if out is None:
+        out = torch.zeros(key_idx.shape[0], dtype=torch.int64, device=table.device)
+    if key_idx.shape[0]:
+        planes.launch_drain_sparse(table, key_idx, (deltas,), out)
+        drain_sparse.launches += 1
+    return out
 
 
 drain_sparse.launches = 0

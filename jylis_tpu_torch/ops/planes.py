@@ -13,7 +13,9 @@ the bit pattern of an ``int64`` element:
 ``coalesce`` max-combines duplicate rows of a host delta batch.
 ``launch_drain_dense`` / ``launch_drain_sparse`` run the two CUDA drain
 kernels (``csrc/counter_drain_*.cu``); the GCOUNT and PNCOUNT modules wrap
-them with their plain versions and launch counts.
+them with their plain versions and launch counts. The sparse kernel takes
+the card's shards as an ``ops.staging.ShardTable`` and an unrouted batch
+of global rows.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import numpy as np
 import torch
 
 from . import _build
+from .staging import MAX_SHARDS, ShardTable
 
 SIGN = -(1 << 63)  # int64 with only the sign bit set
 
@@ -96,8 +99,16 @@ def rowsum64(x: torch.Tensor) -> torch.Tensor:
 _P = ctypes.c_void_p
 _DENSE_ARGS = [ctypes.c_int, _P, _P, _P, _P, _P, ctypes.c_longlong,
                ctypes.c_int, _P]
-_SPARSE_ARGS = [ctypes.c_int, _P, _P, _P, _P, _P, _P, ctypes.c_longlong,
-                ctypes.c_longlong, ctypes.c_int, _P]
+_SPARSE_ARGS = [ctypes.c_int, _P, _P, _P, _P, _P, ctypes.c_longlong,
+                ctypes.c_int, _P]
+
+
+class _CounterTable(ctypes.Structure):
+    """csrc/counter_drain_sparse.cu's CounterTable, field for field."""
+
+    _fields_ = [("p", _P * MAX_SHARDS), ("n", _P * MAX_SHARDS),
+                ("rows_per_shard", ctypes.c_longlong), ("first", ctypes.c_int),
+                ("count", ctypes.c_int)]
 
 
 def _check_planes(planes, shape, what: str) -> None:
@@ -146,28 +157,65 @@ def launch_drain_dense(state, deltas) -> torch.Tensor:
     return sums
 
 
-def launch_drain_sparse(state, key_idx, deltas) -> torch.Tensor:
-    """Run ``counter_drain_sparse<NP>``: join the (B, R) ``deltas`` into
-    ``state`` at the UNIQUE rows ``key_idx`` (int32; slots >= K are pads),
-    in place, and return the (B,) row sums of the joined rows (0 at pad
-    slots) as int64 bits."""
-    k, r = state[0].shape
-    b = key_idx.shape[0]
-    _check_planes(state, (k, r), "counter_drain_sparse")
-    _check_planes(deltas, (b, r), "counter_drain_sparse")
-    if (key_idx.device != state[0].device or key_idx.dtype != torch.int32
+def counter_table(table: ShardTable) -> _CounterTable:
+    """The kernel's table for ``table``, built and its planes checked
+    once per table: every part's planes (one per polarity) contiguous
+    int64 (rows_per_shard, R) CUDA tensors on one device, 16-byte
+    aligned, R even."""
+    if table.c is None:
+        part = table.parts[0]
+        r = part[0].shape[-1]
+        for st in table.parts:
+            if len(st) != len(part):
+                raise ValueError("counter_drain_sparse: parts of different types")
+            _check_planes(st, (table.rows_per_shard, r), "counter_drain_sparse")
+            if st[0].device != part[0].device:
+                raise ValueError("counter_drain_sparse: shards on different devices")
+        c = _CounterTable(rows_per_shard=table.rows_per_shard, first=table.first,
+                          count=len(table.parts))
+        for i, st in enumerate(table.parts):
+            c.p[i], c.n[i] = _two_ptrs(st)
+        table.c = c
+    return table.c
+
+
+def launch_drain_sparse(table: ShardTable, key_idx, deltas, sums) -> torch.Tensor:
+    """Run ``counter_drain_sparse<NP>`` (NP = len(deltas)) over the card's
+    shards in ``table``: join the (B, R) ``deltas`` at the UNIQUE global
+    rows ``key_idx`` ((B,) int32) into the shard holding each, in place,
+    and write the joined rows' sums (sum P - sum N for two polarities) as
+    int64 bits into ``sums`` (B,) at each slot of the table. A slot whose
+    shard is not in the table writes nothing. Checks are O(1) per call:
+    the table's planes were checked when it was built."""
+    c = counter_table(table)
+    part = table.parts[0]
+    dev = part[0].device
+    r = part[0].shape[1]
+    b = key_idx.shape[0] if key_idx.dim() == 1 else -1
+    if len(deltas) != len(part):
+        raise ValueError(f"counter_drain_sparse: {len(deltas)} delta planes for "
+                         f"{len(part)} polarities")
+    if (key_idx.device != dev or key_idx.dtype != torch.int32
             or not key_idx.is_contiguous() or key_idx.dim() != 1):
         raise ValueError(
             "counter_drain_sparse: key_idx must be a contiguous (B,) int32 "
             "tensor on the state's device"
         )
-    dev = state[0].device
-    sums = torch.empty(b, dtype=torch.int64, device=dev)
+    for d in deltas:
+        if (d.device != dev or d.dtype != torch.int64 or not d.is_contiguous()
+                or tuple(d.shape) != (b, r) or d.data_ptr() % 16):
+            raise ValueError(
+                f"counter_drain_sparse: deltas must be contiguous 16-byte aligned "
+                f"({b}, {r}) int64 tensors on {dev}")
+    if (sums.device != dev or sums.dtype != torch.int64 or not sums.is_contiguous()
+            or tuple(sums.shape) != (b,)):
+        raise ValueError(f"counter_drain_sparse: sums must be a contiguous ({b},) "
+                         f"int64 tensor on {dev}")
     fn = _build.function("counter_drain_sparse", "jt_counter_drain_sparse",
                          _SPARSE_ARGS)
     with torch.cuda.device(dev):
-        rc = fn(len(state), *_two_ptrs(state),
-                *_two_ptrs(deltas), key_idx.data_ptr(), sums.data_ptr(), b, k,
-                r, torch.cuda.current_stream(dev).cuda_stream)
+        rc = fn(len(part), ctypes.addressof(c), key_idx.data_ptr(),
+                *_two_ptrs(deltas), sums.data_ptr(), b, r,
+                torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "counter_drain_sparse")
     return sums

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from . import planes
+from .staging import ShardTable
 
 
 class PNCountState(NamedTuple):
@@ -136,27 +137,38 @@ drain_dense.launches = 0
 
 
 def drain_sparse_plain(
-    state: PNCountState, key_idx: torch.Tensor, dp: torch.Tensor, dn: torch.Tensor
+    shards, key_idx: torch.Tensor, dp: torch.Tensor, dn: torch.Tensor, out=None
 ) -> torch.Tensor:
-    """``converge_batch`` then the joined rows' net values; 0 at pads."""
-    live = planes.live_rows(key_idx, state.p.shape[0])
-    converge_batch(state, key_idx, dp, dn)
-    sums = torch.zeros(key_idx.shape[0], dtype=torch.int64, device=dp.device)
-    sums[live] = read(state, key_idx[live])
-    return sums
+    """The plain version of ``drain_sparse``: per part of the table,
+    ``converge_batch`` at the local rows of its slots, then the joined
+    rows' net values at those slots."""
+    table = ShardTable.of(shards)
+    if out is None:
+        out = torch.zeros(key_idx.shape[0], dtype=torch.int64, device=dp.device)
+    for part, sel, local in table.split(key_idx):
+        converge_batch(part, local, dp[sel], dn[sel])
+        out[sel] = read(part, local)
+    return out
 
 
 def drain_sparse(
-    state: PNCountState, key_idx: torch.Tensor, dp: torch.Tensor, dn: torch.Tensor
+    shards, key_idx: torch.Tensor, dp: torch.Tensor, dn: torch.Tensor, out=None
 ) -> torch.Tensor:
-    """Batched drain at UNIQUE rows ``key_idx`` ((B,) int32, pads >= K):
-    join the (B, R) ``dp``/``dn`` in place and return the (B,) net values
-    of the joined rows (0 at pad slots)."""
-    if state.p.device.type == "cpu":
-        return drain_sparse_plain(state, key_idx, dp, dn)
-    sums = planes.launch_drain_sparse(tuple(state), key_idx, (dp, dn))
-    drain_sparse.launches += 1
-    return sums
+    """Batched drain at UNIQUE global rows ``key_idx`` ((B,) int32) over
+    ``shards`` (a PNCountState, or the ``ShardTable`` of one card's
+    shards; as gcount.drain_sparse): join the (B, R) ``dp``/``dn`` in
+    place and write the joined rows' net values into ``out`` (B,) at the
+    table's slots (allocated zeroed when None: 0 at the routed callers'
+    pads)."""
+    table = ShardTable.of(shards)
+    if table.device.type == "cpu":
+        return drain_sparse_plain(table, key_idx, dp, dn, out)
+    if out is None:
+        out = torch.zeros(key_idx.shape[0], dtype=torch.int64, device=table.device)
+    if key_idx.shape[0]:
+        planes.launch_drain_sparse(table, key_idx, (dp, dn), out)
+        drain_sparse.launches += 1
+    return out
 
 
 drain_sparse.launches = 0

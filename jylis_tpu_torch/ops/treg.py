@@ -29,9 +29,13 @@ of them update the state in place, where JAX returns new arrays into
 donated buffers.
 
 Contract: one batch holds at most one delta per key (the repo coalesces
-per key on the host). Pad slots (rows >= K, or negative) write nothing
-and report tie 0, ts 0 and vid 0; JAX clamps their gathers instead, so
-its pad-slot outputs are row K-1's. The repo reads live slots only.
+per key on the host). The sparse drain takes a state, or the
+``ShardTable`` of a keyspace's shards on one card (ops/staging.py), and
+global rows; a slot whose row is in none of its shards (the routed
+callers' pads: rows >= K, or negative) writes nothing and, in outputs
+the wrapper allocates, reports tie 0, ts 0 and vid 0; JAX clamps their
+gathers instead, so its pad-slot outputs are row K-1's. The repo reads
+live slots only.
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ from typing import NamedTuple
 import torch
 
 from . import _build, planes
+from .staging import MAX_SHARDS, ShardTable
 
 SIGN = planes.SIGN
 
@@ -95,32 +100,46 @@ def drain_dense_plain(state: TRegState, d_ts, d_rank, d_vid) -> torch.Tensor:
     return tie
 
 
-def drain_sparse_plain(state: TRegState, key_idx, d_ts, d_rank, d_vid):
-    """LWW join of a (B,) delta batch at UNIQUE rows ``key_idx``, in
-    place. Returns (tie, out_ts, out_vid), each (B,): the tie flag and
-    the row's winner after the join; 0 at pad slots."""
-    live = planes.live_rows(key_idx, state.vid.shape[0])
-    rows = key_idx[live].long()
-    cur = tuple(plane[rows] for plane in state)
-    d = tuple(x[live] for x in (d_ts, d_rank, d_vid))
-    wins, tie_live = _b_wins(cur, d)
-    new = [torch.where(wins, dv, cv) for dv, cv in zip(d, cur)]
-    for plane, nv in zip(state, new):
-        plane[rows] = nv
-    b = key_idx.shape[0]
-    dev = d_vid.device
-    tie = torch.zeros(b, dtype=torch.bool, device=dev)
-    out_ts = torch.zeros(b, dtype=torch.int64, device=dev)
-    out_vid = torch.zeros(b, dtype=torch.int32, device=dev)
-    tie[live] = tie_live
-    out_ts[live] = new[0]
-    out_vid[live] = new[2]
-    return tie, out_ts, out_vid
+def drain_sparse_plain(shards, key_idx, d_ts, d_rank, d_vid, out=None):
+    """The plain version of ``drain_sparse``: per part of the table, the
+    LWW join of its slots at their local rows, in place, and (tie,
+    out_ts, out_vid) at those slots."""
+    table = ShardTable.of(shards)
+    if out is None:
+        out = _zeros_out(key_idx.shape[0], d_vid.device)
+    tie, out_ts, out_vid = out
+    for part, sel, rows in table.split(key_idx):
+        cur = tuple(plane[rows] for plane in part)
+        d = tuple(x[sel] for x in (d_ts, d_rank, d_vid))
+        wins, tie_sel = _b_wins(cur, d)
+        new = [torch.where(wins, dv, cv) for dv, cv in zip(d, cur)]
+        for plane, nv in zip(part, new):
+            plane[rows] = nv
+        tie[sel] = tie_sel
+        out_ts[sel] = new[0]
+        out_vid[sel] = new[2]
+    return out
+
+
+def _zeros_out(b: int, dev):
+    return (torch.zeros(b, dtype=torch.bool, device=dev),
+            torch.zeros(b, dtype=torch.int64, device=dev),
+            torch.zeros(b, dtype=torch.int32, device=dev))
 
 
 _P = ctypes.c_void_p
 _DENSE_ARGS = [_P] * 7 + [ctypes.c_longlong, _P]
-_SPARSE_ARGS = [_P] * 10 + [ctypes.c_longlong, ctypes.c_longlong, _P]
+_SPARSE_ARGS = [_P] * 8 + [ctypes.c_longlong, _P]
+
+
+class _TregTable(ctypes.Structure):
+    """csrc/treg_drain.cu's TregTable, field for field."""
+
+    _fields_ = [("ts", _P * MAX_SHARDS), ("rank", _P * MAX_SHARDS),
+                ("vid", _P * MAX_SHARDS), ("rows_per_shard", ctypes.c_longlong),
+                ("first", ctypes.c_int), ("count", ctypes.c_int)]
+
+
 _TYPES = (torch.int64, torch.int64, torch.int32)
 
 
@@ -153,28 +172,46 @@ def _launch_dense(state: TRegState, d_ts, d_rank, d_vid) -> torch.Tensor:
     return tie
 
 
-def _launch_sparse(state: TRegState, key_idx, d_ts, d_rank, d_vid):
-    dev = state.vid.device
-    k = state.vid.shape[0]
-    b = key_idx.shape[0]
-    _check("treg_drain_sparse", dev, k, *state)
+def treg_table(table: ShardTable) -> _TregTable:
+    """The kernel's table for ``table``, built and its planes checked
+    once per table: every part's (ts, rank, vid) contiguous
+    (rows_per_shard,) CUDA planes on one device."""
+    if table.c is None:
+        dev = table.device
+        for part in table.parts:
+            _check("treg_drain_sparse", dev, table.rows_per_shard, *part)
+        c = _TregTable(rows_per_shard=table.rows_per_shard, first=table.first,
+                       count=len(table.parts))
+        for i, part in enumerate(table.parts):
+            c.ts[i], c.rank[i], c.vid[i] = (p.data_ptr() for p in part)
+        table.c = c
+    return table.c
+
+
+def _launch_sparse(table: ShardTable, key_idx, d_ts, d_rank, d_vid, out):
+    """O(1) checks per call: the table's planes were checked when it was
+    built."""
+    c = treg_table(table)
+    dev = table.device
+    b = key_idx.shape[0] if key_idx.dim() == 1 else -1
     _check("treg_drain_sparse", dev, b, d_ts, d_rank, d_vid)
-    if (key_idx.device != dev or key_idx.dtype != torch.int32
-            or not key_idx.is_contiguous() or tuple(key_idx.shape) != (b,)):
+    if key_idx.device != dev or key_idx.dtype != torch.int32 or not key_idx.is_contiguous():
         raise ValueError(
             "treg_drain_sparse: key_idx must be a contiguous (B,) int32 tensor "
             "on the state's device"
         )
-    tie = torch.empty(b, dtype=torch.bool, device=dev)
-    out_ts = torch.empty(b, dtype=torch.int64, device=dev)
-    out_vid = torch.empty(b, dtype=torch.int32, device=dev)
+    for o, want in zip(out, (torch.bool, torch.int64, torch.int32)):
+        if (o.device != dev or o.dtype != want or tuple(o.shape) != (b,)
+                or not o.is_contiguous()):
+            raise ValueError(f"treg_drain_sparse: outputs must be contiguous ({b},) "
+                             f"bool, int64 and int32 tensors on {dev}")
     fn = _build.function("treg_drain", "jt_treg_drain_sparse", _SPARSE_ARGS)
     with torch.cuda.device(dev):
-        rc = fn(*(p.data_ptr() for p in (*state, key_idx, d_ts, d_rank, d_vid,
-                                         tie, out_ts, out_vid)),
-                b, k, torch.cuda.current_stream(dev).cuda_stream)
+        rc = fn(ctypes.addressof(c),
+                *(p.data_ptr() for p in (key_idx, d_ts, d_rank, d_vid, *out)),
+                b, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "treg_drain_sparse")
-    return tie, out_ts, out_vid
+    return out
 
 
 def drain_dense(state: TRegState, d_ts, d_rank, d_vid) -> torch.Tensor:
@@ -191,13 +228,22 @@ def drain_dense(state: TRegState, d_ts, d_rank, d_vid) -> torch.Tensor:
 drain_dense.launches = 0
 
 
-def drain_sparse(state: TRegState, key_idx, d_ts, d_rank, d_vid):
-    """Batched drain at UNIQUE rows ``key_idx`` ((B,) int32, pads >= K):
-    join in place and return (tie, out_ts, out_vid) per slot."""
-    if state.vid.device.type == "cpu":
-        return drain_sparse_plain(state, key_idx, d_ts, d_rank, d_vid)
-    out = _launch_sparse(state, key_idx, d_ts, d_rank, d_vid)
-    drain_sparse.launches += 1
+def drain_sparse(shards, key_idx, d_ts, d_rank, d_vid, out=None):
+    """Batched drain at UNIQUE global rows ``key_idx`` ((B,) int32) over
+    ``shards``: a TRegState (one shard holding all of its rows) or the
+    ``ShardTable`` of the shards on one card. Joins each slot into the
+    shard holding its row, in place, and writes (tie, out_ts, out_vid)
+    into ``out`` at each slot whose shard is in the table; with ``out``
+    None they are allocated zeroed, so a slot off the table (the routed
+    callers' pads: rows >= K) reads 0."""
+    table = ShardTable.of(shards)
+    if table.device.type == "cpu":
+        return drain_sparse_plain(table, key_idx, d_ts, d_rank, d_vid, out)
+    if out is None:
+        out = _zeros_out(key_idx.shape[0], table.device)
+    if key_idx.shape[0]:
+        _launch_sparse(table, key_idx, d_ts, d_rank, d_vid, out)
+        drain_sparse.launches += 1
     return out
 
 

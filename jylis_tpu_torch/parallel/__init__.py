@@ -2,8 +2,10 @@
 
 The port of jylis_tpu/parallel. Each keyspace splits over a ``keys``
 mesh axis: anti-entropy merge is embarrassingly parallel over keys, so
-once a delta batch is routed to its shards a drain is one kernel launch
-per shard and no communication. The lattice join across a ``rep`` axis
+a drain needs no communication. The counter and TREG repos drain
+unrouted (one staged call per card, the kernel finding each row's
+shard); the JAX package's routed drains (one launch per shard) stay,
+and TLOG's repo uses them. The lattice join across a ``rep`` axis
 (full per-replica states spread over devices) is a per-column unsigned
 max: the hand-written ``replica_join`` kernel folds each device's rows,
 and the folded rows meet on one device per keys column.
@@ -20,6 +22,10 @@ from .sharded import (
     drain_sharded_pn,
     drain_sharded_tlog,
     drain_sharded_treg,
+    drain_unrouted_g,
+    drain_unrouted_pn,
+    drain_unrouted_treg,
+    fill_from,
     gather_grid,
     gather_state,
     join_replica_axis,
@@ -56,6 +62,10 @@ __all__ = [
     "drain_sharded_treg",
     "patch_sharded_treg",
     "drain_sharded_tlog",
+    "drain_unrouted_g",
+    "drain_unrouted_pn",
+    "drain_unrouted_treg",
+    "fill_from",
     "replica_join",
     "replica_join_plain",
     "join_replica_axis",

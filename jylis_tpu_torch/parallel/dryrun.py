@@ -10,9 +10,10 @@ one may repeat (``["cpu"] * 4``, ``["cuda:0"] * 4``), which gives a
 2. the replica-axis lattice join (``join_replica_axis``, the
    ``replica_join`` kernel) on a (rep x keys) mesh, rep = 2 for an even
    device count;
-3. two PNCOUNT repos in mesh mode converge through the routed drain;
-4. TREG (a timestamp tie the host settles) and TLOG (a routed merge,
-   then a TRIM) repos in mesh mode;
+3. two PNCOUNT repos in mesh mode converge through the staged,
+   unrouted drain (one launch per card);
+4. TREG (a timestamp tie the host settles; the unrouted drain) and TLOG
+   (a routed merge, then a TRIM) repos in mesh mode;
 5. UJSON in mesh mode: three keys with a deep fan-in go resident and
    fold through the row-aligned fold on every shard.
 
@@ -99,7 +100,7 @@ def dryrun_multichip(devices) -> dict:
     kw = dict(device=devices[0], mesh=keys_mesh)
 
     # 3) the serving path in mesh mode: two PNCOUNT repos converge
-    # through the routed drain
+    # through the unrouted drain
     a, b2 = RepoPNCOUNT(identity=1, **kw), RepoPNCOUNT(identity=2, **kw)
     a.apply(_Sink(), [b"INC", b"dryrun", b"40"])
     b2.apply(_Sink(), [b"DEC", b"dryrun", b"15"])
@@ -109,8 +110,8 @@ def dryrun_multichip(devices) -> dict:
         repo.apply(out, [b"GET", b"dryrun"])
         _expect(out.vals, [25], "PNCOUNT GET")
 
-    # 4) TREG + TLOG in mesh mode: the routed LWW drain (with a timestamp
-    # tie) and the routed segment merge + trim
+    # 4) TREG + TLOG in mesh mode: the unrouted LWW drain (with a
+    # timestamp tie) and the routed segment merge + trim
     ra, rb = RepoTREG(identity=1, **kw), RepoTREG(identity=2, **kw)
     ra.apply(_Sink(), [b"SET", b"k", b"apple", b"7"])
     rb.apply(_Sink(), [b"SET", b"k", b"zebra", b"7"])  # ts tie: zebra wins

@@ -16,15 +16,25 @@ device and its current stream:
   each shard's index vector stays unique. Payloads stay u64 (the JAX
   package splits them into hi/lo u32 planes; its ``route_drain64`` is
   ``route_drain`` here).
-* **Drains**: ``drain_sharded_g`` / ``_pn`` launch
-  ``counter_drain_sparse<NP>`` per shard, ``drain_sharded_treg``
-  ``treg_drain_sparse``, ``drain_sharded_tlog`` ``tlog_drain_sparse``
-  (the wide layout, trims fused). Each moves every shard's slice of the
-  routed batch to its device first, then launches every shard, then
-  reads the per-slot results back, so no shard waits on another's
-  kernel. States update in place (JAX returns new arrays). Pad slots
-  read back 0 (JAX clamps their gathers to row K-1); callers read live
-  slots only (``slot_rows >= 0``).
+* **Routed drains** (the JAX package's API): ``drain_sharded_g`` /
+  ``_pn`` launch ``counter_drain_sparse<NP>`` per shard,
+  ``drain_sharded_treg`` ``treg_drain_sparse``, ``drain_sharded_tlog``
+  ``tlog_drain_sparse`` (the wide layout, trims fused). Each moves
+  every shard's slice of the routed batch to its device first, then
+  launches every shard, then reads the per-slot results back, so no
+  shard waits on another's kernel. States update in place (JAX returns
+  new arrays). Pad slots read back 0 (JAX clamps their gathers to row
+  K-1); callers read live slots only (``slot_rows >= 0``). TLOG's
+  repo drains through them.
+* **Unrouted drains** (the counter and TREG repos' path):
+  ``drain_unrouted_g`` / ``_pn`` / ``_treg`` take the repo's unique
+  global rows as they are. The kernels take a card's shards as a table
+  and find each slot's shard themselves (ops/staging.py), so a card
+  holding every shard (one device, or a mesh on one card) needs no
+  routing at all; over several cards one counting pass orders the slots
+  by card. Per card: one staged host-to-device copy, one launch and one
+  device-to-host copy, no pad slot; each result comes back at its
+  slot's index.
 * **Replica join**: ``join_replica_axis`` folds S stacked full states
   over the mesh's rep axis with the hand-written ``replica_join`` kernel
   (csrc/replica_join.cu): an unsigned 64-bit max per column, which on
@@ -44,6 +54,7 @@ import numpy as np
 import torch
 
 from ..ops import _build, gcount, planes, pncount, tlog, treg
+from ..ops.staging import ShardTable, Stage, max_slots, split
 from ..utils.batching import bucket, pad_rows
 
 SIGN = planes.SIGN
@@ -98,12 +109,41 @@ class Keyspace:
     is). Owns the layout every repo shares: capacity rounded to the shard
     count, contiguous blocks of ``rows_per_shard`` rows, growth by
     gather-grow-resplit (the rows per shard change with the capacity, so
-    a block cannot grow in place), and global row -> (part, local row)."""
+    a block cannot grow in place), and global row -> (part, local row).
+
+    For the unrouted drains it also groups the shards by card: each run
+    of consecutive shards on one device is a card, with one ``Stage``
+    (its staging buffers, kept for the keyspace's life) and one
+    ``ShardTable`` (rebuilt whenever ``parts`` is replaced)."""
 
     def __init__(self, mesh, device):
         self.mesh = mesh
         self.devices = [torch.device(device)] if mesh is None else mesh.keys_devices
-        self.parts: list | None = None
+        self.cards: list[tuple[int, int]] = []  # (first shard, shards)
+        for i, d in enumerate(self.devices):
+            if self.cards and self.devices[self.cards[-1][0]] == d:
+                self.cards[-1] = (self.cards[-1][0], self.cards[-1][1] + 1)
+            else:
+                self.cards.append((i, 1))
+        self.card_of = np.repeat(np.arange(len(self.cards)), [n for _, n in self.cards])
+        self.stages = [Stage(self.devices[f]) for f, _ in self.cards]
+        self.parts = None
+
+    @property
+    def parts(self) -> list | None:
+        return self._parts
+
+    @parts.setter
+    def parts(self, parts) -> None:
+        self._parts = parts
+        self._tables = None
+
+    def tables(self) -> list[ShardTable]:
+        """One ShardTable per card, over the current parts."""
+        if self._tables is None:
+            rps = self.rows_per_shard
+            self._tables = [ShardTable(self.parts[f:f + n], rps, f) for f, n in self.cards]
+        return self._tables
 
     @property
     def n_shards(self) -> int:
@@ -162,13 +202,9 @@ class Keyspace:
 
     def split_rows(self, rows: np.ndarray):
         """(part, positions in ``rows``, local rows) for every part that
-        holds some of the global ``rows``."""
-        rps = self.rows_per_shard
-        part_of = rows // rps
-        for i, part in enumerate(self.parts):
-            sel = np.flatnonzero(part_of == i)
-            if len(sel):
-                yield part, sel, rows[sel] % rps
+        holds some of the global ``rows`` (``ops.staging.split``)."""
+        for i, sel, local in split(rows, self.rows_per_shard, 0, self.n_shards):
+            yield self.parts[i], sel, local
 
     def route(self, rows, payload):
         """`route_drain` of a batch over this keyspace's shards."""
@@ -328,6 +364,108 @@ def drain_sharded_tlog(mesh, shards, local_rows, payload, ld: int):
          bits[:, 2 * ld + 1]),
         tlog.drain_sparse,
     )
+
+
+# ---- unrouted drains: one staged call per card -----------------------------------
+
+
+def _bits(x: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(x.view(np.int64) if x.dtype == np.uint64 else x)
+
+
+def fill_from(*arrays):
+    """A ``fill`` for the unrouted drains that copies host arrays, one per
+    batch field in slot order, into the staged views (a field of 1 MiB
+    or more through torch's copy, which spreads it over the CPU
+    threads)."""
+    def fill(views, sel):
+        for view, a in zip(views, arrays):
+            src = a[sel]
+            if src.nbytes >= 1 << 20 and src.dtype == view.dtype:
+                _bits(view).copy_(_bits(src))
+            else:
+                view[...] = src
+    return fill
+
+
+def _by_card(ks: Keyspace, rows: np.ndarray):
+    """The slots of each card, as positions in ``rows``: all of them when
+    one card holds every shard (no routing at all), else one counting
+    pass, a stable order by card and nothing padded."""
+    if len(ks.cards) == 1:
+        return [slice(None)]
+    card = ks.card_of[rows // ks.rows_per_shard]
+    order = np.argsort(card, kind="stable")
+    return np.split(order, np.cumsum(np.bincount(card, minlength=len(ks.cards)))[:-1])
+
+
+def _drain_unrouted(ks: Keyspace, rows, fill, ins, outs, step):
+    """Stage, launch and read back a drain of the UNIQUE global ``rows``
+    on every card that holds some of them, each card's copies and launch
+    queued before the host waits on any (in rounds of at most
+    ``max_slots`` slots a card when the batch overflows the staging).
+    ``fill(views, sel)`` writes the batch fields ``ins`` ((dtype, row
+    shape) each) of the slots ``sel`` (positions in ``rows``: an index
+    array or a slice) into the staged numpy views, in that order;
+    ``step(table, rows, *fields, out)`` launches the kernel (or runs the
+    plain version on a CPU card) and writes ``outs`` into ``out``. Returns
+    one host array per output, in slot order."""
+    rows = np.asarray(rows, np.int64)
+    n = len(rows)
+    if n and (rows.min() < 0 or rows.max() >= ks.key_cap):
+        raise ValueError(f"rows must lie in [0, {ks.key_cap})")
+    fields = ((np.int32, ()), *ins)
+    width = max_slots(fields)
+    cards = list(zip(ks.tables(), ks.stages, _by_card(ks, rows)))
+    results = [np.empty(n, dt) for dt, _ in outs]
+    # one round unless a card's slots overflow its staging: each round
+    # waits before the next writes the same buffers
+    for lo in range(0, n, width):
+        queued = []
+        for table, stage, sel in cards:
+            sel = slice(lo, min(lo + width, n)) if isinstance(sel, slice) else sel[lo:lo + width]
+            m = sel.stop - sel.start if isinstance(sel, slice) else len(sel)
+            if m <= 0:
+                continue
+            views = stage.host_in(m, fields)
+            views[0][...] = rows[sel]
+            fill(views[1:], sel)
+            ki, *batch = stage.upload()
+            step(table, ki, *batch, stage.device_out(m, outs))
+            stage.download()
+            queued.append((stage, sel))
+        for stage, sel in queued:
+            for res, got in zip(results, stage.wait()):
+                res[sel] = got
+    return results
+
+
+def drain_unrouted_g(ks: Keyspace, rows, fill, step=gcount.drain_sparse) -> np.ndarray:
+    """GCOUNT drain of the unique global ``rows`` over ``ks``: ``fill``
+    writes each card's (m, R) u64 delta rows (see ``_drain_unrouted``).
+    Returns the joined rows' sums in slot order (int64 bits of the u64)."""
+    r = ks.parts[0].counts.shape[1]
+    return _drain_unrouted(ks, rows, fill, [(np.uint64, (r,))], [(np.int64, ())],
+                           lambda t, ki, d, out: step(t, ki, d, out[0]))[0]
+
+
+def drain_unrouted_pn(ks: Keyspace, rows, fill, step=pncount.drain_sparse) -> np.ndarray:
+    """PNCOUNT drain of the unique global ``rows`` over ``ks``: ``fill``
+    writes each card's P and N (m, R) u64 delta rows. Returns the joined
+    rows' net values sum(P) - sum(N) in slot order (int64)."""
+    r = ks.parts[0].p.shape[1]
+    return _drain_unrouted(ks, rows, fill, [(np.uint64, (r,))] * 2, [(np.int64, ())],
+                           lambda t, ki, dp, dn, out: step(t, ki, dp, dn, out[0]))[0]
+
+
+def drain_unrouted_treg(ks: Keyspace, rows, fill, step=treg.drain_sparse):
+    """TREG drain of the unique global ``rows`` over ``ks``: ``fill``
+    writes each card's ts, rank (u64) and vid (int32) fields. Returns
+    (tie bool, ts int64 bits, vid int32) per slot after the join."""
+    return tuple(_drain_unrouted(
+        ks, rows, fill, [(np.uint64, ()), (np.uint64, ()), (np.int32, ())],
+        [(np.bool_, ()), (np.int64, ()), (np.int32, ())],
+        lambda t, ki, ts, rank, vid, out: step(t, ki, ts, rank, vid, tuple(out))))
 
 
 # ---- the replica-axis join ------------------------------------------------------

@@ -23,7 +23,14 @@ memory; for the mesh, replica_join at even and odd S with columns at 0,
 2^64-1 and >= 2^63 (and what its wrapper refuses), join_replica_axis,
 the routed GCOUNT / PNCOUNT / TREG / TLOG drains on [cuda] * 4 against
 the same drains on [cpu] * 4 (one launch per shard), the row-aligned
-UJSON fold, and the dryrun on one card. Integer lattices,
+UJSON fold, and the dryrun on one card; for the staged sparse drains,
+the counter and TREG kernels over a shard table of 1 and of 4 shards on
+one card given live rows only (results at the slots; a table of the
+last shards writes only theirs), the unrouted drains on [cuda] * 4
+against [cpu] * 4 (one staged copy each way and one launch) and, on a
+host with several cards, over every card (one or two shards a card;
+the test skips on one card), and the
+misaligned or wrong-typed buffers the wrappers refuse. Integer lattices,
 so every comparison is exact. On a machine with a GPU (where JAX need
 not be installed, hence --noconftest):
 
@@ -980,6 +987,195 @@ def test_sharded_drains_on_a_cuda_mesh_match_the_cpu_mesh(dev):
                    for a, b in zip(gs, cs))
 
 
+# ---- the staged, unrouted sparse drains ---------------------------------------
+
+
+def _split_parts(st, n):
+    """A state cut into n contiguous shards, each its own allocation."""
+    rps = st[0].shape[0] // n
+    return [type(st)(*(p[i * rps:(i + 1) * rps].clone() for p in st)) for i in range(n)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mod", [gcount, pncount], ids=["G", "PN"])
+@pytest.mark.parametrize("n", [1, 4])
+def test_counter_drain_over_a_shard_table_matches_plain(dev, mod, n):
+    """counter_drain_sparse over a table of n shards on one card, given
+    live global rows only (B = the live rows, no pads): bit for bit
+    against the plain version of the same table, results at the slots;
+    then a table of the last shards alone writes only their slots."""
+    from jylis_tpu_torch.ops.staging import ShardTable
+
+    rng = np.random.default_rng(50 + n)
+    k, r, b = 4096, 16, 1000
+    st = _state(mod, rng, k, r, dev)
+    rps = k // n
+    parts, plain = _split_parts(st, n), _split_parts(st, n)
+    ki = torch.from_numpy(rng.choice(k, b, replace=False).astype(np.int32)).to(dev)
+    deltas = [planes.to_tensor(_u64(rng, (b, r)), dev) for _ in st]
+    out = torch.full((b,), 77, dtype=torch.int64, device=dev)
+    before = mod.drain_sparse.launches
+    mod.drain_sparse(ShardTable(parts, rps), ki, *deltas, out)
+    want = mod.drain_sparse_plain(ShardTable(plain, rps), ki, *deltas)
+    torch.cuda.synchronize()
+    assert mod.drain_sparse.launches == before + 1
+    assert torch.equal(out, want) and all(_equal(a, c) for a, c in zip(parts, plain))
+    first = n // 2
+    out = torch.full((b,), 77, dtype=torch.int64, device=dev)
+    mod.drain_sparse(ShardTable(parts[first:], rps, first), ki, *deltas, out)
+    want = mod.drain_sparse_plain(ShardTable(plain[first:], rps, first), ki, *deltas,
+                                  torch.full((b,), 77, dtype=torch.int64, device=dev))
+    torch.cuda.synchronize()
+    mine = (ki.long() // rps) >= first
+    assert torch.equal(out, want) and (out[~mine] == 77).all()
+    assert all(_equal(a, c) for a, c in zip(parts, plain))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 4])
+def test_treg_drain_over_a_shard_table_matches_plain(dev, n):
+    from jylis_tpu_torch.ops.staging import ShardTable
+
+    rng = np.random.default_rng(60 + n)
+    k, b = 4096, 1500
+    st = treg.TRegState(*_treg(rng, k, dev))
+    rps = k // n
+    parts, plain = _split_parts(st, n), _split_parts(st, n)
+    rows = rng.choice(k, b, replace=False)
+    d = _treg(rng, b, dev, like=(st, rows))
+    ki = torch.from_numpy(rows.astype(np.int32)).to(dev)
+    out = (torch.zeros(b, dtype=torch.bool, device=dev),
+           torch.full((b,), 77, dtype=torch.int64, device=dev),
+           torch.full((b,), 77, dtype=torch.int32, device=dev))
+    before = treg.drain_sparse.launches
+    treg.drain_sparse(ShardTable(parts, rps), ki, *d, out)
+    want = treg.drain_sparse_plain(ShardTable(plain, rps), ki, *d)
+    torch.cuda.synchronize()
+    assert treg.drain_sparse.launches == before + 1
+    assert _equal(out, want) and all(_equal(a, c) for a, c in zip(parts, plain))
+    assert out[0].any() and not (out[1] == 77).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["g", "pn", "treg"])
+def test_unrouted_drains_on_one_card_match_the_cpu(dev, name):
+    """drain_unrouted_* over a 4-shard keyspace on [cuda] * 4 against the
+    same on [cpu] * 4: one staged copy each way and one launch a drain,
+    per-slot outputs and the gathered state equal."""
+    from jylis_tpu_torch import parallel as tpar
+    from jylis_tpu_torch.ops.staging import Stage
+
+    rng = np.random.default_rng(70)
+    n, k, r, b = 4, 1024, 8, 300
+    cm, gm = _cpu_and_cuda_meshes(n)
+    rows = rng.choice(k, b, replace=False)
+    if name == "treg":
+        mod, fn, st = treg, tpar.drain_unrouted_treg, treg.init(k, "cpu")
+        fields = (rng.integers(0, 3, b).astype(np.uint64), rng.integers(0, 3, b).astype(np.uint64),
+                  rng.integers(0, 9, b).astype(np.int32))
+    elif name == "g":
+        mod, fn = gcount, tpar.drain_unrouted_g
+        st, fields = gcount.from_counts(_u64(rng, (k, r)), "cpu"), (_u64(rng, (b, r)),)
+    else:
+        mod, fn = pncount, tpar.drain_unrouted_pn
+        st = pncount.from_counts(_u64(rng, (k, r)), _u64(rng, (k, r)), "cpu")
+        fields = (_u64(rng, (b, r)), _u64(rng, (b, r)))
+    ksc, ksg = tpar.Keyspace(cm, "cpu"), tpar.Keyspace(gm, "cuda")
+    ksc.place(st)
+    ksg.place(st)
+    counts = (mod.drain_sparse.launches, Stage.uploads, Stage.downloads)
+    got = fn(ksg, rows, tpar.fill_from(*fields))
+    assert (mod.drain_sparse.launches, Stage.uploads, Stage.downloads) == (
+        counts[0] + 1, counts[1] + 1, counts[2] + 1)
+    want = fn(ksc, rows, tpar.fill_from(*fields))
+    for g, w in zip(got if name == "treg" else (got,), want if name == "treg" else (want,)):
+        np.testing.assert_array_equal(g, w)
+    assert all(torch.equal(a.cpu(), c) for a, c in zip(ksg.whole(), ksc.whole()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_card", [1, 2])
+def test_unrouted_drains_over_several_cards_match_the_cpu(dev, per_card):
+    """On a host with two or more cards, a keyspace of ``per_card``
+    shards on each card against the same drains on the CPU: the host
+    orders the slots by card in one counting pass, and each card with
+    slots gets one staged copy each way and one launch."""
+    from jylis_tpu_torch import parallel as tpar
+    from jylis_tpu_torch.ops.staging import Stage
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip("needs two or more GPUs: the slots split over cards")
+    devs = [f"cuda:{i // per_card}" for i in range(cards * per_card)]
+    n, k, r = len(devs), 256 * len(devs), 8
+    rng = np.random.default_rng(80 + per_card)
+    rows = rng.choice(k, 500, replace=False)
+    rows = rows[rows // (k // n) != 1]  # shard 1 gets no slot
+    live = len({int(x) // (k // n) // per_card for x in rows})
+    cases = [
+        (gcount, tpar.drain_unrouted_g, gcount.from_counts(_u64(rng, (k, r)), "cpu"),
+         (_u64(rng, (len(rows), r)),)),
+        (pncount, tpar.drain_unrouted_pn,
+         pncount.from_counts(_u64(rng, (k, r)), _u64(rng, (k, r)), "cpu"),
+         (_u64(rng, (len(rows), r)), _u64(rng, (len(rows), r)))),
+        (treg, tpar.drain_unrouted_treg, treg.init(k, "cpu"),
+         (rng.integers(0, 3, len(rows)).astype(np.uint64),
+          rng.integers(0, 3, len(rows)).astype(np.uint64),
+          rng.integers(0, 9, len(rows)).astype(np.int32))),
+    ]
+    for mod, fn, st, fields in cases:
+        ksg = tpar.Keyspace(tpar.make_mesh(n, devices=devs), "cuda")
+        ksc = tpar.Keyspace(tpar.make_mesh(n, devices=["cpu"] * n), "cpu")
+        ksg.place(st)
+        ksc.place(st)
+        assert len(ksg.cards) == cards
+        counts = (mod.drain_sparse.launches, Stage.uploads, Stage.downloads)
+        got = fn(ksg, rows, tpar.fill_from(*fields))
+        assert (mod.drain_sparse.launches, Stage.uploads, Stage.downloads) == (
+            counts[0] + live, counts[1] + live, counts[2] + live)
+        want = fn(ksc, rows, tpar.fill_from(*fields))
+        for g, w in zip(got if mod is treg else (got,), want if mod is treg else (want,)):
+            np.testing.assert_array_equal(g, w)
+        assert all(torch.equal(a.cpu(), c) for a, c in zip(ksg.whole(), ksc.whole()))
+
+
+@pytest.mark.cuda
+def test_sparse_wrappers_reject_misaligned_or_wrong_typed_buffers(dev):
+    """A misaligned delta region, a wrong type of row, delta or output
+    buffer, or a misaligned shard plane raises; nothing launches and
+    nothing falls back to the plain version."""
+    from jylis_tpu_torch.ops.staging import ShardTable
+
+    st = gcount.init(64, 8, dev)
+    ki = torch.arange(4, dtype=torch.int32, device=dev)
+    d = torch.zeros((4, 8), dtype=torch.int64, device=dev)
+    out = torch.zeros(4, dtype=torch.int64, device=dev)
+    shifted = torch.zeros(4 * 8 + 1, dtype=torch.int64, device=dev)[1:].view(4, 8)
+    rs = treg.init(64, dev)
+    td = treg.init(4, dev)
+    tout = (torch.zeros(4, dtype=torch.bool, device=dev),
+            torch.zeros(4, dtype=torch.int64, device=dev),
+            torch.zeros(4, dtype=torch.int32, device=dev))
+    before = (gcount.drain_sparse.launches, treg.drain_sparse.launches)
+    for bad in (
+        lambda: gcount.drain_sparse(st, ki, shifted, out),  # 8 bytes off
+        lambda: gcount.drain_sparse(st, ki.long(), d, out),
+        lambda: gcount.drain_sparse(st, ki, d.int(), out),
+        lambda: gcount.drain_sparse(st, ki, d, out.int()),
+        lambda: gcount.drain_sparse(st, ki, d.cpu(), out),
+        lambda: gcount.drain_sparse(ShardTable([gcount.GCountState(
+            torch.zeros(64 * 8 + 1, dtype=torch.int64, device=dev)[1:].view(64, 8))], 64),
+            ki, d, out),
+        lambda: treg.drain_sparse(rs, ki.long(), *td, tout),
+        lambda: treg.drain_sparse(rs, ki, td.ts, td.rank, td.vid.long(), tout),
+        lambda: treg.drain_sparse(rs, ki, *td, (tout[0].byte(), *tout[1:])),
+        lambda: treg.drain_sparse(rs, ki, *td, (tout[0], tout[1].int(), tout[2])),
+    ):
+        with pytest.raises(ValueError):
+            bad()
+    assert (gcount.drain_sparse.launches, treg.drain_sparse.launches) == before
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("layout", ["narrow", "wide"])
 @pytest.mark.parametrize("d", [7, 64, 70])
@@ -1009,4 +1205,7 @@ def test_dryrun_multichip_on_one_card(dev):
     dryrun_multichip(["cuda"] * 4)
     after = (gcount.drain_sparse.launches, pncount.drain_sparse.launches,
              tlog.drain_sparse.launches)
-    assert all(a >= b + 4 for a, b in zip(after, before))
+    # the routed converge and TLOG drain launch once per shard; the
+    # PNCOUNT repos' staged drains once per card: one GET each drains
+    assert after[0] - before[0] >= 4 and after[1] - before[1] == 2
+    assert after[2] - before[2] >= 4

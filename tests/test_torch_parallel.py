@@ -801,7 +801,8 @@ def test_dryrun_multichip_on_a_cpu_mesh():
 
 def test_parallel_imports_and_drains_without_jax():
     """The port's mesh package needs no JAX: a process in which importing
-    jax fails builds a CPU mesh and runs a routed drain and the dryrun."""
+    jax fails builds a CPU mesh and runs a routed drain, an unrouted
+    (staged) drain and the dryrun."""
     code = (
         "import sys; sys.modules['jax'] = None\n"
         "import numpy as np\n"
@@ -813,6 +814,9 @@ def test_parallel_imports_and_drains_without_jax():
         "lr, d, s = p.route_drain(np.array([1, 40]), np.ones((2, 8), np.uint64), 4, 16)\n"
         "sums = p.drain_sharded_g(m, sh, lr, d)\n"
         "assert sorted(sums[s >= 0].tolist()) == [8, 8], sums\n"
+        "ks = p.Keyspace(m, 'cpu'); ks.init(64, lambda n, dv: gcount.init(n, 8, dv))\n"
+        "u = p.drain_unrouted_g(ks, np.array([40, 1]), p.fill_from(np.ones((2, 8), np.uint64)))\n"
+        "assert u.tolist() == [8, 8] and 'jylis_tpu_torch.ops.staging' in sys.modules, u\n"
         "dryrun_multichip(['cpu'] * 4)\n"
         "assert not any(k == 'jylis_tpu' or k.startswith('jylis_tpu.') for k in sys.modules)\n"
         "print('ok')\n"

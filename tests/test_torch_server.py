@@ -335,8 +335,11 @@ JAX_FREE_NODE = textwrap.dedent("""
     from jylis_tpu_torch.utils.config import Config
 
 
+    db = Database(1, device="cpu")
+
+
     async def main(request, n):
-        server = Server(Config(port="0"), Database(1, device="cpu"))
+        server = Server(Config(port="0"), db)
         await server.start()
         reader, writer = await asyncio.open_connection("127.0.0.1", server.port)
         writer.write(request)
@@ -349,6 +352,9 @@ JAX_FREE_NODE = textwrap.dedent("""
 
     request = sys.stdin.buffer.read()
     reply = asyncio.run(main(request, int(sys.argv[1])))
+    treg = db.manager("TREG").repo
+    treg.drain()  # the staged, unrouted sparse drain
+    assert treg._cache and "jylis_tpu_torch.ops.staging" in sys.modules
     loaded = [m for m in sys.modules if m == "jylis_tpu" or m.startswith("jylis_tpu.")]
     assert not loaded, loaded
     assert sys.modules["jax"] is None
@@ -358,8 +364,9 @@ JAX_FREE_NODE = textwrap.dedent("""
 
 def test_serves_treg_and_tensor_without_jax():
     """The port serves TREG, TENSOR, TLOG, UJSON, MAP, BCOUNT and SYSTEM
-    DIGEST in a process where ``import jax`` raises, and loads nothing of
-    ``jylis_tpu``; its replies equal the JAX database's."""
+    DIGEST in a process where ``import jax`` raises, drains TREG through
+    the staged path (ops/staging.py), and loads nothing of ``jylis_tpu``;
+    its replies equal the JAX database's."""
     request = (
         arr("TREG", "SET", "r", "v1", 3) + arr("TREG", "SET", "r", "v0", 3)
         + arr("TREG", "GET", "r") + arr("TENSOR", "SET", "t", "MAX", 0, vec(1, 2))
