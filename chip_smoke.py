@@ -148,7 +148,38 @@ build/jylis_tpu_torch/), then:
    ujson_join (it folds the pending round before it hashes); a second
    digest after writes to 100 GCOUNT keys must hash those keys and no
    other. The CPU node's digest is the one the CPU tests hold to the JAX
-   package's bytes. Its host seconds go on the "digest" line.
+   package's bytes. Its host seconds go on the "digest" line;
+15. the cluster phase: two port nodes, each wired by the entry point's
+   own code (main.build_node, main.serve, and its Dispose at the end) in
+   a process of its own (cluster_peer), RESP Server and Cluster on
+   loopback ephemeral ports, heartbeat 1 s; node C holds its state on
+   the card and node H on the CPU (the plain versions: the reference).
+   H is loaded with BASELINE config 2 (100,000 GCOUNT and 100,000
+   PNCOUNT keys from 8 replica ids) through converge_async; C starts
+   empty, seeded with H's address, and the digest-checked bootstrap
+   sync (digest trees, budgeted range pulls, converge) brings the state
+   over the wire, through C's counter drains. Then the digest phase's
+   all-type script runs in two stages. C's stage: both nodes converge
+   the foreign batches that reach both (counters, MAP, BCOUNT, the flat
+   UJSON round) and the even RESP bursts go to C. H's stage, in which C
+   takes no input but the wire: H converges the foreign batches that
+   reach it alone (every TREG and TLOG batch, the UJSON tree round, the
+   flat keys' second round and a deeper TLOG round on every fourth
+   key), which no broadcast carries and C gets
+   only through the periodic digest exchange's range sync, takes the
+   odd bursts and SETs 4,096 TENSOR keys. Both must end with equal
+   SYSTEM DIGEST and SYSTEM DIGEST TYPES (every type non-zero) and
+   equal GET replies for sampled keys of every type. C's launch counts
+   are set to 0 after its warmup and read after the bootstrap and after
+   each stage (each read drains C first): on the deltas that reached C
+   over the wire (the bootstrap and H's stage) C must have launched a
+   dense and a sparse counter drain, treg_drain_sparse,
+   tlog_drain_sparse, a UJSON kernel and tensor_converge_batch. The
+   "cluster" line holds the host seconds (boot to mesh, bootstrap to
+   equal digests, each stage, last write to equal digests), the types
+   that differed over time, the frames each node received by message
+   kind, the keys they carried, the sync counters each way, and C's
+   launches by stage.
 Before 1., the card's launch floor: a one-element fill's device time.
 Each node phase (and the dryrun) sets its kernels' launch counts to 0
 just before it, reads them just after, and fails unless each kernel of
@@ -159,7 +190,9 @@ phase's compare and timing launches). The line before the last two is
 {"kernels": [...]} (per kernel: "launches" on the single-device node
 phases, replica_join's on the dryrun; "mesh_launches" on the mesh
 node, "dryrun_launches" on the dryrun and "digest_launches" on the
-digest phase's two nodes on the card, each apart; for the row
+digest phase's two nodes on the card, "cluster_launches" on the
+cluster phase's card node and "cluster_wire_launches", those of its
+launches the wire fed, each apart; for the row
 kernels tlog_drain, ujson_join and ujson_fold_flat, "class" at each
 shape and "launch_classes", the main path's launches by class (a warp
 or a CTA per row, device scratch, or a cluster of CTAs: ops/row_plan.py);
@@ -3936,6 +3969,480 @@ def digest_phase(torch, devs) -> dict:
     return out
 
 
+# ---- the cluster phase ---------------------------------------------------------
+
+# the two nodes' heartbeat (--heartbeat-time): a peer is evicted after 10
+# ticks without a frame read from it, and a read loop waits while a
+# frame's repo lock is held; at config 2's size a digest fold or a
+# whole-repo range dump holds a lock for seconds, so 0.1 s ticks (a 1 s
+# window) evicted peers until the bootstrap could not finish
+CLUSTER_TICK = 1.0
+# digest-tree buckets pulled per range round (--range-budget): all 256,
+# so a bootstrap walks each type's keyspace once a direction, not four
+# times (every round's range dump walks the responder's whole repo)
+CLUSTER_RANGE_BUDGET = 256
+CLUSTER_POLL_S = 0.5  # SYSTEM DIGEST polls: each folds dirty keys under the repo locks
+CLUSTER_DEADLINE_S = 240.0  # each wait polls to this deadline
+CLUSTER_TENSOR_KEYS = 4096  # TENSOR SETs at H: past C's 1,024-row drain threshold
+CLUSTER_SAMPLE = 300  # keys per type whose GET replies must be equal
+
+
+class ClusterNode:
+    """A node wired by the entry point's own code (main.build_node:
+    System, warmup, Database, Server, Cluster; main.serve starts the
+    RESP Server, then the Cluster) in one event loop in a thread, on
+    loopback ephemeral ports, and stopped through its Dispose (the final
+    flush to peers, then the listeners). ``built`` runs after the build
+    (its warmup included) and before anything listens. A cluster port
+    taken between its pick and its bind is picked again. Received
+    cluster messages are counted by kind, and the keys they carry."""
+
+    def __init__(self, name: str, device, seeds=(), built=None):
+        import errno
+
+        from jylis_tpu_torch.main import build_node, serve
+        from jylis_tpu_torch.utils.address import Address
+        from jylis_tpu_torch.utils.config import Config
+        from jylis_tpu_torch.utils.net import free_port
+
+        self.loop = asyncio.new_event_loop()
+        self.thread = threading.Thread(target=self.loop.run_forever, daemon=True)
+        self.thread.start()
+        for attempt in range(8):
+            cfg = Config(port="0", addr=Address("127.0.0.1", str(free_port()), name),
+                         seed_addrs=[Address(*s) for s in seeds], heartbeat_time=CLUSTER_TICK,
+                         range_budget=CLUSTER_RANGE_BUDGET, device=str(device))
+            node = build_node(cfg)
+            if built is not None:
+                built()
+            try:
+                self.dispose = self.run(serve(node))
+                break
+            except OSError as e:
+                self.run(self._abort(node))
+                if e.errno != errno.EADDRINUSE or attempt == 7:
+                    raise
+        self.db, self.server, self.cluster = node.database, node.server, node.cluster
+        self.addr = (cfg.addr.host, cfg.addr.port, cfg.addr.name)
+        self.frames: dict[str, int] = {}
+        self.keys_in = 0
+        for attr in ("_active_msg", "_passive_msg"):
+            orig = getattr(self.cluster, attr)
+
+            async def counted_msg(conn, msg, *a, orig=orig, **kw):
+                kind = type(msg).__name__
+                self.frames[kind] = self.frames.get(kind, 0) + 1
+                self.keys_in += len(getattr(msg, "batch", ()))
+                return await orig(conn, msg, *a, **kw)
+
+            setattr(self.cluster, attr, counted_msg)
+        self.client = Client(self.server.port)
+
+    def run(self, coro, timeout: float = 600):
+        return asyncio.run_coroutine_threadsafe(coro, self.loop).result(timeout)
+
+    def converge(self, name: str, batch) -> None:
+        self.run(self.db.converge_async(name, batch))
+
+    @staticmethod
+    async def _abort(node) -> None:
+        node.cluster.dispose()
+        await node.server.dispose()
+
+    async def _dispose(self) -> None:
+        self.dispose.dispose()
+        await self.dispose.done.wait()
+
+    async def _drain(self) -> None:
+        """Drain every repo's pending deltas, each under its lock in a
+        worker thread on the node's device."""
+        def drain(repo):
+            with self.db._device_scope():
+                repo.drain()
+
+        for mgr in list(self.db.managers()):
+            async with mgr._lock:
+                await asyncio.to_thread(drain, mgr.repo)
+
+    async def _established(self) -> int:
+        return sum(1 for c in list(self.cluster._actives.values()) if c.established)
+
+    def established(self) -> int:
+        return self.run(self._established())
+
+    async def _totals(self) -> dict:
+        return self.cluster.metrics_totals()
+
+    def stats(self) -> dict:
+        totals = self.run(self._totals())
+        return {"frames_recv": dict(sorted(self.frames.items())), "keys_recv": self.keys_in,
+                **{k: totals[k] for k in ("sync_bytes_sent", "sync_bytes_recv",
+                                          "sync_trees_sent", "ranges_requested",
+                                          "ranges_served", "sync_served", "sync_deferred",
+                                          "sync_full_dumps", "held_drops", "evictions",
+                                          "dials")}}
+
+    def close(self) -> None:
+        self.client.close()
+        self.run(self._dispose())
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self.thread.join(timeout=30)
+        self.loop.close()
+
+
+def cluster_config2(rng, keys, rids):
+    """BASELINE config 2 as anti-entropy batches: every key of each
+    counter type from every replica id, values >= 2^63 among them."""
+    out = []
+    for name, pols in (("GCOUNT", 1), ("PNCOUNT", 2)):
+        vals = rng.integers(0, 1 << 64, (pols, len(keys), len(rids)), dtype=np.uint64)
+        batch = []
+        for j, key in enumerate(keys):
+            ds = [{rid: int(v) for rid, v in zip(rids, vals[p, j]) if v} for p in range(pols)]
+            batch.append((key, ds[0] if pols == 1 else tuple(ds)))
+        out += [(name, batch[i:i + 10_000]) for i in range(0, len(keys), 10_000)]
+    return out
+
+
+def cluster_script():
+    """The digest phase's all-type script, made from fixed seeds, and a
+    second round of the flat UJSON keys' deltas from the same writers
+    (as the digest phase's pending round): each node (each process)
+    makes its own copy, so no delta object is shared."""
+    ws = []
+    steps = (mesh_node_script(np.random.default_rng(SEED + 92), writers=ws)
+             + more_types_script(np.random.default_rng(SEED + 93)))
+    second = [(b"u%04d" % k, d) for k in range(MESH_UJ_FLAT) for d in uj_flat_deltas(ws[k], k, 1)]
+    return steps, second
+
+
+def cluster_deep_tlog():
+    """A fourth TLOG round for every fourth key of the script's, 2 x
+    MESH_TLOG_D entries each: those logs outgrow 64 entries, so the rows
+    a range sync brings drain sparse (repo_tlog's dense path takes rows
+    of 64 entries at most)."""
+    rng = np.random.default_rng(SEED + 96)
+    return [(b"t%05d" % i, ([(b"d%d" % rng.integers(0, 300), int(rng.integers(0, 1 << 40)))
+                             for _ in range(2 * MESH_TLOG_D)], 0))
+            for i in range(0, MESH_TLOG_KEYS, 4)]
+
+
+def cluster_h_only(name: str, batch) -> bool:
+    """Whether a foreign batch of the cluster script reaches H alone (C
+    then gets it only through the range sync): every TREG and TLOG
+    batch and the UJSON tree round. The counter, MAP and BCOUNT batches
+    and the UJSON flat round reach both nodes, as a full mesh delivers
+    them."""
+    return name in ("TREG", "TLOG") or (name == "UJSON" and batch[0][0].startswith(b"doc"))
+
+
+# the sizes a node's process takes from the parent's module, so both
+# nodes make the same data at whatever sizes the parent runs
+PEER_SIZES = ("NODE_KEYS", "NODE_REPLICAS", "MESH_KEYS", "MESH_MORE", "MESH_TLOG_KEYS",
+              "MESH_TLOG_ROUNDS", "MESH_TLOG_D", "MESH_UJ_FLAT", "MESH_UJ_TREE",
+              "DIGEST_MAP_PAIRS", "DIGEST_BCOUNT_KEYS", "CLUSTER_TICK", "CLUSTER_RANGE_BUDGET")
+
+
+def cluster_peer(spec: dict) -> None:
+    """One node of the cluster phase in a process of its own, as a
+    deployment runs it (its own interpreter lock and collector: the
+    parent's earlier phases hold millions of objects whose full
+    collections would stall this node's heartbeat). A ClusterNode named
+    spec["name"] on spec["device"], seeded with spec["seeds"], its
+    launch counts set to 0 after its build and warmup, before it
+    listens. It answers one JSON line on stdout per line on stdin:
+    "config2" (converge BASELINE config 2, then write to 100 keys over
+    RESP), "both" (converge its copy of the script's foreign batches that
+    reach both nodes), "h-only" (those that reach H alone, the flat UJSON
+    keys' second round and the deep TLOG round), "mark" (drain every
+    repo, then report the launches since the start or the last mark and
+    set the counts to 0), "stats" (received frames, sync counters),
+    "established", "exit".
+    Its first line is its address and ports."""
+    from jylis_tpu_torch.ops import tensor
+
+    globals().update({k: spec[k] for k in PEER_SIZES})
+    counters = dict(launch_counters(), tensor_converge_batch=tensor.converge_batch)
+    del counters["replica_join"]
+
+    def zero():
+        for c in counters.values():
+            c.launches = 0
+
+    node = ClusterNode(spec["name"], spec["device"], seeds=spec["seeds"], built=zero)
+
+    def say(obj) -> None:
+        print(json.dumps(obj), flush=True)
+
+    say({"addr": node.addr, "resp_port": node.server.port})
+    try:
+        for line in sys.stdin:
+            cmd, t0 = line.strip(), time.perf_counter()
+            if cmd == "config2":
+                rng = np.random.default_rng(SEED + 90)
+                keys = [b"k%06d" % i for i in range(NODE_KEYS)]
+                rids = [int(x) for x in rng.integers(1 << 40, 1 << 62, NODE_REPLICAS)]
+                for name, batch in cluster_config2(rng, keys, rids):
+                    node.converge(name, batch)
+                node.client.pipeline([("GCOUNT", "INC", k, 7) for k in keys[:100]]
+                                     + [("PNCOUNT", "DEC", k, 3) for k in keys[:100]])
+                say({"done": cmd, "s": time.perf_counter() - t0})
+            elif cmd in ("both", "h-only"):
+                steps, second = cluster_script()
+                n = 0
+                for step in steps:
+                    if step[0] == "conv" and cluster_h_only(step[1], step[2]) == (cmd == "h-only"):
+                        node.converge(step[1], step[2])
+                        n += len(step[2])
+                if cmd == "h-only":
+                    for name, batch in (("UJSON", second), ("TLOG", cluster_deep_tlog())):
+                        node.converge(name, batch)
+                        n += len(batch)
+                say({"done": cmd, "s": time.perf_counter() - t0, "deltas": n})
+            elif cmd == "mark":
+                node.run(node._drain())
+                say({"launches": {n: c.launches for n, c in counters.items() if c.launches}})
+                zero()
+            elif cmd == "stats":
+                say(node.stats())
+            elif cmd == "established":
+                say({"established": node.established()})
+            else:
+                break
+    finally:
+        node.close()
+
+
+class PeerProcess:
+    """One cluster-phase node as a child process running cluster_peer(),
+    and a RESP client to it."""
+
+    def __init__(self, name: str, device: str, seeds=()):
+        from pathlib import Path
+
+        here = str(Path(__file__).resolve().parent)
+        spec = dict({k: globals()[k] for k in PEER_SIZES}, name=name, device=device,
+                    seeds=[list(s) for s in seeds])
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c",
+             "import json, sys, chip_smoke; chip_smoke.cluster_peer(json.loads(sys.argv[1]))",
+             json.dumps(spec)],
+            cwd=here, stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True,
+        )
+        try:
+            hello = self._read()
+            self.addr = tuple(hello["addr"])
+            self.client = Client(hello["resp_port"])
+        except BaseException:
+            self.proc.kill()
+            self.proc.wait(timeout=30)
+            raise
+
+    def _read(self) -> dict:
+        line = self.proc.stdout.readline()
+        if not line:
+            raise AssertionError(f"cluster phase: a node's process exited ({self.proc.poll()})")
+        return json.loads(line)
+
+    def start(self, cmd: str) -> None:
+        """Send a command whose answer finish() reads."""
+        self.proc.stdin.write(cmd + "\n")
+        self.proc.stdin.flush()
+
+    def finish(self) -> dict:
+        return self._read()
+
+    def ask(self, cmd: str) -> dict:
+        self.start(cmd)
+        return self.finish()
+
+    def established(self) -> int:
+        return self.ask("established")["established"]
+
+    def close(self) -> None:
+        try:
+            self.client.close()
+            self.proc.stdin.write("exit\n")
+            self.proc.stdin.close()
+            self.proc.wait(timeout=60)
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait(timeout=30)
+
+
+def digests_of(node) -> tuple[bytes, bytes]:
+    d, t = node.client.pipeline([("SYSTEM", "DIGEST"), ("SYSTEM", "DIGEST", "TYPES")])
+    return d, t
+
+
+def wait_until(what: str, check) -> float:
+    """Poll ``check`` every CLUSTER_POLL_S to CLUSTER_DEADLINE_S; the
+    seconds it took."""
+    t0 = time.perf_counter()
+    while not check():
+        if time.perf_counter() - t0 > CLUSTER_DEADLINE_S:
+            raise AssertionError(f"cluster phase: timed out waiting for {what}")
+        time.sleep(CLUSTER_POLL_S)
+    return time.perf_counter() - t0
+
+
+def wait_converged(what: str, a, b) -> tuple[float, list]:
+    """Poll until SYSTEM DIGEST and SYSTEM DIGEST TYPES are equal on both
+    nodes: the seconds it took, and each time the set of types that
+    differ changed, its seconds and the types (the deadline's error
+    names them, and both nodes' sync counters)."""
+    seen, t0 = [], time.perf_counter()
+
+    def equal():
+        da, db = digests_of(a), digests_of(b)
+        la, lb = (set(d[1].split(b"\r\n")) for d in (da, db))
+        differ = sorted({ln.split(b" ")[0].decode() for ln in la ^ lb if b" " in ln})
+        if not seen or seen[-1][1] != differ:
+            seen.append((round(time.perf_counter() - t0, 2), differ))
+        return da == db
+
+    try:
+        return wait_until(what, equal), seen
+    except AssertionError:
+        raise AssertionError(f"cluster phase: {what}: types differing over time {seen}; "
+                             f"stats {a.ask('stats')} / {b.ask('stats')}")
+
+
+def cluster_reads(rng, keys):
+    """GETs of every type over keys the phase wrote."""
+    def pick(ks, n=CLUSTER_SAMPLE):
+        return [ks[int(i)] for i in rng.choice(len(ks), min(n, len(ks)), replace=False)]
+
+    mkeys = [b"m%06d" % i for i in range(MESH_KEYS)] + [b"x%04d" % i for i in range(250)]
+    cmds = [(t, "GET", k) for t in ("GCOUNT", "PNCOUNT") for k in pick(keys) + pick(mkeys)]
+    cmds += [("TREG", "GET", k) for k in pick(mkeys)]
+    cmds += [(op, k) for k in pick([b"t%05d" % i for i in range(MESH_TLOG_KEYS)], 100)
+             for op in (("TLOG", "GET"), ("TLOG", "CUTOFF"))]
+    cmds += [("UJSON", "GET", k) for k in [b"u%04d" % k for k in range(MESH_UJ_FLAT)]
+             + [b"doc%03d" % k for k in range(MESH_UJ_TREE)]]
+    cmds += [("TENSOR", "GET", k) for k in pick([b"ct%05d" % i for i in range(CLUSTER_TENSOR_KEYS)])
+             + [b"tk%03d" % i for i in range(100)]]
+    cmds += [("MAP", t, "KEYS", b"mk%05d" % k) for k in range(0, DIGEST_MAP_PAIRS // 4, 25)
+             for t in MAP_INNER]
+    cmds += [("BCOUNT", "GET", k) for k in pick([b"bk%05d" % k for k in range(DIGEST_BCOUNT_KEYS)])]
+    return cmds
+
+
+# the kernels a card node must launch on deltas that reached it over the
+# wire (any one of a group): the bootstrap's and the second stage's
+CLUSTER_PATH = (("counter_drain_dense<1>", "counter_drain_dense<2>"),
+                ("counter_drain_sparse<1>", "counter_drain_sparse<2>"),
+                ("treg_drain_sparse",), ("tlog_drain_sparse",),
+                ("ujson_fold_flat", "ujson_join"), ("tensor_converge_batch",))
+
+
+def cluster_phase(torch, c_device=None) -> dict:
+    """Two port nodes in one cluster on loopback, heartbeat 1 s, each
+    in a process of its own: C holds its state on the card, H on the
+    CPU (the plain versions: the reference).
+
+    1. H is loaded with BASELINE config 2 through converge_async; C
+       starts empty, seeded with H's address, and the digest-checked
+       bootstrap sync (digest trees, then range pulls) brings the state
+       over the wire.
+    2. C's stage of the digest phase's all-type script: both nodes
+       converge the foreign batches that reach both (counters, MAP,
+       BCOUNT, the flat UJSON round), and the script's even RESP bursts
+       go to C; its broadcasts carry them to H. C then drains.
+    3. H's stage, in which C takes no input but the wire: H converges
+       the foreign batches that reach it alone (TREG, TLOG, the UJSON
+       tree round, the flat keys' second round and a deep TLOG round),
+       which C can get only through the range sync, takes the odd RESP
+       bursts, and SETs
+       CLUSTER_TENSOR_KEYS TENSOR keys, which its broadcasts carry.
+
+    The two must end with equal SYSTEM DIGEST and SYSTEM DIGEST TYPES,
+    and equal GET replies for keys of every type. C's launch counts are
+    set to 0 after its warmup, read after the bootstrap and after each
+    stage: the bootstrap's and stage 3's are the launches the wire fed,
+    and every kernel group of CLUSTER_PATH must be among them."""
+    c_device = c_device or DEVICE
+    keys = [b"k%06d" % i for i in range(NODE_KEYS)]
+    out = {"tick_s": CLUSTER_TICK, "range_budget": CLUSTER_RANGE_BUDGET,
+           "c_device": str(c_device)}
+    h = PeerProcess("h", "cpu")
+    c = None
+    try:
+        out["load_h_s"] = h.ask("config2")["s"]
+        t_phase = time.perf_counter()
+        c = PeerProcess("c", str(c_device), seeds=[h.addr])
+        t0 = time.perf_counter()
+        out["c_process_start_s"] = t0 - t_phase
+        out["boot_to_mesh_s"] = wait_until(
+            "the mesh", lambda: c.established() == 1 and h.established() == 1)
+        s, out["bootstrap_differ"] = wait_converged("bootstrap sync", c, h)
+        out["bootstrap_s"] = s + out["boot_to_mesh_s"]
+        sample = cluster_reads(np.random.default_rng(SEED + 91), keys)[:2 * CLUSTER_SAMPLE]
+        check_replies("config 2 GETs: card node vs cpu node",
+                      c.client.pipeline(sample), h.client.pipeline(sample))
+        boot = c.ask("mark")["launches"]
+        emit({"phase": "cluster_step", "step": "bootstrap", **out, "launches": boot})
+        steps = cluster_script()[0]
+        bursts = [step[1] for step in steps if step[0] == "cmds"]
+        vals = np.random.default_rng(SEED + 94).standard_normal(
+            (CLUSTER_TENSOR_KEYS, 64)).astype("<f4")
+        tensor_sets = [("TENSOR", "SET", b"ct%05d" % i, ("LWW", "MAX", "AVG")[i % 3], i + 1,
+                        vals[i].tobytes()) for i in range(CLUSTER_TENSOR_KEYS)]
+        out["bursts"] = [len(bursts[0::2]), len(bursts[1::2]) + 1]
+        t0 = time.perf_counter()
+        for node in (c, h):
+            node.start("both")
+        for cmds in bursts[0::2]:
+            c.client.pipeline(cmds)
+        c_both, h_both = c.finish(), h.finish()
+        local = c.ask("mark")["launches"]
+        out["c_stage_s"] = time.perf_counter() - t0
+        out["both_deltas"], out["c_both_s"], out["h_both_s"] = (
+            c_both["deltas"], c_both["s"], h_both["s"])
+        emit({"phase": "cluster_step", "step": "c_stage", "s": out["c_stage_s"],
+              "launches": local})
+        t0 = time.perf_counter()
+        h.start("h-only")
+        for cmds in bursts[1::2]:
+            h.client.pipeline(cmds)
+        h.client.pipeline(tensor_sets)
+        h_only = h.finish()
+        out["h_stage_s"] = time.perf_counter() - t0
+        out["h_only_deltas"], out["h_only_s"] = h_only["deltas"], h_only["s"]
+        emit({"phase": "cluster_step", "step": "h_stage", "s": out["h_stage_s"]})
+        out["last_write_to_equal_s"], out["script_differ"] = wait_converged(
+            "the all-type script", c, h)
+        wire = c.ask("mark")["launches"]
+        out["c"], out["h"] = c.ask("stats"), h.ask("stats")
+        reads = cluster_reads(np.random.default_rng(SEED + 95), keys)
+        check_replies("all-type GETs: card node vs cpu node",
+                      c.client.pipeline(reads), h.client.pipeline(reads))
+        out["gets_checked"] = len(reads) + len(sample)
+        digest, types = digests_of(c)
+        out["phase_s"] = time.perf_counter() - t_phase
+        out["digest"] = digest.split(b"\r\n")[1].decode()
+        lines = [ln for ln in types.split(b"\r\n") if ln and ln[:1] not in b"*$"]
+        if any(ln.endswith(b"0" * 64) for ln in lines):
+            raise AssertionError(f"cluster phase: a type holds no data: {lines}")
+    finally:
+        for node in (c, h):
+            if node is not None:
+                node.close()
+    names = sorted(set(boot) | set(local) | set(wire))
+    out["launches"] = {n: boot.get(n, 0) + local.get(n, 0) + wire.get(n, 0) for n in names}
+    out["wire_launches"] = {n: boot.get(n, 0) + wire.get(n, 0) for n in names
+                            if boot.get(n, 0) + wire.get(n, 0)}
+    out["launches_by_stage"] = {"bootstrap": boot, "c_stage": local, "h_stage": wire}
+    emit({"phase": "cluster", **out})
+    if c_device != "cpu":
+        missing = [g for g in CLUSTER_PATH if not any(out["wire_launches"].get(n) for n in g)]
+        if missing:
+            raise AssertionError(f"cluster phase: the card node launched no kernel of {missing} "
+                                 f"on deltas from the wire: {out['launches_by_stage']}")
+    return out
+
+
 # ---- main ----------------------------------------------------------------------
 
 KERNELS = {
@@ -4052,6 +4559,7 @@ def main() -> int:
     ujson_node = ujson_node_phase(torch, flat=flat)
     mesh_node = mesh_node_phase(torch, devs)
     digest = digest_phase(torch, devs)
+    cluster = cluster_phase(torch)
 
     launches = dict(node["launches"], tensor_join_dense=sweep["launches"],
                     **treg_node["launches"], **tensor_node["launches"],
@@ -4076,6 +4584,8 @@ def main() -> int:
             "mesh_launches": mesh_launches.get(kname, 0),
             "dryrun_launches": dryrun_launches.get(kname, 0),
             "digest_launches": digest["launches"].get(kname, 0),
+            "cluster_launches": cluster["launches"].get(kname, 0),
+            "cluster_wire_launches": cluster["wire_launches"].get(kname, 0),
             "max_abs_err": max([r["max_abs_err"]] + [
                 x["max_abs_err"] for x in ([ns] if ns else []) + others]),
             "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],

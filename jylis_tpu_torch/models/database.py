@@ -14,7 +14,12 @@ stays on the mesh's first device. MAP, BCOUNT and SYSTEM are host-only
 in both packages.
 
 ``converge`` / ``converge_async`` take one type's anti-entropy delta
-batch -- the entry the cluster calls.
+batch -- the entry the cluster calls. ``flush_deltas_async`` hands every
+repo's drained local deltas to the cluster's broadcast, and
+``dump_state_async`` / ``dump_range_async`` give the state a sync serves,
+each repo's dump in a worker thread under its lock and on the node's
+device. ``warmup`` builds and first-launches the serving kernels before
+a node goes live (jylis_tpu/models/database.py:526-565).
 
 The sync digest (jylis_tpu/models/database.py:26-37, :126-311) is the
 JAX node's, byte for byte: per type, a map of key -> sha256(canonical
@@ -83,7 +88,10 @@ def resolve_device(device) -> torch.device:
 
 
 class Database:
-    def __init__(self, identity: int, device="cuda", mesh="auto"):
+    def __init__(
+        self, identity: int, device="cuda", mesh="auto",
+        system_repo: RepoSYSTEM | None = None,
+    ):
         self.device = resolve_device(device)
         # JAX's Database takes no mesh: JAX picks its devices process-wide;
         # the explicit argument is the torch counterpart of that hook
@@ -92,7 +100,9 @@ class Database:
         # counters, latency histograms, trace ring; every repo records
         # into it through its `metrics` attribute
         self.metrics = MetricsRegistry()
-        self.system = RepoSYSTEM(identity)
+        # main.py passes the System's repo, whose log lines ride the
+        # anti-entropy path (system.py)
+        self.system = system_repo if system_repo is not None else RepoSYSTEM(identity)
         # SYSTEM METRICS' "cmds" lines: this instance's tally (the port
         # has no native engine, so every command is on the Python path)
         self._served_py: dict[str, int] = {}
@@ -314,6 +324,32 @@ class Database:
         for mgr in self._map.values():
             mgr.flush_deltas(fn)
 
+    async def flush_deltas_async(self, fn) -> None:
+        """Every repo's drained local deltas to ``fn((name, batch))``,
+        each under its repo lock (the cluster heartbeat's flush)."""
+        for mgr in self._map.values():
+            await mgr.flush_async(fn)
+
+    async def dump_state_async(self, names=None) -> list:
+        """Full state per type for the cluster sync path: [(name,
+        batch)]. Each repo dumps under its own lock in a worker thread on
+        the node's device, so serving stalls only per type. ``names``
+        restricts the dump (the sync digest covers data types only;
+        SYSTEM streams separately)."""
+        out = []
+        for mgr in self._map.values():
+            if names is not None and mgr.name not in names:
+                continue
+
+            def dump(repo=mgr.repo):
+                with self._device_scope():
+                    return repo.dump_state()
+
+            async with mgr._lock:
+                batch = await asyncio.to_thread(dump)
+            out.append((mgr.name, batch))
+        return out
+
     def drain_all(self) -> None:
         for mgr in self._map.values():
             mgr.repo.drain()
@@ -326,3 +362,63 @@ class Database:
     async def clean_shutdown_async(self) -> None:
         for mgr in self._map.values():
             await mgr.clean_shutdown_async()
+
+
+class _NullRespond:
+    """Discards replies; lets warmup drive the real command paths."""
+
+    def __getattr__(self, name):
+        return lambda *a, **k: None
+
+
+def warmup(device="cuda", mesh="auto") -> None:
+    """Build every serving kernel and launch the serving paths once on
+    ``device`` before a node goes live (jylis_tpu/models/database.py:
+    526-565). On a card the kernels build first, all at once
+    (ops/_build.py); a throwaway Database on the node's device then
+    drives one command of each kind and a foreign delta per counter
+    type, sparse and dense, so no first-use ``nvcc`` build or library
+    load lands inside a drain that holds a repo lock while peers count
+    idle heartbeat ticks. On the CPU it runs the plain versions."""
+    dev = resolve_device(device)
+    scope = contextlib.nullcontext()
+    if dev.type == "cuda":
+        from ..ops import _build
+
+        _build.build()
+        scope = torch.cuda.device(dev)
+    with scope:
+        db = Database(identity=0, device=dev, mesh=mesh)
+        resp = _NullRespond()
+        for line in (
+            b"GCOUNT INC k 1",
+            b"GCOUNT GET k",
+            b"PNCOUNT INC k 1",
+            b"PNCOUNT DEC k 1",
+            b"PNCOUNT GET k",
+            b"TREG SET k v 1",
+            b"TREG GET k",
+            b"TLOG INS k v 2",
+            b"TLOG GET k",
+            b"TLOG SIZE k",
+            b"TLOG TRIM k 1",
+            b"TLOG GET k",
+            b"UJSON SET k a 1",
+            b"UJSON GET k a",
+            # the f32 payload (1.0f LE) is space-free, so the split survives
+            b"TENSOR SET k MAX 1 \x00\x00\x80?",
+            b"TENSOR GET k",
+        ):
+            db.apply(resp, line.split(b" "))
+        # foreign deltas on a quarter of the smallest keyspace (1,024
+        # rows) take the dense counter drain, then one key the sparse one
+        keys = [b"k%d" % i for i in range(256)]
+        for name, pols in (("GCOUNT", 1), ("PNCOUNT", 2)):
+            for rows, v in ((keys, 1), (keys[:1], 2)):
+                delta = {7: v} if pols == 1 else ({7: v}, {7: v})
+                db.converge(name, [(k, delta) for k in rows])
+                db.apply(resp, [name.encode(), b"GET", rows[0]])
+        db.converge("TREG", [(b"k", (b"w", 2))])
+        db.apply(resp, [b"TREG", b"GET", b"k"])
+        db.drain_all()
+        db._sync_digest_blocking()

@@ -150,6 +150,12 @@ class RepoManager:
             if overdue is not None and overdue():
                 await asyncio.to_thread(self.repo.drain)
 
+    async def flush_async(self, fn) -> None:
+        """The cluster heartbeat's flush, serialised with threaded drains
+        by the repo lock."""
+        async with self._lock:
+            self.flush_deltas(fn)
+
     async def clean_shutdown_async(self) -> None:
         """Lock-holding shutdown: waits out any in-flight threaded drain,
         then stops intake and performs the final flush atomically."""

@@ -9,11 +9,12 @@ milliseconds and trims via trimlog(). deltas_size() is hard-wired to 1,
 so the system-log delta ships on every heartbeat even when empty (a
 reference quirk kept for parity).
 
-The port has no cluster, lanes, sessions or admission yet, so
-``cluster_fn``, ``lane_fn``, ``session_fn``, ``overload_fn``,
-``lag_fn`` and ``topology_fn`` stay None: METRICS has no CLUSTER, LANE,
-SESSION or OVERLOAD section and TOPOLOGY answers with the cluster-less
-self line.
+A Cluster sets ``cluster_fn``, ``lag_fn`` and ``topology_fn`` (the
+CLUSTER section of METRICS, the per-peer lag of LATENCY, TOPOLOGY's
+peer lines); without one, TOPOLOGY answers with the cluster-less self
+line. The port has no lanes, sessions or admission yet, so ``lane_fn``,
+``session_fn`` and ``overload_fn`` stay None: METRICS has no LANE,
+SESSION or OVERLOAD section.
 
 The log is tiny and host-resident by design.
 """
@@ -57,9 +58,9 @@ class RepoSYSTEM:
         self.served_fn = None
         self.serving_fn = None
         # the CLUSTER, SESSION, LANE and OVERLOAD sections, the per-peer
-        # convergence lag of LATENCY and the TOPOLOGY view: hooks of the
-        # JAX node's cluster, sessions, lanes and admission, which the
-        # port does not have yet; None means no section
+        # convergence lag of LATENCY and the TOPOLOGY view: hooks the
+        # cluster (cluster_fn, lag_fn, topology_fn), sessions, lanes and
+        # admission set; None means no section
         self.cluster_fn = None
         self.session_fn = None
         self.lag_fn = None

@@ -1,13 +1,13 @@
-"""jtrace: the fold of sampled delta provenance spans (``SpanStats``).
+"""jtrace: sampled end-to-end delta provenance spans.
 
-The port's copy of the ``SpanStats`` part of jylis_tpu/obs/jtrace.py
-(:35-262), unchanged in behaviour, with the span decoder it folds
-through. A span is an append-only byte string a sequenced cluster frame
-carries; the receiver appends its apply stamp and folds the chain into
-per-hop and end-to-end convergence-latency histograms, SLO counters and
-worst-chain exemplars (``SYSTEM TRACE SPANS``, ``SYSTEM OBSERVE``). The
-port has no cluster yet, so nothing folds a span and the surface reads
-zeros; minting spans (``append_hop``) comes with the cluster.
+The port's copy of jylis_tpu/obs/jtrace.py, unchanged in behaviour: the
+minting half (``append_hop``), the span decoder and the ``SpanStats``
+fold. A span is an append-only byte string a sequenced cluster frame
+carries. The origin node mints one for 1-in-N sequenced flushes
+(``--trace-sample``), every relay appends a stamp, and the receiver
+appends its apply stamp and folds the chain into per-hop and end-to-end
+convergence-latency histograms, SLO counters and worst-chain exemplars
+(``SYSTEM TRACE SPANS``, ``SYSTEM OBSERVE``).
 
 Wire format (LEB128, same primitives as the cluster codec):
 
@@ -50,6 +50,36 @@ WORST_KEEP = 8  # exemplar chains retained for SYSTEM TRACE SPANS
 
 def hop_name(tag: int) -> str:
     return _HOP_NAMES.get(tag, f"hop{tag}")
+
+
+def _w_varint(acc: bytearray, v: int) -> None:
+    while True:
+        b = v & 0x7F
+        v >>= 7
+        if v:
+            acc.append(b | 0x80)
+        else:
+            acc.append(b)
+            return
+
+
+def append_hop(span: bytes, tag: int, rid: str, region: str,
+               ts_ms: int) -> bytes:
+    """Return ``span`` with one hop stamp appended (pure — the original
+    bytes are never mutated; a relayed frame re-encodes its message)."""
+    payload = bytearray()
+    rb = rid.encode()
+    _w_varint(payload, len(rb))
+    payload += rb
+    gb = region.encode()
+    _w_varint(payload, len(gb))
+    payload += gb
+    _w_varint(payload, max(0, ts_ms) & _U64_MAX)
+    acc = bytearray(span)
+    _w_varint(acc, tag)
+    _w_varint(acc, len(payload))
+    acc += payload
+    return bytes(acc)
 
 
 def decode_span(span: bytes) -> list[tuple[int, str, str, int]]:

@@ -1,45 +1,154 @@
 """Config and CLI flag parsing for the serving node.
 
 A reduced copy of jylis_tpu/utils/config.py (itself after the
-reference's config.pony:5-97): the flags this slice uses keep the JAX
-package's names and defaults — --port/-p, --addr/-a, --log-level/-L —
-and --device picks where the repos' state lives. The address's 64-bit
-hash is the node's replica identity. There is no cluster yet, so an
-empty address name stays empty instead of getting a random one.
+reference's config.pony:5-97). The flags keep the JAX package's names
+and defaults: --port/-p, --addr/-a, --seed-addrs/-s, --heartbeat-time/-T,
+--system-log-trim, --log-level/-L, and the cluster's --dial-timeout,
+--dial-backoff-cap, --delta-log-cap, --range-budget, --region,
+--bridge-demote-ticks, --trace-sample, --converge-slo-ms and
+--failpoints. --device picks where the repos' state lives. The
+address's 64-bit hash is the node's replica identity; an empty address
+name gets a random one, as on a JAX node. Persistence, journal, lane,
+admission, session and metrics-port flags come with those layers.
 """
 
 from __future__ import annotations
 
 import argparse
+import random
 import sys
+import time
 from dataclasses import dataclass, field
 
-from ..models.database import SERVED_TYPES
 from .address import Address
 from .log import Log
+from .namegen import generate_name
 
 
 @dataclass
 class Config:
     port: str = "6379"
     addr: Address = field(default_factory=lambda: Address.from_string("127.0.0.1:9999:"))
+    seed_addrs: list[Address] = field(default_factory=list)
+    heartbeat_time: float = 10.0
+    system_log_trim: int = 200
+    # peer dial lifecycle (cluster.py): connect timeout in seconds and
+    # the exponential-backoff ceiling in heartbeat ticks
+    dial_timeout: float = 5.0
+    dial_backoff_cap: int = 32
+    # anti-entropy tuning (cluster.py): the retransmit window (sequenced
+    # delta batches kept for per-peer ack-gap replay) and the
+    # range-repair budget (digest-tree buckets pulled per round)
+    delta_log_cap: int = 1024
+    range_budget: int = 64
+    # region-aware WAN peering (cluster.py): empty keeps the full mesh
+    region: str = ""
+    # heartbeat ticks of received-frame silence after which an observer
+    # demotes an address from bridge election
+    bridge_demote_ticks: int = 12
+    # deterministic fault injection (faults.py), armed at startup
+    failpoints: str = ""
+    # delta provenance tracing (obs/jtrace.py): one sequenced delta
+    # frame in N carries a hop-stamped span; 0 disables minting
+    trace_sample: int = 16
+    # the fleet-convergence SLO thresholds of the span folds
+    converge_slo_ms: str = "50,250,1000"
     device: str = "cuda"
     log: Log = field(default_factory=Log.create_none)
 
+    def normalize(self) -> None:
+        if not self.addr.name:
+            rng = random.Random(time.time_ns())
+            self.addr = Address(self.addr.host, self.addr.port, generate_name(rng))
 
-def config_from_cli(argv: list[str] | None = None, log_out=None) -> Config:
+
+def config_from_cli(
+    argv: list[str] | None = None, log_out=None, served_types=()
+) -> Config:
+    """Parse the node's flags; ``--help`` names ``served_types``."""
+    served = f" ({', '.join(served_types)})" if served_types else ""
     parser = argparse.ArgumentParser(
         prog="jylis-tpu-torch",
-        description=f"CRDT database on PyTorch and CUDA ({', '.join(SERVED_TYPES)})",
+        description=f"CRDT database on PyTorch and CUDA{served}",
     )
     parser.add_argument(
         "-a", "--addr", default="127.0.0.1:9999:",
-        help="The host:port:name of this node; its hash is the node's "
-        "replica identity.",
+        help="The host:port:name to be advertised to other clustering "
+        "nodes; its hash is the node's replica identity.",
     )
     parser.add_argument(
         "-p", "--port", default="6379",
         help="The port for accepting commands over RESP-protocol connections.",
+    )
+    parser.add_argument(
+        "-s", "--seed-addrs", default="",
+        help="A space-separated list of the host:port:name for other known nodes.",
+    )
+    parser.add_argument(
+        "-T", "--heartbeat-time", type=float, default=10.0,
+        help="The number of seconds between heartbeats in the clustering protocol.",
+    )
+    parser.add_argument(
+        "--system-log-trim", type=int, default=200,
+        help="The number of entries to retain in the distributed `SYSTEM GETLOG`.",
+    )
+    parser.add_argument(
+        "--dial-timeout", type=float, default=Config.dial_timeout,
+        help="Seconds before an outbound cluster dial attempt is "
+        "abandoned. Failed dials back off exponentially up to "
+        "--dial-backoff-cap heartbeat ticks.",
+    )
+    parser.add_argument(
+        "--dial-backoff-cap", type=int, default=Config.dial_backoff_cap,
+        help="Ceiling, in heartbeat ticks, for the exponential re-dial "
+        "backoff to an unreachable peer. Inbound contact from the "
+        "address resets its backoff immediately.",
+    )
+    parser.add_argument(
+        "--delta-log-cap", type=int, default=Config.delta_log_cap,
+        help="Sequenced delta batches kept in the retransmit window for "
+        "per-peer ack-gap replay. A peer whose unacked gap falls off the "
+        "window is demoted to digest-tree range repair, never a "
+        "whole-state dump.",
+    )
+    parser.add_argument(
+        "--range-budget", type=int, default=Config.range_budget,
+        help="Digest-tree buckets (of 256) pulled per range-repair "
+        "round: smaller values spread a big heal over more rounds.",
+    )
+    parser.add_argument(
+        "--region", default="",
+        help="This node's region name for WAN-aware peering: nodes of "
+        "one region keep a full mesh; one deterministic bridge per "
+        "region (the smallest live advertised address) dials the other "
+        "regions' bridges and relays with origin attribution preserved. "
+        "Empty (default) keeps the classic full mesh.",
+    )
+    parser.add_argument(
+        "--bridge-demote-ticks", type=int,
+        default=Config.bridge_demote_ticks,
+        help="Heartbeat ticks of received-frame silence after which a "
+        "node demotes an address from bridge election (regions only).",
+    )
+    parser.add_argument(
+        "--failpoints", default="",
+        help="Deterministic fault injection spec, e.g. "
+        "'cluster.dial=error:3' (name=action[:arg[:budget]], "
+        "comma-separated; actions: error, sleep, corrupt, crash, drop). "
+        "Also read from the JYLIS_FAILPOINTS environment variable. "
+        "Empty (default) injects nothing.",
+    )
+    parser.add_argument(
+        "--trace-sample", type=int, default=Config.trace_sample,
+        help="Delta provenance tracing: one sequenced delta frame in N "
+        "carries a trace span stamped at every hop; the applying node "
+        "folds it into convergence-latency histograms (SYSTEM TRACE "
+        "SPANS). 0 disables minting (received spans still fold).",
+    )
+    parser.add_argument(
+        "--converge-slo-ms", default=Config.converge_slo_ms,
+        help="Comma-separated millisecond thresholds for the "
+        "fleet-convergence SLO gauges (SYSTEM OBSERVE).",
     )
     parser.add_argument(
         "--device", default="cuda",
@@ -60,6 +169,31 @@ def config_from_cli(argv: list[str] | None = None, log_out=None) -> Config:
     config = Config()
     config.port = args.port
     config.addr = Address.from_string(args.addr)
+    config.seed_addrs = [
+        Address.from_string(s) for s in args.seed_addrs.split(" ") if s
+    ]
+    config.heartbeat_time = args.heartbeat_time
+    config.system_log_trim = args.system_log_trim
+    config.dial_timeout = args.dial_timeout
+    config.dial_backoff_cap = args.dial_backoff_cap
+    config.delta_log_cap = args.delta_log_cap
+    config.range_budget = args.range_budget
+    config.region = args.region
+    config.bridge_demote_ticks = args.bridge_demote_ticks
+    config.failpoints = args.failpoints
+    if args.trace_sample < 0:
+        parser.error("--trace-sample must be >= 0")
+    config.trace_sample = args.trace_sample
+    try:
+        slo = [int(s) for s in args.converge_slo_ms.split(",") if s.strip()]
+    except ValueError:
+        slo = None
+    if not slo or any(ms <= 0 for ms in slo):
+        parser.error(
+            "--converge-slo-ms must be comma-separated positive "
+            f"milliseconds: {args.converge_slo_ms!r}"
+        )
+    config.converge_slo_ms = args.converge_slo_ms
     config.device = args.device
     level = {"error": "err", "warn": "warn", "info": "info", "debug": "debug"}.get(
         args.log_level
@@ -68,4 +202,6 @@ def config_from_cli(argv: list[str] | None = None, log_out=None) -> Config:
         print(f"Unknown log-level: {args.log_level}")
         sys.exit(1)
     config.log = Log(level, log_out)
+
+    config.normalize()
     return config

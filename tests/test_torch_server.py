@@ -6,8 +6,8 @@ goes over a real socket into the port's Server (state on the CPU), and
 command by command into a JAX ``Database(identity, engine="python")``
 through the JAX package's real ``Respond`` writer. The two reply streams
 must be equal. A separate test runs ``python -m jylis_tpu_torch`` as a
-real process, and another serves TREG, TENSOR, TLOG and UJSON in a
-process where ``import jax`` fails.
+real process, another two of them as a cluster, and another serves
+TREG, TENSOR, TLOG and UJSON in a process where ``import jax`` fails.
 """
 
 import asyncio
@@ -270,11 +270,40 @@ def test_cli_config_and_identity_match_jax():
     assert config_from_cli([]).device == "cuda"
 
 
+CLUSTER_FLAGS = ("seed_addrs", "heartbeat_time", "system_log_trim", "dial_timeout",
+                 "dial_backoff_cap", "delta_log_cap", "range_budget", "region",
+                 "bridge_demote_ticks", "failpoints", "trace_sample", "converge_slo_ms")
+
+
+@pytest.mark.parametrize("argv", [
+    [],
+    ["-s", "10.0.0.2:9999:b 10.0.0.3:9999:c", "-T", "0.25", "--system-log-trim", "50",
+     "--dial-timeout", "2.5", "--dial-backoff-cap", "8", "--delta-log-cap", "64",
+     "--range-budget", "256", "--region", "r1", "--bridge-demote-ticks", "4",
+     "--failpoints", "cluster.dial=error:1", "--trace-sample", "0",
+     "--converge-slo-ms", "10,100"],
+], ids=["defaults", "set"])
+def test_cluster_flags_match_jax(argv):
+    """The cluster flags parse to the JAX node's values, defaults included,
+    and an empty address name gets a random one, as on a JAX node."""
+    from jylis_tpu.utils.config import config_from_cli as jax_config_from_cli
+
+    ours, theirs = config_from_cli(argv), jax_config_from_cli(argv)
+    for flag in CLUSTER_FLAGS:
+        a, b = getattr(ours, flag), getattr(theirs, flag)
+        if flag == "seed_addrs":
+            a, b = [str(x) for x in a], [str(x) for x in b]
+        assert a == b, flag
+    assert ours.addr.name and ours.addr.name.count("-") == 2
+    assert config_from_cli(["-a", "127.0.0.1:9999:"]).addr.name != ""
+
 def test_help_names_every_served_type(capsys):
-    """--help is built from the repo registry, so it names all eight types
-    the node serves, in the JAX registry's order."""
+    """The entry point's --help is built from the repo registry, so it
+    names all eight types the node serves, in the JAX registry's order."""
+    from jylis_tpu_torch.main import main
+
     with pytest.raises(SystemExit):
-        config_from_cli(["--help"])
+        main(["--help"])
     text = " ".join(capsys.readouterr().out.split())
     for name in ("TREG", "TLOG", "GCOUNT", "PNCOUNT", "UJSON", "TENSOR", "MAP", "BCOUNT"):
         assert name in text
@@ -324,12 +353,91 @@ def test_module_entry_point_serves_and_stops_on_sigterm():
         proc.stderr.close()
 
 
+
+def _spawn_node(port: int, cport: int, name: str, seeds: str = "") -> subprocess.Popen:
+    root = str(Path(__file__).resolve().parents[1])
+    cmd = [sys.executable, "-m", "jylis_tpu_torch", "--port", str(port),
+           "--addr", f"127.0.0.1:{cport}:{name}", "--heartbeat-time", "0.1",
+           "--device", "cpu", "--log-level", "error"]
+    if seeds:
+        cmd += ["--seed-addrs", seeds]
+    return subprocess.Popen(cmd, env=dict(os.environ, PYTHONPATH=root), cwd=root,
+                            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
+
+
+def _ask(port: int, *cmds) -> list[bytes]:
+    """One connection, one reply per command (simple, integer or bulk)."""
+    with socket.create_connection(("127.0.0.1", port), timeout=30) as sock:
+        sock.sendall(b"".join(arr(*c) for c in cmds))
+        data, out = b"", []
+        while len(out) < len(cmds):
+            chunk = sock.recv(4096)
+            assert chunk, "connection closed early"
+            data += chunk
+            while len(out) < len(cmds) and b"\r\n" in data:
+                head, rest = data.split(b"\r\n", 1)
+                if head[:1] == b"$":
+                    n = int(head[1:])
+                    if len(rest) < n + 2:
+                        break
+                    out.append(rest[:n])
+                    data = rest[n + 2:]
+                else:
+                    out.append(head)
+                    data = rest
+    return out
+
+
+def test_two_node_cluster_processes_converge_and_stop_on_sigterm():
+    """Two ``python -m jylis_tpu_torch --device cpu`` processes, the second
+    seeded with the first: a GCOUNT INC on each reads as the sum on both,
+    with equal SYSTEM DIGESTs; on SIGTERM each makes its final flush and
+    exits 0."""
+    ports = [_free_port() for _ in range(4)]
+    a = _spawn_node(ports[0], ports[1], "a")
+    b = _spawn_node(ports[2], ports[3], "b", seeds=f"127.0.0.1:{ports[1]}:a")
+    procs = (a, b)
+    try:
+        deadline = time.monotonic() + 120
+        for proc, port in ((a, ports[0]), (b, ports[2])):
+            while True:
+                try:
+                    socket.create_connection(("127.0.0.1", port), timeout=5).close()
+                    break
+                except OSError:
+                    if proc.poll() is not None or time.monotonic() > deadline:
+                        pytest.fail(f"node did not start: {proc.stderr.read()!r}")
+                    time.sleep(0.1)
+        assert _ask(ports[0], ("GCOUNT", "INC", "hits", 2)) == [b"+OK"]
+        assert _ask(ports[2], ("GCOUNT", "INC", "hits", 3)) == [b"+OK"]
+        while True:
+            got = [_ask(p, ("GCOUNT", "GET", "hits"), ("SYSTEM", "DIGEST"))
+                   for p in (ports[0], ports[2])]
+            if got[0] == got[1] and got[0][0] == b":5":
+                break
+            assert time.monotonic() < deadline, f"no convergence: {got}"
+            time.sleep(0.1)
+        assert len(got[0][1]) == 64
+        for proc in procs:
+            proc.send_signal(signal.SIGTERM)
+        assert [proc.wait(timeout=60) for proc in procs] == [0, 0]
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=10)
+            proc.stderr.close()
+
+
 JAX_FREE_NODE = textwrap.dedent("""
     import asyncio
     import sys
 
     sys.modules["jax"] = None  # any import of jax now raises ImportError
 
+    import chip_smoke  # noqa: F401 (the chip script, the cluster and the
+    import jylis_tpu_torch.cluster  # noqa: F401  entry point load without
+    import jylis_tpu_torch.main  # noqa: F401  JAX too)
     from jylis_tpu_torch.models.database import Database
     from jylis_tpu_torch.server.server import Server
     from jylis_tpu_torch.utils.config import Config
@@ -365,8 +473,9 @@ JAX_FREE_NODE = textwrap.dedent("""
 def test_serves_treg_and_tensor_without_jax():
     """The port serves TREG, TENSOR, TLOG, UJSON, MAP, BCOUNT and SYSTEM
     DIGEST in a process where ``import jax`` raises, drains TREG through
-    the staged path (ops/staging.py), and loads nothing of ``jylis_tpu``;
-    its replies equal the JAX database's."""
+    the staged path (ops/staging.py), imports the cluster, the entry
+    point and chip_smoke.py, and loads nothing of ``jylis_tpu``; its
+    replies equal the JAX database's."""
     request = (
         arr("TREG", "SET", "r", "v1", 3) + arr("TREG", "SET", "r", "v0", 3)
         + arr("TREG", "GET", "r") + arr("TENSOR", "SET", "t", "MAX", 0, vec(1, 2))
