@@ -3,8 +3,11 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from jylis_tpu_torch/csrc/ (nvcc, sm_90a, into
-build/jylis_tpu_torch/), then:
+Builds the native host library from jylis_tpu_torch/native/src/ (g++,
+the serving engine, the RESP scanner and the wire codec) and the CUDA
+kernels from jylis_tpu_torch/csrc/ (nvcc, sm_90a), all into
+build/jylis_tpu_torch/, and prints the "native" line first (the
+library's path, its build seconds, the compiler's version); then:
 
 1. kernel phases, state resident on the card. The counter drains run at
    the shapes the node phase (3.) gives them, K = 131,072 x R = 16 dense
@@ -180,10 +183,24 @@ build/jylis_tpu_torch/), then:
    that differed over time, the frames each node received by message
    kind, the keys they carried, the sync counters each way, and C's
    launches by stage.
-Before 1., the card's launch floor: a one-element fill's device time.
+Before 1., the codec phase, on the card machine's host: config 2's
+PNCOUNT state (100,000 keys x 8 replica ids) as 2,048-key PushDeltas
+frames, encoded and decoded by the native codec and by the oracle
+(``native=False``), each timed (first, while the process's heap is
+small); the bytes must be equal and both decodes must give the batches
+encoded. Then the card's launch floor: a one-element fill's device time.
 Each node phase (and the dryrun) sets its kernels' launch counts to 0
 just before it, reads them just after, and fails unless each kernel of
-its path launched.
+its path launched. Every node of the node phases (3., 5., 6., 8., 10.,
+13., 14.) runs the native serving engine (``Database(engine="auto")``,
+the default): RESP bursts settle in C++ and the drains take their
+batches from the engine's tables. Each node first answers one probe
+burst (a GCOUNT GET of an absent key), and its phase line holds its
+engine mode and SERVING split ("serving": native_cmds, demoted_cmds,
+demotions); a node phase fails unless native_cmds > 0 on each of its
+nodes. The cluster phase's nodes run the engine too, and C must have
+encoded and decoded PushDeltas frames (plain, seq- or relay-prefixed)
+on the native codec path.
 
 Each step prints one JSON line (a kernel phase's "launches" counts that
 phase's compare and timing launches). The line before the last two is
@@ -260,6 +277,8 @@ U64 = (1 << 64) - 1
 # where the node phases keep their state; "cpu" runs the plain versions
 # (a rehearsal of the phases without a GPU; main() refuses to run then)
 DEVICE = "cuda"
+# the node phases' probe key: no phase writes it
+PROBE_KEY = b"chip_smoke:probe"
 
 # Least-time model of an H100 SXM ("NVIDIA H100 80GB HBM3"): HBM at
 # 3.35 TB/s (NVIDIA data sheet); integer work at the INT32 rate, 64 lanes
@@ -1169,10 +1188,27 @@ class Node:
         self.loop = asyncio.new_event_loop()
         self.thread = threading.Thread(target=self.loop.run_forever, daemon=True)
         self.thread.start()
-        self.db = Database(identity=identity, device=device or DEVICE, mesh=mesh)
+        # the native serving engine, as a node runs by default
+        self.db = Database(identity=identity, device=device or DEVICE, mesh=mesh,
+                           engine="auto")
         self.server = Server(Config(port="0"), self.db)
         self.run(self.server.start())
         self.client = Client(self.server.port)
+        # a probe burst the engine settles in C++ (an absent key: no
+        # state changes), so a phase whose commands all defer to Python
+        # (TENSOR has no native table) still shows its engine serving
+        if self.client.pipeline([("GCOUNT", "GET", PROBE_KEY)]) != [b":0\r\n"]:
+            raise AssertionError("the probe burst's reply is not :0")
+        self.served = None
+
+    def serving(self) -> dict:
+        """The node's engine mode and SERVING split; fails unless the
+        native engine settled commands."""
+        out = {"engine": "native" if self.db.native_engine is not None else "python",
+               **self.db.serving_totals()}
+        if out["engine"] != "native" or out["native_cmds"] < 1:
+            raise AssertionError(f"a node served no command natively: {out}")
+        return out
 
     def run(self, coro, timeout: float = 600):
         return asyncio.run_coroutine_threadsafe(coro, self.loop).result(timeout)
@@ -1186,6 +1222,7 @@ class Node:
         return self.db.manager(name).repo
 
     def close(self) -> None:
+        self.served = self.serving()
         self.client.close()
         self.run(self.server.dispose())
         self.loop.call_soon_threadsafe(self.loop.stop)
@@ -1378,6 +1415,7 @@ def node_phase(torch) -> dict:
         "converge_s": converge_s, "dense_get_s": dense_get_s,
         "capacity": capacity,
     }
+    out["serving"] = node.served
     emit({"phase": "node", **out})
     return out
 
@@ -1541,6 +1579,7 @@ def treg_node_phase(torch, n_keys: int = TREG_KEYS) -> dict:
            "sets_checked": len(cmds), "generate_s": gen_s, "round1_s": r1_s,
            "round2_s": r2_s, "round3_s": r3_s, "get_s": get_s,
            "check_s": check_s}
+    out["serving"] = node.served
     emit({"phase": "treg_node", **out})
     return out
 
@@ -1854,6 +1893,7 @@ def tensor_node_phase(torch, n_keys: int = TENSOR_KEYS) -> dict:
            "capacity": [repo._row_cap, repo._dim_cap], "flips": len(flip),
            "replies_checked": len(cmds) + len(sample), "generate_s": gen_s,
            "round1_s": r1_s, "round2_s": r2_s, "get_s": get_s, "check_s": check_s}
+    out["serving"] = node.served
     emit({"phase": "tensor_node", **out})
     return out
 
@@ -2145,6 +2185,7 @@ def tlog_node_phase(torch, n_keys: int = TLOG_KEYS) -> dict:
            "rows_checked": n_keys, "replies_checked": replies,
            "rounds": rounds, "reads_s": reads_s, "trims_s": trims_s,
            "ins_reads_s": ins_s, "check_s": check_s}
+    out["serving"] = node.served
     emit({"phase": "tlog_node", **out})
     return out
 
@@ -2934,6 +2975,7 @@ def ujson_node_phase(torch, n5b: int = UJ5B_KEYS, rounds5b: int = UJ5B_ROUNDS,
            "final_planes": [list(p.shape) for p in store._batch],
            "thresholds": [repo_ujson.DEVICE_FANIN_MIN, repo_ujson.SEG_FANIN_MIN,
                           repo_ujson.PENDING_TOTAL_MAX, repo_ujson.TRICKLE_MAX]}
+    out["serving"] = node.served
     emit({"phase": "ujson_node", **out})
     return out
 
@@ -3796,6 +3838,7 @@ def mesh_node_phase(torch, devs) -> dict:
         out[f"{n.lower()}_keys"] = len(dump)
     out.update(replies=len(mesh_replies), launches={n: launches[n] for n in MESH_PATH},
                dryrun_launches={n: c for n, c in dry.items() if c})
+    out["serving"] = {"mesh": node.served, "single": single.served}
     emit({"phase": "mesh_node", **out})
     return out
 
@@ -3950,6 +3993,7 @@ def digest_phase(torch, devs) -> dict:
                 raise AssertionError(f"{label}: the first SYSTEM DIGEST launched no UJSON "
                                      f"kernel: {first}")
             info["launches"] = {n: c for n, c in launches.items() if c}
+        info["serving"] = node.served
         results[label] = (replies, digests)
         out[label] = info
     want_replies, want = results["cpu"]
@@ -4074,8 +4118,16 @@ class ClusterNode:
         return self.cluster.metrics_totals()
 
     def stats(self) -> dict:
+        from jylis_tpu_torch.cluster import codec
+
         totals = self.run(self._totals())
         return {"frames_recv": dict(sorted(self.frames.items())), "keys_recv": self.keys_in,
+                # messages this process coded, per kind and path
+                "codec": {f"{op}_{path}": dict(sorted(getattr(fn, path).items()))
+                          for op, fn in (("encode", codec.encode), ("decode", codec.decode))
+                          for path in ("native", "oracle")},
+                "serving": {"engine": "native" if self.db.native_engine is not None
+                            else "python", **self.db.serving_totals()},
                 **{k: totals[k] for k in ("sync_bytes_sent", "sync_bytes_recv",
                                           "sync_trees_sent", "ranges_requested",
                                           "ranges_served", "sync_served", "sync_deferred",
@@ -4329,6 +4381,59 @@ def cluster_reads(rng, keys):
     return cmds
 
 
+# the message kinds that carry a PushDeltas body (cluster/codec.py)
+PUSH_KINDS = ("PushDeltas", "SeqPush", "RelayPush")
+# config 2's PNCOUNT state goes through the codec phase in frames of this
+# many keys (the cluster's sync chunk, scripts/cluster_heal.py --costs)
+CODEC_FRAME_KEYS = 2048
+
+
+def codec_phase() -> dict:
+    """The wire codec on the card machine's host at config 2's PNCOUNT
+    size: NODE_KEYS keys x NODE_REPLICAS replica ids (the cluster
+    phase's data, cluster_config2) as CODEC_FRAME_KEYS-key PushDeltas
+    frames, encoded and decoded on the native path and on the oracle
+    (``native=False``), each timed. The bytes must be equal, both
+    decodes must give the batches encoded, and the native path must
+    have coded every frame."""
+    from jylis_tpu_torch.cluster import codec
+    from jylis_tpu_torch.cluster.msg import MsgPushDeltas
+
+    rng = np.random.default_rng(SEED + 90)
+    keys = [b"k%06d" % i for i in range(NODE_KEYS)]
+    rids = [int(x) for x in rng.integers(1 << 40, 1 << 62, NODE_REPLICAS)]
+    state = [kd for name, batch in cluster_config2(rng, keys, rids) if name == "PNCOUNT"
+             for kd in batch]
+    msgs = [MsgPushDeltas("PNCOUNT", tuple(state[i:i + CODEC_FRAME_KEYS]))
+            for i in range(0, len(state), CODEC_FRAME_KEYS)]
+    out = {"type": "PNCOUNT", "keys": len(state), "replica_ids": NODE_REPLICAS,
+           "frames": len(msgs)}
+    coded = {}
+    for path, native in (("native", True), ("oracle", False)):
+        enc0, dec0 = codec.encode.native.get("PushDeltas", 0), codec.decode.native.get(
+            "PushDeltas", 0)
+        t0 = time.perf_counter()
+        frames = [codec.encode(m, native=native) for m in msgs]
+        out[f"{path}_encode_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = [codec.decode(f, native=native) for f in frames]
+        out[f"{path}_decode_s"] = time.perf_counter() - t0
+        natively = (codec.encode.native.get("PushDeltas", 0) - enc0,
+                    codec.decode.native.get("PushDeltas", 0) - dec0)
+        if natively != ((len(msgs), len(msgs)) if native else (0, 0)):
+            raise AssertionError(f"codec phase: {path} path coded {natively} frames natively")
+        coded[path] = (frames, back)
+    if coded["native"][0] != coded["oracle"][0]:
+        raise AssertionError("codec phase: native and oracle bytes differ")
+    for m, a, b in zip(msgs, coded["native"][1], coded["oracle"][1]):
+        if not (a == m and b == m):
+            raise AssertionError("codec phase: a decoded batch differs from the one encoded")
+    out["bytes"] = sum(map(len, coded["native"][0]))
+    out["bytes_equal"] = True
+    emit({"phase": "codec", **out})
+    return out
+
+
 # the kernels a card node must launch on deltas that reached it over the
 # wire (any one of a group): the bootstrap's and the second stage's
 CLUSTER_PATH = (("counter_drain_dense<1>", "counter_drain_dense<2>"),
@@ -4415,6 +4520,16 @@ def cluster_phase(torch, c_device=None) -> dict:
             "the all-type script", c, h)
         wire = c.ask("mark")["launches"]
         out["c"], out["h"] = c.ask("stats"), h.ask("stats")
+        # C coded its push frames (plain, seq- and relay-prefixed) on the
+        # native codec path, and settled RESP bursts in its engine
+        cc = out["c"]["codec"]
+        out["c_push_frames"] = {
+            f"{op}_{path}": sum(cc[f"{op}_{path}"].get(k, 0) for k in PUSH_KINDS)
+            for op in ("encode", "decode") for path in ("native", "oracle")}
+        if not (out["c_push_frames"]["encode_native"] and out["c_push_frames"]["decode_native"]):
+            raise AssertionError(f"cluster phase: C coded no push frame natively: {cc}")
+        if out["c"]["serving"]["native_cmds"] < 1:
+            raise AssertionError(f"cluster phase: C served nothing natively: {out['c']['serving']}")
         reads = cluster_reads(np.random.default_rng(SEED + 95), keys)
         check_replies("all-type GETs: card node vs cpu node",
                       c.client.pipeline(reads), h.client.pipeline(reads))
@@ -4517,19 +4632,43 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False); this script runs on an NVIDIA GPU", file=sys.stderr)
         return 1
+    from jylis_tpu_torch import native
     from jylis_tpu_torch.ops import _build
 
+    shutil.rmtree(_build.BUILD_DIR, ignore_errors=True)  # build from source
+    # the native library (g++) builds beside the kernels (nvcc); its line
+    # comes first
+    lib_err = []
+
+    def build_lib():
+        try:
+            native.lib()
+        except Exception as e:  # re-raised below, on the main thread
+            lib_err.append(e)
+
+    lib_thread = threading.Thread(target=build_lib)
+    lib_thread.start()
+    t0 = time.perf_counter()
+    try:
+        per_source = _build.build()
+    finally:
+        lib_thread.join()
+    build_s = time.perf_counter() - t0
+    if lib_err:
+        raise lib_err[0]
+    emit({"phase": "native", "path": native.info["path"], "build_s": native.info["build_s"],
+          "compiler": native.info["compiler"]})
     card = smi_line()
     name = torch.cuda.get_device_name(0)
     emit({"phase": "card", "nvidia_smi": card, "name": name,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           **hbm_check()})
-    shutil.rmtree(_build.BUILD_DIR, ignore_errors=True)  # build from source
-    t0 = time.perf_counter()
-    per_source = _build.build()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+    emit({"phase": "build", "seconds": build_s,
           "per_source_s": per_source, "dir": str(_build.BUILD_DIR)})
 
+    # host work first, while the process holds few Python objects (each
+    # collection of a large heap would weigh on the decode's allocations)
+    codec_phase()
     launch_floor(torch)
     rows = counter_phases(torch, card)
     rows.update(tensor_phase(torch, card))

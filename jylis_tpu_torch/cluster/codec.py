@@ -1,13 +1,21 @@
 """Versioned binary codec for cluster messages + schema signature.
 
-The port's copy of jylis_tpu/cluster/codec.py, on its oracle path: the
-same schema text, signatures and bytes for every message and every
-delta type, so a port node and a JAX node interoperate byte for byte.
-The handshake exchanges ``signature()`` as the first frame; a byte
-mismatch drops the connection. The JAX package's native C++ fast path
-for PushDeltas gives the oracle's bytes (its tests hold the two equal)
-and comes to the port with the native engine; the legacy snapshot
-signatures come with persistence.
+The port's copy of jylis_tpu/cluster/codec.py: the same schema text,
+signatures and bytes for every message and every delta type, so a port
+node and a JAX node interoperate byte for byte. The handshake exchanges
+``signature()`` as the first frame; a byte mismatch drops the
+connection. The legacy snapshot signatures come with persistence.
+
+``encode`` / ``decode`` take the native C++ codec (native/codec.py) for
+``MsgPushDeltas``, ``MsgSeqPush`` and ``MsgRelayPush`` (the last two are
+a PushDeltas body behind a sequence prefix), as the JAX package's do;
+every other message, and any one message outside the native path's
+domain, takes the pure-Python oracle below. ``native=False`` takes the
+oracle for every message (tests and scripts/cluster_heal.py compare
+the two). ``encode.native`` / ``encode.oracle`` and ``decode.native`` /
+``decode.oracle`` count the messages each path coded, per message kind
+(``"PushDeltas"``, ``"SeqPush"``, ...), as the kernel wrappers count
+``.launches``.
 
 Encoding: LEB128 varints for all integers, varint-length-prefixed byte
 strings, and a one-byte tag per message / per delta kind. Delta payloads
@@ -31,6 +39,7 @@ bit patterns back into u64 values before they flush or dump.
 from __future__ import annotations
 
 import hashlib
+import threading
 
 from ..ops import compose
 from ..ops.p2set import P2Set
@@ -591,7 +600,89 @@ _TAG_RELAY_PUSH = 11
 _TAG_REGION_GOSSIP = 12
 
 
-def encode(msg: Msg) -> bytes:
+_count_lock = threading.Lock()  # the cluster also encodes in worker threads
+
+
+def _count(counts: dict, msg: Msg) -> None:
+    kind = type(msg).__name__[3:]  # "MsgSeqPush" -> "SeqPush"
+    with _count_lock:
+        counts[kind] = counts.get(kind, 0) + 1
+
+
+def encode(msg: Msg, native: bool = True) -> bytes:
+    """A message's bytes: the native codec's for a push (PushDeltas, or
+    its seq/relay-prefixed forms) it can pack, else the oracle's."""
+    if native and isinstance(msg, (MsgPushDeltas, MsgSeqPush, MsgRelayPush)):
+        from ..native import codec as ncodec
+
+        push = msg if isinstance(msg, MsgPushDeltas) else MsgPushDeltas(msg.name, msg.batch)
+        fast = ncodec.encode_push(push)
+        if fast is not None:
+            _count(encode.native, msg)
+            if isinstance(msg, MsgPushDeltas):
+                return fast
+            # msg7's and msg11's name+batch bytes are msg3's after their
+            # prefixes (the schema text), so the push packer serves them
+            out = bytearray((_TAG_SEQ_PUSH if isinstance(msg, MsgSeqPush) else _TAG_RELAY_PUSH,))
+            _w_varint(out, msg.seq)
+            if isinstance(msg, MsgRelayPush):
+                _w_str(out, msg.origin)
+            _w_varint(out, msg.oseq)
+            _w_bytes(out, msg.span)
+            out += fast[1:]
+            return bytes(out)
+    _count(encode.oracle, msg)
+    return _encode_oracle(msg)
+
+
+encode.native = {}
+encode.oracle = {}
+
+
+def decode(body: bytes, native: bool = True) -> Msg:
+    """A message from its bytes: pushes through the native codec when
+    their body lies in its domain, everything else through the oracle."""
+    tag = body[0] if body else None
+    if not native or tag not in (_TAG_PUSH, _TAG_SEQ_PUSH, _TAG_RELAY_PUSH):
+        msg = _decode_oracle(body)
+        _count(decode.oracle, msg)
+        return msg
+    from ..native import codec as ncodec
+
+    if tag == _TAG_PUSH:
+        rest, r = body, None
+    else:
+        # strip the seq prefix and decode the remainder as msg3 (native
+        # or oracle: byte-identical by schema), then re-tag
+        r = _Reader(body)
+        r.pos = 1
+        seq = r.varint()
+        origin = r.str_() if tag == _TAG_RELAY_PUSH else None
+        oseq = r.varint()
+        if seq > _U64_MAX or oseq > _U64_MAX:
+            raise CodecError("seq exceeds u64" if origin is None else "relay seq exceeds u64")
+        span = r.bytes_()
+        rest = bytes((_TAG_PUSH,)) + body[r.pos :]
+    inner = ncodec.decode_push(rest)
+    path = decode.native
+    if inner is None:
+        inner = _decode_oracle(rest)
+        path = decode.oracle
+    if r is None:
+        msg = inner
+    elif origin is None:
+        msg = MsgSeqPush(seq, oseq, inner.name, inner.batch, span)
+    else:
+        msg = MsgRelayPush(seq, origin, oseq, inner.name, inner.batch, span)
+    _count(path, msg)
+    return msg
+
+
+decode.native = {}
+decode.oracle = {}
+
+
+def _encode_oracle(msg: Msg) -> bytes:
     out = bytearray()
     if isinstance(msg, MsgPong):
         out.append(_TAG_PONG)
@@ -669,7 +760,7 @@ def encode(msg: Msg) -> bytes:
     return bytes(out)
 
 
-def decode(body: bytes) -> Msg:
+def _decode_oracle(body: bytes) -> Msg:
     r = _Reader(body)
     if not body:
         raise CodecError("empty message")

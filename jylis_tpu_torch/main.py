@@ -3,7 +3,9 @@
 Wires the node in the JAX package's order (jylis_tpu/main.py, after the
 reference's main.pony): Config -> failpoints (``--failpoints``) ->
 System (the log's dual sink into the SYSTEM log) -> ``warmup`` (every
-serving kernel built and launched once on the node's device) -> Database (the eight types of
+serving kernel and the native library built, and the serving paths
+launched once on the node's device) -> Database (the native serving
+engine, which settles RESP bursts in C++; the eight types of
 ``models.database.DATA_REPO_CLASSES`` and SYSTEM, on ``--device``,
 default cuda; keys-sharded over every card when the device names no card
 and the host has more than one) -> RESP Server -> Cluster (gossip
@@ -94,16 +96,17 @@ class NodeStack:
 
 def build_node(config) -> NodeStack:
     """Wire a node in the JAX package's order: Config -> failpoints ->
-    System -> ``warmup`` (every serving kernel built and launched once on
-    the node's device, before anything listens) -> Database -> Server ->
-    Cluster."""
+    System -> ``warmup`` (every serving kernel and the native library
+    built, and the serving paths launched once on the node's device,
+    before anything listens) -> Database (with the native serving engine)
+    -> Server -> Cluster."""
     if config.failpoints:
         faults.arm_spec(config.failpoints)
     system = System(config)
-    database_mod.warmup(config.device)
+    database_mod.warmup(config.device, engine="auto")
     database = Database(
         identity=config.addr.hash64(), device=config.device,
-        system_repo=system.repo,
+        system_repo=system.repo, engine="auto",
     )
     database.metrics.spans.set_slo_ms(
         int(s) for s in config.converge_slo_ms.split(",") if s.strip()

@@ -2,9 +2,14 @@
 
 The counters' host bookkeeping — key interning, own contributions,
 serving-value cache, dirty/pending-own/foreign flags — lives behind one
-small table interface. This is the port's copy of jylis_tpu's `PyTable`,
-the pure-Python backend; the native engine's `NativeTable` comes with a
-later slice.
+small table interface with two implementations, the port's copies of
+jylis_tpu/models/counter_table.py:
+
+* `PyTable` -- pure-Python dicts, the semantic oracle (``engine="python"``).
+* `NativeTable` -- a view over one table of the native serving engine
+  (native/engine.py). The same state the server's native burst applier
+  mutates, so commands settled in C++ and Python-side drains and
+  flushes share one source of truth.
 
 Values are stored as u64 bit patterns; PNCOUNT decodes them as the
 wrapped two's-complement i64 the reference's (p-n).i64() defines.
@@ -128,3 +133,66 @@ class PyTable:
         rows = list(self._sync_dirty)
         self._sync_dirty.clear()
         return rows
+
+
+class NativeTable:
+    """One counter type's view over a shared native engine."""
+
+    __slots__ = ("_eng", "_which")
+
+    def __init__(self, engine, which: int):
+        self._eng = engine
+        self._which = which
+
+    def rows(self) -> int:
+        return self._eng.rows(self._which)
+
+    def upsert(self, key: bytes) -> int:
+        return self._eng.upsert(self._which, key)
+
+    def find(self, key: bytes) -> int:
+        return self._eng.find(self._which, key)
+
+    def key_of(self, row: int) -> bytes:
+        return self._eng.key_of(self._which, row)
+
+    def inc(self, row: int, polarity: int, amount: int) -> None:
+        self._eng.inc(self._which, row, polarity, amount)
+
+    def is_foreign(self, row: int) -> bool:
+        return self._eng.is_foreign(self._which, row)
+
+    def set_foreign(self, row: int) -> None:
+        self._eng.set_foreign(self._which, row)
+
+    def value(self, row: int) -> int:
+        return self._eng.value(self._which, row)
+
+    def own(self, row: int, polarity: int) -> int:
+        return self._eng.own(self._which, row, polarity)
+
+    def own_max(self, row: int, polarity: int, v: int) -> None:
+        self._eng.own_max(self._which, row, polarity, v)
+
+    def own_set(self, row: int) -> int:
+        return self._eng.own_set(self._which, row)
+
+    def apply_drain(self, rows, values) -> None:
+        self._eng.apply_drain(self._which, rows, values)
+
+    def pend_count(self) -> int:
+        return self._eng.pend_count(self._which)
+
+    def export_pending(self, clear: bool = True):
+        rows, vp, vn = self._eng.export_pending(self._which, clear=clear)
+        return rows.tolist(), vp.tolist(), vn.tolist()
+
+    def dirty_count(self) -> int:
+        return self._eng.dirty_count(self._which)
+
+    def export_dirty(self):
+        rows, op, on, sb = self._eng.export_dirty(self._which)
+        return rows.tolist(), op.tolist(), on.tolist(), sb.tolist()
+
+    def export_sync_dirty(self) -> list[int]:
+        return self._eng.export_sync_dirty(self._which)

@@ -13,6 +13,14 @@ more than one device. TENSOR has no mesh mode in either package: it
 stays on the mesh's first device. MAP, BCOUNT and SYSTEM are host-only
 in both packages.
 
+ONE native serving engine (``engine="auto"``, the default;
+native/engine.py) is shared by the TREG, TLOG, GCOUNT, PNCOUNT and UJSON
+repos and by the server's burst applier (server/server.py), the node's
+single source of host truth, as in a JAX ``Database(engine="auto")``.
+``engine="python"`` pins the pure-Python tables everywhere: the oracle
+the parity tests hold the native node against. A library that cannot be
+built or loaded raises; nothing falls back quietly.
+
 ``converge`` / ``converge_async`` take one type's anti-entropy delta
 batch -- the entry the cluster calls. ``flush_deltas_async`` hands every
 repo's drained local deltas to the cluster's broadcast, and
@@ -38,6 +46,7 @@ import hashlib
 
 import torch
 
+from ..native.engine import resolve_engine
 from ..obs.registry import MetricsRegistry
 from ..parallel.mesh import resolve_mesh
 from .help import DATATYPE_HELP, respond_help
@@ -72,6 +81,9 @@ DATA_REPO_CLASSES = (
     RepoTREG, RepoTLOG, RepoGCOUNT, RepoPNCOUNT, RepoUJSON, RepoTENSOR,
     RepoMAP, RepoBCOUNT,
 )
+# the repos whose host tables live in the native serving engine (TENSOR,
+# MAP and BCOUNT stay on Python tables, as in the JAX package)
+ENGINE_REPO_CLASSES = (RepoTREG, RepoTLOG, RepoGCOUNT, RepoPNCOUNT, RepoUJSON)
 SERVED_TYPES = tuple(cls.name for cls in DATA_REPO_CLASSES)
 
 
@@ -90,7 +102,7 @@ def resolve_device(device) -> torch.device:
 class Database:
     def __init__(
         self, identity: int, device="cuda", mesh="auto",
-        system_repo: RepoSYSTEM | None = None,
+        system_repo: RepoSYSTEM | None = None, engine="auto",
     ):
         self.device = resolve_device(device)
         # JAX's Database takes no mesh: JAX picks its devices process-wide;
@@ -103,16 +115,22 @@ class Database:
         # main.py passes the System's repo, whose log lines ride the
         # anti-entropy path (system.py)
         self.system = system_repo if system_repo is not None else RepoSYSTEM(identity)
-        # SYSTEM METRICS' "cmds" lines: this instance's tally (the port
-        # has no native engine, so every command is on the Python path)
+        # ONE native engine shared by the engine-backed repos and the
+        # server's burst applier; None with engine="python"
+        self.native_engine = resolve_engine(engine)
+        # SYSTEM METRICS' "cmds" lines: this instance's Python-path tally
+        # merged with this instance's engine counters
         self._served_py: dict[str, int] = {}
-        self.system.served_fn = lambda: dict(self._served_py)
+        self.system.served_fn = self._served_totals
         self.system.serving_fn = self.serving_totals
         self._map: dict[bytes, RepoManager] = {}
         for cls in DATA_REPO_CLASSES:
             if cls is RepoTENSOR:
                 dev = self.device if self.mesh is None else self.mesh.keys_devices[0]
                 repo = cls(identity, device=dev)
+            elif cls in ENGINE_REPO_CLASSES:
+                repo = cls(identity, device=self.device, mesh=self.mesh,
+                           engine=self.native_engine)
             else:
                 repo = cls(identity, device=self.device, mesh=self.mesh)
             self._add(repo)
@@ -146,12 +164,25 @@ class Database:
         mgr.registry = self.metrics
         self._map[repo.name.encode()] = mgr
 
+    def _served_totals(self) -> dict[str, int]:
+        """Commands served per type on BOTH paths (SYSTEM METRICS)."""
+        totals = dict(self._served_py)
+        if self.native_engine is not None:
+            for name, n in self.native_engine.served_counts().items():
+                if n:
+                    totals[name] = totals.get(name, 0) + n
+        return totals
+
     def serving_totals(self) -> dict[str, int]:
         """The native-vs-demoted serving split of SYSTEM METRICS' SERVING
-        lines: the port has no native engine, so every command counts as
-        served on the Python dispatch path."""
+        lines: commands the engine settled in C++ against commands that
+        went through the Python dispatch path (engine defers, demoted
+        connections, direct applies), plus whole-connection demotions."""
+        native = 0
+        if self.native_engine is not None:
+            native = sum(self.native_engine.served_counts().values())
         return {
-            "native_cmds": 0,
+            "native_cmds": native,
             "demoted_cmds": sum(self._served_py.values()),
             "demotions": self.metrics.serving_counters["demotions"],
             "busy_refusals": self.metrics.serving_counters["busy_refusals"],
@@ -234,7 +265,11 @@ class Database:
     async def dump_range_async(self, name: str, buckets) -> list:
         """One type's state RESTRICTED to the given digest-tree buckets,
         in the wire-delta shape; key selection goes through the bucket
-        index (folded current first)."""
+        index (folded current first). A repo with ``dump_keys`` (the
+        counters, TREG, TLOG) reads only the wanted keys' rows, where the
+        JAX node dumps the whole repo and filters (jylis_tpu/models/
+        database.py:267-292): the same entries, in the same order, so the
+        same frames, at a cost that scales with the buckets asked for."""
         mgr = self._map[name.encode()]
 
         def dump_filtered():
@@ -245,6 +280,9 @@ class Database:
                 if 0 <= b < len(bkeys):
                     wanted |= bkeys[b]
             with self._device_scope():
+                dump_keys = getattr(mgr.repo, "dump_keys", None)
+                if dump_keys is not None:
+                    return dump_keys(wanted)
                 return [
                     (key, delta)
                     for key, delta in mgr.repo.dump_state()
@@ -371,16 +409,22 @@ class _NullRespond:
         return lambda *a, **k: None
 
 
-def warmup(device="cuda", mesh="auto") -> None:
-    """Build every serving kernel and launch the serving paths once on
-    ``device`` before a node goes live (jylis_tpu/models/database.py:
-    526-565). On a card the kernels build first, all at once
-    (ops/_build.py); a throwaway Database on the node's device then
-    drives one command of each kind and a foreign delta per counter
-    type, sparse and dense, so no first-use ``nvcc`` build or library
-    load lands inside a drain that holds a repo lock while peers count
-    idle heartbeat ticks. On the CPU it runs the plain versions."""
+def warmup(device="cuda", mesh="auto", engine="auto") -> None:
+    """Build every serving kernel and the native library, and launch the
+    serving paths once on ``device`` before a node goes live
+    (jylis_tpu/models/database.py:526-565). On a card the kernels build
+    first, all at once (ops/_build.py); with ``engine="auto"`` the native
+    library builds and loads (native/__init__.py), raising if it cannot.
+    A throwaway Database on the node's device then drives one command of
+    each kind and a foreign delta per counter type, sparse and dense, so
+    no first-use build or library load lands inside a drain that holds a
+    repo lock while peers count idle heartbeat ticks. On the CPU it runs
+    the plain versions."""
     dev = resolve_device(device)
+    if engine == "auto":
+        from .. import native
+
+        native.lib()
     scope = contextlib.nullcontext()
     if dev.type == "cuda":
         from ..ops import _build
@@ -388,7 +432,7 @@ def warmup(device="cuda", mesh="auto") -> None:
         _build.build()
         scope = torch.cuda.device(dev)
     with scope:
-        db = Database(identity=0, device=dev, mesh=mesh)
+        db = Database(identity=0, device=dev, mesh=mesh, engine=engine)
         resp = _NullRespond()
         for line in (
             b"GCOUNT INC k 1",

@@ -152,15 +152,28 @@ class RepoManager:
 
     async def flush_async(self, fn) -> None:
         """The cluster heartbeat's flush, serialised with threaded drains
-        by the repo lock."""
+        by the repo lock. A repo with banked native-queue work (UJSON's
+        ``prepare_flush``) applies it in a worker thread first, so the
+        loop-side flush sees fully applied state."""
         async with self._lock:
+            prep = getattr(self.repo, "prepare_flush", None)
+            if prep is not None:
+                await asyncio.to_thread(prep)
             self.flush_deltas(fn)
+
+    def busy(self) -> bool:
+        """True while a (possibly threaded) repo access holds the lock:
+        the server's native burst path defers to Python while true."""
+        return self._lock.locked()
 
     async def clean_shutdown_async(self) -> None:
         """Lock-holding shutdown: waits out any in-flight threaded drain,
         then stops intake and performs the final flush atomically."""
         self._shutdown = True  # reject commands queued behind the lock
         async with self._lock:
+            prep = getattr(self.repo, "prepare_flush", None)
+            if prep is not None:  # banked native-queue writes must ship
+                await asyncio.to_thread(prep)
             if self._deltas_fn is not None:
                 self.flush_deltas(self._deltas_fn)
 

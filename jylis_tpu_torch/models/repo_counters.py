@@ -8,9 +8,14 @@ join + row-sum kernel launch; the row sums feed a host value cache, so
 GET is a table lookup and the device only ever sees whole batches.
 
 Host bookkeeping (keys, own contributions, value cache, dirty/pending/
-foreign flags) lives in counter_table.PyTable. Foreign delta columns
-(sparse per-replica maps from the cluster) stay in Python dicts; they
-merge with the exported pending-own values at drain time.
+foreign flags) lives behind the table backends in counter_table.py:
+the native serving engine's tables (``engine="auto"``, the default) --
+the SAME state the server's native burst applier mutates, so commands
+settled in C++ and Python-side drains and flushes share one source of
+truth -- or the pure-Python oracle (``engine="python"``). Foreign delta
+columns (sparse per-replica maps from the cluster) stay in Python dicts;
+they merge with the engine's exported pending-own values at drain time,
+and the drain's row sums go back to the engine as u64 bit patterns.
 
 Delta wire shape: GCOUNT -> dict {replica_id: u64}; PNCOUNT -> a
 (p_dict, n_dict) pair. Outbound deltas carry only this node's own column
@@ -37,10 +42,11 @@ import numpy as np
 import torch
 
 from ..ops import gcount, planes, pncount
+from ..native.engine import G as ENG_G, PN as ENG_PN, resolve_engine
 from ..parallel import Keyspace, drain_unrouted_g, drain_unrouted_pn, resolve_mesh
 from ..utils.metrics import timed_drain
 from .base import ParseError, bucket, need, parse_u64, U64_MAX
-from .counter_table import PyTable
+from .counter_table import NativeTable, PyTable
 from .help import RepoHelp
 
 GCOUNT_HELP = RepoHelp("GCOUNT", {"GET": "key", "INC": "key value"})
@@ -93,6 +99,7 @@ class _CounterRepo:
         rep_cap: int = 8,
         device="cuda",
         mesh="auto",
+        engine="auto",
     ):
         self._identity = identity
         self._device = torch.device(device)
@@ -103,7 +110,10 @@ class _CounterRepo:
         self._key_cap = self._ks.round_cap(key_cap)
         self._rep_cap = rep_cap
         self._ks.init(self._key_cap, lambda n, d: self._ops.init(n, rep_cap, d))
-        self._tbl = PyTable()
+        self.engine = engine = resolve_engine(engine)  # shared when given
+        self._tbl = (
+            NativeTable(engine, self._which) if engine is not None else PyTable()
+        )
         # foreign delta columns buffered per row per polarity (sparse
         # {col: max-value} maps from cluster converges)
         self._pending_f: tuple[dict[int, dict[int, int]], ...] = ({}, {})
@@ -222,7 +232,7 @@ class _CounterRepo:
         if self._ks.mesh is None and len(rows) * DENSE_FRACTION >= self._key_cap:
             deltas = [self._delta_plane(rows, p) for p in per_pol]
             sums = self._dense(*deltas).cpu().numpy().view(np.uint64)
-            self._finish_drain(rows, [sums[row] for row in rows])
+            self._finish_drain(rows, sums[np.asarray(rows, np.int64)])
             return
         rows_np = np.asarray(rows, np.int64)
 
@@ -233,8 +243,9 @@ class _CounterRepo:
                     for col, v in pending.get(row, {}).items():
                         view[slot, col] = v
 
+        # the int64 bits viewed as u64, never cast: the engine takes u64
         sums = self._sparse(rows_np, fill).view(np.uint64)
-        self._finish_drain(rows, list(sums))
+        self._finish_drain(rows, sums)
 
     def _finish_drain(self, rows, values_bits) -> None:
         self._tbl.apply_drain(rows, values_bits)
@@ -268,15 +279,29 @@ class _CounterRepo:
             (self._tbl.key_of(r), r) for r in range(self._tbl.rows())
         )
 
-    def _dump_rows(self, counts: tuple[np.ndarray, ...]):
-        """(key, [{rid: value} per polarity]) for every key, sorted, with
-        each polarity's nonzero columns of ``counts`` (u64 (K, R))."""
+    def _dump_rows(self, counts: tuple[np.ndarray, ...], items=None):
+        """(key, [{rid: value} per polarity]) for each (key, i) of
+        ``items`` (default: every key, sorted, i its row), with each
+        polarity's nonzero columns of ``counts[i]`` (u64 rows)."""
         cols = {col: rid for rid, col in self._rids.items()}
-        for key, row in self._sorted_keys():
+        for key, i in self._sorted_keys() if items is None else items:
             yield key, [
-                {cols[c]: int(v) for c, v in enumerate(x[row, : len(cols)]) if v}
+                {cols[c]: int(v) for c, v in enumerate(x[i, : len(cols)]) if v}
                 for x in counts
             ]
+
+    def _keyed_rows(self, keys):
+        """([(key, i)] for those of ``keys`` the table holds, sorted, and
+        each polarity's (n, R) u64 counts of their rows): only those rows
+        leave the device."""
+        found = sorted((k, r) for k in keys if (r := self._tbl.find(k)) >= 0)
+        rows = np.fromiter((r for _, r in found), np.int64, len(found))
+        counts = [np.zeros((len(rows), self._rep_cap), np.uint64)
+                  for _ in range(self._polarities)]
+        for part, sel, local in self._ks.split_rows(rows):
+            for x, plane in zip(counts, part):
+                x[sel] = planes.to_u64_np(plane[torch.from_numpy(local).to(plane.device)])
+        return [(key, i) for i, (key, _) in enumerate(found)], counts
 
 
 class RepoGCOUNT(_CounterRepo):
@@ -284,6 +309,7 @@ class RepoGCOUNT(_CounterRepo):
     help = GCOUNT_HELP
     _ops = gcount
     _polarities = 1
+    _which = ENG_G
 
     # the JAX package times each type's drain under its own name
     drain = timed_drain("GCOUNT", _CounterRepo._pend_size)(_CounterRepo._drain)
@@ -337,12 +363,21 @@ class RepoGCOUNT(_CounterRepo):
         counts = gcount.to_counts(self._state)
         return [(key, d) for key, (d,) in self._dump_rows((counts,)) if d]
 
+    def dump_keys(self, keys):
+        """``dump_state()`` restricted to ``keys`` (the range sync's
+        serve): the same entries in the same order, reading only those
+        keys' rows from the device."""
+        self.drain()
+        items, counts = self._keyed_rows(keys)
+        return [(key, d) for key, (d,) in self._dump_rows(counts, items) if d]
+
 
 class RepoPNCOUNT(_CounterRepo):
     name = "PNCOUNT"
     help = PNCOUNT_HELP
     _ops = pncount
     _polarities = 2
+    _which = ENG_PN
 
     drain = timed_drain("PNCOUNT", _CounterRepo._pend_size)(_CounterRepo._drain)
 
@@ -403,3 +438,10 @@ class RepoPNCOUNT(_CounterRepo):
             for key, (dp, dn) in self._dump_rows(pncount.to_counts(self._state))
             if dp or dn
         ]
+
+    def dump_keys(self, keys):
+        """``dump_state()`` restricted to ``keys``, reading only their rows."""
+        self.drain()
+        items, counts = self._keyed_rows(keys)
+        return [(key, (dp, dn)) for key, (dp, dn) in self._dump_rows(counts, items)
+                if dp or dn]

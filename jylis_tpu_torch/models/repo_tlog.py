@@ -13,7 +13,11 @@ row); the only device touch a read can make is the one-row gather that
 rebuilds the render base after a drain whose merged view was not
 current.
 
-Host bookkeeping lives in tlog_table.PyTlogTable.
+Host bookkeeping lives behind the table backends in tlog_table.py: the
+native serving engine's TLOG table (``engine="auto"``, the same state the
+server's burst applier mutates, so INS/SIZE/GET/CUTOFF settled in C++ and
+Python-side drains and flushes share one source of truth) or the
+pure-Python oracle (``engine="python"``).
 
 Mesh mode (``mesh``, parallel/mesh.py) mirrors the counter and TREG
 repos: the segment tensors live as one block of key rows per keys shard,
@@ -30,13 +34,19 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..native.engine import resolve_engine
 from ..ops import planes, tlog
 from ..ops.interner import Interner
 from ..parallel import Keyspace, drain_sharded_tlog, resolve_mesh
 from ..utils.metrics import timed_drain
 from .base import PAD_ROW, ParseError, bucket, need, parse_opt_count, parse_u64
 from .help import RepoHelp
-from .tlog_table import PENDING_DRAIN_THRESHOLD, ROW_DRAIN_THRESHOLD, PyTlogTable
+from .tlog_table import (
+    PENDING_DRAIN_THRESHOLD,
+    ROW_DRAIN_THRESHOLD,
+    NativeTlogTable,
+    PyTlogTable,
+)
 
 # interner compaction: once the table holds this many more ids than live
 # log entries, rebuild it from the live set (ops/interner.compact) so
@@ -84,7 +94,7 @@ class RepoTLOG:
     help = TLOG_HELP
 
     def __init__(self, identity: int, key_cap: int = 1024, len_cap: int = 16,
-                 device="cuda", mesh="auto"):
+                 device="cuda", mesh="auto", engine="auto"):
         # identity unused: log entries carry no replica identity
         self._device = torch.device(device)
         self._ks = Keyspace(resolve_mesh(mesh, self._device), self._device)
@@ -96,7 +106,8 @@ class RepoTLOG:
         self._ks.init(self._key_cap,
                       lambda n, d: tlog.init(n, len_cap, wide=wide, device=d))
         self._interner = Interner()
-        self._tbl = PyTlogTable()
+        self.engine = engine = resolve_engine(engine)  # shared when given
+        self._tbl = NativeTlogTable(engine) if engine is not None else PyTlogTable()
         # row -> desc-sorted [(ts, value)], the rendered drained part; built
         # on first read, dropped whenever a drain or trim touches the row
         self._render: dict[int, list[tuple[int, bytes]]] = {}
@@ -321,29 +332,67 @@ class RepoTLOG:
 
     # -- snapshot: full state in the wire-delta shape -------------------------
 
-    def _host_planes(self):
-        """(ts as u64, vid) of every slot: one bulk device-to-host pull."""
-        st = self._state
+    @staticmethod
+    def _decode_planes(st):
+        """(ts as u64, vid) of every slot of the planes ``st``."""
         nth = None if st.nth is None else st.nth.cpu().numpy()
         return (tlog.decode_ts_np(nth, st.ntl.cpu().numpy()),
                 tlog.decode_vid_np(st.nv.cpu().numpy()))
 
-    def dump_state(self):
-        self.drain()
-        all_ts, all_vid = self._host_planes()
+    def _host_planes(self):
+        """(ts as u64, vid) of every slot: one bulk device-to-host pull."""
+        return self._decode_planes(self._state)
+
+    def _host_rows(self, rows: np.ndarray):
+        """(ts as u64, vid) of the slots of global ``rows``, in order:
+        only those rows leave the device."""
+        ts = vid = None
+        for part, sel, local in self._ks.split_rows(rows):
+            idx = torch.from_numpy(local).to(part.ntl.device)
+            t, v = self._decode_planes(part._replace(
+                nth=None if part.nth is None else part.nth[idx], ntl=part.ntl[idx],
+                nv=part.nv[idx]))
+            if ts is None:
+                ts = np.zeros((len(rows), *t.shape[1:]), t.dtype)
+                vid = np.zeros((len(rows), *v.shape[1:]), v.dtype)
+            ts[sel], vid[sel] = t, v
+        return ts, vid
+
+    def _dump(self, items, all_ts, all_vid):
+        """(key, (entries, cutoff)) of each (key, row, i) of ``items`` with
+        entries or a cutoff, the entries from row i of the host planes."""
         out = []
-        for key, row in sorted(
-            (self._tbl.key_of(r), r) for r in range(self._tbl.rows())
-        ):
+        for key, row, i in items:
             length = self._tbl.len_cache(row)
             cutoff = self._tbl.cut_cache(row)
             entries = [
-                (self._interner.lookup(int(all_vid[row, i])), int(all_ts[row, i]))
-                for i in range(length)
+                (self._interner.lookup(int(all_vid[i, j])), int(all_ts[i, j]))
+                for j in range(length)
             ]
             if entries or cutoff:
                 out.append((key, (entries, cutoff)))
         return out
+
+    def dump_state(self):
+        self.drain()
+        all_ts, all_vid = self._host_planes()
+        return self._dump(
+            ((key, row, row) for key, row in sorted(
+                (self._tbl.key_of(r), r) for r in range(self._tbl.rows()))),
+            all_ts, all_vid)
+
+    def dump_keys(self, keys):
+        """``dump_state()`` restricted to ``keys`` (the range sync's
+        serve): the same entries in the same order, reading only those
+        keys' rows from the device."""
+        self.drain()
+        found = sorted((k, r) for k in keys if (r := self._tbl.find(k)) >= 0)
+        if not found:
+            return []
+        all_ts, all_vid = self._host_rows(np.fromiter((r for _, r in found), np.int64,
+                                                      len(found)))
+        return self._dump(((key, row, i) for i, (key, row) in enumerate(found)),
+                          all_ts, all_vid)
 
     def load_state(self, batch) -> None:
         for key, delta in batch:
@@ -356,6 +405,9 @@ class RepoTLOG:
         the table from the live set, and push the remapped plane back.
         Runs under the repo lock at drain time, before any new pending
         values intern."""
+        # the native value interner compacts itself on the same cadence
+        # (a cheap floor check per drain; a full walk only once it grew)
+        self._tbl.compact_values()
         live = self._tbl.live_total()  # O(1): maintained at finish_row
         if len(self._interner) <= 2 * live + COMPACT_SLACK:
             return

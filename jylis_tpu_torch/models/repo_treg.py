@@ -9,8 +9,11 @@ that the device cannot settle (flagged rows) are resolved here with the
 full strings and patched with a small follow-up scatter.
 
 Host bookkeeping (keys, winner, pending window, delta accumulator) lives
-in treg_table.PyTregTable. GET never pays a device round-trip: the
-winner is an O(1) host compare.
+behind the table backends in treg_table.py: the native serving engine's
+TREG table (``engine="auto"``, the same state the server's burst applier
+mutates, so SETs settled in C++ and Python-side drains and flushes share
+one source of truth) or the pure-Python oracle (``engine="python"``).
+GET never pays a device round-trip: the winner is an O(1) host compare.
 
 Sparse drains are staged (ops/staging.py, parallel/sharded.py
 ``drain_unrouted_treg``): rows, timestamps, ranks and vids are written
@@ -30,18 +33,20 @@ import numpy as np
 import torch
 
 from ..ops import planes, treg
+from ..native.engine import resolve_engine
 from ..ops.interner import Interner, prefix_rank
 from ..parallel import Keyspace, drain_unrouted_treg, fill_from, resolve_mesh
 from ..utils.metrics import timed_drain
 from .base import ParseError, bucket, need, parse_u64
 from .help import RepoHelp
-from .treg_table import PyTregTable
+from .treg_table import NativeTregTable, PyTregTable
 
 TREG_HELP = RepoHelp("TREG", {"GET": "key", "SET": "key value timestamp"})
 
 # pending writes/deltas flush to the device once they pile this high:
 # reads never need the drain (GET computes the winner on the host), so
-# this bounds host memory while keeping device batches large
+# this bounds host memory while keeping device batches large.
+# native/src/serve_engine.cpp TREG_PENDING_DRAIN must match
 PENDING_DRAIN_THRESHOLD = 4096
 
 # interner compaction: once the table holds this many more ids than live
@@ -83,7 +88,7 @@ class RepoTREG:
     help = TREG_HELP
 
     def __init__(self, identity: int, key_cap: int = 1024, device="cuda",
-                 mesh="auto"):
+                 mesh="auto", engine="auto"):
         # identity is ignored: LWW needs no replica identity (repo_treg.pony:15)
         self._device = torch.device(device)
         self._ks = Keyspace(resolve_mesh(mesh, self._device), self._device)
@@ -91,7 +96,8 @@ class RepoTREG:
         self._ks.init(self._key_cap, treg.init)
         self._interner = Interner()
         self._cache: dict[int, tuple[int, int]] = {}  # row -> (ts, vid)
-        self._tbl = PyTregTable()
+        self.engine = engine = resolve_engine(engine)  # shared when given
+        self._tbl = NativeTregTable(engine) if engine is not None else PyTregTable()
 
     @property
     def _state(self):
@@ -176,6 +182,19 @@ class RepoTREG:
         device mirror up to date first."""
         self.drain()
         return self._tbl.dump()
+
+    def dump_keys(self, keys):
+        """``dump_state()`` restricted to ``keys`` (the range sync's
+        serve): the same entries in the same order, from those keys'
+        winners alone."""
+        self.drain()
+        out = []
+        for key in sorted(keys):
+            row = self._tbl.find(key)
+            w = self._tbl.winner(row) if row >= 0 else None
+            if w is not None:
+                out.append((key, (w[1], w[0])))
+        return out
 
     # -- device drain -------------------------------------------------------
 

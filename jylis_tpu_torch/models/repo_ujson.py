@@ -27,7 +27,16 @@ Mesh mode (``mesh``, parallel/mesh.py): the resident store's row axis
 splits over the mesh's keys shards and its drains use the row-aligned
 fold on every shard, like every plane-backed type.
 
-Delta wire shape: the UJSON object itself (entries + causal context).
+With the node's native serving engine (``engine``, shared with the
+server; native/engine.py) validated INS/SET/RM/CLR commands bank in the
+engine's write queue and ``_flush_queue`` applies them, in arrival
+order, before any other UJSON work reads or writes; GET replies this
+repo renders are memoised per (key, path) in the engine, so a repeated
+read settles in C++, and every write here drops the overlapping memos.
+
+Delta wire shape: the UJSON object itself (entries + causal context);
+from the native codec, a lazy ``ops/ujson_wire.WireUJSON`` that the
+resident store encodes straight from its wire bytes.
 """
 
 from __future__ import annotations
@@ -74,8 +83,10 @@ class RepoUJSON:
     name = "UJSON"
     help = UJSON_HELP
 
-    def __init__(self, identity: int, device="cuda", mesh="auto"):
+    def __init__(self, identity: int, device="cuda", mesh="auto", engine=None):
         self._identity = identity
+        # the native serving engine (None: no write queue, no memo)
+        self.engine = engine
         self._device = torch.device(device)
         self._mesh = resolve_mesh(mesh, self._device)
         self._data: dict[bytes, UJSON] = {}
@@ -148,15 +159,75 @@ class RepoUJSON:
             raise ParseError()
         return args[1], _decode_path(args[2:-1]), args[-1].decode("utf-8", "replace")
 
+    def _flush_queue(self) -> None:
+        """Apply every write the native engine banked (in arrival order):
+        INS, SET, RM and CLR, exactly the sequences their apply() branches
+        run; observed-remove ops observe (drain) first. Runs before any
+        other UJSON work, so the queue is invisible to reads, flushes,
+        drains and snapshots. The engine validated each value token
+        before banking it, so these applies cannot fail (their +OK
+        replies are already on the wire)."""
+        if self.engine is None or not self.engine.uq_count():
+            return
+        for args in self.engine.uq_drain():
+            op = args[0]
+            if op == b"CLR":
+                key = args[1]
+                self._drain_key(key)  # observed-remove: observe first
+                self._demote(key)
+                doc = self._data.get(key)
+                if doc is not None:
+                    doc.clr(self._identity, _decode_path(args[2:]), self._delta_for(key))
+                self._sync_dirty.add(key)
+                continue
+            key, path, value = self._path_and_value(args)
+            if op == b"SET":
+                self._drain_key(key)  # SET clears OBSERVED dots
+                self._demote(key)
+                self._data_for(key).set_doc(self._identity, path, value, self._delta_for(key))
+            elif op == b"RM":
+                self._drain_key(key)  # observed-remove: observe first
+                self._demote(key)
+                doc = self._data.get(key)
+                if doc is not None:
+                    doc.rm(self._identity, path, value, self._delta_for(key))
+            else:  # INS
+                self._demote(key)
+                self._data_for(key).ins(self._identity, path, value, self._delta_for(key))
+            self._sync_dirty.add(key)
+
+    def prepare_flush(self) -> None:
+        """Manager hook (flush_async, clean shutdown): apply the write
+        queue in a worker thread before the loop-side delta flush (a
+        queued write on a resident key demotes, which decodes a row)."""
+        self._flush_queue()
+
     def apply(self, resp, args: list[bytes]) -> bool:
+        self._flush_queue()
         op = need(args, 0)
         if op in (b"SET", b"CLR", b"INS", b"RM") and len(args) >= 2:
             self._sync_dirty.add(args[1])
+            if self.engine is not None:
+                # a write applied on THIS path (deferred by the engine, or
+                # a direct apply) drops the overlapping render memos, as a
+                # natively banked one does when it banks
+                self.engine.uj_invalidate(
+                    args[1],
+                    args[2:] if op == b"CLR" else args[2:-1],
+                    subtree=op in (b"SET", b"CLR"),
+                )
         if op == b"GET":
             key = need(args, 1)
             self._drain_key(key)
             doc = self._view(key)
-            resp.string(doc.render(_decode_path(args[2:])) if doc is not None else "")
+            text = doc.render(_decode_path(args[2:])) if doc is not None else ""
+            resp.string(text)
+            if self.engine is not None and doc is not None:
+                body = text.encode()
+                # memo repair: the next GET of this (key, path) settles in
+                # C++ on these bytes. Keys with no document never memoise,
+                # so a read-only scan over absent keys grows no engine rows
+                self.engine.uj_memo_put(key, args[2:], b"$%d\r\n%s\r\n" % (len(body), body))
             return False
         if op == b"SET":
             key, path, value = self._path_and_value(args)
@@ -207,6 +278,10 @@ class RepoUJSON:
         raise ParseError()
 
     def converge(self, key: bytes, delta: UJSON) -> None:
+        if self.engine is not None:
+            # a remote delta can change any subtree: drop every render
+            # memo of the key (path () with subtree=True covers all)
+            self.engine.uj_invalidate(key, (), subtree=True)
         lst = self._pend.setdefault(key, [])
         lst.append(delta)
         self._pend_total += 1
@@ -220,6 +295,10 @@ class RepoUJSON:
         total buffered deltas hit the cap."""
         return self._overdue or self._pend_total >= PENDING_TOTAL_MAX
 
+    # banked native-queue commands above which even a host-only flush
+    # offloads to a thread (a bounded event-loop stall beats none)
+    UQ_INLINE_MAX = 1024
+
     # INS included: it never drains, but on a resident key it demotes —
     # which can decode (a blocking device pull) and must not run on the
     # event loop
@@ -229,7 +308,21 @@ class RepoUJSON:
         """Commands that will touch the device get offloaded to a thread
         (manager.apply_async): a device-sized pending fan-in, a resident
         key whose pending exceeds the trickle budget, or a resident
-        read/demotion that must decode (cache miss)."""
+        read/demotion that must decode (cache miss). A non-empty native
+        write queue offloads only when its flush can touch the device (a
+        resident store exists, a fan-in reached device size, or the queue
+        is large): a small host-only flush runs inline, so the command
+        that flushes it opens no lock window that would route every other
+        connection's burst off the native path."""
+        if self.engine is not None and self.engine.uq_count():
+            if (
+                self._res is not None
+                or self._overdue
+                or self._pend_total >= PENDING_TOTAL_MAX
+                or self.engine.uq_count() > self.UQ_INLINE_MAX
+            ):
+                return True
+            # host-only flush: fall through to this command's own checks
         if len(args) < 2 or args[0] not in self.may_drain_OPS:
             return False
         key = args[1]
@@ -338,6 +431,7 @@ class RepoUJSON:
         """Fold all pending deltas in ONE device/host pass before the
         canon reads (a per-key fold would launch per dirty key); on the
         card this is where the digest runs the fold kernels."""
+        self._flush_queue()
         self.drain()
 
     def sync_dirty_keys(self) -> list[bytes]:
@@ -364,6 +458,7 @@ class RepoUJSON:
     # -- snapshot: full state in the wire-delta shape ------------------------
 
     def dump_state(self):
+        self._flush_queue()
         self.drain()
         docs = dict(self._data)
         if self._res is not None:
@@ -381,6 +476,10 @@ class RepoUJSON:
             self.converge(key, delta)
 
     def deltas_size(self) -> int:
+        # the banked queue is NOT applied here: this runs on the event
+        # loop (the proactive flush), and a queued write on a resident key
+        # demotes with a blocking row decode. prepare_flush (threaded)
+        # applies it; deltas of still-banked writes ship on the next flush
         return len(self._deltas)
 
     def flush_deltas(self):
@@ -389,6 +488,7 @@ class RepoUJSON:
         return out
 
     def drain(self) -> None:
+        self._flush_queue()
         # device pass first: every resident key with pending, plus every
         # key whose fan-in earns a slice of a shared drain, folds at once;
         # what remains (small fan-ins on host-mode keys, or everything on

@@ -1,10 +1,12 @@
 """Host state of the TLOG repo: the pure-Python table.
 
-The port's copy of ``PyTlogTable`` from jylis_tpu/models/tlog_table.py
-(the native engine's table waits with the port of the native serving
-engine). It keeps TLOG's host bookkeeping: key interning, the per-row
-pending window, length/cutoff caches, the merged-view memo that serves
-SIZE/GET without device reads, and the outbound delta accumulators.
+The port's copies of jylis_tpu/models/tlog_table.py's two tables:
+``PyTlogTable`` (pure-Python, the oracle, ``engine="python"``) and
+``NativeTlogTable`` (a view over the native serving engine's TLOG table:
+the same state the server's burst applier mutates). They keep TLOG's
+host bookkeeping: key interning, the per-row pending window,
+length/cutoff caches, the merged-view memo that serves SIZE/GET without
+device reads, and the outbound delta accumulators.
 
 Semantics mirror repo_tlog.pony:16-111 via docs tlog.md: entries dedup on
 (ts, value), cutoffs are grow-only and filter the view, TRIM/CLR raise
@@ -20,7 +22,7 @@ and the repo rebuilds it from one device row gather via ``set_base``).
 from __future__ import annotations
 
 
-# drain thresholds (the JAX package's values: its native engine matches them)
+# drain thresholds; native/src/engine.h TlogTable must match
 ROW_DRAIN_THRESHOLD = 1024
 PENDING_DRAIN_THRESHOLD = 4096
 
@@ -315,3 +317,110 @@ class PyTlogTable:
         out.sort()
         return out
 
+
+class NativeTlogTable:
+    """The TLOG view over a shared native serving engine."""
+
+    __slots__ = ("_eng",)
+
+    def __init__(self, engine):
+        self._eng = engine
+
+    def rows(self) -> int:
+        return self._eng.tlog_rows()
+
+    def upsert(self, key: bytes) -> int:
+        return self._eng.tlog_upsert(key)
+
+    def find(self, key: bytes) -> int:
+        return self._eng.tlog_find(key)
+
+    def key_of(self, row: int) -> bytes:
+        return self._eng.tlog_key_of(row)
+
+    def cutoff_view(self, row: int) -> int:
+        return self._eng.tlog_cutoff_view(row)
+
+    def quiescent(self, row: int) -> bool:
+        return self._eng.tlog_quiescent(row)
+
+    def ins(self, row: int, ts: int, value: bytes) -> None:
+        self._eng.tlog_ins(row, ts, value)
+
+    def converge_entry(self, row: int, ts: int, value: bytes) -> None:
+        self._eng.tlog_conv_entry(row, ts, value)
+
+    def converge_cutoff(self, row: int, c: int) -> None:
+        self._eng.tlog_conv_cutoff(row, c)
+
+    def size(self, row: int) -> int:
+        return self._eng.tlog_size(row)
+
+    def merged_entries(self, row: int):
+        return self._eng.tlog_merged_entries(row)
+
+    def base_entries(self, row: int):
+        return self._eng.tlog_base_entries(row)
+
+    def base_valid(self, row: int) -> bool:
+        return self._eng.tlog_base_valid(row)
+
+    def live_total(self) -> int:
+        return self._eng.tlog_live_total()
+
+    def export_sync_dirty(self) -> list[int]:
+        return self._eng.tlog_export_sync_dirty()
+
+    def compact_values(self) -> bool:
+        return self._eng.tlog_compact()
+
+    def set_base(self, row: int, entries) -> None:
+        self._eng.tlog_set_base(row, entries)
+
+    def len_cache(self, row: int) -> int:
+        return self._eng.tlog_len_cache(row)
+
+    def cut_cache(self, row: int) -> int:
+        return self._eng.tlog_cut_cache(row)
+
+    def pend_cutoff(self, row: int) -> int:
+        return self._eng.tlog_pend_cutoff(row)
+
+    def gen(self, row: int) -> int:
+        return self._eng.tlog_gen(row)
+
+    def pend_len(self, row: int) -> int:
+        return self._eng.tlog_pend_len(row)
+
+    def pend_rows_count(self) -> int:
+        return self._eng.tlog_pend_rows_count()
+
+    def row_overdue(self) -> bool:
+        return self._eng.tlog_row_overdue()
+
+    def touched_rows(self) -> list[int]:
+        return self._eng.tlog_touched_rows()
+
+    def touched_count(self) -> int:
+        return self._eng.tlog_touched_count()
+
+    def export_pend(self, row: int) -> list[tuple[int, bytes]]:
+        return self._eng.tlog_export_pend(row)
+
+    def export_pend_bulk(self, rows: list[int]):
+        return self._eng.tlog_export_pend_bulk(rows)
+
+    def finish_row(self, row: int, length: int, cut: int) -> None:
+        self._eng.tlog_finish_row(row, int(length), int(cut))
+
+    def finish_drain_end(self) -> None:
+        self._eng.tlog_finish_end()
+
+    def deltas_size(self) -> int:
+        return self._eng.tlog_deltas_size()
+
+    def delta_raise_cutoff(self, row: int, c: int) -> None:
+        self._eng.tlog_delta_raise_cutoff(row, c)
+
+    def flush_deltas(self):
+        return self._eng.tlog_flush_deltas()

@@ -2,9 +2,11 @@
 
 TREG's host bookkeeping — key interning, the serving winner, the pending
 drain window and the outbound delta accumulator — lives behind one small
-table interface. This is the port's copy of jylis_tpu's `PyTregTable`,
-the pure-Python backend; the native engine's `NativeTregTable` comes
-with a later slice.
+table interface with two implementations, the port's copies of
+jylis_tpu/models/treg_table.py: `PyTregTable` (pure-Python, the oracle,
+``engine="python"``) and `NativeTregTable` (a view over the native
+serving engine's TREG table: the same state the server's burst applier
+mutates).
 
 The winner rule is lexicographic (ts, value-bytes) — the reference's
 TReg last-writer-wins with value tiebreak (repo_treg.pony:24-68). The
@@ -100,3 +102,60 @@ class PyTregTable:
         rows = list(self._sync_dirty)
         self._sync_dirty.clear()
         return rows
+
+
+class NativeTregTable:
+    """The TREG view over a shared native serving engine."""
+
+    __slots__ = ("_eng",)
+
+    def __init__(self, engine):
+        self._eng = engine
+
+    def rows(self) -> int:
+        return self._eng.treg_rows()
+
+    def upsert(self, key: bytes) -> int:
+        return self._eng.treg_upsert(key)
+
+    def find(self, key: bytes) -> int:
+        return self._eng.treg_find(key)
+
+    def key_of(self, row: int) -> bytes:
+        return self._eng.treg_key_of(row)
+
+    def write(self, row: int, ts: int, value: bytes) -> None:
+        self._eng.treg_write(row, ts, value)
+
+    def note_delta(self, row: int, ts: int, value: bytes) -> None:
+        self._eng.treg_note_delta(row, ts, value)
+
+    def winner(self, row: int) -> tuple[int, bytes] | None:
+        return self._eng.treg_winner(row)
+
+    def pend_count(self) -> int:
+        return self._eng.treg_pend_count()
+
+    def export_pend(self) -> list[tuple[int, int, bytes]]:
+        return self._eng.treg_export_pend()
+
+    def fold_pend(self) -> None:
+        self._eng.treg_fold_pend()
+
+    def deltas_size(self) -> int:
+        return self._eng.treg_delta_count()
+
+    def flush_deltas(self):
+        return self._eng.treg_flush_deltas()
+
+    def dump(self):
+        out = []
+        for row in range(self._eng.treg_rows()):
+            w = self._eng.treg_winner(row)
+            if w is not None:
+                out.append((self._eng.treg_key_of(row), (w[1], w[0])))
+        out.sort()
+        return out
+
+    def export_sync_dirty(self) -> list[int]:
+        return self._eng.treg_export_sync_dirty()

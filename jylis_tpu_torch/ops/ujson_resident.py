@@ -40,9 +40,11 @@ upper bounds the fold slices to, kept as a bounded pipeline of in-flight
 folds whose live widths copy to pinned host memory behind a CUDA event
 (never read before the event completes). Row 0 is a permanent identity
 scratch row: padded subset slots point at it and write identical bytes.
-The native wire->planes grid encoder (``_grid_from_wire``) is not ported
-yet: every grid takes the object encoder, which the JAX store also takes
-whenever a delta is a plain ``UJSON``.
+When every delta of a grid is a ``WireUJSON`` (the native codec's
+receive path) the grid fills straight from the wire bytes
+(``_grid_from_wire``, ops/ujson_wire.grid_from_wire, with the JAX
+store's widen and rep-budget retries); any plain ``UJSON`` in the grid
+takes the object encoder, as in the JAX store.
 """
 
 from __future__ import annotations
@@ -407,6 +409,10 @@ class ResidentStore:
         self._rid_cols: dict[int, int] = {}
         self._pay_ids: dict[tuple, int] = {}
         self._pay_rev: list[tuple] = []
+        # canonical-wire-bytes -> pay id (the wire grid encoder interns
+        # payloads by their wire spans; identical (path, token) pairs have
+        # identical canonical encodings)
+        self._pay_wire: dict[bytes, int] = {}
         self._rows: dict[bytes, int] = {}
         self._free: list[int] = []
         # the width bound as a bounded pipeline: base (the newest consumed
@@ -435,7 +441,18 @@ class ResidentStore:
         return pid
 
     def pay_lookup(self, pid: int):
-        return self._pay_rev[pid]
+        pt = self._pay_rev[pid]
+        if type(pt) is bytes:
+            # a wire-interned payload: parse its canonical span on first
+            # read (drains never need the parsed form, only decodes do)
+            from ..utils.wire import Reader
+
+            r = Reader(pt)
+            path = tuple(r.str_() for _ in range(r.varint()))
+            pt = (path, r.str_())
+            self._pay_rev[pid] = pt
+            self._pay_ids.setdefault(pt, pid)
+        return pt
 
     # -- introspection ------------------------------------------------------
 
@@ -544,9 +561,15 @@ class ResidentStore:
 
     def _note_seqs(self, docs) -> None:
         """Track the max seq across delta contexts (a context covers its
-        store, so vv + cloud bound the entries too)."""
+        store, so vv + cloud bound the entries too). Wire deltas carry
+        their measured max_seq: reading .ctx would materialise them."""
         m = self._max_seq
         for d in docs:
+            ms = getattr(d, "max_seq", None)
+            if ms is not None:
+                if ms > m:
+                    m = ms
+                continue
             for s in d.ctx.vv.values():
                 if s > m:
                     m = s
@@ -606,7 +629,11 @@ class ResidentStore:
             return b
 
     def _encode_grid(self, groups) -> DocBatch:
-        """The (K, D, W) host grid of the groups (the object encoder)."""
+        """The (K, D, W) host grid of the groups: from the wire bytes when
+        every delta is a WireUJSON, else the object encoder."""
+        wire = self._grid_from_wire(groups)
+        if wire is not None:
+            return wire
         while True:
             try:
                 g = dev.encode_doc_groups_np(
@@ -622,6 +649,77 @@ class ResidentStore:
                 continue
             self._ensure_reps()
             return g
+
+    def _grid_from_wire(self, groups) -> DocBatch | None:
+        """The native wire->planes grid encoder (jylis_tpu/ops/
+        ujson_resident.py:718-806): the (K, D, W) host grid fills straight
+        from the deltas' raw payload bytes. Returns None (the caller takes
+        the object encoder) when any delta is a plain document."""
+        from .ujson_wire import GridOverflow, GridRepBudget, WireUJSON, grid_from_wire
+
+        flat = []
+        for g in groups:
+            for d in g:
+                if type(d) is not WireUJSON:
+                    return None
+                flat.append(d)
+        if not flat:
+            return None
+        d_dim = bucket(max(len(g) for g in groups), 1)
+        w = bucket(max(max(d.n_entries for d in flat), 1), 4)
+        c = bucket(max(max(d.n_cloud for d in flat), 1), 4)
+        rows = len(groups) * d_dim
+        dest = np.fromiter(
+            (k * d_dim + j for k, g in enumerate(groups) for j in range(len(g))),
+            np.int64, count=len(flat),
+        )
+        while True:
+            known = [0] * len(self._rid_cols)
+            for rid, col in self._rid_cols.items():
+                known[col] = rid
+            try:
+                dots, pay, vv, cloud, new_rids, spans = grid_from_wire(
+                    flat, dest, rows, w, c, self._shift, self._nrep, known
+                )
+            except GridOverflow:
+                if self._shift == 32:
+                    raise OverflowError("seq beyond the u64/32 layout") from None
+                self._widen()
+                continue
+            except GridRepBudget as e:
+                self._grow_reps_to(e.needed)
+                continue
+            break
+        for rid in new_rids:
+            self._rid_cols[rid] = len(self._rid_cols)
+        self._ensure_reps()
+        if self._nrep > vv.shape[-1]:
+            # new columns crossed a vv bucket after a successful fill:
+            # widen the grid's vv plane to the store's
+            vv = np.concatenate(
+                [vv, np.zeros((rows, self._nrep - vv.shape[-1]), np.uint32)], axis=-1
+            )
+        if spans:
+            # new payloads intern by their canonical span; parsing to
+            # (path, token) waits for pay_lookup (reads). A payload that
+            # also arrives through the object path gets a second id:
+            # harmless, ids only name payloads and joins dedup dots
+            lut = np.empty(len(spans), np.int32)
+            pw, rev = self._pay_wire, self._pay_rev
+            for i, span in enumerate(spans):
+                gid = pw.get(span)
+                if gid is None:
+                    gid = pw[span] = len(rev)
+                    rev.append(span)
+                lut[i] = gid
+            pay = np.where(pay >= 0, lut[np.maximum(pay, 0)], -1).astype(np.int32)
+        k = len(groups)
+        return DocBatch(
+            dots.reshape(k, d_dim, w),
+            pay.reshape(k, d_dim, w),
+            vv.reshape(k, d_dim, self._nrep),
+            cloud.reshape(k, d_dim, c),
+        )
 
     # -- admission / eviction ------------------------------------------------
 
@@ -712,10 +810,8 @@ class ResidentStore:
         # counts (the join can only drop)
         grow_w = grow_c = 0
         for lst in pending.values():
-            ew = sum(len(d.entries) for d in lst)
-            ec = sum(len(d.ctx.cloud) for d in lst)
-            grow_w = max(grow_w, ew)
-            grow_c = max(grow_c, ec)
+            grow_w = max(grow_w, sum(_n_entries(d) for d in lst))
+            grow_c = max(grow_c, sum(_n_cloud(d) for d in lst))
         if self._ks.mesh is None:
             # single device: the subset fold's grid covers exactly the
             # drained keys (the aligned grid spans every capacity row —
@@ -748,10 +844,15 @@ class ResidentStore:
             return
         from .ujson_host import UJSON
 
-        d = bucket(len(deltas), 4)  # identity-pad: bound the shapes
-        rows_np = self._encode_rows(list(deltas) + [UJSON()] * (d - len(deltas)))
-        grow_w = sum(len(x.entries) for x in deltas)
-        grow_c = sum(len(x.ctx.cloud) for x in deltas)
+        # wire path: the whole list as ONE (1, D, W) grid segment
+        grid = self._grid_from_wire([list(deltas)])
+        if grid is not None:
+            rows_np = DocBatch(*(p[0] for p in grid))
+        else:
+            d = bucket(len(deltas), 4)  # identity-pad: bound the shapes
+            rows_np = self._encode_rows(list(deltas) + [UJSON()] * (d - len(deltas)))
+        grow_w = sum(_n_entries(x) for x in deltas)
+        grow_c = sum(_n_cloud(x) for x in deltas)
         out_w, out_c = self._budget_widths(grow_w, grow_c)
         occ = np.zeros(self._row_axis(), bool)
         occ[list(self._rows.values())] = True
@@ -857,6 +958,9 @@ class ResidentStore:
             new_rev.append(self._pay_rev[pid])
         self._pay_rev = new_rev
         self._pay_ids = {k: i for i, k in enumerate(new_rev)}
+        self._pay_wire = {
+            span: int(table[pid]) for span, pid in self._pay_wire.items() if table[pid] >= 0
+        }
         table = torch.from_numpy(table)
         self._ks.map(lambda p: remap_pay(p, table.to(p.dots.device)))
 
@@ -866,6 +970,18 @@ class ResidentStore:
             return []
         keys = sorted(self._rows)
         return list(zip(keys, self.read_many(keys)))
+
+
+def _n_entries(d) -> int:
+    """A delta's entry count; a wire delta's measured one (reading
+    .entries would materialise it)."""
+    n = getattr(d, "n_entries", None)
+    return len(d.entries) if n is None else n
+
+
+def _n_cloud(d) -> int:
+    n = getattr(d, "n_cloud", None)
+    return len(d.ctx.cloud) if n is None else n
 
 
 def _pad_planes_np(batch: DocBatch, w: int, c: int) -> DocBatch:

@@ -15,6 +15,9 @@ through Respond). Two halves:
 Reply byte shapes are pinned by the reference's integration test
 (test/test_cluster.pony:123-128: b"+OK\\r\\n", b":9\\r\\n") and the
 docs (docs/_docs/start/connect.md: any Redis client is compatible).
+
+The native scanner (native/resp.py) slots in behind the same parser
+interface; this pure-Python one is the oracle for its error messages.
 """
 
 from __future__ import annotations
@@ -81,6 +84,20 @@ class RespParser:
     def append(self, data: bytes) -> None:
         self._buf += data
 
+    def has_pending(self) -> bool:
+        """Unconsumed bytes held (a split command's head): while true the
+        stream's head belongs to this parser, not the native engine."""
+        return bool(self._buf)
+
+    def take_tail(self) -> bytes | None:
+        """Hand the held bytes back to the caller (and forget them), so
+        the stream's head can return to the native engine. Only legal
+        once every complete command has been iterated out; ``_buf`` then
+        holds exactly the split tail."""
+        out = bytes(self._buf)
+        self._buf.clear()
+        return out
+
     def __iter__(self):
         return self
 
@@ -115,7 +132,7 @@ class RespParser:
         line, pos = self._find_line(0)
         if line is None:
             return None
-        if not line[1:].isdigit():  # strict: no +, no whitespace
+        if not line[1:].isdigit():  # strict: no +, no whitespace (as native)
             raise RespError("protocol error: bad array header")
         n = int(line[1:])
         if n > 1024 * 1024:
@@ -127,7 +144,7 @@ class RespParser:
                 return None
             if header[0:1] != b"$":
                 raise RespError("protocol error: expected bulk string")
-            if not header[1:].isdigit():  # strict
+            if not header[1:].isdigit():  # strict, matching the native scanner
                 raise RespError("protocol error: bad bulk length")
             blen = int(header[1:])
             if blen > self._MAX_BULK:

@@ -1,10 +1,25 @@
 """RESP TCP server: the client API endpoint.
 
-The port of the Python dispatch path of jylis_tpu/server/server.py
-(reference analog: server.pony + server_notify.pony): accept clients on
-config.port, feed their bytes through the incremental RESP parser, route
-complete commands into Database.apply_async, and on protocol errors
-reply with an error and drop the connection (server_notify.pony:19-22).
+The port of jylis_tpu/server/server.py (reference analog: server.pony +
+server_notify.pony): accept clients on config.port, feed their bytes to
+the node's serving engine or the incremental RESP parser, and on
+protocol errors reply with an error and drop the connection
+(server_notify.pony:19-22).
+
+The native burst path (``_apply_native``, JAX server.py:290-390): on a
+node with a native engine (``Database(engine="auto")``) a connection's
+bytes go whole to ``ServeEngine.scan_apply``, which settles every
+GCOUNT/PNCOUNT/TREG/TLOG/UJSON command it can in C++ under the five
+engine-backed repo locks; a command it defers (rc 1: a read that must
+drain, a type it does not serve, SYSTEM, ...) runs through
+Database.apply_async in order. A connection demotes to the Python path
+for the rest of its life on malformed input (rc -1), an oversized
+command (rc -2), a FaultError at ``native.scan_apply`` or shutdown;
+demotions are counted in SYSTEM METRICS' SERVING lines. A burst arriving
+while a threaded drain holds one of those locks goes through the Python
+parser and the per-repo path instead, so unrelated repos never wait on
+the engine's lock boundary. The admission layer's queued-bytes bound
+(JAX :366-380) comes with the port of admission.
 
 Concurrency model: the asyncio loop replaces the per-connection Pony
 actors. Device-bound work runs in a worker thread under a per-repo lock
@@ -18,8 +33,11 @@ from __future__ import annotations
 
 import asyncio
 import socket
+import time
 
-from .resp import Respond, RespError, RespParser
+from .. import faults
+from ..native.resp import make_parser
+from .resp import Respond, RespError
 
 
 class Server:
@@ -30,6 +48,13 @@ class Server:
         self._server: asyncio.base_events.Server | None = None
         self._conns: set[asyncio.StreamWriter] = set()
         self._closing = False
+        # dispatch-latency seams (obs/): one native burst (one scan_apply
+        # settling many commands) vs one Python-path dispatch; the
+        # pipeline's dispatch stage reuses those elapsed times
+        self._reg = database.metrics
+        self._h_burst = self._reg.hist("server.native_burst")
+        self._h_py = self._reg.hist("server.py_dispatch")
+        self._h_dispatch = self._reg.hist("pipeline.dispatch")
 
     async def start(self) -> None:
         try:
@@ -60,10 +85,13 @@ class Server:
             # this writer yet, and wait_closed would wait on it forever
             writer.close()
             return
-        parser = RespParser()
-        # replies buffer here and flush once per parsed batch (bounded
-        # below): a write() per reply would be one tiny TCP segment per
-        # command on a pipelined burst
+        engine = self._database.native_engine
+        parser = make_parser(engine)
+        # Python-path replies buffer here and flush once per parsed batch
+        # (bounded below): a write() per reply would be one tiny TCP
+        # segment per command. The engine's replies arrive pre-batched;
+        # flush() runs before every direct engine write, so the reply
+        # stream keeps command order across the two paths
         out = bytearray()
         resp = Respond(out.extend)
 
@@ -72,16 +100,44 @@ class Server:
                 writer.write(bytes(out))
                 out.clear()
 
+        use_native = engine is not None
+        buf = bytearray()
         self._conns.add(writer)
         try:
             while True:
                 data = await reader.read(1 << 16)
                 if not data:
                     break
+                if use_native:
+                    go_native = not any(m.busy() for m in self._engine_managers())
+                    if go_native and parser.has_pending():
+                        # an earlier burst went through the Python parser
+                        # and left a split command's head behind: reclaim
+                        # it so the stream returns to the engine
+                        tail = parser.take_tail()
+                        if tail is None:
+                            go_native = False  # malformed or unserved: stay
+                        else:
+                            buf += tail
+                    if not go_native:
+                        # a drain holds an engine repo's lock: route THIS
+                        # burst through the per-repo Python path
+                        parser.append(bytes(buf))
+                        buf.clear()
+                    else:
+                        buf += data
+                        use_native = await self._apply_native(
+                            engine, buf, parser, resp, flush, writer
+                        )
+                        if use_native:
+                            flush()
+                            await writer.drain()
+                            continue
+                        data = b""  # demoted: the tail is in the parser
                 parser.append(data)
                 try:
                     for cmd in parser:
-                        await self._database.apply_async(resp, cmd)
+                        await self._dispatch_py(resp, cmd)
                         flush(1 << 16)  # bound the reply buffer mid-burst
                 except RespError as e:
                     resp.err(str(e))
@@ -98,6 +154,85 @@ class Server:
                 await writer.wait_closed()
             except (ConnectionResetError, BrokenPipeError):
                 pass
+
+    async def _dispatch_py(self, resp, cmd) -> None:
+        """One Python-path dispatch (a demoted connection's commands and
+        the engine's deferred ones)."""
+        t0 = time.perf_counter() if self._reg.enabled else 0.0
+        await self._database.apply_async(resp, cmd)
+        if t0:
+            el = time.perf_counter() - t0
+            self._h_py.record(el)
+            self._h_dispatch.record(el)
+
+    # the engine's changed-counter order (serve_engine.cpp scan_apply2)
+    _ENGINE_TYPES = ("GCOUNT", "PNCOUNT", "TREG", "TLOG", "UJSON")
+
+    def _engine_managers(self):
+        return [self._database.manager(n) for n in self._ENGINE_TYPES]
+
+    async def _apply_native(self, engine, buf, parser, resp, flush, writer) -> bool:
+        """Drain ``buf`` through the native serving engine; commands it
+        cannot settle go through the per-repo async path in order
+        (``resp`` buffers their replies; ``flush`` pushes them before the
+        engine's next direct write). Returns True (stay native) or False
+        (demote this connection to the Python path; the tail is moved
+        into ``parser``, whose oracle then renders a malformed input's
+        specific error before the connection drops)."""
+        mgrs = self._engine_managers()
+
+        def demote() -> bool:
+            self._reg.note_serving("demotions")
+            self._reg.trace_event("server", "demote")
+            parser.append(bytes(buf))
+            buf.clear()
+            return False
+
+        while True:
+            if any(m._shutdown for m in mgrs):
+                return demote()
+            # all five engine tables can change inside one native call:
+            # hold every engine-backed repo lock, the boundary apply_async
+            # keeps per repo. The order is the DATABASE MAP's (TREG, TLOG,
+            # GCOUNT, PNCOUNT, UJSON), the order every multi-lock holder
+            # takes, so a shutdown can never deadlock against a burst
+            async with mgrs[2]._lock, mgrs[3]._lock, mgrs[0]._lock, \
+                    mgrs[1]._lock, mgrs[4]._lock:
+                try:
+                    # a failure at the FFI burst boundary demotes this
+                    # connection to the Python oracle path, never kills
+                    # it; the ASYNC point, so an injected sleep slows this
+                    # connection and not the whole loop
+                    await faults.async_point("native.scan_apply")
+                    t0 = time.perf_counter() if self._reg.enabled else 0.0
+                    rc, consumed, replies, unhandled, changed = engine.scan_apply(buf)
+                    if t0:
+                        el = time.perf_counter() - t0
+                        self._h_burst.record(el)
+                        self._h_dispatch.record(el)
+                except faults.FaultError:
+                    return demote()
+                if replies:
+                    flush()  # deferred-command replies precede these
+                    writer.write(replies)
+                for mgr, ch in zip(mgrs, changed):
+                    if ch:
+                        mgr._maybe_proactive_flush()
+            del buf[:consumed]
+            if rc == 1:  # one command for the Python path, in order
+                await self._dispatch_py(resp, unhandled)
+                # a run of deferring reads makes no engine write to ride
+                # on: bound the buffer here as the demoted loop does
+                flush(1 << 16)
+                continue
+            if rc == 2:  # the engine's reply buffer filled: keep going
+                continue
+            if rc < 0:
+                # rc -1: malformed input (the Python parser renders the
+                # specific error and drops the connection); rc -2: an
+                # oversized command (Python serves this connection on)
+                return demote()
+            return True  # rc 0: every complete command consumed
 
     async def dispose(self) -> None:
         """Stop listening and close client connections (the reference

@@ -19,13 +19,20 @@ periodic digest exchange's range sync can bring the two nodes together.
 Prints JSON lines: seconds to mesh; for the bootstrap and for the script,
 the types that differ over time (SYSTEM DIGEST TYPES polled every 0.5 s
 up to ``--deadline`` seconds, default 300) and the seconds to equal
-digests, or null; each node's CLUSTER counters.
+digests, or null; each node's CLUSTER counters. Each node runs its
+package's default serving engine, the native one (a port node's
+``build_node``, a JAX ``Database(engine="auto")``), as a deployed node
+does.
 
 ``--costs`` times, in one process, the work a range round does under a
 repo lock or on the event loop at config 2's size: each counter type's
-digest fold and ``dump_state`` over ``--keys`` keys, and the codec's
+digest fold, ``dump_state`` and a range dump of 32 of the 256 digest-tree
+buckets over ``--keys`` keys, and the codec's
 encode and decode of the PNCOUNT state as 2,048-key MsgPushDeltas frames,
-for the port and the JAX package (its native codec path and its oracle).
+for the port and the JAX package, each with its native serving engine
+and with its Python tables (the converge of config 2 too), and each
+codec on its native path and on its oracle (the port's
+``codec.encode(msg, native=False)``).
 
 Port nodes import nothing of JAX; ``--kind jax``, ``jax-oracle`` and
 ``--costs`` import the JAX package (set JAX_PLATFORMS=cpu).
@@ -91,7 +98,7 @@ def node_stack(spec: dict):
     config.seed_addrs = [Address(*s) for s in spec["seeds"]]
     config.heartbeat_time, config.range_budget = tick, 256
     system = System(config)
-    db = Database(identity=config.addr.hash64(), system_repo=system.repo, engine="python")
+    db = Database(identity=config.addr.hash64(), system_repo=system.repo, engine="auto")
 
     async def converge(name, batch):
         # the script's deltas are the port's objects: carry them over the wire bytes
@@ -241,15 +248,18 @@ def costs(args) -> None:
     keys = [b"k%06d" % i for i in range(args.keys)]
     rids = [int(x) for x in rng.integers(1 << 40, 1 << 62, cs.NODE_REPLICAS)]
     batches = cs.cluster_config2(rng, keys, rids)
-    for kind in ("port", "jax"):
+    for kind, engine in (("port", "auto"), ("port", "python"), ("jax", "auto"),
+                         ("jax", "python")):
+        t0 = time.perf_counter()
         if kind == "port":
-            db = Database(1, device="cpu")
+            db = Database(1, device="cpu", engine=engine)
             for name, batch in batches:
                 db.converge(name, batch)
         else:
-            db = JaxDatabase(identity=1, engine="python")
+            db = JaxDatabase(identity=1, engine=engine)
             for name, batch in batches:
                 db.converge_deltas((name, batch))
+        say({"package": kind, "engine": engine, "converge_s": time.perf_counter() - t0})
         for name in ("GCOUNT", "PNCOUNT"):
             repo = db._map[name.encode()].repo
             t0 = time.perf_counter()
@@ -257,11 +267,19 @@ def costs(args) -> None:
             fold = time.perf_counter() - t0
             t0 = time.perf_counter()
             repo.dump_state()
-            say({"package": kind, "type": name, "keys": args.keys, "fold_s": fold,
-                 "dump_s": time.perf_counter() - t0})
+            dump = time.perf_counter() - t0
+            # a range round's dump of one bucket in eight (32 of 256)
+            buckets = range(0, 256, 8)
+            t0 = time.perf_counter()
+            asyncio.run(db.dump_range_async(name, buckets))
+            say({"package": kind, "engine": engine, "type": name, "keys": args.keys,
+                 "fold_s": fold,
+                 "dump_s": dump, "range_32_of_256_s": time.perf_counter() - t0})
     state = [kd for name, batch in batches if name == "PNCOUNT" for kd in batch]
     chunks = [tuple(state[i:i + 2048]) for i in range(0, len(state), 2048)]
-    for label, enc, dec, msg in (("port", pcodec.encode, pcodec.decode, MsgPushDeltas),
+    for label, enc, dec, msg in (("port native", pcodec.encode, pcodec.decode, MsgPushDeltas),
+                                 ("port oracle", lambda m: pcodec.encode(m, native=False),
+                                  lambda b: pcodec.decode(b, native=False), MsgPushDeltas),
                                  ("jax native", jcodec.encode, jcodec.decode, JaxMsg),
                                  ("jax oracle", jcodec._encode_oracle, jcodec._decode_oracle,
                                   JaxMsg)):

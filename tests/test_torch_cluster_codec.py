@@ -13,7 +13,8 @@ Three parts, all at tolerance 0:
   ``Database(engine="python")`` and a port ``Database(device="cpu")``.
   Each type's ``flush_deltas`` batch, encoded as ``MsgPushDeltas`` by its
   own package's codec, gives equal bytes for all eight types and SYSTEM,
-  and so does each type's sync dump (``dump_state_async``).
+  and so does each type's sync dump (``dump_state_async``) and range
+  dump (``dump_range_async``) for a few digest-tree bucket sets.
 """
 
 import asyncio
@@ -45,6 +46,8 @@ CORPUS = json.loads(
 )
 MESSAGES = sorted(n for n in CORPUS["entries"] if n.startswith(("msg/", "delta/")))
 TYPES = ("TREG", "TLOG", "GCOUNT", "PNCOUNT", "UJSON", "TENSOR", "MAP", "BCOUNT", "SYSTEM")
+# digest-tree bucket sets a range sync may ask for: a few, a stride, all
+BUCKET_SETS = ((3, 100, 200), tuple(range(0, 256, 7)), tuple(range(256)))
 
 
 @pytest.mark.parametrize("name", MESSAGES)
@@ -120,7 +123,7 @@ def flushed():
     dbs = {"jax": JaxDatabase(identity=IDENTITY, engine="python"),
            "port": Database(IDENTITY, device="cpu")}
     writers = {n: {} for n in dbs}
-    out = {n: {"flush": [], "dump": []} for n in dbs}
+    out = {n: {"flush": [], "dump": [], "range": []} for n in dbs}
     clock = iter(range(1 << 63, (1 << 63) + 100))
     for steps in rounds:
         ts = next(clock)
@@ -144,6 +147,9 @@ def flushed():
             out[name]["flush"].append(got)
             dumps = asyncio.run(db.dump_state_async())
             out[name]["dump"].append({n: cod.encode(msg(n, tuple(b))) for n, b in dumps})
+            out[name]["range"].append({
+                (n, i): cod.encode(msg(n, tuple(asyncio.run(db.dump_range_async(n, bs)))))
+                for n in TYPES[:-1] for i, bs in enumerate(BUCKET_SETS)})
     return out
 
 
@@ -169,6 +175,22 @@ def test_sync_dumps_encode_as_jax(flushed, name, rnd):
     want = flushed["jax"]["dump"][rnd][name]
     assert flushed["port"]["dump"][rnd][name] == want
     assert len(want) > 20
+
+
+@pytest.mark.parametrize("rnd", [0, 1])
+@pytest.mark.parametrize("name", TYPES[:-1])
+def test_range_dumps_encode_as_jax(flushed, name, rnd):
+    """``dump_range_async`` for a few bucket sets: the port reads only
+    the wanted keys' rows (``dump_keys`` on the counters, TREG and TLOG)
+    where JAX filters its whole dump; the frames are equal, and the full
+    bucket set gives the whole dump's frame."""
+    got, want = flushed["port"]["range"][rnd], flushed["jax"]["range"][rnd]
+    for i in range(len(BUCKET_SETS)):
+        assert got[name, i] == want[name, i], BUCKET_SETS[i][:3]
+    assert got[name, 2] == flushed["port"]["dump"][rnd][name]
+    assert len(got[name, 0]) <= len(got[name, 1]) <= len(got[name, 2])
+    if name in ("TREG", "TLOG", "GCOUNT", "PNCOUNT"):  # the keyed dumps
+        assert len(got[name, 0]) < len(got[name, 1]) < len(got[name, 2])
 
 
 def test_stream_holds_u64_values(flushed):

@@ -463,6 +463,17 @@ JAX_FREE_NODE = textwrap.dedent("""
     treg = db.manager("TREG").repo
     treg.drain()  # the staged, unrouted sparse drain
     assert treg._cache and "jylis_tpu_torch.ops.staging" in sys.modules
+    # the native library built and loaded, a burst settled in C++, and a
+    # PushDeltas frame coded natively both ways
+    from jylis_tpu_torch import native
+    from jylis_tpu_torch.cluster import codec
+    from jylis_tpu_torch.cluster.msg import MsgPushDeltas
+
+    assert native.lib() is db.native_engine.cdll
+    assert db.serving_totals()["native_cmds"] > 0
+    msg = MsgPushDeltas("PNCOUNT", ((b"p", ({1: 1 << 63}, {2: 5})),))
+    assert codec.decode(codec.encode(msg)) == msg
+    assert codec.encode.native["PushDeltas"] == codec.decode.native["PushDeltas"] == 1
     loaded = [m for m in sys.modules if m == "jylis_tpu" or m.startswith("jylis_tpu.")]
     assert not loaded, loaded
     assert sys.modules["jax"] is None
@@ -475,7 +486,9 @@ def test_serves_treg_and_tensor_without_jax():
     DIGEST in a process where ``import jax`` raises, drains TREG through
     the staged path (ops/staging.py), imports the cluster, the entry
     point and chip_smoke.py, and loads nothing of ``jylis_tpu``; its
-    replies equal the JAX database's."""
+    replies equal the JAX database's. The same process builds and loads
+    the port's native library, settles the burst in the native serving
+    engine and codes a PushDeltas frame natively both ways."""
     request = (
         arr("TREG", "SET", "r", "v1", 3) + arr("TREG", "SET", "r", "v0", 3)
         + arr("TREG", "GET", "r") + arr("TENSOR", "SET", "t", "MAX", 0, vec(1, 2))
