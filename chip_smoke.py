@@ -130,8 +130,9 @@ library's path, its build seconds, the compiler's version); then:
    bound and the call's bound (the kernel's plus the staged bytes at
    the measured pinned rates; TREG also its layout's sector bound);
 13. the mesh node phase: a Database on the mesh and a single-device
-   one fed the same RESP script and delta stream (config 2's counters,
-   100,000 TREG keys with prefix ties, 2,000 TLOG keys with trims,
+   one fed the same RESP script and delta stream (config 2's counters
+   and TREG keys with prefix ties, each at MESH_NODE_KEYS = 50,000 keys,
+   2,000 TLOG keys with trims,
    UJSON's flat and tree rounds), every reply and each repo's
    dump_state compared; no dense drain may launch on the mesh node (its
    counter and TREG drains are the staged, unrouted ones, a launch a
@@ -139,7 +140,8 @@ library's path, its build seconds, the compiler's version); then:
    then, with the counts set to 0 again, parallel.dryrun's
    dryrun_multichip on the mesh's devices (the only path that runs
    replica_join: no serving repo joins over a rep axis);
-14. the digest phase: the mesh node phase's script, then MAP (10,000
+14. the digest phase: the mesh node phase's script (MESH_NODE_KEYS),
+   then MAP (10,000
    (key, field) pairs over the four inner types, with DELs and foreign
    field units), BCOUNT (10,000 keys: GRANT, INC, DEC, TRANSFER, foreign
    escrow, many spends refused OUTOFBOUND) and TENSOR SETs, then a UJSON
@@ -182,7 +184,23 @@ library's path, its build seconds, the compiler's version); then:
    equal digests, each stage, last write to equal digests), the types
    that differed over time, the frames each node received by message
    kind, the keys they carried, the sync counters each way, and C's
-   launches by stage.
+   launches by stage;
+16. the persistence phase (persist_phase): nodes wired by
+   main.build_node with --data-dir, each in a process of its own, one
+   address (one replica identity), the journal on. P1 on the card takes
+   the cluster phase's data (config 2 and the whole all-type script) and
+   a clean shutdown writes its snapshot and retires its journal; P2 on
+   the card restores it at boot (its digests must equal P1's, and its
+   restore must launch a counter, TREG, TLOG, UJSON and TENSOR drain
+   kernel), takes a second stage of writes of every type over RESP until
+   its JOURNAL appends counter settles, and is killed with SIGKILL; P3
+   on the card restores the snapshot and replays the journal (its
+   digests must equal P2's before the kill); a CPU node on a copy of
+   P1's file gives P1's digests and, fed the second stage, P2's replies
+   and P3's digests. The "persist" line holds the snapshot's bytes and
+   write seconds, boot to listening, the restore's decode + converge and
+   drain_all seconds, its launches, and the replay's batches, seconds
+   and launches.
 Before 1., the codec phase, on the card machine's host: config 2's
 PNCOUNT state (100,000 keys x 8 replica ids) as 2,048-key PushDeltas
 frames, encoded and decoded by the native codec and by the oracle
@@ -209,7 +227,8 @@ phases, replica_join's on the dryrun; "mesh_launches" on the mesh
 node, "dryrun_launches" on the dryrun and "digest_launches" on the
 digest phase's two nodes on the card, "cluster_launches" on the
 cluster phase's card node and "cluster_wire_launches", those of its
-launches the wire fed, each apart; for the row
+launches the wire fed, "restore_launches" in P2's boot restore and
+"replay_launches" in P3's journal replay, each apart; for the row
 kernels tlog_drain, ujson_join and ujson_fold_flat, "class" at each
 shape and "launch_classes", the main path's launches by class (a warp
 or a CTA per row, device scratch, or a cluster of CTAs: ops/row_plan.py);
@@ -228,6 +247,8 @@ from __future__ import annotations
 
 import asyncio
 import json
+import os
+import re
 import shutil
 import socket
 import statistics
@@ -3002,10 +3023,15 @@ RJ_S, RJ_K, RJ_ODD = 64, 1 << 20, 7
 # the aligned UJSON folds: the flat leg's shape (4,096 keys x 64 deltas,
 # W = 4, R = 32) and a tree-shaped one (D > 64)
 UJ_ALIGNED = ((4096, 64, 4, 32), (256, 130, 4, 8))
-# the mesh node phase: config 2's counters (100,000 keys x 8 replica ids),
-# 100,000 TREG keys with prefix ties, TLOG with trims, UJSON with a flat
-# round (512 keys x 64 deltas) and a tree round (16 keys x 512 deltas)
+# the mesh node phase's script: config 2's counters (100,000 keys x 8
+# replica ids), 100,000 TREG keys with prefix ties, TLOG with trims, UJSON
+# with a flat round (512 keys x 64 deltas) and a tree round (16 keys x 512
+# deltas). The cluster and persistence phases run it at MESH_KEYS; the
+# mesh node and digest phases at MESH_NODE_KEYS (cut from 100,000 to
+# keep the whole run near half its time limit: their checks are of
+# sharding and of the digest, not of scale)
 MESH_KEYS, MESH_MORE = 100_000, 400
+MESH_NODE_KEYS = 50_000
 MESH_TLOG_KEYS, MESH_TLOG_ROUNDS, MESH_TLOG_D = 2_000, 3, 16
 MESH_UJ_FLAT, MESH_UJ_TREE = 512, 16
 
@@ -3656,29 +3682,31 @@ def treg_call_cases(torch, card: str, devs, xfer) -> dict:
     return {"treg_drain_sparse": rows_out}
 
 
-def mesh_node_script(rng, writers=None):
+def mesh_node_script(rng, writers=None, n_keys=None):
     """The mesh node phase's RESP script and delta stream, made afresh
     from ``rng`` for each node (UJSON deltas are objects): a list of
     ("cmds", [commands]) and ("conv", type, batch) steps. ``writers``, a
-    list, gets the flat round's writer documents (A, B, C per key)."""
+    list, gets the flat round's writer documents (A, B, C per key).
+    ``n_keys`` counter and TREG keys (default MESH_KEYS)."""
     from jylis_tpu_torch.ops.ujson_host import UJSON
 
+    n_keys = n_keys or MESH_KEYS
     steps = []
     rids = [int(x) for x in rng.integers(1 << 40, 1 << 62, NODE_REPLICAS)]
-    keys = [b"m%06d" % i for i in range(MESH_KEYS)]
-    sample = [keys[int(i)] for i in rng.choice(MESH_KEYS, 300, replace=False)]
+    keys = [b"m%06d" % i for i in range(n_keys)]
+    sample = [keys[int(i)] for i in rng.choice(n_keys, 300, replace=False)]
     # counters, config 2: every key from 8 replicas, two rounds a type
     for name, pols in (("GCOUNT", 1), ("PNCOUNT", 2)):
         steps.append(("cmds", [(name, "INC", k, int(rng.integers(1, 1 << 62)))
                                for k in keys[:200]]))
         for _ in range(2):
-            vals = rng.integers(0, 1 << 64, (pols, MESH_KEYS, NODE_REPLICAS), dtype=np.uint64)
+            vals = rng.integers(0, 1 << 64, (pols, n_keys, NODE_REPLICAS), dtype=np.uint64)
             batch = []
             for j, key in enumerate(keys):
                 ds = [{rid: int(v) for rid, v in zip(rids, vals[p, j]) if v}
                       for p in range(pols)]
                 batch.append((key, ds[0] if pols == 1 else tuple(ds)))
-            steps += [("conv", name, batch[i:i + 10_000]) for i in range(0, MESH_KEYS, 10_000)]
+            steps += [("conv", name, batch[i:i + 10_000]) for i in range(0, n_keys, 10_000)]
         steps.append(("cmds", [(name, "GET", k) for k in sample + keys[:50]]))
         more = keys[:150] + [b"x%04d" % i for i in range(MESH_MORE - 150)]
         batch = [(k, {rids[0]: int(rng.integers(1, 1 << 63))} if pols == 1 else
@@ -3691,7 +3719,7 @@ def mesh_node_script(rng, writers=None):
         for i, key in enumerate(keys):
             ts = int(rng.integers(0, 4)) if i % 3 == 0 else int(rng.integers(0, 1 << 63))
             batch.append((key, (b"prefix00" + b"%d" % rng.integers(0, 1000), ts)))
-        steps += [("conv", "TREG", batch[i:i + 10_000]) for i in range(0, MESH_KEYS, 10_000)]
+        steps += [("conv", "TREG", batch[i:i + 10_000]) for i in range(0, n_keys, 10_000)]
     steps.append(("cmds", [("TREG", "SET", k, "v%d" % i, int(rng.integers(0, 5)))
                            for i, k in enumerate(keys[:300])]))
     steps.append(("cmds", [("TREG", "GET", k) for k in sample + keys[:300]]))
@@ -3791,7 +3819,8 @@ def mesh_node_phase(torch, devs) -> dict:
     node = Node(0x5EED, mesh=mesh)
     try:
         def serve():
-            replies = run_script(node, mesh_node_script(np.random.default_rng(SEED + 60)))
+            replies = run_script(node, mesh_node_script(
+                np.random.default_rng(SEED + 60), n_keys=MESH_NODE_KEYS))
             return replies, {n: node.repo(n).dump_state()
                              for n in ("GCOUNT", "PNCOUNT", "TREG", "TLOG", "UJSON")}
 
@@ -3821,7 +3850,8 @@ def mesh_node_phase(torch, devs) -> dict:
     single = Node(0x5EED)
     try:
         t0 = time.perf_counter()
-        single_replies = run_script(single, mesh_node_script(np.random.default_rng(SEED + 60)))
+        single_replies = run_script(single, mesh_node_script(
+            np.random.default_rng(SEED + 60), n_keys=MESH_NODE_KEYS))
         single_dumps = {n: single.repo(n).dump_state() for n in mesh_dumps}
         out["single_node_s"] = time.perf_counter() - t0
     finally:
@@ -3923,7 +3953,7 @@ def digest_node_run(node, rng, counters) -> tuple:
     the replies, the three digest replies)."""
     out = {}
     ws = []
-    steps = mesh_node_script(rng, writers=ws) + more_types_script(rng)
+    steps = mesh_node_script(rng, writers=ws, n_keys=MESH_NODE_KEYS) + more_types_script(rng)
     t0 = time.perf_counter()
     replies = run_script(node, steps)
     out["script_s"] = time.perf_counter() - t0
@@ -4041,7 +4071,7 @@ class ClusterNode:
     taken between its pick and its bind is picked again. Received
     cluster messages are counted by kind, and the keys they carry."""
 
-    def __init__(self, name: str, device, seeds=(), built=None):
+    def __init__(self, name: str, device, seeds=(), built=None, cport=None, **cfg_kw):
         import errno
 
         from jylis_tpu_torch.main import build_node, serve
@@ -4053,19 +4083,24 @@ class ClusterNode:
         self.thread = threading.Thread(target=self.loop.run_forever, daemon=True)
         self.thread.start()
         for attempt in range(8):
-            cfg = Config(port="0", addr=Address("127.0.0.1", str(free_port()), name),
+            # a node restarted on its data dir keeps its address (its
+            # replica identity): a fixed cluster port is bound again
+            cfg = Config(port="0", addr=Address("127.0.0.1", str(cport or free_port()), name),
                          seed_addrs=[Address(*s) for s in seeds], heartbeat_time=CLUSTER_TICK,
-                         range_budget=CLUSTER_RANGE_BUDGET, device=str(device))
+                         range_budget=CLUSTER_RANGE_BUDGET, device=str(device), **cfg_kw)
+            t0 = time.perf_counter()
             node = build_node(cfg)
             if built is not None:
                 built()
             try:
                 self.dispose = self.run(serve(node))
+                self.boot_s = time.perf_counter() - t0  # build, warmup, recovery, listen
                 break
             except OSError as e:
                 self.run(self._abort(node))
                 if e.errno != errno.EADDRINUSE or attempt == 7:
                     raise
+                time.sleep(1.0)
         self.db, self.server, self.cluster = node.database, node.server, node.cluster
         self.addr = (cfg.addr.host, cfg.addr.port, cfg.addr.name)
         self.frames: dict[str, int] = {}
@@ -4092,10 +4127,18 @@ class ClusterNode:
     async def _abort(node) -> None:
         node.cluster.dispose()
         await node.server.dispose()
+        if node.journal is not None:
+            node.journal.close()
 
     async def _dispose(self) -> None:
         self.dispose.dispose()
         await self.dispose.done.wait()
+        # the flushes the heartbeat started while the shutdown held the
+        # repo locks: cancelled, as asyncio.run cancels a node's at exit
+        rest = [t for t in asyncio.all_tasks() if t is not asyncio.current_task()]
+        for t in rest:
+            t.cancel()
+        await asyncio.gather(*rest, return_exceptions=True)
 
     async def _drain(self) -> None:
         """Drain every repo's pending deltas, each under its lock in a
@@ -4179,6 +4222,14 @@ def cluster_deep_tlog():
             for i in range(0, MESH_TLOG_KEYS, 4)]
 
 
+def cluster_tensor_sets():
+    """CLUSTER_TENSOR_KEYS TENSOR SETs of 64 dims in the three modes."""
+    vals = np.random.default_rng(SEED + 94).standard_normal(
+        (CLUSTER_TENSOR_KEYS, 64)).astype("<f4")
+    return [("TENSOR", "SET", b"ct%05d" % i, ("LWW", "MAX", "AVG")[i % 3], i + 1,
+             vals[i].tobytes()) for i in range(CLUSTER_TENSOR_KEYS)]
+
+
 def cluster_h_only(name: str, batch) -> bool:
     """Whether a foreign batch of the cluster script reaches H alone (C
     then gets it only through the range sync): every TREG and TLOG
@@ -4192,7 +4243,73 @@ def cluster_h_only(name: str, batch) -> bool:
 # nodes make the same data at whatever sizes the parent runs
 PEER_SIZES = ("NODE_KEYS", "NODE_REPLICAS", "MESH_KEYS", "MESH_MORE", "MESH_TLOG_KEYS",
               "MESH_TLOG_ROUNDS", "MESH_TLOG_D", "MESH_UJ_FLAT", "MESH_UJ_TREE",
-              "DIGEST_MAP_PAIRS", "DIGEST_BCOUNT_KEYS", "CLUSTER_TICK", "CLUSTER_RANGE_BUDGET")
+              "DIGEST_MAP_PAIRS", "DIGEST_BCOUNT_KEYS", "CLUSTER_TICK", "CLUSTER_RANGE_BUDGET",
+              "CLUSTER_TENSOR_KEYS")
+
+
+def instrument_recovery(counters, sync) -> dict:
+    """Time the persistence seams of this process's node and read its
+    kernels' launch counts around them, by wrapping the functions the
+    entry point calls (main.recover calls persist.load_snapshot and
+    journal.recover_all; Dispose calls persist.save_snapshot): each
+    snapshot restore's seconds and the share of them in
+    Database.drain_all (the rest is the file's read, decode and the
+    converge into the repos' buffers), its launches and bytes; the
+    journal replay's seconds, drain_all seconds, launches and batches;
+    the shutdown snapshot's seconds and bytes. ``sync`` waits for the
+    card before a clock is read."""
+    from jylis_tpu_torch import journal, persist
+    from jylis_tpu_torch.models.database import Database
+
+    rec = {"restore": [], "replay": None, "save": []}
+    inside = []
+
+    def counts():
+        return {n: c.launches for n, c in counters.items()}
+
+    def measured(fn, *args):
+        before, t0 = counts(), time.perf_counter()
+        inside.append({"drain_all_s": 0.0})
+        try:
+            n = fn(*args)
+            sync()
+        finally:
+            drain = inside.pop()["drain_all_s"]
+        secs, after = time.perf_counter() - t0, counts()
+        return n, {"s": secs, "drain_all_s": drain, "decode_converge_s": secs - drain,
+                   "launches": {k: after[k] - before[k] for k in after if after[k] - before[k]}}
+
+    load, recover_all = persist.load_snapshot, journal.recover_all
+    drain_all, save = Database.drain_all, persist.save_snapshot
+
+    def load_snapshot(db, path):
+        n, r = measured(load, db, path)
+        rec["restore"].append(dict(r, file=os.path.basename(path), bytes=os.path.getsize(path),
+                                   type_batches=n))
+        return n
+
+    def replay_all(db, data_dir, own_path, log=None):
+        n, r = measured(recover_all, db, data_dir, own_path, log)
+        rec["replay"] = dict(r, replayed_batches=n)
+        return n
+
+    def timed_drain_all(self):
+        t0 = time.perf_counter()
+        try:
+            return drain_all(self)
+        finally:
+            if inside:
+                sync()
+                inside[-1]["drain_all_s"] += time.perf_counter() - t0
+
+    def save_snapshot(db, path):
+        t0 = time.perf_counter()
+        save(db, path)
+        rec["save"].append({"s": time.perf_counter() - t0, "bytes": os.path.getsize(path)})
+
+    persist.load_snapshot, journal.recover_all = load_snapshot, replay_all
+    Database.drain_all, persist.save_snapshot = timed_drain_all, save_snapshot
+    return rec
 
 
 def cluster_peer(spec: dict) -> None:
@@ -4209,8 +4326,17 @@ def cluster_peer(spec: dict) -> None:
     keys' second round and the deep TLOG round), "mark" (drain every
     repo, then report the launches since the start or the last mark and
     set the counts to 0), "stats" (received frames, sync counters),
-    "established", "exit".
-    Its first line is its address and ports."""
+    "established", "exit". For the persistence phase: spec["data_dir"]
+    and spec["cport"] make a node that recovers from its data dir at
+    boot and keeps its address; "all" (converge the whole script's
+    foreign batches, its second rounds and CLUSTER_TENSOR_KEYS TENSOR
+    SETs, and take all its bursts over RESP), "close" (a clean shutdown:
+    the shutdown snapshot, the journal retired; then the persistence
+    seams' record, and the process exits).
+    Its first line is its address and ports, and the record of its boot
+    recovery (instrument_recovery) when it has a data dir."""
+    import torch
+
     from jylis_tpu_torch.ops import tensor
 
     globals().update({k: spec[k] for k in PEER_SIZES})
@@ -4221,12 +4347,20 @@ def cluster_peer(spec: dict) -> None:
         for c in counters.values():
             c.launches = 0
 
-    node = ClusterNode(spec["name"], spec["device"], seeds=spec["seeds"], built=zero)
+    persist_kw, rec = {}, None
+    if spec.get("data_dir"):
+        rec = instrument_recovery(counters, torch.cuda.synchronize if spec["device"] != "cpu"
+                                  else (lambda: None))
+        persist_kw = {"data_dir": spec["data_dir"], "cport": spec["cport"]}
+    node = ClusterNode(spec["name"], spec["device"], seeds=spec["seeds"], built=zero,
+                       **persist_kw)
 
     def say(obj) -> None:
         print(json.dumps(obj), flush=True)
 
-    say({"addr": node.addr, "resp_port": node.server.port})
+    say({"addr": node.addr, "resp_port": node.server.port, "boot_s": node.boot_s,
+         **({"recovery": rec} if rec is not None else {})})
+    closed = False
     try:
         for line in sys.stdin:
             cmd, t0 = line.strip(), time.perf_counter()
@@ -4239,6 +4373,22 @@ def cluster_peer(spec: dict) -> None:
                 node.client.pipeline([("GCOUNT", "INC", k, 7) for k in keys[:100]]
                                      + [("PNCOUNT", "DEC", k, 3) for k in keys[:100]])
                 say({"done": cmd, "s": time.perf_counter() - t0})
+            elif cmd == "all":
+                steps, second = cluster_script()
+                for step in steps:
+                    if step[0] == "conv":
+                        node.converge(step[1], step[2])
+                    else:
+                        node.client.pipeline(step[1])
+                for name, batch in (("UJSON", second), ("TLOG", cluster_deep_tlog())):
+                    node.converge(name, batch)
+                node.client.pipeline(cluster_tensor_sets())
+                say({"done": cmd, "s": time.perf_counter() - t0})
+            elif cmd == "close":
+                node.close()
+                closed = True
+                say({"done": cmd, "s": time.perf_counter() - t0, "recovery": rec})
+                return
             elif cmd in ("both", "h-only"):
                 steps, second = cluster_script()
                 n = 0
@@ -4262,19 +4412,21 @@ def cluster_peer(spec: dict) -> None:
             else:
                 break
     finally:
-        node.close()
+        if not closed:
+            node.close()
 
 
 class PeerProcess:
     """One cluster-phase node as a child process running cluster_peer(),
     and a RESP client to it."""
 
-    def __init__(self, name: str, device: str, seeds=()):
+    def __init__(self, name: str, device: str, seeds=(), data_dir=None, cport=None):
         from pathlib import Path
 
         here = str(Path(__file__).resolve().parent)
         spec = dict({k: globals()[k] for k in PEER_SIZES}, name=name, device=device,
-                    seeds=[list(s) for s in seeds])
+                    seeds=[list(s) for s in seeds], data_dir=data_dir, cport=cport)
+        t0 = time.perf_counter()
         self.proc = subprocess.Popen(
             [sys.executable, "-c",
              "import json, sys, chip_smoke; chip_smoke.cluster_peer(json.loads(sys.argv[1]))",
@@ -4285,6 +4437,7 @@ class PeerProcess:
             hello = self._read()
             self.addr = tuple(hello["addr"])
             self.client = Client(hello["resp_port"])
+            self.hello = dict(hello, process_to_listening_s=time.perf_counter() - t0)
         except BaseException:
             self.proc.kill()
             self.proc.wait(timeout=30)
@@ -4311,7 +4464,23 @@ class PeerProcess:
     def established(self) -> int:
         return self.ask("established")["established"]
 
+    def close_clean(self) -> dict:
+        """A clean shutdown through the node's Dispose (the persistence
+        phase's "close"); its answer."""
+        self.client.close()
+        out = self.ask("close")
+        self.proc.wait(timeout=120)
+        return out
+
+    def kill(self) -> None:
+        """SIGKILL: no shutdown snapshot, no final flush."""
+        self.client.close()
+        self.proc.kill()
+        self.proc.wait(timeout=60)
+
     def close(self) -> None:
+        if self.proc.poll() is not None:
+            return
         try:
             self.client.close()
             self.proc.stdin.write("exit\n")
@@ -4490,10 +4659,6 @@ def cluster_phase(torch, c_device=None) -> dict:
         emit({"phase": "cluster_step", "step": "bootstrap", **out, "launches": boot})
         steps = cluster_script()[0]
         bursts = [step[1] for step in steps if step[0] == "cmds"]
-        vals = np.random.default_rng(SEED + 94).standard_normal(
-            (CLUSTER_TENSOR_KEYS, 64)).astype("<f4")
-        tensor_sets = [("TENSOR", "SET", b"ct%05d" % i, ("LWW", "MAX", "AVG")[i % 3], i + 1,
-                        vals[i].tobytes()) for i in range(CLUSTER_TENSOR_KEYS)]
         out["bursts"] = [len(bursts[0::2]), len(bursts[1::2]) + 1]
         t0 = time.perf_counter()
         for node in (c, h):
@@ -4511,7 +4676,7 @@ def cluster_phase(torch, c_device=None) -> dict:
         h.start("h-only")
         for cmds in bursts[1::2]:
             h.client.pipeline(cmds)
-        h.client.pipeline(tensor_sets)
+        h.client.pipeline(cluster_tensor_sets())
         h_only = h.finish()
         out["h_stage_s"] = time.perf_counter() - t0
         out["h_only_deltas"], out["h_only_s"] = h_only["deltas"], h_only["s"]
@@ -4555,6 +4720,180 @@ def cluster_phase(torch, c_device=None) -> dict:
         if missing:
             raise AssertionError(f"cluster phase: the card node launched no kernel of {missing} "
                                  f"on deltas from the wire: {out['launches_by_stage']}")
+    return out
+
+
+# ---- the persistence phase ----------------------------------------------------
+
+# the drain kernels a restore on the card must launch (any one of a
+# group): counters, TREG, TLOG, UJSON, TENSOR
+PERSIST_PATH = (("counter_drain_dense<1>", "counter_drain_dense<2>", "counter_drain_sparse<1>",
+                 "counter_drain_sparse<2>"), ("treg_drain_dense", "treg_drain_sparse"),
+                ("tlog_drain_dense", "tlog_drain_sparse"), ("ujson_join", "ujson_fold_flat"),
+                ("tensor_converge_batch",))
+PERSIST_STAGE2 = 2000  # keys a type that the second stage writes over RESP
+PERSIST_QUIET_POLLS = 3  # JOURNAL appends unchanged over this many heartbeats
+
+
+def persist_stage2():
+    """The second stage's writes, over keys the first stage holds: GCOUNT
+    INC and PNCOUNT DEC on config 2's keys, TREG SETs at ts >= 2^63, TLOG
+    INSs, UJSON SETs on the flat keys and INSs on the tree documents
+    (resident after a restore: the writes demote them), TENSOR SETs in
+    each key's mode, MAP fields and BCOUNT grants."""
+    rng = np.random.default_rng(SEED + 97)
+    n = PERSIST_STAGE2
+    step = max(1, NODE_KEYS // n)
+    cmds = [("GCOUNT", "INC", b"k%06d" % i, int(rng.integers(1, 1 << 62)))
+            for i in range(0, NODE_KEYS, step)][:n]
+    cmds += [("PNCOUNT", "DEC", b"k%06d" % i, int(rng.integers(1, 1000)))
+             for i in range(0, NODE_KEYS, step)][:n]
+    cmds += [("TREG", "SET", b"m%06d" % i, b"stage2-%d" % i, (1 << 63) + i)
+             for i in range(min(n, MESH_KEYS))]
+    cmds += [("TLOG", "INS", b"t%05d" % i, b"stage2", (1 << 42) + i)
+             for i in range(min(n, MESH_TLOG_KEYS))]
+    cmds += [("UJSON", "SET", b"u%04d" % k, "stage2", str(k)) for k in range(MESH_UJ_FLAT)]
+    cmds += [("UJSON", "INS", b"doc%03d" % k, "stage2", k) for k in range(MESH_UJ_TREE)]
+    vals = rng.standard_normal((min(n, CLUSTER_TENSOR_KEYS), 64)).astype("<f4")
+    cmds += [("TENSOR", "SET", b"ct%05d" % i, ("LWW", "MAX", "AVG")[i % 3], (1 << 40) + i,
+              vals[i].tobytes()) for i in range(len(vals))]
+    cmds += [("MAP", "GCOUNT", "SET", b"mk%05d" % k, b"stage2", k + 1)
+             for k in range(min(n, DIGEST_MAP_PAIRS // 4))]
+    cmds += [("BCOUNT", "GRANT", b"bk%05d" % k, 5) for k in range(min(n, DIGEST_BCOUNT_KEYS))]
+    return cmds
+
+
+def journal_appends(node) -> int:
+    reply = node.client.pipeline([("SYSTEM", "METRICS")])[0]
+    m = re.search(rb"JOURNAL appends (\d+)", reply)
+    if m is None:
+        raise AssertionError("persistence phase: SYSTEM METRICS has no JOURNAL section")
+    return int(m.group(1))
+
+
+def persist_phase(torch, p_device=None) -> dict:
+    """Persistence on the card: nodes in processes of their own, wired by
+    main.build_node with --data-dir set to a fresh directory and one
+    address (so one replica identity), heartbeat 1 s, the journal on.
+
+    1. P1 (card) boots on the empty directory and takes the cluster
+       phase's data: config 2 (cluster_config2) and the whole all-type
+       script (cluster_script, its second rounds, the TENSOR SETs). Its
+       SYSTEM DIGEST and SYSTEM DIGEST TYPES are recorded; a clean
+       Dispose writes the shutdown snapshot and retires the journal.
+    2. P2 (card) boots on the directory: its digests must equal P1's.
+       Recorded: the snapshot's bytes, its write seconds, P2's boot to
+       listening, the restore's seconds split into decode + converge and
+       drain_all, and each kernel's launches in the restore, which must
+       cover every group of PERSIST_PATH.
+    3. P2 takes the second stage (persist_stage2) over RESP; once its
+       JOURNAL appends counter has stopped moving for
+       PERSIST_QUIET_POLLS heartbeats, P2 is killed with SIGKILL. P3
+       (card) boots on the directory: P1's snapshot and P2's journal.
+       Its digests must equal P2's before the kill.
+    4. R, a CPU port node (--device cpu) on a copy of P1's snapshot
+       alone, must give P1's digests; fed the second stage, it must give
+       P2's replies and P3's digests.
+    Recorded besides: the journal's replayed batches, the replay's
+    seconds, drain_all seconds and launches."""
+    import tempfile
+
+    from jylis_tpu_torch.utils.net import free_port
+
+    p_device = str(p_device or DEVICE)
+    root = tempfile.mkdtemp(prefix="chip_smoke_persist_")
+    data, ref = os.path.join(root, "data"), os.path.join(root, "ref")
+    os.makedirs(ref)
+    cport = free_port()
+    out = {"device": p_device, "tick_s": CLUSTER_TICK}
+    nodes = []
+
+    def boot(device, data_dir):
+        node = PeerProcess("p", device, data_dir=data_dir, cport=cport)
+        nodes.append(node)
+        return node
+
+    try:
+        t_phase = time.perf_counter()
+        p1 = boot(p_device, data)
+        out["p1_load_s"] = p1.ask("config2")["s"] + p1.ask("all")["s"]
+        want1 = digests_of(p1)
+        closed = p1.close_clean()
+        out["p1_close_s"] = closed["s"]
+        snap = os.path.join(data, "snapshot.jylis")
+        shutil.copy(snap, os.path.join(ref, "snapshot.jylis"))
+        save = closed["recovery"]["save"]
+        if not save or os.path.getsize(os.path.join(data, "journal.jylis")) != 40:
+            raise AssertionError(f"persistence phase: P1's shutdown wrote {save}, journal not "
+                                 "retired")
+        out["snapshot_bytes"], out["snapshot_write_s"] = save[-1]["bytes"], save[-1]["s"]
+        emit({"phase": "persist_step", "step": "p1", **out})
+
+        p2 = boot(p_device, data)
+        rec = p2.hello["recovery"]
+        if len(rec["restore"]) != 1 or rec["replay"]["replayed_batches"]:
+            raise AssertionError(f"persistence phase: P2 recovered {rec}")
+        restore = rec["restore"][0]
+        out["p2"] = {"boot_s": p2.hello["boot_s"],
+                     "process_to_listening_s": p2.hello["process_to_listening_s"],
+                     "restore": restore}
+        if digests_of(p2) != want1:
+            raise AssertionError("persistence phase: P2's digests after the restore != P1's")
+        emit({"phase": "persist_step", "step": "p2_restore", **out["p2"]})
+        stage2 = persist_stage2()
+        appends0 = journal_appends(p2)
+        t0 = time.perf_counter()
+        replies2 = p2.client.pipeline(stage2)
+        last, quiet = journal_appends(p2), 0
+        while quiet < PERSIST_QUIET_POLLS:
+            time.sleep(CLUSTER_TICK)
+            now = journal_appends(p2)
+            quiet = quiet + 1 if now == last and now > appends0 else 0
+            last = now
+            if time.perf_counter() - t0 > CLUSTER_DEADLINE_S:
+                raise AssertionError("persistence phase: P2's journal never settled")
+        out["stage2"] = {"commands": len(stage2), "s": time.perf_counter() - t0,
+                         "journal_appends": last - appends0}
+        want2 = digests_of(p2)
+        p2.kill()
+        p3 = boot(p_device, data)
+        rec3 = p3.hello["recovery"]
+        out["p3"] = {"boot_s": p3.hello["boot_s"],
+                     "process_to_listening_s": p3.hello["process_to_listening_s"],
+                     "restore": rec3["restore"], "replay": rec3["replay"]}
+        if not rec3["replay"] or rec3["replay"]["replayed_batches"] < 1:
+            raise AssertionError(f"persistence phase: P3 replayed no journal: {rec3}")
+        got3 = digests_of(p3)
+        if got3 != want2:
+            raise AssertionError("persistence phase: P3's digests after the SIGKILL != P2's")
+        p3.close()
+        emit({"phase": "persist_step", "step": "p3_replay", **out["p3"]})
+
+        r = boot("cpu", ref)
+        out["r_restore"] = r.hello["recovery"]["restore"]
+        if digests_of(r) != want1:
+            raise AssertionError("persistence phase: the CPU node's digests on P1's file != P1's")
+        check_replies("second stage: CPU node vs P2", r.client.pipeline(stage2), replies2)
+        if digests_of(r) != got3:
+            raise AssertionError("persistence phase: the CPU node's digests != P3's")
+        r.close()
+        out["phase_s"] = time.perf_counter() - t_phase
+        out["digest"] = got3[0].split(b"\r\n")[1].decode()
+        lines = [ln for ln in got3[1].split(b"\r\n") if ln and ln[:1] not in b"*$"]
+        if any(ln.endswith(b"0" * 64) for ln in lines):
+            raise AssertionError(f"persistence phase: a type holds no data: {lines}")
+    finally:
+        for node in nodes:
+            node.close()
+        shutil.rmtree(root, ignore_errors=True)
+    out["restore_launches"] = restore["launches"]
+    out["replay_launches"] = out["p3"]["replay"]["launches"]
+    emit({"phase": "persist", **{k: v for k, v in out.items() if k not in ("p2", "p3")}})
+    if p_device != "cpu":
+        missing = [g for g in PERSIST_PATH if not any(out["restore_launches"].get(n) for n in g)]
+        if missing:
+            raise AssertionError(f"persistence phase: the restore on the card launched no "
+                                 f"kernel of {missing}: {out['restore_launches']}")
     return out
 
 
@@ -4699,6 +5038,7 @@ def main() -> int:
     mesh_node = mesh_node_phase(torch, devs)
     digest = digest_phase(torch, devs)
     cluster = cluster_phase(torch)
+    persisted = persist_phase(torch)
 
     launches = dict(node["launches"], tensor_join_dense=sweep["launches"],
                     **treg_node["launches"], **tensor_node["launches"],
@@ -4725,6 +5065,8 @@ def main() -> int:
             "digest_launches": digest["launches"].get(kname, 0),
             "cluster_launches": cluster["launches"].get(kname, 0),
             "cluster_wire_launches": cluster["wire_launches"].get(kname, 0),
+            "restore_launches": persisted["restore_launches"].get(kname, 0),
+            "replay_launches": persisted["replay_launches"].get(kname, 0),
             "max_abs_err": max([r["max_abs_err"]] + [
                 x["max_abs_err"] for x in ([ns] if ns else []) + others]),
             "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],

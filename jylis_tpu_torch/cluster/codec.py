@@ -4,7 +4,8 @@ The port's copy of jylis_tpu/cluster/codec.py: the same schema text,
 signatures and bytes for every message and every delta type, so a port
 node and a JAX node interoperate byte for byte. The handshake exchanges
 ``signature()`` as the first frame; a byte mismatch drops the
-connection. The legacy snapshot signatures come with persistence.
+connection. ``legacy_snapshot_signatures`` and ``legacy_delta_signatures``
+name the older headers a snapshot or a journal segment may carry.
 
 ``encode`` / ``decode`` take the native C++ codec (native/codec.py) for
 ``MsgPushDeltas``, ``MsgSeqPush`` and ``MsgRelayPush`` (the last two are
@@ -215,6 +216,152 @@ def delta_signature() -> bytes:
         if line.startswith("delta/") or line.startswith("varint=")
     ]
     return hashlib.sha256("\n".join(delta_lines).encode()).digest()
+
+
+# the exact schema texts earlier releases stamped into snapshot headers
+# via the FULL signature() — their delta lines are byte-identical to
+# v3's, so those files remain loadable; kept verbatim (not derived from
+# _SCHEMA_TEXT) so future schema edits cannot silently change what a
+# legacy header means
+_LEGACY_V1_TEXT = """jylis-tpu cluster schema v1
+varint=LEB128 bytes=varint-len-prefixed str=utf8-bytes
+addr=(host:str port:str name:str)
+p2set=(adds:[addr] removes:[addr])
+msg0=Pong
+msg1=ExchangeAddrs(p2set)
+msg2=AnnounceAddrs(p2set)
+msg3=PushDeltas(name:str batch:[(key:bytes delta)])
+delta/TREG=(value:bytes ts:varint)
+delta/TLOG=delta/SYSTEM=(entries:[(value:bytes ts:varint)] cutoff:varint)
+delta/GCOUNT=[(rid:varint v:varint)]
+delta/PNCOUNT=(gcount gcount)
+delta/UJSON=(entries:[(rid seq path:[str] token:str)] vv:[(rid seq)] cloud:[(rid seq)])
+"""
+
+_LEGACY_V2_TEXT = """jylis-tpu cluster schema v2
+varint=LEB128 bytes=varint-len-prefixed str=utf8-bytes
+addr=(host:str port:str name:str)
+p2set=(adds:[addr] removes:[addr])
+msg0=Pong
+msg1=ExchangeAddrs(p2set)
+msg2=AnnounceAddrs(p2set)
+msg3=PushDeltas(name:str batch:[(key:bytes delta)])
+msg4=SyncRequest
+delta/TREG=(value:bytes ts:varint)
+delta/TLOG=delta/SYSTEM=(entries:[(value:bytes ts:varint)] cutoff:varint)
+delta/GCOUNT=[(rid:varint v:varint)]
+delta/PNCOUNT=(gcount gcount)
+delta/UJSON=(entries:[(rid seq path:[str] token:str)] vv:[(rid seq)] cloud:[(rid seq)])
+"""
+
+
+# the early-v3 window ALSO stamped the full signature() (persist.py
+# switched to delta_signature() later in that release cycle); the v3
+# text is frozen verbatim like the others so a future schema v4 cannot
+# silently change what this header means
+_LEGACY_V3_TEXT = """jylis-tpu cluster schema v3
+varint=LEB128 bytes=varint-len-prefixed str=utf8-bytes
+addr=(host:str port:str name:str)
+p2set=(adds:[addr] removes:[addr])
+msg0=Pong
+msg1=ExchangeAddrs(p2set)
+msg2=AnnounceAddrs(p2set)
+msg3=PushDeltas(name:str batch:[(key:bytes delta)])
+msg4=SyncRequest(digest:bytes)
+delta/TREG=(value:bytes ts:varint)
+delta/TLOG=delta/SYSTEM=(entries:[(value:bytes ts:varint)] cutoff:varint)
+delta/GCOUNT=[(rid:varint v:varint)]
+delta/PNCOUNT=(gcount gcount)
+delta/UJSON=(entries:[(rid seq path:[str] token:str)] vv:[(rid seq)] cloud:[(rid seq)])
+"""
+
+
+# v4 through v6 stamped delta_signature() into snapshot AND journal
+# headers; their delta lines are byte-identical to v1's, so the ONE
+# legacy delta digest below covers that whole window. Frozen verbatim
+# (not derived from _SCHEMA_TEXT) like the full-signature texts above.
+_LEGACY_V6_TEXT = """jylis-tpu cluster schema v6
+varint=LEB128 bytes=varint-len-prefixed str=utf8-bytes
+wire=frame(crc32(origin_ms:u64be body):u32be origin_ms:u64be body)
+handshake=wire(sig:32B dialer-addr:addr?)
+addr=(host:str port:str name:str)
+p2set=(adds:[addr] removes:[addr])
+msg0=Pong
+msg1=ExchangeAddrs(p2set)
+msg2=AnnounceAddrs(p2set)
+msg3=PushDeltas(name:str batch:[(key:bytes delta)])
+msg4=SyncRequest(digests:[bytes] order=TREG,TLOG,GCOUNT,PNCOUNT,UJSON)
+msg5=SyncDone
+delta/TREG=(value:bytes ts:varint)
+delta/TLOG=delta/SYSTEM=(entries:[(value:bytes ts:varint)] cutoff:varint)
+delta/GCOUNT=[(rid:varint v:varint)]
+delta/PNCOUNT=(gcount gcount)
+delta/UJSON=(entries:[(rid seq path:[str] token:str)] vv:[(rid seq)] cloud:[(rid seq)])
+"""
+
+
+# the v7/v8 window's schema (v8 touched only transport messages, so
+# both releases stamped ONE delta digest: v1-v6's lines plus
+# delta/TENSOR). Frozen verbatim like the other legacy texts so future
+# schema edits cannot silently change what those on-disk headers mean.
+_LEGACY_V8_TEXT = """jylis-tpu cluster schema v8
+varint=LEB128 bytes=varint-len-prefixed str=utf8-bytes
+wire=frame(crc32(origin_ms:u64be body):u32be origin_ms:u64be body)
+handshake=wire(sig:32B dialer-addr:addr?)
+addr=(host:str port:str name:str)
+p2set=(adds:[addr] removes:[addr])
+msg0=Pong
+msg1=ExchangeAddrs(p2set)
+msg2=AnnounceAddrs(p2set)
+msg3=PushDeltas(name:str batch:[(key:bytes delta)])
+msg4=SyncRequest(digests:[bytes] order=TREG,TLOG,GCOUNT,PNCOUNT,UJSON,TENSOR)
+msg5=SyncDone
+msg6=DeltaAck(cum:varint)
+msg7=SeqPush(seq:varint name:str batch:[(key:bytes delta)])
+msg8=DigestTree(name:str leaves:[(bucket:varint digest:bytes)] fanout=256 bucket=sha256(key)[0])
+msg9=RangeRequest(name:str buckets:[varint])
+msg10=IntervalReset(seq:varint)
+delta/TREG=(value:bytes ts:varint)
+delta/TLOG=delta/SYSTEM=(entries:[(value:bytes ts:varint)] cutoff:varint)
+delta/GCOUNT=[(rid:varint v:varint)]
+delta/PNCOUNT=(gcount gcount)
+delta/UJSON=(entries:[(rid seq path:[str] token:str)] vv:[(rid seq)] cloud:[(rid seq)])
+delta/TENSOR=(mode:varint dim:varint val:bytes ts:bytes rid:bytes contribs:[(rid:varint ts:varint vec:bytes)])
+"""
+
+
+def legacy_delta_signatures() -> tuple[bytes, ...]:
+    """DELTA-schema digests of older releases whose frames this build
+    still decodes, stamped into v4+ snapshot and journal headers on
+    disk. Two windows: the v1-v6 delta lines (unchanged across that
+    whole span) hash to one digest, and the v7/v8 lines (v7 added
+    delta/TENSOR; v8 changed only transport messages) hash to another.
+    v9 added delta/MAP + delta/BCOUNT — pure extensions, so every
+    legacy file's frames still decode: they contain only old-type
+    units."""
+    out = []
+    for text in (_LEGACY_V6_TEXT, _LEGACY_V8_TEXT):
+        delta_lines = [
+            line
+            for line in text.splitlines()
+            if line.startswith("delta/") or line.startswith("varint=")
+        ]
+        out.append(hashlib.sha256("\n".join(delta_lines).encode()).digest())
+    return tuple(out)
+
+
+def legacy_snapshot_signatures() -> tuple[bytes, ...]:
+    """Snapshot headers older releases wrote that THIS build still reads:
+    every frame they version is still decodable (persist.py accepts
+    these alongside delta_signature(), so upgrading a single-node
+    deployment never strands its only data copy). The early releases
+    stamped the FULL schema signature; v4+ stamped the delta signature
+    (now also legacy after the v7 delta/TENSOR addition)."""
+    return (
+        hashlib.sha256(_LEGACY_V1_TEXT.encode()).digest(),
+        hashlib.sha256(_LEGACY_V2_TEXT.encode()).digest(),
+        hashlib.sha256(_LEGACY_V3_TEXT.encode()).digest(),
+    ) + legacy_delta_signatures()
 
 
 # the reader primitives live in utils/wire.py (shared with the lazy wire

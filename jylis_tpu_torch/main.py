@@ -10,22 +10,34 @@ engine, which settles RESP bursts in C++; the eight types of
 default cuda; keys-sharded over every card when the device names no card
 and the host has more than one) -> RESP Server -> Cluster (gossip
 membership and anti-entropy with the peers of ``--seed-addrs``, JAX
-nodes included). On SIGINT/SIGTERM ``Dispose`` stops intake, makes the
-final flush to peers under the repo locks, ends the drain profiler's
-session (``JYLIS_PROFILE_DIR``) and stops the cluster and the listener
-(after dispose.pony). ``build_node`` does the wiring and ``serve``
-starts the listeners; ``run`` is the two with the signal handlers, and
-other drivers (chip_smoke.py's cluster phase) call the same two.
-Snapshots and the journal come with persistence.
+nodes included). With ``--data-dir`` the node restores every snapshot
+there and replays its journal (persist.py, journal/) on its device
+between the Database and the Server, so nothing listens before recovery
+ends; the journal then takes every flushed delta batch, and
+``_snapshot_loop`` writes online snapshots (``--snapshot-interval``) and
+compacts the journal when it outgrows ``--journal-max-bytes``. On
+SIGINT/SIGTERM ``Dispose`` stops intake, makes the final flush to peers
+under the repo locks, writes the shutdown snapshot and retires the
+journal, ends the drain profiler's session (``JYLIS_PROFILE_DIR``),
+closes the journal and stops the cluster and the listener (after
+dispose.pony). ``build_node`` does the wiring and the recovery and
+``serve`` starts the listeners and the snapshot loop; ``run`` is the two
+with the signal handlers, and other drivers (chip_smoke.py's cluster and
+persistence phases) call the same two. The port runs no lanes: its
+files are the lane-less ``snapshot.jylis`` and ``journal.jylis``, and a
+lane file a JAX node wrote is restored beside them.
 """
 
 from __future__ import annotations
 
 import asyncio
+import os
 import signal
 import sys
 
 from . import faults
+from . import journal as journal_mod
+from . import persist
 from .cluster import Cluster
 from .models import database as database_mod
 from .models.database import SERVED_TYPES, Database
@@ -37,16 +49,23 @@ from .utils.config import config_from_cli
 
 class Dispose:
     """Idempotent clean shutdown (dispose.pony:12-19): first drain
-    every repo's remaining deltas to peers, then stop the listeners."""
+    every repo's remaining deltas to peers, snapshot if configured, then
+    stop the listeners."""
 
     def __init__(self, database: Database, server: Server, cluster: Cluster,
-                 log=None):
+                 snapshot_path: str = "", log=None, journal=None):
         self._database = database
         self._server = server
         self._cluster = cluster
+        self._snapshot_path = snapshot_path
         self._log = log
+        self._journal = journal
         self._disposing = False
         self._shutdown_task: asyncio.Task | None = None
+        self.snapshot_task: asyncio.Task | None = None  # online snapshot loop
+        # the loop's in-flight write future: cancelling the task does not
+        # stop a to_thread worker, so shutdown awaits this too
+        self.snapshot_inflight: dict = {"write": None}
         self.done = asyncio.Event()
 
     def on_signal(self) -> None:
@@ -69,15 +88,56 @@ class Dispose:
         # a drain can raise at shutdown; the listeners must still stop
         # and `done` must still be set
         try:
+            # the online snapshot loop must be fully stopped before the
+            # shutdown snapshot runs (both write path.tmp): cancel the
+            # task, then await any write worker it had in flight
+            if self.snapshot_task is not None:
+                self.snapshot_task.cancel()
+                try:
+                    await self.snapshot_task
+                except asyncio.CancelledError:
+                    pass
+                inflight = self.snapshot_inflight.get("write")
+                if inflight is not None:
+                    await asyncio.wait([inflight])
             # the final flush rides broadcast_deltas; per-repo locks wait
             # out threaded drains and fence off late-queued commands
             await self._database.clean_shutdown_async()
+            if self._snapshot_path:
+                try:
+                    async with self._database.all_locks():
+                        await asyncio.to_thread(
+                            persist.save_snapshot, self._database,
+                            self._snapshot_path,
+                        )
+                    if self._journal is not None:
+                        # the shutdown snapshot (final flush included)
+                        # supersedes the whole journal: retire it, so the
+                        # next boot replays nothing. On a failed snapshot
+                        # the journal stays, the only copy of its deltas
+                        await asyncio.to_thread(self._journal.rotate_begin)
+                        await asyncio.to_thread(self._journal.rotate_commit)
+                except Exception as e:  # a dump's drain can raise
+                    # anything; it is logged and the listeners still stop
+                    if self._log is not None:
+                        self._log.err() and self._log.e(f"snapshot failed: {e}")
             if self._log is not None:
                 self._log.info() and self._log.i(
                     f"merge metrics: {self._database.metrics.report()}"
                 )
             metrics.stop_profiling()
         finally:
+            if self._journal is not None:
+                # close() joins the writer thread and fsyncs: off the
+                # loop. A full disk can make it raise; the listeners
+                # must still stop and `done` must still be set
+                try:
+                    await asyncio.to_thread(self._journal.close)
+                except OSError as e:
+                    if self._log is not None:
+                        self._log.err() and self._log.e(
+                            f"journal close failed: {e}"
+                        )
             self._cluster.dispose()
             await self._server.dispose()
             self.done.set()
@@ -86,12 +146,15 @@ class Dispose:
 class NodeStack:
     """One node's parts, wired by ``build_node`` and not yet listening."""
 
-    def __init__(self, config, system, database, server, cluster):
+    def __init__(self, config, system, database, server, cluster,
+                 snapshot_path: str = "", journal=None):
         self.config = config
         self.system = system
         self.database = database
         self.server = server
         self.cluster = cluster
+        self.snapshot_path = snapshot_path  # "" without --data-dir
+        self.journal = journal  # None without --data-dir or with --no-journal
 
 
 def build_node(config) -> NodeStack:
@@ -99,7 +162,7 @@ def build_node(config) -> NodeStack:
     System -> ``warmup`` (every serving kernel and the native library
     built, and the serving paths launched once on the node's device,
     before anything listens) -> Database (with the native serving engine)
-    -> Server -> Cluster."""
+    -> recovery from ``--data-dir`` (``recover``) -> Server -> Cluster."""
     if config.failpoints:
         faults.arm_spec(config.failpoints)
     system = System(config)
@@ -111,18 +174,152 @@ def build_node(config) -> NodeStack:
     database.metrics.spans.set_slo_ms(
         int(s) for s in config.converge_slo_ms.split(",") if s.strip()
     )
+    snapshot_path, journal = recover(config, database)
     server = Server(config, database)
     cluster = Cluster(config, database)
-    return NodeStack(config, system, database, server, cluster)
+    return NodeStack(config, system, database, server, cluster,
+                     snapshot_path, journal)
+
+
+def recover(config, database) -> tuple[str, object]:
+    """Boot recovery (jylis_tpu/main.py:212-274, lane-less): restore
+    every snapshot in ``config.data_dir`` and replay the journal on the
+    node's device, then open the journal and attach it. Returns the
+    snapshot path ("" without a data dir) and the journal (None without
+    a data dir or with ``--no-journal``). Runs before anything listens,
+    so its disk reads and drains stall no client. A snapshot or segment
+    that will not load is logged and moved aside as ``.unreadable``;
+    a drain that fails on the card raises."""
+    if not config.data_dir:
+        return "", None
+    log = config.log
+    os.makedirs(config.data_dir, exist_ok=True)
+    snapshot_path = os.path.join(config.data_dir, persist.snapshot_name(None))
+    # every snapshot present, a JAX node's lane files too: restore is
+    # lattice convergence, so overlap is a no-op. Only the node's own
+    # file is moved aside when unreadable
+    for spath in persist.list_snapshots(config.data_dir):
+        try:
+            n = persist.load_snapshot(database, spath)
+            log.info() and log.i(f"snapshot restored ({n} type batches, {spath})")
+        except persist.SnapshotError as e:
+            log.err() and log.e(f"snapshot not restored: {e}")
+            if spath != snapshot_path:
+                continue
+            # the next clean shutdown writes snapshot_path fresh: keep
+            # the only copy of the un-restored data
+            aside = spath + ".unreadable"
+            try:
+                os.replace(spath, aside)
+                log.err() and log.e(f"moved aside to {aside}")
+            except OSError:
+                pass
+    if not config.journal:
+        return snapshot_path, None
+    # snapshot first, then the journal tail (overlap converges to the
+    # same state); every lane segment a JAX node left replays too
+    journal_path = os.path.join(config.data_dir, journal_mod.segment_name(None))
+    n = journal_mod.recover_all(database, config.data_dir, journal_path, log)
+    if n:
+        log.info() and log.i(f"journal replayed ({n} delta batches)")
+    journal = journal_mod.Journal(
+        journal_path,
+        fsync=config.journal_fsync,
+        fsync_interval=config.journal_fsync_interval,
+        max_bytes=config.journal_max_bytes,
+        registry=database.metrics,
+    )
+    journal.open()
+    database.set_journal(journal)
+    return snapshot_path, journal
 
 
 async def serve(node: NodeStack) -> Dispose:
     """Start a built node's listeners, the RESP server first (the
-    cluster advertises its port), and return its ``Dispose``."""
+    cluster advertises its port), and the online snapshot loop when it
+    has work (an interval, or a journal to compact); return its
+    ``Dispose``."""
     await node.server.start()
     node.cluster.resp_port = int(node.server.port)
     await node.cluster.start()
-    return Dispose(node.database, node.server, node.cluster, node.config.log)
+    config = node.config
+    dispose = Dispose(node.database, node.server, node.cluster,
+                      node.snapshot_path, config.log, node.journal)
+    if node.snapshot_path and (config.snapshot_interval > 0
+                               or node.journal is not None):
+        dispose.snapshot_task = asyncio.create_task(_snapshot_loop(
+            node.database, node.snapshot_path, config.snapshot_interval,
+            config.log, dispose.snapshot_inflight, node.journal,
+        ))
+    return dispose
+
+
+async def _snapshot_loop(
+    database, path: str, interval: float, log, inflight: dict, journal=None
+) -> None:
+    """Online snapshots while serving (jylis_tpu/main.py:389-460). Each
+    type dumps under its own repo lock in a worker thread on the node's
+    device (Database.dump_state_async), so serving never pauses
+    globally; cross-type skew is safe because restore is lattice
+    convergence. The write is atomic, so a crash mid-snapshot keeps the
+    previous file.
+
+    With a journal this loop is also the compaction driver: it wakes
+    early when the journal crosses its size threshold (the
+    rotate_notify hook), rotates the active segment aside first -- so
+    every delta flushed after the cut lands in the fresh segment and the
+    snapshot dumped below covers everything before it -- and retires the
+    old segment only after the snapshot is written. A failure or crash
+    in between leaves the ``.retiring`` segment for boot recovery. With
+    ``--snapshot-interval 0`` it snapshots only on compaction.
+
+    The write future sits in ``inflight["write"]`` until it completes:
+    Dispose awaits it before the shutdown snapshot touches the same tmp
+    file."""
+    rotate_event = asyncio.Event()
+    if journal is not None:
+        loop = asyncio.get_running_loop()
+        journal.rotate_notify = lambda: loop.call_soon_threadsafe(
+            rotate_event.set
+        )
+        # a segment already oversized at boot never re-asks: check once
+        if journal.needs_rotation():
+            rotate_event.set()
+    while True:
+        if journal is None:
+            await asyncio.sleep(interval)
+        else:
+            try:
+                await asyncio.wait_for(
+                    rotate_event.wait(),
+                    timeout=interval if interval > 0 else None,
+                )
+            except asyncio.TimeoutError:
+                pass
+            rotate_event.clear()
+        try:
+            if journal is not None:
+                await asyncio.to_thread(journal.rotate_begin)
+            batches = await database.dump_state_async()
+            fut = asyncio.ensure_future(
+                asyncio.to_thread(persist.write_snapshot, batches, path)
+            )
+            inflight["write"] = fut
+            fut.add_done_callback(
+                lambda f: inflight.__setitem__("write", None)
+                if inflight.get("write") is f
+                else None
+            )
+            await asyncio.shield(fut)
+            if journal is not None:
+                await asyncio.to_thread(journal.rotate_commit)
+            log.debug() and log.d(f"online snapshot written: {path}")
+        except asyncio.CancelledError:
+            raise
+        except Exception as e:  # one failed online snapshot (full disk,
+            # a drain raising mid-dump) must not kill the loop; the
+            # journal keeps the unsnapshotted deltas either way
+            log.err() and log.e(f"online snapshot failed: {e}")
 
 
 async def run(argv: list[str] | None = None) -> None:

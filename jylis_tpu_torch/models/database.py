@@ -308,6 +308,17 @@ class Database:
             self._sync_update_repo(name, self._map[name.encode()].repo)
         return [(n, self._sync_xor[n]) for n in self.DATA_TYPES]
 
+    def set_journal(self, journal) -> None:
+        """Attach the delta journal (journal/): every repo's flushed
+        batches append to it before reaching the network sink
+        (manager._emit). None detaches. Attaching also arms the JOURNAL
+        section of SYSTEM METRICS (explicit zeros from boot); the
+        journal records into the registry it was built with (main.py
+        passes this Database's)."""
+        for mgr in self._map.values():
+            mgr.journal = journal
+        self.metrics.journal_enabled = journal is not None
+
     # ---- routing ----------------------------------------------------------
 
     def manager(self, name: str) -> RepoManager:
@@ -400,6 +411,16 @@ class Database:
     async def clean_shutdown_async(self) -> None:
         for mgr in self._map.values():
             await mgr.clean_shutdown_async()
+
+    @contextlib.asynccontextmanager
+    async def all_locks(self):
+        """Every repo lock, in the map order every multi-lock holder
+        takes (the server's burst path too): the shutdown snapshot dumps
+        under it, so nothing mutates mid-dump."""
+        async with contextlib.AsyncExitStack() as stack:
+            for mgr in self._map.values():
+                await stack.enter_async_context(mgr._lock)
+            yield
 
 
 class _NullRespond:

@@ -10,7 +10,8 @@ keeps is the behavioral contract:
 * a mutating command triggers a proactive delta flush, throttled to at
   most once per 500 ms per repo (:68-84),
 * flush_deltas registers the delta sink and drains if non-empty (:86-90),
-* clean_shutdown stops intake and performs a final flush (:95-108).
+* clean_shutdown stops intake and performs a final flush (:95-108),
+* every flushed batch is journaled first when a journal is attached.
 
 It also keeps the per-Database commands-served tally (SYSTEM METRICS'
 "cmds" lines) and counts each flushed key's digest-tree bucket as write
@@ -75,6 +76,9 @@ class RepoManager:
         self._served = served if served is not None else {}
         # the Database's MetricsRegistry (write heat), when it has one
         self.registry = None
+        # the delta journal (journal/), set by Database.set_journal:
+        # _emit appends each flushed batch, in flush order
+        self.journal = None
         self._deltas_fn = None
         self._last_proactive = None
         self._shutdown = False
@@ -196,9 +200,14 @@ class RepoManager:
             self._emit(self.repo.flush_deltas())
 
     def _emit(self, batch) -> None:
-        """Every flushed batch leaves through here: each key counts as
-        write heat against its sync_bucket (the digest tree's shard,
-        models/database.py), then the batch goes to the sink."""
+        """Every flushed batch leaves through here: journal first (a
+        batch that reached peers but not this node's disk is the crash
+        loss the journal closes; the append only enqueues), then each
+        key counts as write heat against its sync_bucket (the digest
+        tree's shard, models/database.py), then the batch goes to the
+        sink."""
+        if self.journal is not None:
+            self.journal.append(self.name, batch)
         if self.registry is not None and self.registry.enabled and batch:
             from .database import sync_bucket  # database imports this module
 

@@ -371,6 +371,18 @@ class RepoGCOUNT(_CounterRepo):
         items, counts = self._keyed_rows(keys)
         return [(key, d) for key, (d,) in self._dump_rows(counts, items) if d]
 
+    def load_state(self, batch) -> None:
+        """Converge a snapshot's or a journal's batch. This node's own
+        column is its private monotonic state: it is joined into the
+        table's own counter too, or the next INC would vanish under the
+        pending max."""
+        for key, delta in batch:
+            self.converge(key, delta)
+            if self._identity in delta:
+                self._tbl.own_max(
+                    self._tbl.upsert(key), 0, delta[self._identity]
+                )
+
 
 class RepoPNCOUNT(_CounterRepo):
     name = "PNCOUNT"
@@ -445,3 +457,13 @@ class RepoPNCOUNT(_CounterRepo):
         items, counts = self._keyed_rows(keys)
         return [(key, (dp, dn)) for key, (dp, dn) in self._dump_rows(counts, items)
                 if dp or dn]
+
+    def load_state(self, batch) -> None:
+        """As RepoGCOUNT.load_state, for each polarity's own column."""
+        for key, (dp, dn) in batch:
+            self.converge(key, (dp, dn))
+            row = self._tbl.upsert(key)
+            if self._identity in dp:
+                self._tbl.own_max(row, 0, dp[self._identity])
+            if self._identity in dn:
+                self._tbl.own_max(row, 1, dn[self._identity])

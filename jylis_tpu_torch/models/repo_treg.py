@@ -142,6 +142,12 @@ class RepoTREG:
         value, ts = delta
         self._tbl.write(self._tbl.upsert(key), ts, value)
 
+    def load_state(self, batch) -> None:
+        """Converge a snapshot's or a journal's batch (buffered; the
+        restore's ``drain_all`` lands it on the device)."""
+        for key, delta in batch:
+            self.converge(key, delta)
+
     def deltas_size(self) -> int:
         return self._tbl.deltas_size()
 

@@ -101,6 +101,9 @@ class RepoUJSON:
         self._res_applied: dict[bytes, int] = {}
         self._host_only: set[bytes] = set()  # seqs past u32: never promote
         self._sync_dirty: set[bytes] = set()  # since last digest pass
+        # restored documents the next drain folds into resident rows
+        # (load_state)
+        self._restore_fold: set[bytes] = set()
 
     # -- mode plumbing -------------------------------------------------------
 
@@ -472,7 +475,22 @@ class RepoUJSON:
         ]
 
     def load_state(self, batch) -> None:
+        """Converge a snapshot's or a journal's batch. A restored
+        document new to this node that holds at least SEG_FANIN_MIN
+        entries goes back to a resident row: the next drain (the
+        restore's ``drain_all``) folds all of them on the device in one
+        shared fold, as a segmented drain folds keys whose fan-in earned
+        it. The JAX package lands every restored key on the host (one
+        delta a key never reaches SEG_FANIN_MIN); the documents, replies
+        and digests are the same either way."""
         for key, delta in batch:
+            n = getattr(delta, "n_entries", None)
+            if n is None:
+                n = len(delta.entries)
+            if (n >= SEG_FANIN_MIN and key not in self._data
+                    and key not in self._pend and key not in self._host_only
+                    and not self._is_resident(key)):
+                self._restore_fold.add(key)
             self.converge(key, delta)
 
     def deltas_size(self) -> int:
@@ -493,18 +511,21 @@ class RepoUJSON:
         # key whose fan-in earns a slice of a shared drain, folds at once;
         # what remains (small fan-ins on host-mode keys, or everything on
         # layout overflow) host-loops
+        restored, self._restore_fold = self._restore_fold, set()
         groups = {
             k: lst
             for k, lst in self._pend.items()
             if k not in self._host_only
-            and (self._is_resident(k) or len(lst) >= SEG_FANIN_MIN)
+            and (self._is_resident(k) or len(lst) >= SEG_FANIN_MIN
+                 or k in restored)
         }
         # SEG_FANIN_MIN only pays when the drain is SHARED: a lone
         # non-resident key below the single-drain crossover stays on the
         # host loop
         if len(groups) == 1:
             k = next(iter(groups))
-            if not self._is_resident(k) and len(groups[k]) < DEVICE_FANIN_MIN:
+            if (not self._is_resident(k) and len(groups[k]) < DEVICE_FANIN_MIN
+                    and k not in restored):
                 groups = {}
         if groups:
             for k in groups:

@@ -6,10 +6,12 @@ and defaults: --port/-p, --addr/-a, --seed-addrs/-s, --heartbeat-time/-T,
 --system-log-trim, --log-level/-L, and the cluster's --dial-timeout,
 --dial-backoff-cap, --delta-log-cap, --range-budget, --region,
 --bridge-demote-ticks, --trace-sample, --converge-slo-ms and
---failpoints. --device picks where the repos' state lives. The
+--failpoints, and persistence's --data-dir, --snapshot-interval,
+--no-journal, --journal-fsync, --journal-fsync-interval and
+--journal-max-bytes. --device picks where the repos' state lives. The
 address's 64-bit hash is the node's replica identity; an empty address
-name gets a random one, as on a JAX node. Persistence, journal, lane,
-admission, session and metrics-port flags come with those layers.
+name gets a random one, as on a JAX node. Lane, admission, session and
+metrics-port flags come with those layers.
 """
 
 from __future__ import annotations
@@ -32,6 +34,14 @@ class Config:
     seed_addrs: list[Address] = field(default_factory=list)
     heartbeat_time: float = 10.0
     system_log_trim: int = 200
+    data_dir: str = ""  # snapshot/restore (persist.py)
+    snapshot_interval: float = 0.0  # online snapshot cadence
+    # delta write-ahead journal (journal/journal.py): on by default
+    # whenever data_dir is set; the flags below tune it
+    journal: bool = True
+    journal_fsync: str = "interval"
+    journal_fsync_interval: float = 0.2
+    journal_max_bytes: int = 64 << 20
     # peer dial lifecycle (cluster.py): connect timeout in seconds and
     # the exponential-backoff ceiling in heartbeat ticks
     dial_timeout: float = 5.0
@@ -91,6 +101,45 @@ def config_from_cli(
     parser.add_argument(
         "--system-log-trim", type=int, default=200,
         help="The number of entries to retain in the distributed `SYSTEM GETLOG`.",
+    )
+    parser.add_argument(
+        "--data-dir", default="",
+        help="Directory for state snapshots: restored on boot, written on "
+        "clean shutdown. Empty (default) disables persistence, like the "
+        "reference.",
+    )
+    parser.add_argument(
+        "--snapshot-interval", type=float, default=0.0,
+        help="Seconds between ONLINE snapshots while serving (requires "
+        "--data-dir). 0 (default) snapshots only at clean shutdown; a "
+        "crash then loses everything since boot, so long-lived nodes "
+        "should set an interval (writes are atomic; each type dumps "
+        "under its own lock, so serving never pauses globally).",
+    )
+    parser.add_argument(
+        "--no-journal", action="store_true",
+        help="Disable the delta write-ahead journal. With --data-dir the "
+        "journal is ON by default: every flushed delta batch appends to "
+        "DIR/journal.jylis and is converged back on boot, closing the "
+        "crash-loss window between snapshots (docs/durability.md).",
+    )
+    parser.add_argument(
+        "--journal-fsync", choices=("always", "interval", "off"),
+        default="interval",
+        help="Journal fsync policy: 'always' fsyncs every append, "
+        "'interval' fsyncs at most once per --journal-fsync-interval "
+        "seconds (bounded power-loss window; a plain process crash loses "
+        "nothing under any policy), 'off' leaves syncing to the OS.",
+    )
+    parser.add_argument(
+        "--journal-fsync-interval", type=float, default=0.2,
+        help="Seconds between journal fsyncs under --journal-fsync "
+        "interval (the power-loss data-at-risk window).",
+    )
+    parser.add_argument(
+        "--journal-max-bytes", type=int, default=64 << 20,
+        help="Journal size that triggers compaction: a fresh snapshot is "
+        "cut and the old journal segment retired (docs/durability.md).",
     )
     parser.add_argument(
         "--dial-timeout", type=float, default=Config.dial_timeout,
@@ -165,6 +214,8 @@ def config_from_cli(
         "--version", action="version", version=f"jylis-tpu-torch {__version__}",
     )
     args = parser.parse_args(argv)
+    if args.snapshot_interval > 0 and not args.data_dir:
+        parser.error("--snapshot-interval requires --data-dir")
 
     config = Config()
     config.port = args.port
@@ -174,6 +225,12 @@ def config_from_cli(
     ]
     config.heartbeat_time = args.heartbeat_time
     config.system_log_trim = args.system_log_trim
+    config.data_dir = args.data_dir
+    config.snapshot_interval = args.snapshot_interval
+    config.journal = not args.no_journal
+    config.journal_fsync = args.journal_fsync
+    config.journal_fsync_interval = args.journal_fsync_interval
+    config.journal_max_bytes = args.journal_max_bytes
     config.dial_timeout = args.dial_timeout
     config.dial_backoff_cap = args.dial_backoff_cap
     config.delta_log_cap = args.delta_log_cap

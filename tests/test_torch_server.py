@@ -474,6 +474,37 @@ JAX_FREE_NODE = textwrap.dedent("""
     msg = MsgPushDeltas("PNCOUNT", ((b"p", ({1: 1 << 63}, {2: 5})),))
     assert codec.decode(codec.encode(msg)) == msg
     assert codec.encode.native["PushDeltas"] == codec.decode.native["PushDeltas"] == 1
+
+    # persistence: this node's snapshot restored by a node that
+    # main.build_node wires with --data-dir before anything listens; its
+    # clean shutdown writes the snapshot again and retires the journal
+    import os
+    import tempfile
+
+    from jylis_tpu_torch import journal, persist
+    from jylis_tpu_torch.main import build_node, serve
+    from jylis_tpu_torch.utils.config import config_from_cli
+    from jylis_tpu_torch.utils.net import free_port
+
+    with tempfile.TemporaryDirectory() as d:
+        persist.save_snapshot(db, os.path.join(d, "snapshot.jylis"))
+        node = build_node(config_from_cli([
+            "--device", "cpu", "--port", "0", "--addr", f"127.0.0.1:{free_port()}:p",
+            "--data-dir", d, "--log-level", "error"]))
+        assert isinstance(node.journal, journal.Journal)
+        assert node.database._sync_digest_blocking() == db._sync_digest_blocking()
+
+        async def stop():
+            dispose = await serve(node)
+            dispose.dispose()
+            await dispose.done.wait()
+
+        asyncio.run(stop())
+        assert os.path.getsize(os.path.join(d, "journal.jylis")) == journal.HEADER_LEN
+        fresh = Database(2, device="cpu", engine="python")
+        assert persist.load_snapshot(fresh, os.path.join(d, "snapshot.jylis")) == 9
+        assert fresh._sync_digest_blocking() == db._sync_digest_blocking()
+
     loaded = [m for m in sys.modules if m == "jylis_tpu" or m.startswith("jylis_tpu.")]
     assert not loaded, loaded
     assert sys.modules["jax"] is None
@@ -488,7 +519,11 @@ def test_serves_treg_and_tensor_without_jax():
     point and chip_smoke.py, and loads nothing of ``jylis_tpu``; its
     replies equal the JAX database's. The same process builds and loads
     the port's native library, settles the burst in the native serving
-    engine and codes a PushDeltas frame natively both ways."""
+    engine and codes a PushDeltas frame natively both ways; it also
+    imports persist and journal, restores the node's snapshot in a node
+    that ``main.build_node`` wires with ``--data-dir`` (equal digest),
+    and that node's clean shutdown writes a loadable snapshot and
+    retires its journal."""
     request = (
         arr("TREG", "SET", "r", "v1", 3) + arr("TREG", "SET", "r", "v0", 3)
         + arr("TREG", "GET", "r") + arr("TENSOR", "SET", "t", "MAX", 0, vec(1, 2))
