@@ -200,7 +200,30 @@ library's path, its build seconds, the compiler's version); then:
    and P3's digests. The "persist" line holds the snapshot's bytes and
    write seconds, boot to listening, the restore's decode + converge and
    drain_all seconds, its launches, and the replay's batches, seconds
-   and launches.
+   and launches;
+17. the lanes phase (lanes_phase): ``python -m jylis_tpu_torch --lanes 2
+   --data-dir D --metrics-port M --heartbeat-time 1`` as a user starts
+   it, on the default device: the supervisor and two lane workers, each
+   a full replica on the card, converging over the loopback lane bus;
+   lane 0 is the node's one cluster member. E, a CPU port node seeded
+   with the node's address, converges BASELINE config 2 (100,000 GCOUNT
+   and PNCOUNT keys from 8 replica ids) before it dials; one connection
+   per lane writes
+   GCOUNT and PNCOUNT to every one of those keys, key i at lane i % 2.
+   Admission: lane 1 has admission.shed armed (JYLIS_LANE_FAILPOINTS)
+   and answers its first read, write and bulk command BUSY with class
+   and hint. Both lanes, E and a CPU reference of the port (a Database
+   per lane identity and one for E, joined) reach one SYSTEM DIGEST, and
+   every key read at the lane that did not take its write equals the
+   reference. Each lane shows drains of both counter types, no idle
+   eviction, its device (cuda:N) on its log line; a SESSION WRAP at
+   lane 0 is served by SESSION READ at lane 1 and a mangled token gets
+   BADTOKEN; the supervisor's Prometheus endpoint carries both lanes and
+   the summed drain counters. No lane may have restarted before lane 1
+   is SIGKILLed; its respawn replays its journal segment and the digests
+   are equal again. Each lane logs its kernel launches since its warmup
+   at its clean shutdown ("lanes_launches": lane 0's, and lane 1's after
+   its respawn).
 Before 1., the codec phase, on the card machine's host: config 2's
 PNCOUNT state (100,000 keys x 8 replica ids) as 2,048-key PushDeltas
 frames, encoded and decoded by the native codec and by the oracle
@@ -227,8 +250,9 @@ phases, replica_join's on the dryrun; "mesh_launches" on the mesh
 node, "dryrun_launches" on the dryrun and "digest_launches" on the
 digest phase's two nodes on the card, "cluster_launches" on the
 cluster phase's card node and "cluster_wire_launches", those of its
-launches the wire fed, "restore_launches" in P2's boot restore and
-"replay_launches" in P3's journal replay, each apart; for the row
+launches the wire fed, "restore_launches" in P2's boot restore,
+"replay_launches" in P3's journal replay and "lanes_launches" in the
+lanes node's two lane processes, each apart; for the row
 kernels tlog_drain, ujson_join and ujson_fold_flat, "class" at each
 shape and "launch_classes", the main path's launches by class (a warp
 or a CTA per row, device scratch, or a cluster of CTAs: ops/row_plan.py);
@@ -250,6 +274,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import socket
 import statistics
 import subprocess
@@ -4091,7 +4116,7 @@ class ClusterNode:
             t0 = time.perf_counter()
             node = build_node(cfg)
             if built is not None:
-                built()
+                built(node)
             try:
                 self.dispose = self.run(serve(node))
                 self.boot_s = time.perf_counter() - t0  # build, warmup, recovery, listen
@@ -4239,6 +4264,21 @@ def cluster_h_only(name: str, batch) -> bool:
     return name in ("TREG", "TLOG") or (name == "UJSON" and batch[0][0].startswith(b"doc"))
 
 
+def config2_batches():
+    """A node's copy of BASELINE config 2 as its cluster_peer converges
+    it: NODE_KEYS keys from NODE_REPLICAS replica ids, from SEED + 90."""
+    rng = np.random.default_rng(SEED + 90)
+    keys = [b"k%06d" % i for i in range(NODE_KEYS)]
+    rids = [int(x) for x in rng.integers(1 << 40, 1 << 62, NODE_REPLICAS)]
+    return cluster_config2(rng, keys, rids)
+
+
+def config2_writes():
+    """The RESP writes a node takes after config 2: 100 of its keys."""
+    keys = [b"k%06d" % i for i in range(100)]
+    return [("GCOUNT", "INC", k, 7) for k in keys] + [("PNCOUNT", "DEC", k, 3) for k in keys]
+
+
 # the sizes a node's process takes from the parent's module, so both
 # nodes make the same data at whatever sizes the parent runs
 PEER_SIZES = ("NODE_KEYS", "NODE_REPLICAS", "MESH_KEYS", "MESH_MORE", "MESH_TLOG_KEYS",
@@ -4343,9 +4383,14 @@ def cluster_peer(spec: dict) -> None:
     counters = dict(launch_counters(), tensor_converge_batch=tensor.converge_batch)
     del counters["replica_join"]
 
-    def zero():
+    def zero(node=None):
         for c in counters.values():
             c.launches = 0
+        if node is not None and spec.get("preload_config2"):
+            # config 2 in the node before it listens or dials (the lanes
+            # phase's E): the first sync with a peer pulls all of it
+            for name, batch in config2_batches():
+                node.database.converge(name, batch)
 
     persist_kw, rec = {}, None
     if spec.get("data_dir"):
@@ -4365,13 +4410,9 @@ def cluster_peer(spec: dict) -> None:
         for line in sys.stdin:
             cmd, t0 = line.strip(), time.perf_counter()
             if cmd == "config2":
-                rng = np.random.default_rng(SEED + 90)
-                keys = [b"k%06d" % i for i in range(NODE_KEYS)]
-                rids = [int(x) for x in rng.integers(1 << 40, 1 << 62, NODE_REPLICAS)]
-                for name, batch in cluster_config2(rng, keys, rids):
+                for name, batch in config2_batches():
                     node.converge(name, batch)
-                node.client.pipeline([("GCOUNT", "INC", k, 7) for k in keys[:100]]
-                                     + [("PNCOUNT", "DEC", k, 3) for k in keys[:100]])
+                node.client.pipeline(config2_writes())
                 say({"done": cmd, "s": time.perf_counter() - t0})
             elif cmd == "all":
                 steps, second = cluster_script()
@@ -4420,12 +4461,14 @@ class PeerProcess:
     """One cluster-phase node as a child process running cluster_peer(),
     and a RESP client to it."""
 
-    def __init__(self, name: str, device: str, seeds=(), data_dir=None, cport=None):
+    def __init__(self, name: str, device: str, seeds=(), data_dir=None, cport=None,
+                 preload_config2=False):
         from pathlib import Path
 
         here = str(Path(__file__).resolve().parent)
         spec = dict({k: globals()[k] for k in PEER_SIZES}, name=name, device=device,
-                    seeds=[list(s) for s in seeds], data_dir=data_dir, cport=cport)
+                    seeds=[list(s) for s in seeds], data_dir=data_dir, cport=cport,
+                    preload_config2=preload_config2)
         t0 = time.perf_counter()
         self.proc = subprocess.Popen(
             [sys.executable, "-c",
@@ -4897,6 +4940,454 @@ def persist_phase(torch, p_device=None) -> dict:
     return out
 
 
+# ---- the lanes phase -----------------------------------------------------------
+
+LANES = 2
+LANES_TICK = 1.0  # --heartbeat-time of the lanes node (its bus keeps 0.25 s)
+LANES_KEYS = NODE_KEYS  # keys per counter type written over RESP, half at each lane
+LANES_DEADLINE_S = 150.0  # each wait of the phase polls to this deadline
+LANES_POLL_S = 1.0  # SYSTEM DIGEST polls: each folds the keys dirtied since under the locks
+LANES_SHED = 4  # admission.shed's budget in lane 1: its first SYSTEM METRICS, the drill's 3
+# the drain kernels each lane must launch: a counter drain of each type
+LANES_PATH = (("counter_drain_dense<1>", "counter_drain_sparse<1>"),
+              ("counter_drain_dense<2>", "counter_drain_sparse<2>"))
+_LANE_UP = re.compile(r"serving lane (\d+)/\d+ \(pid (\d+)\) .* device (\S+)")
+_LANE_LAUNCHES = re.compile(r"kernel launches since warmup \(pid (\d+)\): (\{.*\})")
+
+
+def lane_of_reply(reply: bytes) -> int:
+    m = re.search(rb"LANE id (\d+)", reply)
+    if m is None:
+        raise AssertionError("lanes phase: SYSTEM METRICS has no LANE section")
+    return int(m.group(1))
+
+
+def metric(reply: bytes, name: bytes) -> int:
+    m = re.search(rb"\r\n" + re.escape(name) + rb" (\d+)\r\n", reply)
+    return int(m.group(1)) if m else 0
+
+
+def bulk_of(reply: bytes, pos: int = 0) -> tuple[bytes, int]:
+    """The bulk string at ``pos`` of a raw reply, and the offset after it."""
+    eol = reply.index(b"\r\n", pos)
+    n = int(reply[pos + 1:eol])
+    return reply[eol + 2:eol + 2 + n], eol + 4 + n
+
+
+class LanesNode:
+    """``python -m jylis_tpu_torch --lanes 2`` as a user starts it: the
+    supervisor process, which spawns the two lane workers; its output
+    goes to a file the phase reads the lanes' log lines from."""
+
+    def __init__(self, root: str, device=None):
+        from pathlib import Path
+
+        from jylis_tpu_torch.utils.net import free_port
+
+        self.data = os.path.join(root, "data")
+        self.port, cport, self.mport = free_port(), free_port(), free_port()
+        self.addr = ("127.0.0.1", str(cport), "lanes")
+        self.log_path = os.path.join(root, "lanes.log")
+        self._log = open(self.log_path, "w")
+        argv = [sys.executable, "-m", "jylis_tpu_torch", "--port", str(self.port),
+                "--addr", ":".join(self.addr), "--lanes", str(LANES), "--data-dir", self.data,
+                "--metrics-port", str(self.mport), "--heartbeat-time", str(LANES_TICK)]
+        if device is not None:
+            argv += ["--device", str(device)]
+        # lane 1 sheds every class but control for its first LANES_SHED
+        # Python-path commands (the admission drill)
+        env = dict(os.environ, JYLIS_LANE_FAILPOINTS=f"1:admission.shed=error:{LANES_SHED}")
+        self.proc = subprocess.Popen(argv, cwd=str(Path(__file__).resolve().parent), env=env,
+                                     stdout=self._log, stderr=subprocess.STDOUT)
+
+    def manifest(self) -> dict:
+        try:
+            with open(os.path.join(self.data, "lanes.json"), encoding="utf-8") as f:
+                return json.load(f)
+        except (OSError, ValueError):
+            return {}
+
+    def pids(self) -> list:
+        return [lane["pid"] for lane in self.manifest().get("lanes", [])]
+
+    def text(self) -> str:
+        with open(self.log_path, encoding="utf-8", errors="replace") as f:
+            return f.read()
+
+    def alive(self) -> None:
+        if self.proc.poll() is not None:
+            raise AssertionError(f"lanes phase: the supervisor exited ({self.proc.returncode}): "
+                                 f"{self.text()[-3000:]}")
+
+    def connect(self, want: int, drill=None) -> Client:
+        """A connection the kernel gave to lane ``want``; ``drill`` runs on
+        the first connection that lands on lane 1, right after its first
+        command."""
+        t0, extra = time.perf_counter(), []
+        try:
+            while True:
+                self.alive()
+                if time.perf_counter() - t0 > LANES_DEADLINE_S:
+                    raise AssertionError(f"lanes phase: no connection reached lane {want}")
+                try:
+                    c = Client(self.port)
+                except OSError:
+                    time.sleep(0.2)
+                    continue
+                lane = lane_of_reply(c.pipeline([("SYSTEM", "METRICS")])[0])
+                if lane == 1 and drill is not None and not drill:
+                    drill.update(admission_drill(c))
+                if lane == want:
+                    return c
+                extra.append(c)
+        finally:
+            for c in extra:
+                c.close()
+
+    def stop(self) -> int:
+        """SIGTERM: the supervisor stops the lanes (each a clean Dispose)."""
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+            try:
+                self.proc.wait(timeout=120)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait(timeout=30)
+        for pid in self.pids():  # lanes the supervisor could not stop
+            if pid:
+                try:
+                    os.kill(pid, signal.SIGKILL)
+                except OSError:
+                    pass
+        self._log.close()
+        return self.proc.returncode
+
+
+def admission_drill(c: Client) -> dict:
+    """On lane 1's first connection, with admission.shed armed there: a
+    read, a write and a bulk command get the typed BUSY reply (class and
+    retry-after hint), and lane 1's OVERLOAD section counts the three."""
+    cmds = [("TENSOR", "GET", "lanes:shed"), ("BCOUNT", "GRANT", "lanes:shed", 1),
+            ("TENSOR", "SET", "lanes:shed", "MAX", 1, np.float32(1).tobytes())]
+    replies = c.pipeline(cmds)
+    for reply, cls in zip(replies, ("read", "write", "bulk")):
+        if not reply.startswith(b"-BUSY (overload shed class=" + cls.encode()) \
+                or b"retry-after-ms=" not in reply:
+            raise AssertionError(f"lanes phase: lane 1 did not shed a {cls}: {reply[:120]!r}")
+    metrics = c.pipeline([("SYSTEM", "METRICS")])[0]
+    shed = {cls: metric(metrics, b"OVERLOAD shed_" + cls.encode())
+            for cls in ("control", "read", "write", "bulk")}
+    if shed != {"control": 0, "read": 1, "write": 1, "bulk": 1} or lane_of_reply(metrics) != 1:
+        raise AssertionError(f"lanes phase: lane 1's OVERLOAD section counted {shed}")
+    return {"busy": [r.decode(errors="replace").strip() for r in replies], "shed": shed}
+
+
+def lanes_reference(keys_cmds: dict, ext_identity: int, addr):
+    """The CPU reference: a port Database per lane identity (lane_identity
+    of the node's address) fed that lane's commands, one with E's identity
+    fed E's RESP writes, and config 2 converged as E converged it, all
+    joined into the first."""
+    from jylis_tpu_torch.lanes import lane_identity
+    from jylis_tpu_torch.models.database import Database
+    from jylis_tpu_torch.server.resp import Respond
+    from jylis_tpu_torch.utils.address import Address
+    from jylis_tpu_torch.utils.config import Config
+
+    cfg = Config(addr=Address(*addr))
+    dbs = [Database(lane_identity(cfg, k), device="cpu") for k in range(LANES)]
+    dbs.append(Database(ext_identity, device="cpu"))
+    sink = Respond(lambda b: None)
+    for name, batch in config2_batches():
+        dbs[0].converge(name, batch)
+    for db, cmds in zip(dbs, [keys_cmds[k] for k in range(LANES)] + [config2_writes()]):
+        for cmd in cmds:
+            db.apply(sink, [a if isinstance(a, bytes) else str(a).encode() for a in cmd])
+    for db in dbs[1:]:
+        db.flush_deltas(lambda d: dbs[0].converge(d[0], d[1]))
+    return dbs[0]
+
+
+def ref_digest(db) -> bytes:
+    return b"$64\r\n" + db._sync_digest_blocking().hex().encode() + b"\r\n"
+
+
+def lanes_phase(torch, l_device=None) -> dict:
+    """A two-lane node (``--lanes 2``): the supervisor and its two lane
+    workers, each a full replica on the node's default device (the card),
+    their bus on loopback, lane 0 the node's one cluster member.
+
+    1. Start the node as a user does; E, a CPU port node in a process of
+       its own seeded with the node's address (lane 0's external
+       identity), converges BASELINE config 2 (100,000 GCOUNT and PNCOUNT
+       keys from 8 replica ids) before it listens or dials, so its first
+       sync with lane 0 carries all of it, then takes 100 writes over
+       RESP. Lane 1 has
+       admission.shed armed (JYLIS_LANE_FAILPOINTS): on its first
+       connection a read, a write and a bulk command get BUSY with their
+       class and retry-after hint, and its OVERLOAD section counts them.
+    2. One connection per lane (each learns its lane from SYSTEM METRICS'
+       LANE section): GCOUNT INC and PNCOUNT INC/DEC of every key of
+       config 2's key set, key i at lane i % 2. Lane 0 bootstraps config 2
+       from E over the wire and relays it onto the bus; lane 1 and E get
+       the other lanes' writes over the bus and the bridge.
+    3. Both lanes, E and the CPU reference (lanes_reference) reach one
+       SYSTEM DIGEST; every key's GET of both types at the lane that did
+       not take its write equals the reference's.
+    4. Per lane: drains of both counter types in SYSTEM METRICS, no idle
+       eviction in its CLUSTER section, its log line naming its device
+       (cuda:N), and its pid among nvidia-smi's compute apps when that
+       lists any. A SESSION WRAP at lane 0 is served by SESSION READ at
+       lane 1; a mangled token gets BADTOKEN. The supervisor's aggregated
+       Prometheus endpoint has both lanes' samples, each lane up, and the
+       summed drain counters.
+    5. SIGKILL lane 1 (its pid from lanes.json, the first restart of the
+       run): the supervisor writes a new pid, the lane replays its own
+       journal segment and rejoins the bus, and the digests are equal
+       again. Then SIGTERM: each lane logs its kernel launches since its
+       warmup at its clean shutdown (lane 1's of its second life).
+    The "lanes" line holds each step's host seconds."""
+    import tempfile
+    import urllib.request
+
+    from jylis_tpu_torch.utils.address import Address
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_lanes_")
+    out = {"device": str(l_device or "default (cuda)"), "lanes": LANES, "keys": LANES_KEYS,
+           "tick_s": LANES_TICK}
+    node = ext = None
+    conns = {}
+    t_phase = time.perf_counter()
+    try:
+        node = LanesNode(root, l_device)
+        # E converges config 2 before it listens or dials, so the first
+        # sync between it and lane 0 carries all of it
+        t0 = time.perf_counter()
+        ext = PeerProcess("ext", "cpu", seeds=[node.addr], preload_config2=True)
+        out["ext_boot_s"] = time.perf_counter() - t0
+        drill = {}
+        t0 = time.perf_counter()
+        conns[1] = node.connect(1, drill)
+        conns[0] = node.connect(0)
+        out["boot_s"] = time.perf_counter() - t_phase
+        out["drill"] = drill
+        pids0 = node.pids()
+        if len(pids0) != LANES or not all(pids0):
+            raise AssertionError(f"lanes phase: lanes.json lists {pids0}")
+        if set(ext.client.pipeline(config2_writes())) != {b"+OK\r\n"}:
+            raise AssertionError("lanes phase: E's writes were not acknowledged")
+
+        rng = np.random.default_rng(SEED + 97)
+        keys = [b"k%06d" % i for i in range(LANES_KEYS)]
+        gv, pv = (rng.integers(1, 1 << 40, LANES_KEYS) for _ in range(2))
+        pol = rng.integers(0, 2, LANES_KEYS)
+        cmds = {k: [] for k in range(LANES)}
+        for i, key in enumerate(keys):
+            cmds[i % LANES] += [("GCOUNT", "INC", key, int(gv[i])),
+                                ("PNCOUNT", "DEC" if pol[i] else "INC", key, int(pv[i]))]
+        # the CPU reference builds in a thread while the writes go out and
+        # the lanes converge
+        built = {}
+
+        def reference():
+            t0 = time.perf_counter()
+            built["ref"] = lanes_reference(cmds, Address(*ext.addr).hash64(), node.addr)
+            built["want"] = ref_digest(built["ref"])
+            built["s"] = time.perf_counter() - t0
+
+        ref_thread = threading.Thread(target=reference)
+        ref_thread.start()
+        t0 = time.perf_counter()
+        try:
+            for k in range(LANES):
+                replies = conns[k].pipeline(cmds[k], chunk=2048)
+                if set(replies) != {b"+OK\r\n"}:
+                    raise AssertionError(f"lanes phase: lane {k}'s writes: {set(replies)}")
+            out["writes_s"] = time.perf_counter() - t0
+        finally:
+            ref_thread.join()
+        if "want" not in built:
+            raise AssertionError("lanes phase: the CPU reference failed")
+        ref, want = built["ref"], built["want"]
+        out["reference_s"] = built["s"]
+        t_written = time.perf_counter()
+
+        def digests() -> list:
+            return [conns[k].pipeline([("SYSTEM", "DIGEST")])[0] for k in range(LANES)] \
+                + [ext.client.pipeline([("SYSTEM", "DIGEST")])[0]]
+
+        def converged(what: str) -> float:
+            t0, seen = time.perf_counter(), None
+            while True:
+                node.alive()
+                seen = digests()
+                if all(d == want for d in seen):
+                    return time.perf_counter() - t0
+                if time.perf_counter() - t0 > LANES_DEADLINE_S:
+                    raise AssertionError(f"lanes phase: {what}: digests {seen} != {want}")
+                time.sleep(LANES_POLL_S)
+
+        converged("lanes, E and the reference")
+        out["converge_s"] = time.perf_counter() - t_written  # last write to one digest
+        emit({"phase": "lanes_step", "step": "converged", **out})
+        # every key read back at the lane that did not take its write
+        t0 = time.perf_counter()
+        sink_out = bytearray()
+        from jylis_tpu_torch.server.resp import Respond
+
+        for name in ("GCOUNT", "PNCOUNT"):
+            for k in range(LANES):
+                mine = keys[1 - k::LANES] if LANES == 2 else []
+                got = conns[k].pipeline([(name, "GET", key) for key in mine], chunk=2048)
+                exp = []
+                for key in mine:
+                    sink_out.clear()
+                    ref.apply(Respond(sink_out.extend), [name.encode(), b"GET", key])
+                    exp.append(bytes(sink_out))
+                check_replies(f"lanes phase: {name} GET at lane {k}", got, exp)
+        out["cross_reads"] = 2 * LANES_KEYS
+        out["cross_reads_s"] = time.perf_counter() - t0
+        emit({"phase": "lanes_step", "step": "cross_reads", "s": out["cross_reads_s"]})
+
+        # per lane: drains, no idle eviction, its device, its pid
+        per_lane = {}
+        for k in range(LANES):
+            m = conns[k].pipeline([("SYSTEM", "METRICS")])[0]
+            per_lane[k] = {"drains": {n: metric(m, n.encode() + b" drains")
+                                      for n in ("GCOUNT", "PNCOUNT")},
+                           "drop_idle": metric(m, b"CLUSTER drop_idle"),
+                           "evictions": metric(m, b"CLUSTER evictions")}
+            if min(per_lane[k]["drains"].values()) < 1 or per_lane[k]["drop_idle"]:
+                raise AssertionError(f"lanes phase: lane {k}: {per_lane[k]}")
+        up = _LANE_UP.findall(node.text())
+        devices = {int(pid): dev for _, pid, dev in up}
+        for k, pid in enumerate(pids0):
+            dev = devices.get(pid)
+            per_lane[k]["pid"], per_lane[k]["device"] = pid, dev
+            if dev is None or (l_device is None and not dev.startswith("cuda:")):
+                raise AssertionError(f"lanes phase: lane {k} (pid {pid}) logged device {dev}")
+        apps = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                              capture_output=True, text=True).stdout.split() \
+            if l_device is None else []
+        out["nvidia_smi_pids"] = apps
+        # nvidia-smi names the host's pids; in a pid namespace of its own
+        # (a container) it shows others, and then only its count is read
+        if any(str(pid) in apps for pid in pids0):
+            if not all(str(pid) in apps for pid in pids0):
+                raise AssertionError(f"lanes phase: lane pids {pids0} not among {apps}")
+        elif apps and len(apps) < LANES:
+            raise AssertionError(f"lanes phase: {len(apps)} compute apps on the card: {apps}")
+        out["per_lane"] = per_lane
+
+        # sessions across lanes
+        t0 = time.perf_counter()
+        wrap = conns[0].pipeline([("SESSION", "WRAP", "GCOUNT", "INC", "lanes:session", 1)])[0]
+        if not wrap.startswith(b"*2\r\n+OK\r\n$"):
+            raise AssertionError(f"lanes phase: SESSION WRAP at lane 0: {wrap[:80]!r}")
+        token, _ = bulk_of(wrap, len(b"*2\r\n+OK\r\n"))
+        ref.apply(Respond(lambda b: None), [b"GCOUNT", b"INC", b"lanes:session", b"1"])
+        stale = 0
+        while True:
+            read = conns[1].pipeline([("SESSION", "READ", token, "GCOUNT", "GET",
+                                       "lanes:session")])[0]
+            if not read.startswith(b"-STALE"):
+                break
+            stale += 1
+            if time.perf_counter() - t0 > LANES_DEADLINE_S:
+                raise AssertionError("lanes phase: lane 1 never covered lane 0's token")
+        if not (read.startswith(b"*2\r\n$") and read.endswith(b":1\r\n")):
+            raise AssertionError(f"lanes phase: SESSION READ at lane 1: {read[:80]!r}")
+        bad = bytearray(token)
+        bad[len(bad) // 2] ^= 0x5A
+        badtoken = conns[1].pipeline([("SESSION", "READ", bytes(bad), "GCOUNT", "GET",
+                                       "lanes:session")])[0]
+        if not badtoken.startswith(b"-BADTOKEN"):
+            raise AssertionError(f"lanes phase: a mangled token got {badtoken[:80]!r}")
+        out["session"] = {"token_bytes": len(token), "stale_before_served": stale,
+                          "s": time.perf_counter() - t0}
+        want = ref_digest(ref)
+
+        # the supervisor's aggregated Prometheus endpoint
+        body = urllib.request.urlopen(f"http://127.0.0.1:{node.mport}/metrics",
+                                      timeout=60).read().decode()
+        prom = {"bytes": len(body)}
+        for k in range(LANES):
+            if f'jylis_lane_up{{lane="{k}"}} 1' not in body or f'lane="{k}",' not in body:
+                raise AssertionError(f"lanes phase: the aggregated scrape lacks lane {k}")
+        for name in ("GCOUNT", "PNCOUNT"):
+            per = [float(v) for v in re.findall(
+                rf'jylis_drain_total{{lane="\d+",type="{name}",kind="batches"}} (\S+)', body)]
+            total = re.search(rf'^jylis_drain_total{{type="{name}",kind="batches"}} (\S+)$',
+                              body, re.M)
+            if len(per) != LANES or total is None or float(total.group(1)) != sum(per) \
+                    or sum(per) < LANES:
+                raise AssertionError(f"lanes phase: {name}'s summed drains {total} vs {per}")
+            prom[f"{name}_drain_batches"] = sum(per)
+        out["prometheus"] = prom
+        emit({"phase": "lanes_step", "step": "served", **out})
+
+        # SIGKILL lane 1: no restart may have happened before
+        pids = node.pids()
+        if pids != pids0 or re.search(r"lane \d+ died", node.text()):
+            raise AssertionError(f"lanes phase: a lane restarted before the drill: {pids0} -> "
+                                 f"{pids}")
+        t0 = time.perf_counter()
+        os.kill(pids0[1], signal.SIGKILL)
+        conns.pop(1).close()
+        while node.pids()[1] in (pids0[1], None):
+            node.alive()
+            if time.perf_counter() - t0 > LANES_DEADLINE_S:
+                raise AssertionError("lanes phase: lane 1 was never respawned")
+            time.sleep(0.1)
+        respawned = node.pids()[1]
+        conns[1] = node.connect(1)
+        out["respawn_to_serving_s"] = time.perf_counter() - t0
+        out["reconverge_s"] = converged("after lane 1's respawn")
+        m = conns[1].pipeline([("SYSTEM", "METRICS")])[0]
+        out["respawned"] = {"pid": respawned,
+                            "replayed_batches": metric(m, b"JOURNAL replayed_batches"),
+                            "drains": {n: metric(m, n.encode() + b" drains")
+                                       for n in ("GCOUNT", "PNCOUNT")},
+                            "drop_idle": metric(m, b"CLUSTER drop_idle")}
+        if out["respawned"]["replayed_batches"] < 1:
+            raise AssertionError(f"lanes phase: the respawned lane replayed nothing: "
+                                 f"{out['respawned']}")
+        if node.pids()[0] != pids0[0]:
+            raise AssertionError("lanes phase: lane 0 restarted")
+    except BaseException:
+        if node is not None:
+            print(f"lanes phase: the node's log ends\n{node.text()[-4000:]}", file=sys.stderr)
+        raise
+    finally:
+        for c in conns.values():
+            c.close()
+        if ext is not None:
+            ext.close()
+        rc = node.stop() if node is not None else None
+        text = node.text() if node is not None else ""
+        shutil.rmtree(root, ignore_errors=True)
+    out["supervisor_rc"] = rc
+    launched = {int(pid): json.loads(js) for pid, js in _LANE_LAUNCHES.findall(text)}
+    by_lane = {0: launched.get(pids0[0], {}), 1: launched.get(respawned, {})}
+    out["launches_by_lane"] = by_lane
+    out["launches"] = {n: by_lane[0].get(n, 0) + by_lane[1].get(n, 0)
+                       for n in set(by_lane[0]) | set(by_lane[1])}
+    out["respawned_device"] = {int(pid): dev for _, pid, dev in _LANE_UP.findall(text)}.get(
+        respawned)
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit({"phase": "lanes", **out})
+    if rc != 0:
+        raise AssertionError(f"lanes phase: the supervisor exited {rc}")
+    if len(launched) < LANES:
+        raise AssertionError(f"lanes phase: the lanes logged launches {launched}")
+    if l_device is None:
+        missing = [g for g in LANES_PATH if not any(by_lane[0].get(n) for n in g)]
+        if missing or not any(by_lane[1].get(n) for g in LANES_PATH for n in g):
+            raise AssertionError(f"lanes phase: a lane launched no counter drain kernel: {by_lane}")
+        if not str(out["respawned_device"]).startswith("cuda:"):
+            raise AssertionError(f"lanes phase: the respawned lane on {out['respawned_device']}")
+    return out
+
+
 # ---- main ----------------------------------------------------------------------
 
 KERNELS = {
@@ -5039,6 +5530,7 @@ def main() -> int:
     digest = digest_phase(torch, devs)
     cluster = cluster_phase(torch)
     persisted = persist_phase(torch)
+    laned = lanes_phase(torch)
 
     launches = dict(node["launches"], tensor_join_dense=sweep["launches"],
                     **treg_node["launches"], **tensor_node["launches"],
@@ -5067,6 +5559,7 @@ def main() -> int:
             "cluster_wire_launches": cluster["wire_launches"].get(kname, 0),
             "restore_launches": persisted["restore_launches"].get(kname, 0),
             "replay_launches": persisted["replay_launches"].get(kname, 0),
+            "lanes_launches": laned["launches"].get(kname, 0),
             "max_abs_err": max([r["max_abs_err"]] + [
                 x["max_abs_err"] for x in ([ns] if ns else []) + others]),
             "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],

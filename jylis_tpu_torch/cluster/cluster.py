@@ -27,16 +27,27 @@ The Pony actor becomes an asyncio component: one read-task per connection,
 all state mutation on the single event loop (the same no-data-races
 guarantee the actor gave).
 
-The port's copy of jylis_tpu/cluster/cluster.py, whole: the same
-protocol and message handling, so a port node and a JAX node share one
-cluster. It meets the port's Database through ``converge_async(name,
-batch)``, ``flush_deltas_async``, ``dump_state_async``,
-``dump_range_async``, ``sync_type_digests_async`` and
-``sync_tree_async``; the Database runs each dump, drain and digest fold
-in a worker thread on the node's device (models/database.py). The
-sessions, lanes and journal seams stay: with no ``sessions`` on the
-Database the session vector reads empty, and a lane bridge is a later
-slice.
+The port's copy of jylis_tpu/cluster/cluster.py: the same protocol and
+message handling, so a port node and a JAX node share one cluster. It
+meets the port's Database through ``converge_async(name, batch)``,
+``flush_deltas_async``, ``dump_state_async``, ``dump_range_async``,
+``sync_type_digests_async`` and ``sync_tree_async``; the Database runs
+each dump, drain and digest fold in a worker thread on the node's
+device (models/database.py). The Database's ``sessions`` index is bound
+by the driving instance, and lanes.py wires the lane bus and lane 0's
+bridge through ``drive_flush``, ``register_system``, ``flush_sink`` and
+``on_push``.
+
+One rule differs from the JAX engine, and only in the idle eviction
+(``_evict_idle``); no wire byte changes. A connection is live while its
+read loop holds a frame (``_Conn.holding``: parsed, its converge waiting
+on a repo lock that a drain, a digest fold or a range dump holds), and
+while its peer was heard within ``IDLE_TICKS_LIMIT`` ticks on any
+connection (``_seen_tick``): a peer whose read loop waits on its own lock
+sends no Pong meanwhile, though its heartbeat still reaches us. In the
+JAX engine both count as idle, so at a short heartbeat (the lane bus's
+0.25 s) a lock held for a few seconds evicts the connection and the
+range walk it carries dies with it.
 """
 
 from __future__ import annotations
@@ -337,6 +348,7 @@ class _Conn:
         "sync_defer_last_tick",
         "pong_sent", "last_write_dropped", "range_pending",
         "range_inflight", "peer_region", "peer_epoch", "peer_srid",
+        "holding",
     )
 
     def __init__(self, writer, active_addr: Address | None):
@@ -394,6 +406,10 @@ class _Conn:
         # digest request's closing SyncDone would each start a round,
         # sustaining N+1 concurrent range streams against one responder.
         self.range_inflight = False
+        # True while the read loop holds a parsed frame whose handling
+        # awaits (a converge waiting on a repo lock): the idle clock does
+        # not run meanwhile (_evict_idle)
+        self.holding = False
         # True when the LAST send_raw "succeeded" only because an
         # injected cluster.write=drop swallowed it: no frame reached
         # the peer, so no Pong will answer — the rtt path must not
@@ -953,8 +969,22 @@ class Cluster:
 
     def _evict_idle(self) -> None:
         for conn, last in list(self._last_activity.items()):
-            if self._tick - last > IDLE_TICKS_LIMIT:
-                self._drop(conn, Drop.IDLE)
+            if self._tick - last <= IDLE_TICKS_LIMIT:
+                continue
+            if conn.holding or self._peer_heard(conn):
+                # the silence is a repo lock's, ours or the peer's, not a
+                # dead peer's: the idle clock restarts, and the range
+                # walk this connection carries goes on
+                self._last_activity[conn] = self._tick
+                continue
+            self._drop(conn, Drop.IDLE)
+
+    def _peer_heard(self, conn: _Conn) -> bool:
+        """Whether a frame from this connection's peer arrived, on any
+        of its connections, within IDLE_TICKS_LIMIT ticks."""
+        key = self._peer_key(conn)
+        seen = self._seen_tick.get(key) if key != "unknown" else None
+        return seen is not None and self._tick - seen <= IDLE_TICKS_LIMIT
 
     # ---- region-aware peering (schema v10) ---------------------------------
 
@@ -1277,12 +1307,16 @@ class Cluster:
                         self._log.err() and self._log.e(f"cluster codec error: {e}")
                         self._drop(conn, Drop.CODEC)
                         return
-                    if active:
-                        await self._active_msg(
-                            conn, msg, origin_ms, nbytes=len(body)
-                        )
-                    else:
-                        await self._passive_msg(conn, msg, origin_ms)
+                    conn.holding = True
+                    try:
+                        if active:
+                            await self._active_msg(
+                                conn, msg, origin_ms, nbytes=len(body)
+                            )
+                        else:
+                            await self._passive_msg(conn, msg, origin_ms)
+                    finally:
+                        conn.holding = False
         except (ConnectionError, asyncio.CancelledError, FramingError):
             pass
         finally:

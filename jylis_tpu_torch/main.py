@@ -23,20 +23,37 @@ closes the journal and stops the cluster and the listener (after
 dispose.pony). ``build_node`` does the wiring and the recovery and
 ``serve`` starts the listeners and the snapshot loop; ``run`` is the two
 with the signal handlers, and other drivers (chip_smoke.py's cluster and
-persistence phases) call the same two. The port runs no lanes: its
-files are the lane-less ``snapshot.jylis`` and ``journal.jylis``, and a
-lane file a JAX node wrote is restored beside them.
+persistence phases) call the same two.
+
+The process glue (jylis_tpu/main.py:146-388): the Database takes
+``--session-wait-ms``, ``--admission-cap`` and the overload armor
+(``--admission-policy``, ``--admission-queue-bytes``);
+``--metrics-port`` serves the Prometheus exposition (obs/prom.py). With
+``--lanes N`` (N > 1) this process becomes the lane supervisor
+(lanes.py): it prints the logo, spawns N lane workers of this module,
+each with the parent's ``--device``, restarts a lane that dies and
+aggregates their metrics endpoints; it never touches the device. A lane
+worker (``--lane-id``) is a full replica with its own identity
+(``lanes.lane_identity``), its own snapshot and journal segment
+(``snapshot.lane<k>.jylis``, ``journal.lane<k>.jylis``; boot restores
+every lane's files), the lane bus (a Cluster on loopback with its
+sibling lanes) and, on lane 0, the node's one external cluster identity
+bridged to the bus; its SYSTEM METRICS has a LANE section, and the
+``lane.tick`` failpoint fires in it every 0.25 s. On an unclean exit the
+trace ring goes to stderr (``_dump_trace``).
 """
 
 from __future__ import annotations
 
 import asyncio
+import json
 import os
 import signal
 import sys
 
 from . import faults
 from . import journal as journal_mod
+from . import lanes as lanes_mod
 from . import persist
 from .cluster import Cluster
 from .models import database as database_mod
@@ -45,6 +62,7 @@ from .server.server import Server
 from .system import System
 from .utils import metrics
 from .utils.config import config_from_cli
+from .utils.logo import LOGO
 
 
 class Dispose:
@@ -53,8 +71,11 @@ class Dispose:
     stop the listeners."""
 
     def __init__(self, database: Database, server: Server, cluster: Cluster,
-                 snapshot_path: str = "", log=None, journal=None):
+                 snapshot_path: str = "", log=None, journal=None, launched=None):
         self._database = database
+        # the kernel launch counts the shutdown log line counts from (the
+        # warmup's launches are not the node's)
+        self._launched = launched or {}
         self._server = server
         self._cluster = cluster
         self._snapshot_path = snapshot_path
@@ -125,6 +146,12 @@ class Dispose:
                 self._log.info() and self._log.i(
                     f"merge metrics: {self._database.metrics.report()}"
                 )
+                launched = {k: n - self._launched.get(k, 0)
+                            for k, n in metrics.kernel_launches().items()}
+                self._log.info() and self._log.i(
+                    f"kernel launches since warmup (pid {os.getpid()}): "
+                    f"{json.dumps({k: n for k, n in launched.items() if n})}"
+                )
             metrics.stop_profiling()
         finally:
             if self._journal is not None:
@@ -147,7 +174,7 @@ class NodeStack:
     """One node's parts, wired by ``build_node`` and not yet listening."""
 
     def __init__(self, config, system, database, server, cluster,
-                 snapshot_path: str = "", journal=None):
+                 snapshot_path: str = "", journal=None, warmup_launches=None):
         self.config = config
         self.system = system
         self.database = database
@@ -155,36 +182,73 @@ class NodeStack:
         self.cluster = cluster
         self.snapshot_path = snapshot_path  # "" without --data-dir
         self.journal = journal  # None without --data-dir or with --no-journal
+        # each kernel's launches by the end of warmup (the shutdown log
+        # line counts the node's own from there: recovery's and serving's)
+        self.warmup_launches = warmup_launches or {}
+        # set by serve: the Prometheus listener (--metrics-port) and a
+        # lane's lane.tick failpoint task
+        self.metrics_http = None
+        self.lane_tick_task = None
 
 
 def build_node(config) -> NodeStack:
-    """Wire a node in the JAX package's order: Config -> failpoints ->
-    System -> ``warmup`` (every serving kernel and the native library
-    built, and the serving paths launched once on the node's device,
-    before anything listens) -> Database (with the native serving engine)
-    -> recovery from ``--data-dir`` (``recover``) -> Server -> Cluster."""
+    """Wire a node (or one lane worker) in the JAX package's order:
+    Config -> failpoints -> System -> ``warmup`` (every serving kernel and
+    the native library built, and the serving paths launched once on the
+    node's device, before anything listens) -> Database (with the native
+    serving engine, the session and admission knobs) -> recovery from
+    ``--data-dir`` (``recover``) -> Server -> Cluster; on a lane, the lane
+    bus and, on lane 0, the external Cluster bridged to it."""
     if config.failpoints:
         faults.arm_spec(config.failpoints)
+    lane_id = config.lane_id
+    if lane_id is not None:
+        # each lane is a distinct replica with a restart-stable identity
+        # (the advertised address + the lane ordinal)
+        identity = lanes_mod.lane_identity(config, lane_id)
+    else:
+        identity = config.addr.hash64()
     system = System(config)
     database_mod.warmup(config.device, engine="auto")
+    warmup_launches = metrics.kernel_launches()
     database = Database(
-        identity=config.addr.hash64(), device=config.device,
+        identity=identity, device=config.device,
         system_repo=system.repo, engine="auto",
     )
+    database.session_wait_ms = config.session_wait_ms
+    database.set_admission_cap(config.admission_cap)
+    database.set_admission(config.admission_policy, config.admission_queue_bytes)
     database.metrics.spans.set_slo_ms(
         int(s) for s in config.converge_slo_ms.split(",") if s.strip()
     )
+    if lane_id is not None:
+        # SYSTEM METRICS' LANE section: which lane this connection landed
+        # on, out of how many
+        system.repo.lane_fn = lambda: {"id": lane_id, "count": config.lanes}
     snapshot_path, journal = recover(config, database)
     server = Server(config, database)
-    cluster = Cluster(config, database)
+    if lane_id is None:
+        cluster = Cluster(config, database)
+    else:
+        # the lane bus: the cluster engine on loopback with the sibling
+        # lanes; lane 0 also runs the node's one external cluster
+        # identity and bridges the two meshes
+        bus = Cluster(lanes_mod.bus_config(config, lane_id), database,
+                      register_system=(lane_id != 0))
+        external = None
+        if lane_id == 0:
+            external = Cluster(config, database, drive_flush=False)
+            lanes_mod.wire_bridge(bus, external)
+        cluster = lanes_mod.LaneClusters(bus, external)
     return NodeStack(config, system, database, server, cluster,
-                     snapshot_path, journal)
+                     snapshot_path, journal, warmup_launches)
 
 
 def recover(config, database) -> tuple[str, object]:
-    """Boot recovery (jylis_tpu/main.py:212-274, lane-less): restore
-    every snapshot in ``config.data_dir`` and replay the journal on the
-    node's device, then open the journal and attach it. Returns the
+    """Boot recovery (jylis_tpu/main.py:212-274): restore every snapshot
+    in ``config.data_dir`` (every lane's) and replay every journal
+    segment on the node's device, then open the node's own segment
+    (``journal.lane<k>.jylis`` on lane k) and attach it. Returns the
     snapshot path ("" without a data dir) and the journal (None without
     a data dir or with ``--no-journal``). Runs before anything listens,
     so its disk reads and drains stall no client. A snapshot or segment
@@ -194,10 +258,12 @@ def recover(config, database) -> tuple[str, object]:
         return "", None
     log = config.log
     os.makedirs(config.data_dir, exist_ok=True)
-    snapshot_path = os.path.join(config.data_dir, persist.snapshot_name(None))
-    # every snapshot present, a JAX node's lane files too: restore is
-    # lattice convergence, so overlap is a no-op. Only the node's own
-    # file is moved aside when unreadable
+    snapshot_path = os.path.join(config.data_dir,
+                                 persist.snapshot_name(config.lane_id))
+    # every snapshot present, every lane's: restore is lattice
+    # convergence, so overlap is a no-op and a changed --lanes strands
+    # nothing. Only the node's own file is moved aside when unreadable (a
+    # sibling lane may be alive and writing its own)
     for spath in persist.list_snapshots(config.data_dir):
         try:
             n = persist.load_snapshot(database, spath)
@@ -217,8 +283,9 @@ def recover(config, database) -> tuple[str, object]:
     if not config.journal:
         return snapshot_path, None
     # snapshot first, then the journal tail (overlap converges to the
-    # same state); every lane segment a JAX node left replays too
-    journal_path = os.path.join(config.data_dir, journal_mod.segment_name(None))
+    # same state); every lane segment replays, live siblings' read-only
+    journal_path = os.path.join(config.data_dir,
+                                journal_mod.segment_name(config.lane_id))
     n = journal_mod.recover_all(database, config.data_dir, journal_path, log)
     if n:
         log.info() and log.i(f"journal replayed ({n} delta batches)")
@@ -236,15 +303,28 @@ def recover(config, database) -> tuple[str, object]:
 
 async def serve(node: NodeStack) -> Dispose:
     """Start a built node's listeners, the RESP server first (the
-    cluster advertises its port), and the online snapshot loop when it
-    has work (an interval, or a journal to compact); return its
-    ``Dispose``."""
+    cluster advertises its port), then the cluster (or the lane bus and
+    lane 0's external identity), the Prometheus endpoint with
+    ``--metrics-port``, the online snapshot loop when it has work (an
+    interval, or a journal to compact) and a lane's ``lane.tick`` task;
+    return its ``Dispose``."""
     await node.server.start()
-    node.cluster.resp_port = int(node.server.port)
+    for sub in getattr(node.cluster, "clusters", [node.cluster]):
+        sub.resp_port = int(node.server.port)
     await node.cluster.start()
     config = node.config
+    if config.metrics_port:
+        from .obs.prom import MetricsHTTP
+
+        node.metrics_http = MetricsHTTP(
+            node.database, max(config.metrics_port, 0), config.log
+        )
+        await node.metrics_http.start()
+    if config.lane_id is not None:
+        node.lane_tick_task = asyncio.create_task(_lane_tick(config.log))
     dispose = Dispose(node.database, node.server, node.cluster,
-                      node.snapshot_path, config.log, node.journal)
+                      node.snapshot_path, config.log, node.journal,
+                      node.warmup_launches)
     if node.snapshot_path and (config.snapshot_interval > 0
                                or node.journal is not None):
         dispose.snapshot_task = asyncio.create_task(_snapshot_loop(
@@ -252,6 +332,47 @@ async def serve(node: NodeStack) -> Dispose:
             config.log, dispose.snapshot_inflight, node.journal,
         ))
     return dispose
+
+
+async def _lane_tick(log) -> None:
+    """The lane-crash drill's seam: arming ``lane.tick=crash`` in one
+    lane's environment (the supervisor's JYLIS_LANE_FAILPOINTS="1:
+    lane.tick=crash:1") kills that worker mid-traffic; error degrades to
+    a log line, sleep delays the tick."""
+    while True:
+        await asyncio.sleep(0.25)
+        try:
+            await faults.async_point("lane.tick")
+        except faults.FaultError:
+            log.warn() and log.w("lane.tick failpoint fired")
+
+
+def _dump_trace(database, log) -> None:
+    """The trace ring to stderr on an unclean exit: the node's own
+    account of its last seconds, which SYSTEM TRACE can no longer
+    serve."""
+    try:
+        entries = database.metrics.trace.dump()
+        if entries:
+            from .obs.trace import TraceRing
+
+            print(f"--- trace ring ({len(entries)} events) ---", file=sys.stderr)
+            for entry in entries:
+                print(TraceRing.format(entry), file=sys.stderr)
+    except Exception as e:  # best-effort post-mortem output: it must
+        # not mask the exception that ended the node
+        log.err() and log.e(f"trace dump failed: {e!r}")
+
+
+def device_name(device) -> str:
+    """The torch device a node's state lives on, with its index
+    (``cuda:0``, not ``cuda``) when it is a card."""
+    import torch
+
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return f"cuda:{torch.cuda.current_device()}"
+    return str(dev)
 
 
 async def _snapshot_loop(
@@ -325,19 +446,46 @@ async def _snapshot_loop(
 async def run(argv: list[str] | None = None) -> None:
     config = config_from_cli(argv, served_types=SERVED_TYPES)
     log = config.log
+    if config.lanes > 1 and config.lane_id is None:
+        # this process becomes the lane supervisor: it spawns one worker
+        # per lane from the same flags (argv None means sys.argv, as
+        # argparse saw it), restarts crashed lanes and aggregates their
+        # metrics endpoints; it never touches the device
+        print(LOGO)
+        await lanes_mod.run_supervisor(
+            config, sys.argv[1:] if argv is None else argv
+        )
+        return
     node = build_node(config)
     dispose = await serve(node)
     dispose.on_signal()
+    if config.lane_id is None:
+        print(LOGO)  # one logo per node, none per lane
     from . import __version__
 
     log.info() and log.i(f"jylis-tpu-torch version: {__version__}")
     log.info() and log.i(f"cluster address: {config.addr}")
     database = node.database
+    lane = (f"lane {config.lane_id}/{config.lanes} (pid {os.getpid()}) "
+            if config.lane_id is not None else "")
     log.info() and log.i(
-        f"serving {'/'.join(SERVED_TYPES)} on port {node.server.port}, device "
-        f"{database.device}" + (f", {database.mesh}" if database.mesh else "")
+        f"serving {lane}{'/'.join(SERVED_TYPES)} on port {node.server.port}, "
+        f"device {device_name(database.device)}"
+        + (f", {database.mesh}" if database.mesh else "")
     )
-    await dispose.done.wait()
+    if node.metrics_http is not None:
+        log.info() and log.i(f"metrics endpoint on port: {node.metrics_http.port}")
+    try:
+        await dispose.done.wait()
+    except BaseException:  # re-raised at once: an unclean shutdown
+        # leaves the trace ring on stderr first
+        _dump_trace(database, log)
+        raise
+    finally:
+        if node.lane_tick_task is not None:
+            node.lane_tick_task.cancel()
+        if node.metrics_http is not None:
+            await node.metrics_http.dispose()
 
 
 def main(argv: list[str] | None = None) -> None:

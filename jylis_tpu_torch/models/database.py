@@ -36,6 +36,14 @@ dirty since the last pass), and 256 digest-tree leaves by
 ``sync_bucket``. ``SYSTEM DIGEST`` is the sha256 of the eight XORs in
 registry order. The canon is host state (and UJSON's row decode), so a
 mesh node and a single-device node give equal bytes.
+
+The process glue (jylis_tpu/models/database.py:86-93, :164-173,
+:313-417): ``sessions`` (the node's ``SessionIndex``, which the cluster
+feeds and binds) and the ``SESSION TOKEN | WRAP | READ`` family served
+in ``apply_async``; ``admission`` (the node-wide ``AdmissionController``
+the Server consults, set by ``set_admission``) and the per-class cap of
+``set_admission_cap``. SYSTEM METRICS' SESSION and OVERLOAD sections read
+them.
 """
 
 from __future__ import annotations
@@ -46,6 +54,8 @@ import hashlib
 
 import torch
 
+from .. import sessions as sessions_mod
+from ..admission import AdmissionController
 from ..native.engine import resolve_engine
 from ..obs.registry import MetricsRegistry
 from ..parallel.mesh import resolve_mesh
@@ -59,6 +69,14 @@ from .repo_tensor import RepoTENSOR
 from .repo_tlog import RepoTLOG
 from .repo_treg import RepoTREG
 from .repo_ujson import RepoUJSON
+
+SESSION_HELP = """\
+The following are valid SESSION commands (docs/sessions.md):
+  SESSION TOKEN                 - mint this node's session token
+  SESSION WRAP <command...>     - apply a command, reply [reply, token]
+  SESSION READ <token> <command...> - serve once the token is covered
+                                  (bounded wait, then a STALE error),
+                                  reply [token', reply]"""
 
 # keyspace-range fanout of the anti-entropy digest tree: every key lands
 # in one of 256 stable buckets by the first byte of sha256(key) -- a
@@ -112,6 +130,11 @@ class Database:
         # counters, latency histograms, trace ring; every repo records
         # into it through its `metrics` attribute
         self.metrics = MetricsRegistry()
+        # session guarantees (sessions.py): the node's applied-interval
+        # vector and waiter queue, fed by the cluster and served by the
+        # SESSION family; session_wait_ms is --session-wait-ms
+        self.sessions = sessions_mod.SessionIndex()
+        self.session_wait_ms = sessions_mod.SESSION_WAIT_MS_DEFAULT
         # main.py passes the System's repo, whose log lines ride the
         # anti-entropy path (system.py)
         self.system = system_repo if system_repo is not None else RepoSYSTEM(identity)
@@ -157,6 +180,12 @@ class Database:
         # path intercepts them in apply_async, under the repo locks
         self.system.digest_fn = self._sync_digest_blocking
         self.system.digest_types_fn = self._sync_digest_types_blocking
+        # SYSTEM METRICS' SESSION section, and the node-wide overload
+        # armor the Server consults at every Python-path dispatch: unarmed
+        # by default (no policy, no byte bound) until set_admission
+        self.system.session_fn = self.sessions.metrics_totals
+        self.admission = AdmissionController(registry=self.metrics)
+        self.system.overload_fn = self.admission.metrics_totals
 
     def _add(self, repo) -> None:
         repo.metrics = self.metrics  # timed_drain resolves through this
@@ -308,6 +337,70 @@ class Database:
             self._sync_update_repo(name, self._map[name.encode()].repo)
         return [(n, self._sync_xor[n]) for n in self.DATA_TYPES]
 
+    def set_admission(self, policy: str, queue_bytes: int) -> None:
+        """Arm the node-wide overload armor (--admission-policy /
+        --admission-queue-bytes, admission.py): per-class shedding under
+        the declared OVERLOAD state plus the hard queued-bytes bound."""
+        self.admission = AdmissionController(
+            policy, queue_bytes, registry=self.metrics
+        )
+        self.system.overload_fn = self.admission.metrics_totals
+
+    def set_admission_cap(self, cap: int) -> None:
+        """Per-command-class admission control (--admission-cap): each
+        manager refuses lock-queued commands past ``cap`` in flight with
+        a typed BUSY error. 0 = off."""
+        for mgr in self._map.values():
+            mgr.admission_cap = cap
+
+    # ---- session guarantees (sessions.py) ---------------------------------
+
+    async def _mint_token(self) -> bytes:
+        """Force the pending local deltas through the cluster's flush
+        (so every prior write of this connection is sequenced and the
+        vector's own entry covers it), then encode the vector."""
+        if self.sessions.flush_fn is not None:
+            await self.sessions.flush_fn()
+        self.sessions.stats["tokens_minted"] += 1
+        return self.sessions.token_bytes()
+
+    async def _apply_session(self, resp, cmd: list[bytes]) -> None:
+        sess = self.sessions
+        op = cmd[1] if len(cmd) > 1 else b""
+        if op == b"TOKEN" and len(cmd) == 2:
+            resp.string(await self._mint_token())
+            return
+        if op == b"WRAP" and len(cmd) > 2 and cmd[2] != b"SESSION":
+            # [inner reply, token]: the token minted after the inner
+            # command applied and flushed
+            resp.array_start(2)
+            await self.apply_async(resp, cmd[2:])
+            resp.string(await self._mint_token())
+            return
+        if op == b"READ" and len(cmd) > 3 and cmd[3] != b"SESSION":
+            try:
+                token = sessions_mod.decode_token_memo(bytes(cmd[2]))
+            except sessions_mod.SessionError as e:
+                sess.stats["badtoken_refusals"] += 1
+                resp.err(f"BADTOKEN (unusable session token: {e})")
+                return
+            if not await sess.wait_dominated(token, self.session_wait_ms):
+                sess.stats["stale_refusals"] += 1
+                resp.err(
+                    "STALE (session token not covered within "
+                    f"{self.session_wait_ms}ms; retry here later or "
+                    "read where you wrote)"
+                )
+                return
+            sess.stats["reads_served"] += 1
+            # monotonic reads: a served read's vector dominates the
+            # token, so the join of the two is the vector
+            resp.array_start(2)
+            resp.string(sess.token_bytes())
+            await self.apply_async(resp, cmd[3:])
+            return
+        respond_help(resp, SESSION_HELP)
+
     def set_journal(self, journal) -> None:
         """Attach the delta journal (journal/): every repo's flushed
         batches append to it before reaching the network sink
@@ -338,7 +431,11 @@ class Database:
         """Serving path: per-repo locking + threaded drains (manager.py).
         SYSTEM DIGEST [TYPES] is served here, not in RepoSYSTEM.apply
         (which is sync): the digest takes every data repo's lock in turn,
-        which only the async path can await."""
+        which only the async path can await. SESSION is served here too
+        (the native engine defers unknown first words)."""
+        if cmd and cmd[0] == b"SESSION":
+            await self._apply_session(resp, cmd)
+            return
         if len(cmd) == 3 and cmd[0] == b"SYSTEM" and cmd[1] == b"DIGEST" \
                 and cmd[2] == b"TYPES":
             digests = await self.sync_type_digests_async()

@@ -13,7 +13,9 @@ keeps is the behavioral contract:
 * clean_shutdown stops intake and performs a final flush (:95-108),
 * every flushed batch is journaled first when a journal is attached.
 
-It also keeps the per-Database commands-served tally (SYSTEM METRICS'
+It also keeps the per-class admission cap (``admission_cap``, set by
+Database.set_admission_cap: commands queued behind the repo lock past
+the cap get a typed BUSY refusal), the per-Database commands-served tally (SYSTEM METRICS'
 "cmds" lines) and counts each flushed key's digest-tree bucket as write
 heat in the Database's registry (SYSTEM OBSERVE), as the JAX manager
 does.
@@ -74,8 +76,15 @@ class RepoManager:
         self._clock = clock
         # per-Database commands-served tally (SYSTEM METRICS "cmds")
         self._served = served if served is not None else {}
-        # the Database's MetricsRegistry (write heat), when it has one
+        # the Database's MetricsRegistry (write heat, BUSY refusals),
+        # when it has one
         self.registry = None
+        # admission control (Database.set_admission_cap): commands of
+        # this class queued behind the repo lock past the cap are
+        # refused with a typed BUSY instead of queuing without bound.
+        # 0 = off (default)
+        self.admission_cap = 0
+        self._inflight = 0
         # the delta journal (journal/), set by Database.set_journal:
         # _emit appends each flushed batch, in flush order
         self.journal = None
@@ -117,21 +126,37 @@ class RepoManager:
             if self._apply_core(resp, cmd):
                 self._maybe_proactive_flush()
             return
-        async with self._lock:
-            if self._shutdown:
-                # shutdown won the lock race while we queued behind a
-                # drain: the final flush already ran — accepting now
-                # would acknowledge a write that never replicates
-                resp.err(SHUTDOWN_ERR)
-                return
-            if may is not None and may(cmd[1:]):
-                replay = _ReplayResp()
-                changed = await asyncio.to_thread(self._apply_core, replay, cmd)
-                replay.replay(resp)
-            else:
-                changed = self._apply_core(resp, cmd)
-            if changed:
-                self._maybe_proactive_flush()
+        if self.admission_cap and self._inflight >= self.admission_cap:
+            # only lock-queued commands count as inflight (the inline
+            # fast path above never queues), so the cap binds exactly
+            # when this class is backed up behind its own drains
+            if self.registry is not None:
+                self.registry.note_serving("busy_refusals")
+                self.registry.trace_event("serving", "busy", "", self.name)
+            resp.err(
+                f"BUSY ({self.name} admission cap {self.admission_cap} "
+                "reached; this command class is backed up — retry)"
+            )
+            return
+        self._inflight += 1
+        try:
+            async with self._lock:
+                if self._shutdown:
+                    # shutdown won the lock race while we queued behind a
+                    # drain: the final flush already ran — accepting now
+                    # would acknowledge a write that never replicates
+                    resp.err(SHUTDOWN_ERR)
+                    return
+                if may is not None and may(cmd[1:]):
+                    replay = _ReplayResp()
+                    changed = await asyncio.to_thread(self._apply_core, replay, cmd)
+                    replay.replay(resp)
+                else:
+                    changed = self._apply_core(resp, cmd)
+                if changed:
+                    self._maybe_proactive_flush()
+        finally:
+            self._inflight -= 1
 
     # keys converged per event-loop slice: a multi-thousand-key batch
     # converged in one go would block the loop; slicing under the same

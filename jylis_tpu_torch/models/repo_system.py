@@ -12,9 +12,10 @@ reference quirk kept for parity).
 A Cluster sets ``cluster_fn``, ``lag_fn`` and ``topology_fn`` (the
 CLUSTER section of METRICS, the per-peer lag of LATENCY, TOPOLOGY's
 peer lines); without one, TOPOLOGY answers with the cluster-less self
-line. The port has no lanes, sessions or admission yet, so ``lane_fn``,
-``session_fn`` and ``overload_fn`` stay None: METRICS has no LANE,
-SESSION or OVERLOAD section.
+line. The Database sets ``session_fn`` and ``overload_fn`` (METRICS'
+SESSION and OVERLOAD sections) and main.py sets ``lane_fn`` on a lane
+worker (the LANE section: which lane a connection landed on, of how
+many).
 
 The log is tiny and host-resident by design.
 """

@@ -10,8 +10,12 @@ and defaults: --port/-p, --addr/-a, --seed-addrs/-s, --heartbeat-time/-T,
 --no-journal, --journal-fsync, --journal-fsync-interval and
 --journal-max-bytes. --device picks where the repos' state lives. The
 address's 64-bit hash is the node's replica identity; an empty address
-name gets a random one, as on a JAX node. Lane, admission, session and
-metrics-port flags come with those layers.
+name gets a random one, as on a JAX node. The process glue's flags are
+the JAX package's too: --session-wait-ms, --admission-cap,
+--admission-policy (validated here), --admission-queue-bytes,
+--metrics-port, and the lanes' --lanes (an integer or ``auto``),
+--lane-id, --lane-bus and --lane-bus-heartbeat; the supervisor passes
+each lane the parent's --device verbatim.
 """
 
 from __future__ import annotations
@@ -56,13 +60,39 @@ class Config:
     # heartbeat ticks of received-frame silence after which an observer
     # demotes an address from bridge election
     bridge_demote_ticks: int = 12
+    # session guarantees (sessions.py): how long a SESSION READ may
+    # wait for its token to be covered before the typed STALE refusal
+    session_wait_ms: int = 500
+    # per-command-class admission control (models/manager.py): commands
+    # of one data type queued behind its repo lock past this cap get a
+    # typed BUSY refusal; 0 (default) disables
+    admission_cap: int = 0
+    # overload armor (admission.py): priority order + the pressure
+    # thresholds for node-wide shedding; empty (default) disables
+    # shedding (the queued-bytes bound below still applies)
+    admission_policy: str = ""
+    # hard bound on total un-drained reply bytes across connections: a
+    # slow-consumer burst past it gets BUSY on every class; 0 disables
+    admission_queue_bytes: int = 256 << 20
     # deterministic fault injection (faults.py), armed at startup
     failpoints: str = ""
+    # Prometheus text-exposition endpoint (obs/prom.py); 0 disables, -1
+    # asks for an ephemeral port (logged at boot)
+    metrics_port: int = 0
     # delta provenance tracing (obs/jtrace.py): one sequenced delta
     # frame in N carries a hop-stamped span; 0 disables minting
     trace_sample: int = 16
     # the fleet-convergence SLO thresholds of the span folds
     converge_slo_ms: str = "50,250,1000"
+    # multi-lane serving (lanes.py): N worker processes sharing the RESP
+    # port via SO_REUSEPORT, converging over a loopback delta bus.
+    # lanes=1 is the single-process node; lane_id is set only in spawned
+    # lane workers (None = supervisor / single-lane); lane_bus is every
+    # lane's bus port
+    lanes: int = 1
+    lane_id: int | None = None
+    lane_bus: list[int] = field(default_factory=list)
+    lane_bus_heartbeat: float = 0.25
     device: str = "cuda"
     log: Log = field(default_factory=Log.create_none)
 
@@ -70,6 +100,15 @@ class Config:
         if not self.addr.name:
             rng = random.Random(time.time_ns())
             self.addr = Address(self.addr.host, self.addr.port, generate_name(rng))
+
+
+def resolve_auto_lanes(cpus: int | None = None) -> int:
+    """``--lanes auto``: 1 below 4 host cores (a lane split would just
+    contend), else the core count capped at 8."""
+    import os
+
+    n = cpus if cpus is not None else (os.cpu_count() or 1)
+    return 1 if n < 4 else min(n, 8)
 
 
 def config_from_cli(
@@ -180,12 +219,48 @@ def config_from_cli(
         "node demotes an address from bridge election (regions only).",
     )
     parser.add_argument(
+        "--session-wait-ms", type=int, default=Config.session_wait_ms,
+        help="Bounded wait for SESSION READ: how long a read holding a "
+        "session token may wait for this replica's applied-interval "
+        "vector to cover it before the typed STALE refusal.",
+    )
+    parser.add_argument(
+        "--admission-cap", type=int, default=Config.admission_cap,
+        help="Per-command-class admission control: commands of one data "
+        "type queued behind its repo lock past this cap are refused "
+        "with a typed BUSY error. 0 (default) disables.",
+    )
+    parser.add_argument(
+        "--admission-policy", default=Config.admission_policy,
+        help="Overload armor: the priority order for node-wide shedding "
+        "plus optional pressure thresholds, e.g. "
+        "'control>read>write>bulk,lat=25,depth=128,protect=2'. While the "
+        "node's declared OVERLOAD state is on, classes below the top "
+        "'protect' ranks are refused with a typed BUSY carrying a "
+        "retry-after hint. SESSION WRAP/READ classify as their inner "
+        "command. Empty (default) disables shedding.",
+    )
+    parser.add_argument(
+        "--admission-queue-bytes", type=int,
+        default=Config.admission_queue_bytes,
+        help="Hard bound on total un-drained reply bytes across client "
+        "connections: past it every command class is refused BUSY until "
+        "consumers drain. 0 disables.",
+    )
+    parser.add_argument(
         "--failpoints", default="",
         help="Deterministic fault injection spec, e.g. "
         "'cluster.dial=error:3' (name=action[:arg[:budget]], "
         "comma-separated; actions: error, sleep, corrupt, crash, drop). "
         "Also read from the JYLIS_FAILPOINTS environment variable. "
         "Empty (default) injects nothing.",
+    )
+    parser.add_argument(
+        "--metrics-port", type=int, default=0,
+        help="Serve Prometheus text exposition on this HTTP port "
+        "(GET /metrics): the SYSTEM METRICS surface, scrapeable without "
+        "a Redis client. -1 binds an ephemeral port (logged at boot); 0 "
+        "(default) disables.",
     )
     parser.add_argument(
         "--trace-sample", type=int, default=Config.trace_sample,
@@ -198,6 +273,26 @@ def config_from_cli(
         "--converge-slo-ms", default=Config.converge_slo_ms,
         help="Comma-separated millisecond thresholds for the "
         "fleet-convergence SLO gauges (SYSTEM OBSERVE).",
+    )
+    parser.add_argument(
+        "--lanes", default="1",
+        help="Serving lanes: N worker processes, each a full replica with "
+        "its own serving engine, Database, state on --device, journal "
+        "segment and metrics, sharing the RESP port via SO_REUSEPORT and "
+        "converging over a loopback delta bus. 'auto' picks from the host "
+        "core count (1 below 4 cores, else cores capped at 8); 1 "
+        "(default) is the single-process node.",
+    )
+    parser.add_argument(
+        "--lane-id", type=int, default=None, help=argparse.SUPPRESS,
+    )  # set by the lane supervisor on spawned workers
+    parser.add_argument(
+        "--lane-bus", default="", help=argparse.SUPPRESS,
+    )  # comma-joined bus ports, one per lane, supervisor-set
+    parser.add_argument(
+        "--lane-bus-heartbeat", type=float, default=0.25,
+        help="Heartbeat seconds for the intra-node lane bus (cross-lane "
+        "convergence cadence). Only meaningful with --lanes > 1.",
     )
     parser.add_argument(
         "--device", default="cuda",
@@ -237,7 +332,19 @@ def config_from_cli(
     config.range_budget = args.range_budget
     config.region = args.region
     config.bridge_demote_ticks = args.bridge_demote_ticks
+    config.session_wait_ms = args.session_wait_ms
+    config.admission_cap = args.admission_cap
+    config.admission_policy = args.admission_policy
+    if config.admission_policy:
+        from ..admission import PolicySpecError, parse_policy
+
+        try:
+            parse_policy(config.admission_policy)
+        except PolicySpecError as e:
+            parser.error(f"--admission-policy: {e}")
+    config.admission_queue_bytes = args.admission_queue_bytes
     config.failpoints = args.failpoints
+    config.metrics_port = args.metrics_port
     if args.trace_sample < 0:
         parser.error("--trace-sample must be >= 0")
     config.trace_sample = args.trace_sample
@@ -251,6 +358,20 @@ def config_from_cli(
             f"milliseconds: {args.converge_slo_ms!r}"
         )
     config.converge_slo_ms = args.converge_slo_ms
+    if args.lanes == "auto":
+        config.lanes = resolve_auto_lanes()
+    else:
+        try:
+            config.lanes = int(args.lanes)
+        except ValueError:
+            parser.error(f"--lanes must be an integer or 'auto': {args.lanes}")
+        if config.lanes < 1:
+            parser.error("--lanes must be >= 1")
+    config.lane_id = args.lane_id
+    config.lane_bus = [int(p) for p in args.lane_bus.split(",") if p]
+    config.lane_bus_heartbeat = args.lane_bus_heartbeat
+    if config.lane_id is not None and len(config.lane_bus) != config.lanes:
+        parser.error("--lane-id requires --lane-bus with one port per lane")
     config.device = args.device
     level = {"error": "err", "warn": "warn", "info": "info", "debug": "debug"}.get(
         args.log_level

@@ -104,6 +104,32 @@ def timed_drain(name: str, key_count):
     return wrap
 
 
+def kernel_launches() -> dict[str, int]:
+    """This process's launches of each hand-written kernel so far, by
+    the kernel's name (each wrapper counts where it launches; the plain
+    versions count nothing). A node logs them at its clean shutdown, so
+    a process of its own, a lane worker say, leaves its count behind."""
+    from ..ops import gcount, pncount, tensor, tlog, treg
+    from ..ops import ujson_device, ujson_resident
+    from ..parallel import replica_join
+
+    return {
+        "counter_drain_dense<1>": gcount.drain_dense.launches,
+        "counter_drain_dense<2>": pncount.drain_dense.launches,
+        "counter_drain_sparse<1>": gcount.drain_sparse.launches,
+        "counter_drain_sparse<2>": pncount.drain_sparse.launches,
+        "tensor_join_dense": tensor.join_dense.launches,
+        "tensor_converge_batch": tensor.converge_batch.launches,
+        "treg_drain_dense": treg.drain_dense.launches,
+        "treg_drain_sparse": treg.drain_sparse.launches,
+        "tlog_drain_dense": tlog.drain_dense.launches,
+        "tlog_drain_sparse": tlog.drain_sparse.launches,
+        "ujson_join": ujson_device.join_rows.launches,
+        "ujson_fold_flat": ujson_resident.fold_flat.launches,
+        "replica_join": replica_join.launches,
+    }
+
+
 def stop_profiling() -> None:
     """End the long-lived profiler session and write its trace (called
     at clean shutdown)."""
@@ -128,11 +154,10 @@ def metric_lines(
     demoted split (native_cmds / demoted_cmds / demotions /
     busy_refusals), emitted with the live fallback_frac. ``cluster``,
     ``lane``, ``session`` and ``overload`` are the CLUSTER, LANE,
-    SESSION and OVERLOAD sections, which a port node does not have yet
-    (None: no section). ``registry`` is the node's MetricsRegistry
-    (drain/journal counters + the latency histograms, emitted as
-    `LATENCY <seam>.<stat>` lines); None falls back to the process
-    DEFAULT."""
+    SESSION and OVERLOAD sections (None: no section). ``registry`` is
+    the node's MetricsRegistry (drain/journal counters + the latency
+    histograms, emitted as `LATENCY <seam>.<stat>` lines); None falls
+    back to the process DEFAULT."""
     reg = registry if registry is not None else DEFAULT
     lines = [
         f"{name} cmds {n}" for name, n in sorted((served or {}).items()) if n

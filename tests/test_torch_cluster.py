@@ -42,6 +42,7 @@ from jylis_tpu_torch.utils.log import Log
 
 torch.set_num_threads(1)  # tier-1 shares the cores among its pytest workers
 from torch_cpu_share import yield_cpu  # noqa: E402,F401 (autouse: yields the cores)
+from jax_python_paths import jax_python_paths  # noqa: E402,F401 (autouse: no JAX native build)
 
 TICK = 0.05
 DEADLINE_S = 90.0  # 1,800 heartbeats: generous under tier-1's load
@@ -301,12 +302,29 @@ def test_jax_and_port_nodes_converge_after_writes_at_both():
             assert await call(port.server.port, reads()) == want
             assert sum(len(r) for r in want) > 3_000
             assert port.cluster.metrics_totals()["peers_established"] == 1
-            # SYSTEM METRICS' CLUSTER section names the same counters
+            # SYSTEM METRICS' CLUSTER section names the same counters. The
+            # drop_<reason> / msg_drop_<reason> lines appear for the
+            # reasons that occurred, and the port's liveness rule evicts
+            # fewer connections as idle than JAX's (ROADMAP C4), so those
+            # are held to the two packages' common reason vocabulary
             metrics = [(await call(n.server.port, [["SYSTEM", "METRICS"]]))[0]
                        for n in (jax, port)]
             names = [[ln.split()[1] for ln in m.split(b"\r\n") if ln.startswith(b"CLUSTER ")]
                      for m in metrics]
-            assert names[0] == names[1] and b"peers_established" in names[0]
+            fixed = [[n for n in ns if not n.startswith((b"drop_", b"msg_drop_"))]
+                     for ns in names]
+            assert fixed[0] == fixed[1] and b"peers_established" in fixed[0]
+            from jylis_tpu.cluster import cluster as jax_cluster_mod
+            from jylis_tpu_torch.cluster import cluster as cluster_mod
+
+            def reasons(mod):
+                return {b"drop_" + v.encode() for k, v in vars(mod.Drop).items()
+                        if k.isupper()} | {b"msg_drop_" + v.encode()
+                                           for k, v in vars(mod.MsgDrop).items() if k.isupper()}
+
+            assert reasons(cluster_mod) == reasons(jax_cluster_mod)
+            for ns, fx in zip(names, fixed):
+                assert set(ns) - set(fx) <= reasons(cluster_mod)
         finally:
             await stop_all(port, jax)
 
@@ -454,6 +472,58 @@ def test_failpoint_armed_by_the_flag_drops_reads_and_the_node_heals():
                 dispose.dispose()
                 await dispose.done.wait()
             await stop_all(jax)
+
+    asyncio.run(main())
+
+
+def test_a_frame_waiting_on_a_repo_lock_keeps_its_connection_and_range_walk():
+    """The port's liveness rule (ROADMAP C4): a port node whose read loop
+    holds a range-sync frame while its GCOUNT lock stays taken for more
+    than IDLE_TICKS_LIMIT heartbeat ticks (as a digest fold or a range
+    dump of a large repo holds it) is not idle: neither node evicts a
+    connection, and the bucket walk of the bootstrap sync finishes on
+    the connection it started on, to equal digests."""
+    from jylis_tpu_torch.cluster.cluster import IDLE_TICKS_LIMIT
+
+    async def main():
+        a = b = None
+        held = {}
+        try:
+            a = await start_node("port", "loaded")
+            await converge_foreign(a)
+            b = await start_node("port", "joiner", seeds=[a.addr])
+            mgr = b.database.manager("GCOUNT")
+            converge = b.database.converge_async
+
+            async def hold_lock():
+                async with mgr._lock:
+                    t0 = held["from"] = b.cluster._tick
+                    while b.cluster._tick - t0 <= IDLE_TICKS_LIMIT + 5:
+                        await asyncio.sleep(TICK)
+                    held["ticks"] = b.cluster._tick - t0
+
+            async def converge_behind_a_held_lock(name, batch):
+                if name == "GCOUNT" and "task" not in held:
+                    # the first GCOUNT range frame: its converge waits on
+                    # the lock, which is held for longer than the limit
+                    held["task"] = asyncio.ensure_future(hold_lock())
+                    await asyncio.sleep(0)
+                    held["conns"] = [c for c in b.cluster._actives.values()]
+                await converge(name, batch)
+
+            b.database.converge_async = converge_behind_a_held_lock
+            await wait_converged(a, b)
+            await held["task"]
+            assert held["ticks"] > IDLE_TICKS_LIMIT
+            for n in (a, b):
+                totals = n.cluster.metrics_totals()
+                assert totals.get("drop_idle", 0) == 0, totals
+            # the walk finished on the connection it started on
+            assert [c for c in b.cluster._actives.values()] == held["conns"]
+            assert all(c.established for c in held["conns"])
+            assert b.cluster.metrics_totals()["ranges_requested"] > 0
+        finally:
+            await stop_all(b, a)
 
     asyncio.run(main())
 

@@ -45,6 +45,7 @@ from test_torch_system_digest import IDENTITY, U64, feed, round_one, round_two
 
 torch.set_num_threads(1)  # tier-1 shares the cores among its pytest workers
 from torch_cpu_share import yield_cpu  # noqa: E402,F401 (autouse: yields the cores)
+from jax_python_paths import jax_python_paths  # noqa: E402,F401 (autouse: no JAX native build)
 
 CORPUS = json.loads(
     (Path(__file__).resolve().parent / "golden" / "codec_corpus.json").read_text()

@@ -70,6 +70,7 @@ from test_torch_ujson import SHIFT_IDS, SHIFTS, assert_same, delta_stacks, jx, p
 
 torch.set_num_threads(1)  # tier-1 shares the cores among its pytest workers
 from torch_cpu_share import yield_cpu  # noqa: E402,F401 (autouse: yields the cores)
+from jax_python_paths import jax_python_paths  # noqa: E402,F401 (autouse: no JAX native build)
 
 U64 = (1 << 64) - 1
 

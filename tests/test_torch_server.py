@@ -40,6 +40,7 @@ from jylis_tpu_torch.utils.config import Config, config_from_cli
 
 torch.set_num_threads(1)  # tier-1 shares the cores among its pytest workers
 from torch_cpu_share import yield_cpu  # noqa: E402,F401 (autouse: yields the cores)
+from jax_python_paths import jax_python_paths  # noqa: E402,F401 (autouse: no JAX native build)
 
 IDENTITY = 0xABCDEF
 BIG = (1 << 64) - 1
@@ -505,6 +506,18 @@ JAX_FREE_NODE = textwrap.dedent("""
         assert persist.load_snapshot(fresh, os.path.join(d, "snapshot.jylis")) == 9
         assert fresh._sync_digest_blocking() == db._sync_digest_blocking()
 
+    # the process glue: admission, the client, lanes and the Prometheus
+    # endpoint import without JAX, and run: a session token round trip,
+    # the gate's classifier, the lane functions and a render
+    from jylis_tpu_torch import admission, client, lanes, sessions
+    from jylis_tpu_torch.obs import prom
+
+    assert sessions.decode_token(sessions.encode_token({"a!1": 2})) == {"a!1": 2}
+    assert admission.classify([b"SESSION", b"WRAP", b"TENSOR", b"SET"]) == admission.BULK
+    assert client.pack_command("GCOUNT", "GET", 1).startswith(b"*3")
+    assert lanes.lane_of(b"k", 2) in (0, 1) and "jylis_lane_up" in lanes.aggregate_expositions({0: None})
+    assert "jylis_cmds_total" in prom.render(db)
+
     loaded = [m for m in sys.modules if m == "jylis_tpu" or m.startswith("jylis_tpu.")]
     assert not loaded, loaded
     assert sys.modules["jax"] is None
@@ -523,7 +536,8 @@ def test_serves_treg_and_tensor_without_jax():
     imports persist and journal, restores the node's snapshot in a node
     that ``main.build_node`` wires with ``--data-dir`` (equal digest),
     and that node's clean shutdown writes a loadable snapshot and
-    retires its journal."""
+    retires its journal. It imports and runs the process glue too:
+    sessions, admission, client, lanes and obs.prom."""
     request = (
         arr("TREG", "SET", "r", "v1", 3) + arr("TREG", "SET", "r", "v0", 3)
         + arr("TREG", "GET", "r") + arr("TENSOR", "SET", "t", "MAX", 0, vec(1, 2))

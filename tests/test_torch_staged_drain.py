@@ -44,6 +44,7 @@ from jylis_tpu_torch.parallel import sharded as tsharded
 
 torch.set_num_threads(1)  # tier-1 shares the cores among its pytest workers
 from torch_cpu_share import yield_cpu  # noqa: E402,F401 (autouse: yields the cores)
+from jax_python_paths import jax_python_paths  # noqa: E402,F401 (autouse: no JAX native build)
 
 U64 = (1 << 64) - 1
 TS_POOL = np.array([0, 1, 7, 1 << 63, (1 << 63) + 5, U64], np.uint64)

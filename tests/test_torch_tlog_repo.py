@@ -25,6 +25,7 @@ from jylis_tpu_torch.server import resp as tresp
 
 torch.set_num_threads(1)  # tier-1 shares the cores among its pytest workers
 from torch_cpu_share import yield_cpu  # noqa: E402,F401 (autouse: yields the cores)
+from jax_python_paths import jax_python_paths  # noqa: E402,F401 (autouse: no JAX native build)
 
 U64 = (1 << 64) - 1
 WIDE_TS = [1 << 32, (1 << 40) + 3, U64 - 1, U64]

@@ -30,6 +30,7 @@ from jylis_tpu_torch.utils.batching import pad_rows
 
 torch.set_num_threads(1)  # tier-1 shares the cores among its pytest workers
 from torch_cpu_share import yield_cpu  # noqa: E402,F401 (autouse: yields the cores)
+from jax_python_paths import jax_python_paths  # noqa: E402,F401 (autouse: no JAX native build)
 
 K, B = 64, 16
 SEEDS = [0, 1, 2]

@@ -31,6 +31,7 @@ from test_ops_ujson_device import random_mutations
 
 torch.set_num_threads(1)  # tier-1 shares the cores among its pytest workers
 from torch_cpu_share import yield_cpu  # noqa: E402,F401 (autouse: yields the cores)
+from jax_python_paths import jax_python_paths  # noqa: E402,F401 (autouse: no JAX native build)
 
 PATHS = [(), ("a",), ("b",), ("a", "x"), ("c", "y", "z"), ("tags",)]
 
