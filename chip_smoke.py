@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port (jylis_tpu_torch) on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port (jylis_tpu_torch) on NVIDIA GPUs.
 
     python3 chip_smoke.py
+
+It needs one card; with several visible it also runs the node on all of
+them (see the end of the phase list).
 
 Builds the native host library from jylis_tpu_torch/native/src/ (g++,
 the serving engine, the RESP scanner and the wire codec) and the CUDA
@@ -101,11 +104,16 @@ library's path, its build seconds, the compiler's version); then:
    canonicalised) against references joined from each writer's own
    final documents;
 12. the mesh phases, on a 4-shard mesh over the visible cards when
-   there are four or more, else the one card four times (the line
-   "mesh" says which): replica_join (the new kernel) at the north
-   star's 64 replicas x 1,048,576 keys and at S = 7, bit for bit
-   against its plain version and timed beside torch.amax over the same
-   bytes; the mesh routes of
+   there are four or more (a card a shard), two a card on two cards,
+   else the one card four times (the line "mesh" says which):
+   replica_join (the new kernel) at the north star's 64 replicas x
+   1,048,576 keys and at S = 7, bit for bit against its plain version
+   and timed beside torch.amax over the same bytes; with two or more
+   cards, that S = 64 state sharded P("rep", "keys") over (rep 4, keys
+   1) and (2, 2) meshes of the cards through join_replica_axis, every
+   block bit for bit against the one-card replica_join, its local
+   folds, cross-card copies and leader's fold timed apart (the
+   "replica_join_cards" lines); the mesh routes of
    the existing kernels at full width (GCOUNT and PNCOUNT 1,048,576 x 64
    with a routed drain of B = 65,536 and its pad share, TREG 1,048,576 with
    B = 65,536, TLOG config 4 wide with every row and its trim, UJSON's
@@ -197,9 +205,13 @@ library's path, its build seconds, the compiler's version); then:
    on the card restores the snapshot and replays the journal (its
    digests must equal P2's before the kill); a CPU node on a copy of
    P1's file gives P1's digests and, fed the second stage, P2's replies
-   and P3's digests. The "persist" line holds the snapshot's bytes and
-   write seconds, boot to listening, the restore's decode + converge and
-   drain_all seconds, its launches, and the replay's batches, seconds
+   and P3's digests. With two or more cards, P3's shutdown snapshot
+   (written keys-sharded over every card) restores on P4, a node on
+   ``--device cuda:1`` alone, whose own shutdown snapshot restores on
+   P5, a node on every card: both must give the CPU node's digests. The
+   "persist" line holds the snapshot's bytes and write seconds, boot to
+   listening, the restore's decode + converge and drain_all seconds,
+   its launches (in all and by card), and the replay's batches, seconds
    and launches;
 17. the lanes phase (lanes_phase): ``python -m jylis_tpu_torch --lanes 2
    --data-dir D --metrics-port M --heartbeat-time 1`` as a user starts
@@ -223,7 +235,17 @@ library's path, its build seconds, the compiler's version); then:
    is SIGKILLed; its respawn replays its journal segment and the digests
    are equal again. Each lane logs its kernel launches since its warmup
    at its clean shutdown ("lanes_launches": lane 0's, and lane 1's after
-   its respawn).
+   its respawn), in all and by card.
+On a host with two or more cards the nodes started with a bare
+``--device cuda`` (C, P1-P3, P5, both lanes) take every card: each
+must name all of them in its mesh, nvidia-smi must list a new compute
+app on every card's UUID while it runs (apps are counted per card: in a
+pid namespace the pids differ), and its launches by card must show
+counter_drain_sparse<1> and <2> (and for C also treg_drain_sparse,
+tlog_drain_sparse and a UJSON kernel) on every card. The "cards" line
+at the start gives the cards, their power limits and the peer access
+of every pair. On one card each step that needs several prints a line
+``{"phase": ..., "ran": false, "why": ...}``.
 Before 1., the codec phase, on the card machine's host: config 2's
 PNCOUNT state (100,000 keys x 8 replica ids) as 2,048-key PushDeltas
 frames, encoded and decoded by the native codec and by the oracle
@@ -432,6 +454,14 @@ def launch_floor(torch) -> dict:
     return out
 
 
+def reset_counts(*wrappers) -> None:
+    """Set the launch counts of kernel wrappers to 0: ``.launches``, the
+    per-card ``.by_card`` and, on the row kernels, ``.classes``."""
+    from jylis_tpu_torch.ops import _build
+
+    _build.reset(*wrappers)
+
+
 def max_abs_err(torch, pairs) -> int:
     """Largest |kernel - plain| over every compared tensor (0 = equal)."""
     err = 0
@@ -628,7 +658,7 @@ def tensor_sweep(torch) -> dict:
     for i in range(T_ROUNDS):
         tensor.join_dense_plain(plain, round_delta(i))
 
-    tensor.join_dense.launches = 0
+    reset_counts(tensor.join_dense)
     t0 = time.perf_counter()
     state = tensor.init(T_KEYS, T_DIM, dev)
     for i in range(T_ROUNDS):
@@ -1399,8 +1429,8 @@ def node_phase(torch) -> dict:
         if set(client.pipeline(cmds)) != {b"+OK\r\n"}:
             raise AssertionError("INC/DEC on converged keys not acknowledged")
 
-        gcount.drain_dense.launches = gcount.drain_sparse.launches = 0
-        pncount.drain_dense.launches = pncount.drain_sparse.launches = 0
+        reset_counts(gcount.drain_dense, gcount.drain_sparse, pncount.drain_dense,
+                     pncount.drain_sparse)
         t0 = time.perf_counter()
         capacity, checked = {}, 0
         for name in ("GCOUNT", "PNCOUNT"):
@@ -1503,7 +1533,7 @@ def treg_node_phase(torch, n_keys: int = TREG_KEYS) -> dict:
 
     node = Node(identity=0x7E6)
     try:
-        treg.drain_dense.launches = treg.drain_sparse.launches = 0
+        reset_counts(treg.drain_dense, treg.drain_sparse)
         t0 = time.perf_counter()
         vals = values(n_keys, rng.integers(0, NODE_REPLICAS, n_keys))
         batch = list(zip(keys, zip(vals, timestamps(n_keys))))
@@ -1747,7 +1777,7 @@ def tensor_node_phase(torch, n_keys: int = TENSOR_KEYS) -> dict:
     node = Node(identity=0x7E5 + (1 << 40))
     ident32 = np.uint32((0x7E5 + (1 << 40)) & 0xFFFFFFFF)
     try:
-        tensor.converge_batch.launches = 0
+        reset_counts(tensor.converge_batch)
         t0 = time.perf_counter()
         batch = []
         base = np.array([0, 5, 1 << 63, U64 - 4], np.uint64)
@@ -2032,8 +2062,7 @@ def tlog_node_phase(torch, n_keys: int = TLOG_KEYS) -> dict:
     repo = node.repo("TLOG")
     rounds = []
     try:
-        tlog.drain_dense.launches = tlog.drain_sparse.launches = 0
-        tlog.drain_dense.classes, tlog.drain_sparse.classes = {}, {}
+        reset_counts(tlog.drain_dense, tlog.drain_sparse)
         sel_all = np.arange(n_keys)
         plan = [(sel_all, 64, False, False), (sel_all, 64, False, False),
                 (sel_all, 64, False, False), (sel_all[:half], 64, False, False),
@@ -2844,8 +2873,7 @@ def ujson_node_phase(torch, n5b: int = UJ5B_KEYS, rounds5b: int = UJ5B_ROUNDS,
     legs = []
     replies = 0
     try:
-        udev.join_rows.launches = ures.fold_flat.launches = 0
-        udev.join_rows.classes, ures.fold_flat.classes = {}, {}
+        reset_counts(udev.join_rows, ures.fold_flat)
 
         def deliver(leg, batch, note=None):
             l0 = (udev.join_rows.launches, ures.fold_flat.launches)
@@ -3039,6 +3067,114 @@ def uj_flat_data(n_keys: int):
     return ws, groups
 
 
+# ---- several cards: what a node on every visible card must show --------------------
+
+# the kernels a node keys-sharded over several cards launches per card on
+# the cluster phase's data (any one of a group on every card): the
+# staged counter and TREG drains, TLOG's routed drain, a UJSON fold
+CARDS_PATH = (("counter_drain_sparse<1>",), ("counter_drain_sparse<2>",),
+              ("treg_drain_sparse",), ("tlog_drain_sparse",), ("ujson_join", "ujson_fold_flat"))
+
+
+def n_cards(torch) -> int:
+    """The cards this run sees (0 in a CPU rehearsal)."""
+    return torch.cuda.device_count() if DEVICE == "cuda" else 0
+
+
+def not_run(torch, step: str) -> None:
+    """The line of a step that needs two or more cards, on one."""
+    emit({"phase": step, "ran": False,
+          "why": f"needs 2 or more cards; {n_cards(torch)} visible"})
+
+
+def sync_cards(torch) -> None:
+    """Wait for every visible card (torch.cuda.synchronize() waits for
+    the current one only)."""
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def by_card(counters) -> dict:
+    """Kernel name -> {card index (a string, as JSON keys are): launches}
+    of the wrappers in ``counters``, those that launched."""
+    return {n: {str(k): v for k, v in sorted(c.by_card.items())}
+            for n, c in counters.items() if c.by_card}
+
+
+def card_diff(now: dict, before: dict) -> dict:
+    out = {}
+    for n, cards in now.items():
+        d = {k: v - before.get(n, {}).get(k, 0) for k, v in cards.items()}
+        d = {k: v for k, v in d.items() if v}
+        if d:
+            out[n] = d
+    return out
+
+
+def card_sum(*tallies) -> dict:
+    out: dict = {}
+    for t in tallies:
+        for n, cards in t.items():
+            for k, v in cards.items():
+                out.setdefault(n, {})[k] = out.get(n, {}).get(k, 0) + v
+    return out
+
+
+def off_cards(tally: dict, groups, cards: int) -> list:
+    """The (kernel group, card) pairs of ``groups`` on which no kernel of
+    the group launched."""
+    return [(g, c) for g in groups for c in range(cards)
+            if not any(tally.get(n, {}).get(str(c)) for n in g)]
+
+
+def card_apps() -> dict:
+    """Compute apps per card, by the card's UUID, every card listed (0
+    where none): nvidia-smi --query-compute-apps=gpu_uuid,pid,used_memory.
+    In a pid namespace of its own nvidia-smi shows other pids than the
+    processes', so apps are counted per card, not matched by pid."""
+    uuids = subprocess.run(["nvidia-smi", "--query-gpu=uuid", "--format=csv,noheader"],
+                           capture_output=True, text=True, timeout=60,
+                           check=True).stdout.split()
+    apps = subprocess.run(["nvidia-smi", "--query-compute-apps=gpu_uuid,pid,used_memory",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          timeout=60, check=True).stdout.splitlines()
+    out = {u: 0 for u in uuids}
+    for line in apps:
+        uuid = line.split(",")[0].strip()
+        if uuid:
+            out[uuid] = out.get(uuid, 0) + 1
+    return out
+
+
+def check_card_apps(what: str, before: dict, more: int = 1) -> dict:
+    """Every card lists at least ``more`` compute apps beyond ``before``
+    (a ``card_apps`` read taken before the processes started); returns
+    the new read."""
+    now = card_apps()
+    short = {u: (before.get(u, 0), n) for u, n in now.items() if n - before.get(u, 0) < more}
+    if short:
+        raise AssertionError(f"{what}: cards without {more} new compute app(s) "
+                             f"(before, now): {short}")
+    return now
+
+
+def cards_phase(torch) -> dict:
+    """The visible cards, the peer access of every ordered pair
+    (torch.cuda.can_device_access_peer) and the compute apps per card
+    before any node starts."""
+    n = torch.cuda.device_count()
+    out = {"count": n, "names": [torch.cuda.get_device_name(i) for i in range(n)],
+           "peer_access": {f"{i}->{j}": torch.cuda.can_device_access_peer(i, j)
+                           for i in range(n) for j in range(n) if i != j},
+           "nvidia_smi": subprocess.run(
+               ["nvidia-smi", "--query-gpu=index,name,uuid,power.limit",
+                "--format=csv,noheader"], capture_output=True, text=True,
+               timeout=60).stdout.strip().splitlines(),
+           "compute_apps": card_apps()}
+    emit({"phase": "cards", **out})
+    return out
+
+
 # ---- mesh phases: the keys-sharded serving mesh ----------------------------------
 
 MESH_SHARDS = 4
@@ -3062,19 +3198,40 @@ MESH_UJ_FLAT, MESH_UJ_TREE = 512, 16
 
 
 def mesh_devices(torch) -> list[str]:
-    """The 4-shard mesh's devices: the visible cards when there are 4 or
-    more, else the one card 4 times (DEVICE in a CPU rehearsal)."""
-    if DEVICE == "cuda" and torch.cuda.device_count() >= MESH_SHARDS:
-        return [f"cuda:{i}" for i in range(MESH_SHARDS)]
+    """The 4-shard mesh's devices: one card each when 4 or more are
+    visible, an equal run of shards on each of 2 (two a card), else the
+    one card 4 times (DEVICE in a CPU rehearsal)."""
+    n = min(n_cards(torch), MESH_SHARDS)
+    if n >= 2:
+        return [f"cuda:{i * n // MESH_SHARDS}" for i in range(MESH_SHARDS)]
     return [f"{DEVICE}:0" if DEVICE == "cuda" else DEVICE] * MESH_SHARDS
+
+
+def u64_amax(torch, xt, want):
+    """(ms, what) of the one PyTorch call that computes replica_join's
+    function, an unsigned max over dim 0: torch.amax on the planes
+    viewed as uint64, timed when this torch runs it on the card and it
+    equals ``want``; else (None, why). torch.amax on the int64 planes is
+    a signed max, another function (its time is "signed_amax_ms")."""
+    what = "torch.amax(x.view(torch.uint64), dim=0)"
+    try:
+        got = torch.amax(xt.view(torch.uint64), dim=0)
+        torch.cuda.synchronize()
+    except (RuntimeError, TypeError) as e:
+        return None, f"none: {what} raises ({str(e).splitlines()[0][:120]})"
+    if not torch.equal(got.view(torch.int64), want):
+        return None, f"none: {what} differs from the unsigned max"
+    return time_ms(torch, lambda: torch.amax(xt.view(torch.uint64), dim=0)), what
 
 
 def replica_join_phase(torch, card: str) -> dict:
     """replica_join at S = 64 x K = 1,048,576 and at odd S = 7: values
     >= 2^63, a column of 0s and one of 2^64-1; bit for bit against the
     plain version and against numpy on the first 65,536 columns, then
-    timed beside torch.amax over the same bytes (the nearest one-call
-    library reduction: signed)."""
+    timed beside torch.amax over the same bytes: on the planes viewed as
+    uint64 (the same function; u64_amax) and on the int64 planes (a
+    signed max, the nearest one-call reduction when the first is
+    missing)."""
     from jylis_tpu_torch.ops import planes
     from jylis_tpu_torch.parallel import replica_join, replica_join_plain
 
@@ -3099,18 +3256,122 @@ def replica_join_phase(torch, card: str) -> dict:
         ms = time_ms(torch, lambda: replica_join(xt))
         dev_ms = device_ms(torch, lambda: replica_join(xt), "replica_join")
         plain_ms = time_ms(torch, lambda: replica_join_plain(xt))
-        lib_ms = time_ms(torch, lambda: torch.amax(xt, dim=0))
+        signed_ms = time_ms(torch, lambda: torch.amax(xt, dim=0))
+        lib_ms, library = u64_amax(torch, xt, want)
         nbytes = (s + 1) * RJ_K * 8
         b_ms, b_by = bound(nbytes, s * RJ_K, card)
         row = dict(shape=f"S={s} x K={RJ_K}", max_abs_err=err,
                    kernel_ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms,
-                   library="torch.amax(x, dim=0): signed",
+                   library=library, signed_amax_ms=signed_ms,
                    bound_ms=b_ms, bound_by=b_by, bytes=nbytes, launches=launched)
         emit({"phase": "replica_join", **row, "card": card})
         rows.append(row)
         del x, xt, got, want
         torch.cuda.empty_cache()
     return {"replica_join": dict(rows[0], other_shapes=rows[1:])}
+
+
+RJ_MESHES = ((4, 1), (2, 2))  # (rep, keys) meshes of the replica join across cards
+
+
+def host_ms(torch, fn) -> float:
+    """Median over TIMED_RUNS of the host clock around one call of
+    ``fn`` and a wait for every card, after one warm-up: a step that
+    spans cards, which one card's CUDA events cannot time."""
+    fn()
+    sync_cards(torch)
+    runs = []
+    for _ in range(TIMED_RUNS):
+        t0 = time.perf_counter()
+        fn()
+        sync_cards(torch)
+        runs.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(runs)
+
+
+def replica_join_cards_phase(torch, card: str) -> dict:
+    """The north-star replica join across cards: S = 64 x K = 1,048,576
+    u64 states sharded P("rep", "keys") over a (rep 4, keys 1) and a
+    (2, 2) mesh of the mesh_devices cards, through join_replica_axis.
+    Every block of the result holds, bit for bit, the join that
+    replica_join gives on one card, which numpy's max gives on the first
+    65,536 columns. Timed apart (host_ms): the local folds (a
+    replica_join per block, all launched before the wait), the copies of
+    the folded rows to each keys column's rep-0 card (bytes, GB/s), the
+    leader's fold, the copies of the joined rows back, and the whole
+    call. Not run with fewer than 2 cards."""
+    from jylis_tpu_torch import parallel as par
+    from jylis_tpu_torch.ops import planes
+
+    devs = mesh_devices(torch)
+    if len(set(devs)) < 2:
+        not_run(torch, "replica_join_cards")
+        return {}
+    gen = torch.Generator(device=devs[0])
+    gen.manual_seed(SEED + 41)
+    with torch.cuda.device(devs[0]):
+        x = _rand64(torch, (RJ_S, RJ_K), gen)
+    x[:, 0] = 0
+    x[-1, 1] = -1  # 2^64 - 1
+    x[:, 2] = -(1 << 63)  # 2^63
+    want = par.replica_join(x)
+    head = planes.to_u64_np(x[:, : 1 << 16]).max(axis=0)
+    if not (planes.to_u64_np(want[: 1 << 16]) == head).all():
+        raise AssertionError("replica_join on one card != numpy's max")
+    rows = []
+    for rep, nk in RJ_MESHES:
+        mesh = par.make_mesh(MESH_SHARDS, rep=rep, devices=devs)
+        blocks = par.shard_grid(mesh, x)
+        sync_cards(torch)
+        l0 = par.replica_join.launches
+        got = par.join_replica_axis(mesh, blocks)
+        sync_cards(torch)
+        launched = par.replica_join.launches - l0
+        kc = RJ_K // nk
+        err = 0
+        for r in range(rep):
+            for c in range(nk):
+                g, b = got[r][c], blocks[r][c]
+                if g.device != b.device or tuple(g.shape) != tuple(b.shape):
+                    raise AssertionError(f"join_replica_axis {rep}x{nk}: block ({r}, {c}) "
+                                         f"{tuple(g.shape)} on {g.device}")
+                err = max(err, max_abs_err(torch, [(g[0].to(want.device),
+                                                    want[c * kc:(c + 1) * kc])]))
+        if err or launched != on_card(rep * nk + (nk if rep > 1 else 0)):
+            raise AssertionError(f"join_replica_axis {rep}x{nk}: err {err}, "
+                                 f"launches {launched}")
+        folded = [[par.replica_join(b) for b in row] for row in blocks]
+        sync_cards(torch)
+        cross = sum(folded[r][c].device != folded[0][c].device
+                    for r in range(rep) for c in range(nk))
+        copy_bytes = cross * kc * 8
+
+        def to_lead():
+            return [torch.stack([folded[r][c].to(folded[0][c].device) for r in range(rep)])
+                    for c in range(nk)]
+
+        stacked = to_lead()
+        joined = [par.replica_join(st) for st in stacked]
+        out = dict(
+            mesh=f"rep {rep} x keys {nk}", devices=[[str(b.device) for b in row]
+                                                     for row in blocks],
+            max_abs_err=err, launches=launched,
+            local_folds_ms=host_ms(torch, lambda: [[par.replica_join(b) for b in row]
+                                                   for row in blocks]),
+            copy_to_lead_ms=host_ms(torch, to_lead),
+            lead_fold_ms=host_ms(torch, lambda: [par.replica_join(st) for st in stacked]),
+            copy_back_ms=host_ms(torch, lambda: [joined[c].to(blocks[r][c].device)
+                                                 for r in range(rep) for c in range(nk)]),
+            call_ms=host_ms(torch, lambda: par.join_replica_axis(mesh, blocks)),
+            one_card_ms=host_ms(torch, lambda: par.replica_join(x)),
+            cross_card_copies=cross, copy_bytes=copy_bytes)
+        out["copy_gb_per_s"] = copy_bytes / out["copy_to_lead_ms"] / 1e6 if cross else None
+        emit({"phase": "replica_join_cards", **out, "card": card})
+        rows.append(out)
+        del blocks, got, folded, stacked, joined
+    del x, want
+    torch.cuda.empty_cache()
+    return {"shape": f"S={RJ_S} x K={RJ_K}", "meshes": rows}
 
 
 def on_card(n: int) -> int:
@@ -3802,27 +4063,18 @@ SINGLE_ONLY = ("counter_drain_dense<1>", "counter_drain_dense<2>", "treg_drain_d
 
 
 def launch_counters():
-    from jylis_tpu_torch.ops import gcount, pncount, tlog, treg
-    from jylis_tpu_torch.ops import ujson_device as udev, ujson_resident as ures
-    from jylis_tpu_torch.parallel import replica_join
+    """The kernel wrappers of the counter, TREG, TLOG, UJSON and mesh
+    paths, by kernel name (utils/metrics.py kernel_wrappers, TENSOR's
+    two aside)."""
+    from jylis_tpu_torch.utils.metrics import kernel_wrappers
 
-    return {"counter_drain_sparse<1>": gcount.drain_sparse,
-            "counter_drain_sparse<2>": pncount.drain_sparse,
-            "counter_drain_dense<1>": gcount.drain_dense,
-            "counter_drain_dense<2>": pncount.drain_dense,
-            "treg_drain_sparse": treg.drain_sparse, "treg_drain_dense": treg.drain_dense,
-            "tlog_drain_sparse": tlog.drain_sparse, "tlog_drain_dense": tlog.drain_dense,
-            "ujson_join": udev.join_rows, "ujson_fold_flat": ures.fold_flat,
-            "replica_join": replica_join}
+    return {n: fn for n, fn in kernel_wrappers().items() if not n.startswith("tensor_")}
 
 
 def counted(counters, fn):
     """Run ``fn`` with every launch count set to 0 just before it; returns
     (its result, the counts just after it)."""
-    for c in counters.values():
-        c.launches = 0
-        if hasattr(c, "classes"):
-            c.classes = {}
+    reset_counts(*counters.values())
     result = fn()
     return result, {n: c.launches for n, c in counters.items()}
 
@@ -3852,6 +4104,7 @@ def mesh_node_phase(torch, devs) -> dict:
         t0 = time.perf_counter()
         (mesh_replies, mesh_dumps), launches = counted(counters, serve)
         out["mesh_node_s"] = time.perf_counter() - t0
+        out["launches_by_card"] = by_card(counters)
         out["classes"] = {n: dict(c.classes) for n, c in counters.items()
                           if getattr(c, "classes", None)}
         for n in ("GCOUNT", "PNCOUNT", "TREG", "TLOG"):
@@ -4308,7 +4561,7 @@ def instrument_recovery(counters, sync) -> dict:
         return {n: c.launches for n, c in counters.items()}
 
     def measured(fn, *args):
-        before, t0 = counts(), time.perf_counter()
+        before, cards0, t0 = counts(), by_card(counters), time.perf_counter()
         inside.append({"drain_all_s": 0.0})
         try:
             n = fn(*args)
@@ -4317,7 +4570,8 @@ def instrument_recovery(counters, sync) -> dict:
             drain = inside.pop()["drain_all_s"]
         secs, after = time.perf_counter() - t0, counts()
         return n, {"s": secs, "drain_all_s": drain, "decode_converge_s": secs - drain,
-                   "launches": {k: after[k] - before[k] for k in after if after[k] - before[k]}}
+                   "launches": {k: after[k] - before[k] for k in after if after[k] - before[k]},
+                   "by_card": card_diff(by_card(counters), cards0)}
 
     load, recover_all = persist.load_snapshot, journal.recover_all
     drain_all, save = Database.drain_all, persist.save_snapshot
@@ -4384,8 +4638,7 @@ def cluster_peer(spec: dict) -> None:
     del counters["replica_join"]
 
     def zero(node=None):
-        for c in counters.values():
-            c.launches = 0
+        reset_counts(*counters.values())
         if node is not None and spec.get("preload_config2"):
             # config 2 in the node before it listens or dials (the lanes
             # phase's E): the first sync with a peer pulls all of it
@@ -4394,8 +4647,8 @@ def cluster_peer(spec: dict) -> None:
 
     persist_kw, rec = {}, None
     if spec.get("data_dir"):
-        rec = instrument_recovery(counters, torch.cuda.synchronize if spec["device"] != "cpu"
-                                  else (lambda: None))
+        rec = instrument_recovery(counters, (lambda: sync_cards(torch))
+                                  if spec["device"] != "cpu" else (lambda: None))
         persist_kw = {"data_dir": spec["data_dir"], "cport": spec["cport"]}
     node = ClusterNode(spec["name"], spec["device"], seeds=spec["seeds"], built=zero,
                        **persist_kw)
@@ -4403,7 +4656,10 @@ def cluster_peer(spec: dict) -> None:
     def say(obj) -> None:
         print(json.dumps(obj), flush=True)
 
+    mesh = node.db.mesh
     say({"addr": node.addr, "resp_port": node.server.port, "boot_s": node.boot_s,
+         "device": str(node.db.device), "mesh": None if mesh is None else str(mesh),
+         "mesh_cards": [] if mesh is None else sorted({str(d) for d in mesh.keys_devices}),
          **({"recovery": rec} if rec is not None else {})})
     closed = False
     try:
@@ -4444,7 +4700,8 @@ def cluster_peer(spec: dict) -> None:
                 say({"done": cmd, "s": time.perf_counter() - t0, "deltas": n})
             elif cmd == "mark":
                 node.run(node._drain())
-                say({"launches": {n: c.launches for n, c in counters.items() if c.launches}})
+                say({"launches": {n: c.launches for n, c in counters.items() if c.launches},
+                     "by_card": by_card(counters)})
                 zero()
             elif cmd == "stats":
                 say(node.stats())
@@ -4678,8 +4935,10 @@ def cluster_phase(torch, c_device=None) -> dict:
     and equal GET replies for keys of every type. C's launch counts are
     set to 0 after its warmup, read after the bootstrap and after each
     stage: the bootstrap's and stage 3's are the launches the wire fed,
-    and every kernel group of CLUSTER_PATH must be among them."""
+    and every kernel group of CLUSTER_PATH must be among them (on a
+    mesh, the sparse counter drains only: a mesh never drains dense)."""
     c_device = c_device or DEVICE
+    cards = n_cards(torch) if str(c_device) == "cuda" else 0
     keys = [b"k%06d" % i for i in range(NODE_KEYS)]
     out = {"tick_s": CLUSTER_TICK, "range_budget": CLUSTER_RANGE_BUDGET,
            "c_device": str(c_device)}
@@ -4687,10 +4946,19 @@ def cluster_phase(torch, c_device=None) -> dict:
     c = None
     try:
         out["load_h_s"] = h.ask("config2")["s"]
+        apps0 = card_apps() if cards > 1 else None
         t_phase = time.perf_counter()
         c = PeerProcess("c", str(c_device), seeds=[h.addr])
         t0 = time.perf_counter()
         out["c_process_start_s"] = t0 - t_phase
+        out["c_mesh"], out["c_cards"] = c.hello["mesh"], c.hello["mesh_cards"]
+        if cards > 1:
+            # a bare --device cuda on several cards: C's every repo is
+            # keys-sharded over all of them, each card holding a context
+            if len(out["c_cards"]) != cards:
+                raise AssertionError(f"cluster phase: C's mesh {out['c_mesh']} is not on "
+                                     f"the {cards} cards")
+            out["card_apps"] = check_card_apps("cluster phase, C up", apps0)
         out["boot_to_mesh_s"] = wait_until(
             "the mesh", lambda: c.established() == 1 and h.established() == 1)
         s, out["bootstrap_differ"] = wait_converged("bootstrap sync", c, h)
@@ -4698,7 +4966,8 @@ def cluster_phase(torch, c_device=None) -> dict:
         sample = cluster_reads(np.random.default_rng(SEED + 91), keys)[:2 * CLUSTER_SAMPLE]
         check_replies("config 2 GETs: card node vs cpu node",
                       c.client.pipeline(sample), h.client.pipeline(sample))
-        boot = c.ask("mark")["launches"]
+        mark = c.ask("mark")
+        boot, boot_cards = mark["launches"], mark["by_card"]
         emit({"phase": "cluster_step", "step": "bootstrap", **out, "launches": boot})
         steps = cluster_script()[0]
         bursts = [step[1] for step in steps if step[0] == "cmds"]
@@ -4709,7 +4978,8 @@ def cluster_phase(torch, c_device=None) -> dict:
         for cmds in bursts[0::2]:
             c.client.pipeline(cmds)
         c_both, h_both = c.finish(), h.finish()
-        local = c.ask("mark")["launches"]
+        mark = c.ask("mark")
+        local, local_cards = mark["launches"], mark["by_card"]
         out["c_stage_s"] = time.perf_counter() - t0
         out["both_deltas"], out["c_both_s"], out["h_both_s"] = (
             c_both["deltas"], c_both["s"], h_both["s"])
@@ -4726,7 +4996,8 @@ def cluster_phase(torch, c_device=None) -> dict:
         emit({"phase": "cluster_step", "step": "h_stage", "s": out["h_stage_s"]})
         out["last_write_to_equal_s"], out["script_differ"] = wait_converged(
             "the all-type script", c, h)
-        wire = c.ask("mark")["launches"]
+        mark = c.ask("mark")
+        wire, wire_cards = mark["launches"], mark["by_card"]
         out["c"], out["h"] = c.ask("stats"), h.ask("stats")
         # C coded its push frames (plain, seq- and relay-prefixed) on the
         # native codec path, and settled RESP bursts in its engine
@@ -4757,12 +5028,23 @@ def cluster_phase(torch, c_device=None) -> dict:
     out["wire_launches"] = {n: boot.get(n, 0) + wire.get(n, 0) for n in names
                             if boot.get(n, 0) + wire.get(n, 0)}
     out["launches_by_stage"] = {"bootstrap": boot, "c_stage": local, "h_stage": wire}
+    out["launches_by_card"] = card_sum(boot_cards, local_cards, wire_cards)
     emit({"phase": "cluster", **out})
     if c_device != "cpu":
-        missing = [g for g in CLUSTER_PATH if not any(out["wire_launches"].get(n) for n in g)]
+        # on a mesh the drains are sparse only, as in the JAX package
+        path = CLUSTER_PATH if cards < 2 else [g for g in CLUSTER_PATH
+                                               if not all("dense" in n for n in g)]
+        missing = [g for g in path if not any(out["wire_launches"].get(n) for n in g)]
         if missing:
             raise AssertionError(f"cluster phase: the card node launched no kernel of {missing} "
                                  f"on deltas from the wire: {out['launches_by_stage']}")
+    if cards > 1:
+        off = off_cards(out["launches_by_card"], CARDS_PATH, cards)
+        if off:
+            raise AssertionError(f"cluster phase: kernels that never launched on a card of C's "
+                                 f"mesh: {off}; by card {out['launches_by_card']}")
+    elif str(c_device) == "cuda":
+        not_run(torch, "cluster_cards")
     return out
 
 
@@ -4814,6 +5096,53 @@ def journal_appends(node) -> int:
     return int(m.group(1))
 
 
+def persist_layouts(data: str, copy: str, boot, on_cards, want, cards: int,
+                    one: str = "cuda:1", every: str = "cuda") -> dict:
+    """A snapshot across device layouts: P3's shutdown snapshot, written
+    keys-sharded over every card, restored by P4 on ``one``
+    (``--device cuda:1``) alone; P4's shutdown snapshot, written on that
+    one card, restored by P5 on ``every`` (``--device cuda``: every
+    card). Both must give ``want``, the CPU node's digests. P4 launches
+    on its card alone; P5's restore drains both counter types on every
+    card."""
+    shutil.copytree(data, copy)
+    out = {}
+    p4 = boot(one, copy)
+    if p4.hello["mesh"] is not None or p4.hello["device"] != one:
+        raise AssertionError(f"persistence phase: P4 on {p4.hello['device']}, mesh "
+                             f"{p4.hello['mesh']}")
+    if digests_of(p4) != want:
+        raise AssertionError(f"persistence phase: P4 ({one}) on the several-card snapshot "
+                             "!= the CPU node's digests")
+    rec4 = p4.hello["recovery"]["restore"][0]
+    strays = {n: c for n, c in rec4["by_card"].items()
+              if set(c) != {one.partition(":")[2] or "0"}}
+    if strays:
+        raise AssertionError(f"persistence phase: P4 ({one}) launched on other cards: {strays}")
+    closed = p4.close_clean()
+    out["p4"] = {"process_to_listening_s": p4.hello["process_to_listening_s"],
+                 "restore_s": rec4["s"], "drain_all_s": rec4["drain_all_s"],
+                 "launches_by_card": rec4["by_card"], "close_s": closed["s"],
+                 "snapshot_bytes": closed["recovery"]["save"][-1]["bytes"]}
+    emit({"phase": "persist_step", "step": "p4_one_card", **out["p4"]})
+    p5 = boot(every, copy)
+    on_cards(p5, "P5")
+    if digests_of(p5) != want:
+        raise AssertionError("persistence phase: P5 (every card) on the one-card snapshot "
+                             "!= the CPU node's digests")
+    rec5 = p5.hello["recovery"]["restore"][0]
+    off = off_cards(rec5["by_card"], CARDS_PATH[:2], cards)
+    if off:
+        raise AssertionError(f"persistence phase: P5's restore drained no counter on {off}: "
+                             f"{rec5['by_card']}")
+    out["p5"] = {"process_to_listening_s": p5.hello["process_to_listening_s"],
+                 "restore_s": rec5["s"], "drain_all_s": rec5["drain_all_s"],
+                 "launches_by_card": rec5["by_card"], "mesh": p5.hello["mesh"]}
+    p5.close()
+    emit({"phase": "persist_step", "step": "p5_every_card", **out["p5"]})
+    return out
+
+
 def persist_phase(torch, p_device=None) -> dict:
     """Persistence on the card: nodes in processes of their own, wired by
     main.build_node with --data-dir set to a fresh directory and one
@@ -4844,6 +5173,7 @@ def persist_phase(torch, p_device=None) -> dict:
     from jylis_tpu_torch.utils.net import free_port
 
     p_device = str(p_device or DEVICE)
+    cards = n_cards(torch) if p_device == "cuda" else 0
     root = tempfile.mkdtemp(prefix="chip_smoke_persist_")
     data, ref = os.path.join(root, "data"), os.path.join(root, "ref")
     os.makedirs(ref)
@@ -4856,9 +5186,20 @@ def persist_phase(torch, p_device=None) -> dict:
         nodes.append(node)
         return node
 
+    def on_cards(node, what):
+        """A node on ``p_device`` with several cards takes all of them."""
+        if cards > 1 and len(node.hello["mesh_cards"]) != cards:
+            raise AssertionError(f"persistence phase: {what}'s mesh {node.hello['mesh']} is "
+                                 f"not on the {cards} cards")
+
     try:
+        apps0 = card_apps() if cards > 1 else None
         t_phase = time.perf_counter()
         p1 = boot(p_device, data)
+        on_cards(p1, "P1")
+        out["p1_mesh"] = p1.hello["mesh"]
+        if cards > 1:
+            out["card_apps"] = check_card_apps("persistence phase, P1 up", apps0)
         out["p1_load_s"] = p1.ask("config2")["s"] + p1.ask("all")["s"]
         want1 = digests_of(p1)
         closed = p1.close_clean()
@@ -4873,6 +5214,7 @@ def persist_phase(torch, p_device=None) -> dict:
         emit({"phase": "persist_step", "step": "p1", **out})
 
         p2 = boot(p_device, data)
+        on_cards(p2, "P2")
         rec = p2.hello["recovery"]
         if len(rec["restore"]) != 1 or rec["replay"]["replayed_batches"]:
             raise AssertionError(f"persistence phase: P2 recovered {rec}")
@@ -4900,6 +5242,7 @@ def persist_phase(torch, p_device=None) -> dict:
         want2 = digests_of(p2)
         p2.kill()
         p3 = boot(p_device, data)
+        on_cards(p3, "P3")
         rec3 = p3.hello["recovery"]
         out["p3"] = {"boot_s": p3.hello["boot_s"],
                      "process_to_listening_s": p3.hello["process_to_listening_s"],
@@ -4917,9 +5260,15 @@ def persist_phase(torch, p_device=None) -> dict:
         if digests_of(r) != want1:
             raise AssertionError("persistence phase: the CPU node's digests on P1's file != P1's")
         check_replies("second stage: CPU node vs P2", r.client.pipeline(stage2), replies2)
-        if digests_of(r) != got3:
+        want_r = digests_of(r)
+        if want_r != got3:
             raise AssertionError("persistence phase: the CPU node's digests != P3's")
         r.close()
+        if cards > 1:
+            out["layouts"] = persist_layouts(data, os.path.join(root, "layouts"), boot,
+                                             on_cards, want_r, cards)
+        elif p_device == "cuda":
+            not_run(torch, "persist_layouts")
         out["phase_s"] = time.perf_counter() - t_phase
         out["digest"] = got3[0].split(b"\r\n")[1].decode()
         lines = [ln for ln in got3[1].split(b"\r\n") if ln and ln[:1] not in b"*$"]
@@ -4951,8 +5300,9 @@ LANES_SHED = 4  # admission.shed's budget in lane 1: its first SYSTEM METRICS, t
 # the drain kernels each lane must launch: a counter drain of each type
 LANES_PATH = (("counter_drain_dense<1>", "counter_drain_sparse<1>"),
               ("counter_drain_dense<2>", "counter_drain_sparse<2>"))
-_LANE_UP = re.compile(r"serving lane (\d+)/\d+ \(pid (\d+)\) .* device (\S+)")
-_LANE_LAUNCHES = re.compile(r"kernel launches since warmup \(pid (\d+)\): (\{.*\})")
+_LANE_UP = re.compile(r"serving lane (\d+)/\d+ \(pid (\d+)\) .* device ([^,\s]+)(?:, (Mesh.*))?")
+_LANE_LAUNCHES = re.compile(
+    r"kernel launches since warmup \(pid (\d+)\): (\{[^{}]*\})(?:; by card: (\{.*\}))?")
 
 
 def lane_of_reply(reply: bytes) -> int:
@@ -5152,12 +5502,14 @@ def lanes_phase(torch, l_device=None) -> dict:
     from jylis_tpu_torch.utils.address import Address
 
     root = tempfile.mkdtemp(prefix="chip_smoke_lanes_")
+    cards = n_cards(torch) if l_device is None else 0
     out = {"device": str(l_device or "default (cuda)"), "lanes": LANES, "keys": LANES_KEYS,
            "tick_s": LANES_TICK}
     node = ext = None
     conns = {}
     t_phase = time.perf_counter()
     try:
+        apps0 = card_apps() if cards > 1 else None
         node = LanesNode(root, l_device)
         # E converges config 2 before it listens or dials, so the first
         # sync between it and lane 0 carries all of it
@@ -5259,16 +5611,21 @@ def lanes_phase(torch, l_device=None) -> dict:
             if min(per_lane[k]["drains"].values()) < 1 or per_lane[k]["drop_idle"]:
                 raise AssertionError(f"lanes phase: lane {k}: {per_lane[k]}")
         up = _LANE_UP.findall(node.text())
-        devices = {int(pid): dev for _, pid, dev in up}
+        devices = {int(pid): (dev, mesh) for _, pid, dev, mesh in up}
         for k, pid in enumerate(pids0):
-            dev = devices.get(pid)
-            per_lane[k]["pid"], per_lane[k]["device"] = pid, dev
+            dev, mesh = devices.get(pid, (None, ""))
+            per_lane[k]["pid"], per_lane[k]["device"], per_lane[k]["mesh"] = pid, dev, mesh
             if dev is None or (l_device is None and not dev.startswith("cuda:")):
                 raise AssertionError(f"lanes phase: lane {k} (pid {pid}) logged device {dev}")
+            if cards > 1 and not all(f"cuda:{i}" in mesh for i in range(cards)):
+                raise AssertionError(f"lanes phase: lane {k}'s mesh {mesh!r} is not on the "
+                                     f"{cards} cards")
         apps = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
                               capture_output=True, text=True).stdout.split() \
             if l_device is None else []
         out["nvidia_smi_pids"] = apps
+        if cards > 1:  # each lane holds a context on every card
+            out["card_apps"] = check_card_apps("lanes phase, both lanes up", apps0, LANES)
         # nvidia-smi names the host's pids; in a pid namespace of its own
         # (a container) it shows others, and then only its count is read
         if any(str(pid) in apps for pid in pids0):
@@ -5366,12 +5723,15 @@ def lanes_phase(torch, l_device=None) -> dict:
         text = node.text() if node is not None else ""
         shutil.rmtree(root, ignore_errors=True)
     out["supervisor_rc"] = rc
-    launched = {int(pid): json.loads(js) for pid, js in _LANE_LAUNCHES.findall(text)}
+    found = _LANE_LAUNCHES.findall(text)
+    launched = {int(pid): json.loads(js) for pid, js, _ in found}
+    cards_of = {int(pid): json.loads(cs) if cs else {} for pid, _, cs in found}
     by_lane = {0: launched.get(pids0[0], {}), 1: launched.get(respawned, {})}
+    out["launches_by_card"] = {0: cards_of.get(pids0[0], {}), 1: cards_of.get(respawned, {})}
     out["launches_by_lane"] = by_lane
     out["launches"] = {n: by_lane[0].get(n, 0) + by_lane[1].get(n, 0)
                        for n in set(by_lane[0]) | set(by_lane[1])}
-    out["respawned_device"] = {int(pid): dev for _, pid, dev in _LANE_UP.findall(text)}.get(
+    out["respawned_device"] = {int(pid): dev for _, pid, dev, _ in _LANE_UP.findall(text)}.get(
         respawned)
     out["phase_s"] = time.perf_counter() - t_phase
     emit({"phase": "lanes", **out})
@@ -5385,6 +5745,13 @@ def lanes_phase(torch, l_device=None) -> dict:
             raise AssertionError(f"lanes phase: a lane launched no counter drain kernel: {by_lane}")
         if not str(out["respawned_device"]).startswith("cuda:"):
             raise AssertionError(f"lanes phase: the respawned lane on {out['respawned_device']}")
+        if cards > 1:
+            off = off_cards(out["launches_by_card"][0], CARDS_PATH[:2], cards)
+            if off:
+                raise AssertionError(f"lanes phase: lane 0 drained no counter on {off}: "
+                                     f"{out['launches_by_card']}")
+        else:
+            not_run(torch, "lanes_cards")
     return out
 
 
@@ -5455,6 +5822,27 @@ KERNELS = {
 }
 
 
+# why no one PyTorch call computes each kernel's function (library_ms
+# null); replica_join's is timed when torch runs it (u64_amax)
+LIBRARY_NONE = {
+    "counter_drain_dense<1>": "none: an unsigned max of two planes, then a wrapping row sum "
+                              "(two calls at least; torch.maximum is signed on int64)",
+    "counter_drain_dense<2>": "none: as <1> on both polarities, then the net of two row sums",
+    "counter_drain_sparse<1>": "none: a scatter of an unsigned max at rows, then their row sums "
+                               "(index_reduce_ amax is signed, and a second call sums)",
+    "counter_drain_sparse<2>": "none: as <1> on both polarities, then the net",
+    "tensor_join_dense": "none: a per-cell LWW select over (ts_hi, ts_lo, rid) with the NaN "
+                         "order, four planes written",
+    "treg_drain_dense": "none: a lexicographic unsigned (ts, rank) select with a tie mask",
+    "treg_drain_sparse": "none: the same select gathered and scattered at rows",
+    "tensor_converge_batch": "none: the LWW cell select gathered and scattered at rows",
+    "tlog_drain_sparse": "none: a per-row merge of sorted entries with dedup, cutoff and trim",
+    "tlog_drain_dense": "none: the same merge over every row",
+    "ujson_join": "none: an ORSWOT row join (dot membership, context cover, compaction)",
+    "ujson_fold_flat": "none: an n-way ORSWOT fold per key",
+}
+
+
 def main() -> int:
     import torch
 
@@ -5495,6 +5883,7 @@ def main() -> int:
           **hbm_check()})
     emit({"phase": "build", "seconds": build_s,
           "per_source_s": per_source, "dir": str(_build.BUILD_DIR)})
+    cards_phase(torch)
 
     # host work first, while the process holds few Python objects (each
     # collection of a large heap would weigh on the decode's allocations)
@@ -5513,8 +5902,10 @@ def main() -> int:
     rows.update(ujson_phases(torch, card, flat[1]))
     devs = mesh_devices(torch)
     emit({"phase": "mesh", "devices": devs, "device_count": torch.cuda.device_count(),
-          "cards": "one card, 4 shards on it" if len(set(devs)) == 1 else "4 cards"})
+          "cards": "one card, 4 shards on it" if len(set(devs)) == 1
+          else f"{len(set(devs))} cards, {MESH_SHARDS // len(set(devs))} shard(s) a card"})
     rows.update(replica_join_phase(torch, card))
+    rows["replica_join"]["cards"] = replica_join_cards_phase(torch, card)
     routes = mesh_route_phases(torch, card, devs)
     xfer = transfer_phase(torch)
     calls = counter_call_cases(torch, card, devs, xfer)
@@ -5560,6 +5951,7 @@ def main() -> int:
             "restore_launches": persisted["restore_launches"].get(kname, 0),
             "replay_launches": persisted["replay_launches"].get(kname, 0),
             "lanes_launches": laned["launches"].get(kname, 0),
+            "cluster_launches_by_card": cluster["launches_by_card"].get(kname, {}),
             "max_abs_err": max([r["max_abs_err"]] + [
                 x["max_abs_err"] for x in ([ns] if ns else []) + others]),
             "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
@@ -5568,12 +5960,13 @@ def main() -> int:
             "device_ms": r["device_ms"],
             **({"class": r["class"]} if "class" in r else {}),
             **({"launch_classes": classes[kname]} if kname in classes else {}),
-            **({"library": r["library"]} if "library" in r else {}),
+            "library": r.get("library") or LIBRARY_NONE.get(kname),
             **({"north_star": {k: ns[k] for k in timing if k in ns}} if ns else {}),
             **({"other_shapes": [{k: x[k] for k in timing if k in x} for x in others]}
                if others else {}),
             **({"mesh_routes": routes[kname]} if kname in routes else {}),
             **({"staged_calls": calls[kname]} if kname in calls else {}),
+            **({"cards": r["cards"]} if r.get("cards") else {}),
         })
     emit({"kernels": kernels})
     print(smi_line(), flush=True)

@@ -73,9 +73,9 @@ class Dispose:
     def __init__(self, database: Database, server: Server, cluster: Cluster,
                  snapshot_path: str = "", log=None, journal=None, launched=None):
         self._database = database
-        # the kernel launch counts the shutdown log line counts from (the
-        # warmup's launches are not the node's)
-        self._launched = launched or {}
+        # the kernel launch counts, in all and by card, the shutdown log
+        # line counts from (the warmup's launches are not the node's)
+        self._launched = launched or ({}, {})
         self._server = server
         self._cluster = cluster
         self._snapshot_path = snapshot_path
@@ -146,11 +146,10 @@ class Dispose:
                 self._log.info() and self._log.i(
                     f"merge metrics: {self._database.metrics.report()}"
                 )
-                launched = {k: n - self._launched.get(k, 0)
-                            for k, n in metrics.kernel_launches().items()}
+                launched, by_card = metrics.launches_since(*self._launched)
                 self._log.info() and self._log.i(
                     f"kernel launches since warmup (pid {os.getpid()}): "
-                    f"{json.dumps({k: n for k, n in launched.items() if n})}"
+                    f"{json.dumps(launched)}; by card: {json.dumps(by_card)}"
                 )
             metrics.stop_profiling()
         finally:
@@ -182,9 +181,10 @@ class NodeStack:
         self.cluster = cluster
         self.snapshot_path = snapshot_path  # "" without --data-dir
         self.journal = journal  # None without --data-dir or with --no-journal
-        # each kernel's launches by the end of warmup (the shutdown log
-        # line counts the node's own from there: recovery's and serving's)
-        self.warmup_launches = warmup_launches or {}
+        # each kernel's launches, in all and by card, by the end of warmup
+        # (the shutdown log line counts the node's own from there:
+        # recovery's and serving's)
+        self.warmup_launches = warmup_launches or ({}, {})
         # set by serve: the Prometheus listener (--metrics-port) and a
         # lane's lane.tick failpoint task
         self.metrics_http = None
@@ -210,7 +210,7 @@ def build_node(config) -> NodeStack:
         identity = config.addr.hash64()
     system = System(config)
     database_mod.warmup(config.device, engine="auto")
-    warmup_launches = metrics.kernel_launches()
+    warmup_launches = (metrics.kernel_launches(), metrics.kernel_launches_by_card())
     database = Database(
         identity=identity, device=config.device,
         system_repo=system.repo, engine="auto",

@@ -583,4 +583,42 @@ def warmup(device="cuda", mesh="auto", engine="auto") -> None:
         db.converge("TREG", [(b"k", (b"w", 2))])
         db.apply(resp, [b"TREG", b"GET", b"k"])
         db.drain_all()
+        if db.mesh is not None and dev.type == "cuda":
+            _warm_cards(db, resp)
         db._sync_digest_blocking()
+
+
+def _warm_cards(db, resp) -> None:
+    """A mesh node's drains on every card of the mesh before it listens.
+    A kernel library loads into a card's CUDA context at its first
+    launch there, and the warm-up keys above all land on the first card,
+    so without this the first drain to reach each other card would load
+    its libraries while it holds a repo lock. Writes to fresh keys fill
+    the counter, TREG and TLOG keyspaces to their capacity (the last
+    shard holds some; nothing grows), then one drain launches each
+    sparse kernel once per card; the two UJSON kernels, which a mesh
+    node launches per shard of its resident store, run once per card on
+    one identity document."""
+    from ..ops import ujson_device as udev
+    from ..ops import ujson_resident as ures
+
+    writes = {"GCOUNT": b"GCOUNT INC %s 1", "PNCOUNT": b"PNCOUNT INC %s 1",
+              "TREG": b"TREG SET %s v 1", "TLOG": b"TLOG INS %s v 1"}
+    for name, fmt in writes.items():
+        repo = db._map[name.encode()].repo
+        for i in range(repo._key_cap - repo._tbl.rows()):
+            db.apply(resp, (fmt % (b"warm%d" % i)).split(b" "))
+    db.drain_all()
+    shift = udev.narrow_shift(1)
+    for card in dict.fromkeys(db.mesh.keys_devices):
+        def plane(shape, fill):
+            return torch.full(shape, fill, dtype=torch.int32, device=card)
+
+        pad = int(udev.PAD32)
+        doc = udev.DocBatch(plane((1, 4), pad), plane((1, 4), -1), plane((1, 1), 0),
+                            plane((1, 4), pad))
+        udev.join_rows(doc, doc, shift)
+        ures.fold_flat(udev.DocBatch(*(p.unsqueeze(1).contiguous() for p in doc)), shift)
+    for card in dict.fromkeys(db.mesh.keys_devices):
+        if card.type == "cuda":
+            torch.cuda.synchronize(card)

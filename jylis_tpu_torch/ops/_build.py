@@ -11,7 +11,10 @@ together.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 ``check`` turns a nonzero code into an exception, so a refused launch
-never passes silently.
+never passes silently. Each wrapper then calls ``count``: its
+``.launches`` and its per-card tally ``.by_card`` (card index ->
+launches) grow together, so on a node keys-sharded over several cards
+the tally shows which cards ran the kernel; ``reset`` sets both to 0.
 """
 
 from __future__ import annotations
@@ -130,3 +133,33 @@ def check(rc: int, name: str) -> None:
     """Raise on a nonzero ``cudaGetLastError()`` from a launch."""
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError_t {rc})")
+
+
+def counter(fn, classes: bool = False):
+    """Give kernel wrapper ``fn`` its launch counts: ``.launches``, the
+    per-card ``.by_card`` and, with ``classes``, ``.classes`` (launches
+    by the class ops/row_plan.py picked)."""
+    fn.launches, fn.by_card = 0, {}
+    if classes:
+        fn.classes = {}
+    return fn
+
+
+def count(fn, device, kind: str | None = None) -> None:
+    """One launch of wrapper ``fn`` on CUDA ``device`` (a torch.device
+    with an index, or an int): ``.launches``, ``.by_card`` and, given
+    ``kind``, ``.classes`` each gain one."""
+    card = device if isinstance(device, int) else device.index
+    fn.launches += 1
+    fn.by_card[card] = fn.by_card.get(card, 0) + 1
+    if kind is not None:
+        fn.classes[kind] = fn.classes.get(kind, 0) + 1
+
+
+def reset(*fns) -> None:
+    """Set the launch counts of every wrapper in ``fns`` to 0."""
+    for fn in fns:
+        fn.launches = 0
+        fn.by_card.clear()
+        if hasattr(fn, "classes"):
+            fn.classes.clear()

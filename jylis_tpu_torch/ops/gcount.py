@@ -25,7 +25,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import planes
+from . import _build, planes
 from .staging import ShardTable
 
 
@@ -113,11 +113,11 @@ def drain_dense(state: GCountState, deltas: torch.Tensor) -> torch.Tensor:
     if state.counts.device.type == "cpu":
         return drain_dense_plain(state, deltas)
     sums = planes.launch_drain_dense((state.counts,), (deltas,))
-    drain_dense.launches += 1
+    _build.count(drain_dense, state.counts.device)
     return sums
 
 
-drain_dense.launches = 0
+_build.counter(drain_dense)
 
 
 def drain_sparse_plain(
@@ -152,8 +152,8 @@ def drain_sparse(
         out = torch.zeros(key_idx.shape[0], dtype=torch.int64, device=table.device)
     if key_idx.shape[0]:
         planes.launch_drain_sparse(table, key_idx, (deltas,), out)
-        drain_sparse.launches += 1
+        _build.count(drain_sparse, table.device)
     return out
 
 
-drain_sparse.launches = 0
+_build.counter(drain_sparse)

@@ -21,7 +21,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import planes
+from . import _build, planes
 from .staging import ShardTable
 
 
@@ -129,11 +129,11 @@ def drain_dense(
     if state.p.device.type == "cpu":
         return drain_dense_plain(state, dp, dn)
     sums = planes.launch_drain_dense(tuple(state), (dp, dn))
-    drain_dense.launches += 1
+    _build.count(drain_dense, state.p.device)
     return sums
 
 
-drain_dense.launches = 0
+_build.counter(drain_dense)
 
 
 def drain_sparse_plain(
@@ -167,8 +167,8 @@ def drain_sparse(
         out = torch.zeros(key_idx.shape[0], dtype=torch.int64, device=table.device)
     if key_idx.shape[0]:
         planes.launch_drain_sparse(table, key_idx, (dp, dn), out)
-        drain_sparse.launches += 1
+        _build.count(drain_sparse, table.device)
     return out
 
 
-drain_sparse.launches = 0
+_build.counter(drain_sparse)

@@ -135,11 +135,11 @@ def join_dense(state: TensorState, deltas: TensorState) -> TensorState:
     if state.val.device.type != "cuda":
         raise ValueError(f"tensor_join_dense: unsupported device {state.val.device}")
     _launch_join_dense(state, deltas)
-    join_dense.launches += 1
+    _build.count(join_dense, state.val.device)
     return state
 
 
-join_dense.launches = 0
+_build.counter(join_dense)
 
 
 def converge_batch_plain(state: TensorState, key_idx, d_val, d_ts_hi,
@@ -207,11 +207,11 @@ def converge_batch(state: TensorState, key_idx, d_val, d_ts_hi, d_ts_lo,
             f"tensor_converge_batch: unsupported device {state.val.device}"
         )
     _launch_converge_batch(state, key_idx, (d_val, d_ts_hi, d_ts_lo, d_rid))
-    converge_batch.launches += 1
+    _build.count(converge_batch, state.val.device)
     return state
 
 
-converge_batch.launches = 0
+_build.counter(converge_batch)
 
 
 def converge_many(state: TensorState, key_idx, d_val, d_ts_hi, d_ts_lo,

@@ -376,13 +376,11 @@ def drain_dense(state: TLogState, d_ts, d_vid, d_cut, trim_ki, counts):
     ovf = torch.empty(k, dtype=torch.bool, device=state.ntl.device)
     kind = _launch("tlog_drain_dense", state, None, d_ts, d_vid, d_cut, cnt,
                    (ovf, None, None))
-    drain_dense.launches += 1
-    drain_dense.classes[kind] = drain_dense.classes.get(kind, 0) + 1
+    _build.count(drain_dense, state.ntl.device, kind)
     return ovf
 
 
-drain_dense.launches = 0
-drain_dense.classes = {}  # launches by drain_plan class
+_build.counter(drain_dense, classes=True)  # .classes: by drain_plan class
 
 
 def drain_sparse(state: TLogState, key_idx, d_ts, d_vid, d_cut, counts):
@@ -399,13 +397,11 @@ def drain_sparse(state: TLogState, key_idx, d_ts, d_vid, d_cut, counts):
             torch.empty(b, dtype=torch.int64, device=dev))
     kind = _launch("tlog_drain_sparse", state, key_idx, d_ts, d_vid, d_cut, counts,
                    outs)
-    drain_sparse.launches += 1
-    drain_sparse.classes[kind] = drain_sparse.classes.get(kind, 0) + 1
+    _build.count(drain_sparse, dev, kind)
     return outs
 
 
-drain_sparse.launches = 0
-drain_sparse.classes = {}  # launches by drain_plan class
+_build.counter(drain_sparse, classes=True)  # .classes: by drain_plan class
 
 
 # ---- the JAX package's entry points -------------------------------------------

@@ -221,11 +221,11 @@ def drain_dense(state: TRegState, d_ts, d_rank, d_vid) -> torch.Tensor:
     if state.vid.device.type == "cpu":
         return drain_dense_plain(state, d_ts, d_rank, d_vid)
     tie = _launch_dense(state, d_ts, d_rank, d_vid)
-    drain_dense.launches += 1
+    _build.count(drain_dense, state.vid.device)
     return tie
 
 
-drain_dense.launches = 0
+_build.counter(drain_dense)
 
 
 def drain_sparse(shards, key_idx, d_ts, d_rank, d_vid, out=None):
@@ -243,11 +243,11 @@ def drain_sparse(shards, key_idx, d_ts, d_rank, d_vid, out=None):
         out = _zeros_out(key_idx.shape[0], table.device)
     if key_idx.shape[0]:
         _launch_sparse(table, key_idx, d_ts, d_rank, d_vid, out)
-        drain_sparse.launches += 1
+        _build.count(drain_sparse, table.device)
     return out
 
 
-drain_sparse.launches = 0
+_build.counter(drain_sparse)
 
 
 # ---- the JAX package's entry points -------------------------------------------

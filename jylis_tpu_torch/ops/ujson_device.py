@@ -395,13 +395,11 @@ def join_rows(a: DocBatch, b: DocBatch, shift: int, a_idx=None,
                 None if scratch is None else scratch.data_ptr(), plan.stride, n,
                 plan.grid, plan.smem, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "ujson_join")
-    join_rows.launches += 1
-    join_rows.classes[plan.kind] = join_rows.classes.get(plan.kind, 0) + 1
+    _build.count(join_rows, dev, plan.kind)
     return out
 
 
-join_rows.launches = 0
-join_rows.classes = {}  # launches by join_plan class
+_build.counter(join_rows, classes=True)  # .classes: by join_plan class
 
 
 # ---- the JAX package's entry points -------------------------------------------

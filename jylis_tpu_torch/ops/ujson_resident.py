@@ -210,13 +210,11 @@ def fold_flat(grid: DocBatch, shift: int) -> DocBatch:
                 plan.stride, k, plan.grid, plan.smem,
                 torch.cuda.current_stream(device).cuda_stream)
     _build.check(rc, "ujson_fold_flat")
-    fold_flat.launches += 1
-    fold_flat.classes[plan.kind] = fold_flat.classes.get(plan.kind, 0) + 1
+    _build.count(fold_flat, device, plan.kind)
     return out
 
 
-fold_flat.launches = 0
-fold_flat.classes = {}  # launches by flat_plan class
+_build.counter(fold_flat, classes=True)  # .classes: by flat_plan class
 
 
 # ---- the fused drains ------------------------------------------------------------

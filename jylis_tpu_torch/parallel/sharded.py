@@ -498,11 +498,11 @@ def replica_join(stack: torch.Tensor) -> torch.Tensor:
         rc = fn(stack.data_ptr(), out.data_ptr(), s, k,
                 torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "replica_join")
-    replica_join.launches += 1
+    _build.count(replica_join, dev)
     return out
 
 
-replica_join.launches = 0
+_build.counter(replica_join)
 
 
 def shard_grid(mesh, x) -> list[list[torch.Tensor]]:

@@ -104,30 +104,59 @@ def timed_drain(name: str, key_count):
     return wrap
 
 
-def kernel_launches() -> dict[str, int]:
-    """This process's launches of each hand-written kernel so far, by
-    the kernel's name (each wrapper counts where it launches; the plain
-    versions count nothing). A node logs them at its clean shutdown, so
-    a process of its own, a lane worker say, leaves its count behind."""
+def kernel_wrappers() -> dict:
+    """Every hand-written kernel's wrapper, by the kernel's name (each
+    counts its launches where it launches: ``.launches`` and the per-card
+    ``.by_card``, ops/_build.py; the plain versions count nothing)."""
     from ..ops import gcount, pncount, tensor, tlog, treg
     from ..ops import ujson_device, ujson_resident
     from ..parallel import replica_join
 
     return {
-        "counter_drain_dense<1>": gcount.drain_dense.launches,
-        "counter_drain_dense<2>": pncount.drain_dense.launches,
-        "counter_drain_sparse<1>": gcount.drain_sparse.launches,
-        "counter_drain_sparse<2>": pncount.drain_sparse.launches,
-        "tensor_join_dense": tensor.join_dense.launches,
-        "tensor_converge_batch": tensor.converge_batch.launches,
-        "treg_drain_dense": treg.drain_dense.launches,
-        "treg_drain_sparse": treg.drain_sparse.launches,
-        "tlog_drain_dense": tlog.drain_dense.launches,
-        "tlog_drain_sparse": tlog.drain_sparse.launches,
-        "ujson_join": ujson_device.join_rows.launches,
-        "ujson_fold_flat": ujson_resident.fold_flat.launches,
-        "replica_join": replica_join.launches,
+        "counter_drain_dense<1>": gcount.drain_dense,
+        "counter_drain_dense<2>": pncount.drain_dense,
+        "counter_drain_sparse<1>": gcount.drain_sparse,
+        "counter_drain_sparse<2>": pncount.drain_sparse,
+        "tensor_join_dense": tensor.join_dense,
+        "tensor_converge_batch": tensor.converge_batch,
+        "treg_drain_dense": treg.drain_dense,
+        "treg_drain_sparse": treg.drain_sparse,
+        "tlog_drain_dense": tlog.drain_dense,
+        "tlog_drain_sparse": tlog.drain_sparse,
+        "ujson_join": ujson_device.join_rows,
+        "ujson_fold_flat": ujson_resident.fold_flat,
+        "replica_join": replica_join,
     }
+
+
+def kernel_launches() -> dict[str, int]:
+    """This process's launches of each hand-written kernel so far, by
+    the kernel's name. A node logs them at its clean shutdown, so a
+    process of its own, a lane worker say, leaves its count behind."""
+    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+
+
+def kernel_launches_by_card() -> dict[str, dict[int, int]]:
+    """The same launches per card: kernel name -> {card index:
+    launches}, a kernel that never launched as {}."""
+    return {name: dict(fn.by_card) for name, fn in kernel_wrappers().items()}
+
+
+def launches_since(before: dict, before_by_card: dict) -> tuple[dict, dict]:
+    """(launches, launches by card) of each kernel that launched since
+    ``before`` / ``before_by_card`` (earlier ``kernel_launches`` and
+    ``kernel_launches_by_card`` reads); the cards as strings, as JSON
+    writes them."""
+    now, now_by_card = kernel_launches(), kernel_launches_by_card()
+    total = {k: n - before.get(k, 0) for k, n in now.items() if n - before.get(k, 0)}
+    by_card = {}
+    for k, cards in now_by_card.items():
+        was = before_by_card.get(k, {})
+        diff = {str(c): n - was.get(c, 0) for c, n in sorted(cards.items())
+                if n - was.get(c, 0)}
+        if diff:
+            by_card[k] = diff
+    return total, by_card
 
 
 def stop_profiling() -> None:

@@ -1209,3 +1209,161 @@ def test_dryrun_multichip_on_one_card(dev):
     # PNCOUNT repos' staged drains once per card: one GET each drains
     assert after[0] - before[0] >= 4 and after[1] - before[1] == 2
     assert after[2] - before[2] >= 4
+
+
+# ---- several cards: a node keys-sharded over every visible card ----------------------
+
+
+def _cards(dev, shards: int = 4) -> list[str]:
+    """``shards`` shards over the visible cards, an equal run on each
+    (one a card on four cards, two a card on two); skips on one card."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"needs two or more GPUs: {n} visible")
+    n = min(n, shards)
+    return [f"cuda:{i * n // shards}" for i in range(shards)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rep", [4, 2])
+def test_join_replica_axis_over_cards_matches_one_card(dev, rep):
+    """(rep, 4 // rep) meshes of distinct cards: every block holds the
+    one-card replica_join of its columns (and numpy's max); the local
+    folds and the leader's fold launch on the cards that hold them."""
+    from jylis_tpu_torch import parallel as tpar
+    from jylis_tpu_torch.ops import _build
+
+    devs = _cards(dev)
+    rng = np.random.default_rng(rep)
+    s, k = 64, 4096
+    states = _u64(rng, (s, k))
+    states[:, 0] = 0
+    states[-1, 1] = (1 << 64) - 1
+    states[:, 2] = 1 << 63
+    x = planes.to_tensor(states, "cuda:0")
+    want = tpar.replica_join(x).cpu()
+    np.testing.assert_array_equal(planes.to_u64_np(want), states.max(axis=0))
+    mesh = tpar.make_mesh(4, rep=rep, devices=devs)
+    blocks = tpar.shard_grid(mesh, x)
+    _build.reset(tpar.replica_join)
+    out = tpar.join_replica_axis(mesh, blocks)
+    nk = 4 // rep
+    for r in range(rep):
+        for c in range(nk):
+            assert out[r][c].device == blocks[r][c].device
+            assert torch.equal(out[r][c].cpu(), want[c * k // nk:(c + 1) * k // nk].expand(
+                s // rep, -1))
+    assert tpar.replica_join.launches == rep * nk + nk
+    assert set(tpar.replica_join.by_card) == {torch.device(d).index for d in devs}
+
+
+def _node_script(n_keys: int):
+    """Local writes of every plane-backed type over ``n_keys`` keys, and
+    reads of each."""
+    cmds = []
+    for i in range(n_keys):
+        k = b"k%d" % i
+        cmds += [[b"GCOUNT", b"INC", k, b"%d" % (i + 1)], [b"PNCOUNT", b"DEC", k, b"3"],
+                 [b"TREG", b"SET", k, b"v%d" % (i % 7), b"%d" % (i % 5)],
+                 [b"TLOG", b"INS", k, b"e%d" % (i % 3), b"%d" % i]]
+    for i in range(0, n_keys, 3):
+        k = b"k%d" % i
+        cmds += [[b"GCOUNT", b"GET", k], [b"PNCOUNT", b"GET", k], [b"TREG", b"GET", k],
+                 [b"TLOG", b"GET", k]]
+    return cmds
+
+
+def _fed_database(device, mesh, n_keys: int = 3500):
+    from jylis_tpu_torch.models.database import Database
+    from jylis_tpu_torch.server.resp import Respond
+
+    db = Database(7, device=device, mesh=mesh)
+    out = bytearray()
+    for cmd in _node_script(n_keys):
+        db.apply(Respond(out.extend), cmd)
+    for name, delta in (("GCOUNT", {9: (1 << 64) - 1}), ("PNCOUNT", ({9: 1 << 63}, {8: 5})),
+                        ("TREG", (b"foreign", 1 << 63))):
+        db.converge(name, [(b"k%d" % i, delta) for i in range(0, n_keys, 2)])
+    db.drain_all()
+    return db, bytes(out)
+
+
+def _digest(db) -> bytes:
+    from jylis_tpu_torch.server.resp import Respond
+
+    out = bytearray()
+    db.apply(Respond(out.extend), [b"SYSTEM", b"DIGEST", b"TYPES"])
+    return bytes(out)
+
+
+@pytest.mark.cuda
+def test_a_database_over_every_card_matches_the_cpu(dev):
+    """A Database keys-sharded over the cards (its keyspaces grow from
+    1,024 rows to 4,096 over them; 3,500 keys reach the last of four
+    1,024-row blocks) gives the CPU Database's replies, dumps and
+    digest, and drains every counter type, TREG and TLOG on every
+    card."""
+    from jylis_tpu_torch import parallel as tpar
+    from jylis_tpu_torch.ops import _build
+    from jylis_tpu_torch.utils import metrics
+
+    devs = _cards(dev)
+    wrappers = metrics.kernel_wrappers()
+    _build.reset(*wrappers.values())
+    cards, got = _fed_database("cuda", tpar.make_mesh(4, devices=devs))
+    cpu, want = _fed_database("cpu", None)
+    assert got == want
+    for name in ("GCOUNT", "PNCOUNT", "TREG", "TLOG"):
+        repo = cards.manager(name).repo
+        assert len(repo._ks.parts) == 4 and repo._key_cap == 4096
+        assert repo.dump_state() == cpu.manager(name).repo.dump_state(), name
+    assert _digest(cards) == _digest(cpu)
+    every = {torch.device(d).index for d in devs}
+    for name in ("counter_drain_sparse<1>", "counter_drain_sparse<2>", "treg_drain_sparse",
+                 "tlog_drain_sparse"):
+        fn = wrappers[name]
+        assert set(fn.by_card) == every and sum(fn.by_card.values()) == fn.launches, name
+
+
+@pytest.mark.cuda
+def test_a_snapshot_moves_between_one_card_and_every_card(dev, tmp_path):
+    """Written keys-sharded over the cards, restored on cuda:1 alone;
+    written there, restored over every card: one digest throughout."""
+    from jylis_tpu_torch import parallel as tpar
+    from jylis_tpu_torch import persist
+    from jylis_tpu_torch.models.database import Database
+
+    devs = _cards(dev)
+    src, _ = _fed_database("cuda", tpar.make_mesh(4, devices=devs), 1500)
+    want = _digest(src)
+    persist.save_snapshot(src, str(tmp_path / "cards.jylis"))
+    one = Database(7, device="cuda:1")
+    assert one.mesh is None
+    persist.load_snapshot(one, str(tmp_path / "cards.jylis"))
+    assert _digest(one) == want
+    assert one.manager("GCOUNT").repo._ks.parts[0].counts.device == torch.device("cuda:1")
+    persist.save_snapshot(one, str(tmp_path / "one.jylis"))
+    back = Database(7, device="cuda", mesh=tpar.make_mesh(4, devices=devs))
+    persist.load_snapshot(back, str(tmp_path / "one.jylis"))
+    assert _digest(back) == want
+
+
+@pytest.mark.cuda
+def test_warmup_on_every_card_launches_each_library_there(dev):
+    """A bare ``cuda`` on several cards: warmup's Database takes the
+    serving mesh, and the sparse drains and both UJSON kernels launch
+    on every card before a node would listen."""
+    from jylis_tpu_torch.models import database
+    from jylis_tpu_torch.ops import _build
+    from jylis_tpu_torch.parallel import serving_mesh
+    from jylis_tpu_torch.utils import metrics
+
+    _cards(dev)
+    every = set(range(torch.cuda.device_count()))
+    assert {d.index for d in serving_mesh().keys_devices} == every
+    wrappers = metrics.kernel_wrappers()
+    _build.reset(*wrappers.values())
+    database.warmup("cuda")
+    for name in ("counter_drain_sparse<1>", "counter_drain_sparse<2>", "treg_drain_sparse",
+                 "tlog_drain_sparse", "ujson_join", "ujson_fold_flat"):
+        assert set(wrappers[name].by_card) == every, (name, wrappers[name].by_card)
