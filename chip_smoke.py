@@ -17,7 +17,12 @@ library's path, its build seconds, the compiler's version); then:
    and B = 512 (400 live rows) sparse, and at the north-star size: the
    dense drains at K = 1,048,576 x R = 64, the sparse drains at the same
    K and R with B = 1024 (the batch of __graft_entry__.entry()) and
-   B = 65,536. The TENSOR dense join runs at N = 1,000,000 x D = 64.
+   B = 65,536. The dense drains take a compact batch of B = K / 4, K / 2
+   and K unsorted unique rows (row K - 1 among them) and walk every row
+   through a slot map; each is held on the state, every row's sum and the
+   slots' sums, the map clean after, and timed with its whole-plane
+   bound beside its own. The TENSOR dense join runs at N = 1,000,000 x
+   D = 64.
    Each kernel is held bit for bit against its plain PyTorch version on
    the same inputs (tolerance 0: integer lattices), then both are timed
    with CUDA events, and the kernel's own device time is read from a
@@ -36,10 +41,11 @@ library's path, its build seconds, the compiler's version); then:
    during this phase, the state must be on cuda, and its shape must be
    the one the kernel phases checked;
 4. the TREG and gathered TENSOR kernel phases (run with 1. and 2.):
-   treg_drain_dense at K = 1,048,576 and treg_drain_sparse at B = 8,192
-   (5,000 live) and B = 65,536; tensor_converge_batch at the TENSOR node
-   phase's first drain (N = B = 131,072 x D = 64, 130,000 live rows)
-   and at N = 1,000,000 x D = 64 with B = 65,536. Each is held bit for
+   treg_drain_dense at K = 1,048,576 with B = K / 4, K / 2 and K staged
+   keys and treg_drain_sparse at B = 8,192 (5,000 live) and B = 65,536;
+   tensor_converge_batch at the TENSOR node phase's first drain
+   (N = B = 131,072 x D = 64, 130,000 live rows) and at
+   N = 1,000,000 x D = 64 with B = 65,536. Each is held bit for
    bit against its plain version (ts and ranks >= 2^63, prefix ties,
    unset registers, pads, NaN bits, both zeros, equal ts under other
    rids) and timed on a fresh copy of its inputs per call;
@@ -137,6 +143,14 @@ library's path, its build seconds, the compiler's version); then:
    CUDA-event clock with the new launch's device time, the kernel's
    bound and the call's bound (the kernel's plus the staged bytes at
    the measured pinned rates; TREG also its layout's sector bound);
+   then the dense drains through the same staged call on one device
+   (the "dense_call ..." lines): the counters at K = 131,072 x R = 16
+   with B = K / 4 and K and at 1,048,576 x 64 with B = K / 4 (cut into
+   staged calls past a Stage, each one walk), TREG at K = 1,048,576 with
+   B = K / 4 and K, each bit for bit against the same call with the
+   plain step and timed from host batch to host results beside the
+   kernel's bound and the call's; the parent's whole-plane call is
+   timed by scripts/dense_drain_profile.py --root;
 13. the mesh node phase: a Database on the mesh and a single-device
    one fed the same RESP script and delta stream (config 2's counters
    and TREG keys with prefix ties, each at MESH_NODE_KEYS = 50,000 keys,
@@ -484,33 +498,119 @@ def _clone(st):
     return type(st)(*(x.clone() for x in st))
 
 
-def dense_case(torch, mod, state, deltas, card: str) -> dict:
-    """counter_drain_dense at ``state``'s shape: bit for bit against the
-    plain version, then timed."""
+def dense_batches(k: int) -> tuple:
+    """The dense drains' batch sizes at ``k`` keys: the least the repos
+    drain dense (K / DENSE_FRACTION), K / 2 and every row."""
+    return (k // 4, k // 2, k)
+
+
+def dense_rows_np(rng, k: int, b: int) -> np.ndarray:
+    """``b`` unique rows of ``k`` in no order, row k - 1 among them."""
+    rows = rng.permutation(k)[:b].astype(np.int32)
+    if k - 1 not in rows:
+        rows[0] = k - 1
+    return rows
+
+
+def dense_counter_bytes(np_: int, k: int, r: int, b: int) -> tuple:
+    """(this design's, the whole-plane design's) bytes of a counter dense
+    drain, each input byte read once and each output byte written once:
+    the state and the map read, every row's sum written, and per slot its
+    row, its delta row read, its state row written and its sum; the
+    earlier drain read a delta plane as large as the state and wrote the
+    whole state back."""
+    new = np_ * k * r * 8 + 4 * k + 8 * k + b * (4 + 2 * np_ * r * 8 + 8)
+    return new, np_ * k * r * 8 * 3 + k * 8
+
+
+def call_device_ms(torch, fn, kernels, calls: int = 5) -> dict:
+    """Device ms a call of ``fn`` spends in each kernel whose name holds
+    one of ``kernels`` (their sum under "total"), from one
+    torch.profiler (CUPTI) trace of ``calls`` calls; up to 3 traces when
+    one comes back without a kernel's records, None for a kernel never
+    seen."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    got = {}
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        got = {k: 0.0 for k in kernels}
+        seen = set()
+        for ev in prof.key_averages():
+            for k in kernels:
+                if k in ev.key and ev.count:
+                    got[k] += ev.device_time_total / calls / 1e3
+                    seen.add(k)
+        if len(seen) == len(kernels):
+            break
+    else:
+        got = {k: (v if k in seen else None) for k, v in got.items()}
+    got["total"] = (None if any(v is None for v in got.values())
+                    else sum(got.values()))
+    return got
+
+
+def launch_host_ms(torch, fn, calls: int = 50) -> float:
+    """Host ms a call of ``fn`` takes to return, over ``calls`` calls
+    back to back with no wait in between (the wrapper's checks and the
+    launches' enqueue; the card runs behind), after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = (time.perf_counter() - t0) * 1e3 / calls
+    torch.cuda.synchronize()
+    return t
+
+
+def dense_case(torch, mod, state, rng, b: int, card: str) -> dict:
+    """counter_drain_dense on a staged compact batch of ``b`` unsorted
+    unique rows (K - 1 among them) of ``state``: bit for bit against the
+    plain version (the state, every row's sum, the slots' sums) with the
+    slot map clean after, then timed: CUDA events a call (the parent's
+    clock for this row), the device time of the walk and the scatter."""
+    from jylis_tpu_torch.ops import planes
+    from jylis_tpu_torch.ops.staging import DensePlan
+
     np_ = len(state)
     k, r = state[0].shape
-    sk, sp = _clone(state), _clone(state)
+    dev = state[0].device
+    ki = torch.from_numpy(dense_rows_np(rng, k, b)).to(dev)
+    deltas = [planes.to_tensor(u64_np(rng, (b, r)), dev) for _ in range(np_)]
+    pk, pp = DensePlan(_clone(state)), DensePlan(_clone(state))
     l0 = mod.drain_dense.launches
-    sums_k = mod.drain_dense(sk, *deltas)
-    sums_p = mod.drain_dense_plain(sp, *deltas)
+    full_k, out_k = mod.drain_dense(pk, ki, *deltas)
+    full_p, out_p = mod.drain_dense_plain(pp, ki, *deltas)
     torch.cuda.synchronize()
-    err = max_abs_err(torch, [(sums_k, sums_p), *zip(sk, sp)])
+    err = max_abs_err(torch, [(full_k, full_p), (out_k, out_p), *zip(pk.state, pp.state)])
     name = f"counter_drain_dense<{np_}>"
-    if err:
-        raise AssertionError(f"{name} K={k} R={r}: kernel != plain ({err})")
-    ms = time_ms(torch, lambda: mod.drain_dense(sk, *deltas))
-    dev_ms = device_ms(
-        torch, lambda: mod.drain_dense(sk, *deltas), "counter_drain_dense"
-    )
-    plain_ms = time_ms(torch, lambda: mod.drain_dense_plain(sp, *deltas))
-    nbytes = np_ * k * r * 8 * 3 + k * 8
-    b_ms, b_by = bound(nbytes, np_ * k * r * OPS_PER_COUNTER, card)
+    clean = bool((pk.slots.map == -1).all().item())
+    if err or not clean:
+        raise AssertionError(f"{name} K={k} R={r} B={b}: kernel != plain ({err}), "
+                             f"slot map clean {clean}")
+    call = lambda: mod.drain_dense(pk, ki, *deltas, out_k)  # noqa: E731
+    ms = time_ms(torch, call)
+    dev_ms = call_device_ms(torch, call, ("counter_drain_dense", "scatter_slots"))
+    launch_ms = launch_host_ms(torch, call)
+    plain_ms = time_ms(torch, lambda: mod.drain_dense_plain(pp, ki, *deltas, out_p))
+    nbytes, old_bytes = dense_counter_bytes(np_, k, r, b)
+    b_ms, b_by = bound(nbytes, np_ * (k + b) * r, card)
     row = dict(
-        shape=f"K={k} R={r}", max_abs_err=err, kernel_ms=ms,
-        device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-        bytes=nbytes, launches=mod.drain_dense.launches - l0,
+        shape=f"K={k} R={r} B={b}", max_abs_err=err, kernel_ms=ms,
+        device_ms=dev_ms["total"], walk_device_ms=dev_ms["counter_drain_dense"],
+        scatter_device_ms=dev_ms["scatter_slots"], launch_host_ms=launch_ms,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+        old_bound_ms=bound(old_bytes, np_ * k * r * OPS_PER_COUNTER, card)[0],
+        old_bytes=old_bytes, launches=mod.drain_dense.launches - l0,
     )
     emit({"phase": name, **row, "card": card})
+    del pk, pp, deltas
     return row
 
 
@@ -559,7 +659,9 @@ def sparse_case(torch, mod, state, rng, b: int, live: int, card: str) -> dict:
 def counter_phases(torch, card: str) -> dict:
     """Every counter drain at the shapes the node phase gives it (the
     row kept for the kernels line) and at the north-star size (kept
-    under "north_star"), plus the sparse drains at B = 65,536."""
+    under "north_star"), plus the sparse drains at B = 65,536. The dense
+    drains take staged batches of B = K / 4 (the row kept), K / 2 and K
+    (under "other_shapes")."""
     from jylis_tpu_torch.ops import gcount, planes, pncount
 
     rng = np.random.default_rng(SEED)
@@ -571,22 +673,23 @@ def counter_phases(torch, card: str) -> dict:
             st = mod.GCountState if np_ == 1 else mod.PNCountState
             state = st(*(planes.to_tensor(u64_np(rng, (k, r)), dev)
                          for _ in range(np_)))
-            deltas = [planes.to_tensor(u64_np(rng, (k, r)), dev)
-                      for _ in range(np_)]
-            drow = dense_case(torch, mod, state, deltas, card)
+            drow, *more = [dense_case(torch, mod, state, rng, b, card)
+                           for b in dense_batches(k)]
             if k == K_NODE:
                 results[dname] = drow
+                drow["other_shapes"] = more
                 results[sname] = sparse_case(
                     torch, mod, state, rng, B_NODE, NODE_MORE, card
                 )
             else:
                 results[dname]["north_star"] = drow
+                results[dname]["other_shapes"] += more
                 results[sname]["north_star"] = sparse_case(
                     torch, mod, state, rng, B_ENTRY, B_ENTRY - B_ENTRY // 16, card
                 )
                 sparse_case(torch, mod, state, rng, B_LARGE,
                             B_LARGE - B_LARGE // 16, card)
-            del state, deltas
+            del state
             torch.cuda.empty_cache()
     return results
 
@@ -756,10 +859,66 @@ def restorer(state, pristine):
     return go
 
 
+def treg_dense_bytes(k: int, b: int, wins: int) -> tuple:
+    """(this design's, the whole-plane design's) bytes of a TREG dense
+    drain: the tie flag written a key; a slot's row, delta, state and
+    outputs (4 + 20 + 20 + 13 B); 20 B of state written a win. The
+    earlier drain read the state and a delta a key."""
+    return k + b * 57 + wins * 20, k * 41 + wins * 20
+
+
+def treg_dense_case(torch, rng, st_np, st0, b: int, card: str) -> dict:
+    """treg_drain_dense on a staged compact batch of ``b`` unsorted
+    unique keys (K - 1 among them; a third tie their row): bit for bit
+    against the plain version (the state, every key's tie flag, the
+    slots' (tie, ts, vid)), then timed on a fresh copy of the state per
+    call: CUDA events, the device time of the slots' pass and the
+    clear."""
+    from jylis_tpu_torch.ops import treg
+    from jylis_tpu_torch.ops.staging import DensePlan
+
+    dev = st0.vid.device
+    k = st0.vid.shape[0]
+    rows = dense_rows_np(rng, k, b)
+    d = treg_tensors(torch, treg_deltas(rng, st_np, rows.astype(np.int64)), dev)
+    ki = torch.from_numpy(rows).to(dev)
+    pk, pp = DensePlan(_clone(st0)), DensePlan(_clone(st0))
+    l0 = treg.drain_dense.launches
+    tie_k, out_k = treg.drain_dense(pk, ki, *d)
+    tie_p, out_p = treg.drain_dense_plain(pp, ki, *d)
+    torch.cuda.synchronize()
+    err = max_abs_err(torch, [(tie_k, tie_p), *zip(out_k, out_p), *zip(pk.state, pp.state)])
+    ties = int(tie_k.sum().item())
+    wins = changed(torch, st0, pk.state)
+    if err or not ties or not wins:
+        raise AssertionError(f"treg_drain_dense B={b}: err {err}, ties {ties}, wins {wins}")
+    reset = restorer(pk.state, st0)
+    call = lambda: treg.drain_dense(pk, ki, *d, out_k)  # noqa: E731
+    ms = time_ms(torch, call, reset=reset)
+    dev_ms = call_device_ms(torch, lambda: (reset(), call()),
+                            ("treg_drain_dense", "treg_dense_clear"))
+    launch_ms = launch_host_ms(torch, call)
+    plain_ms = time_ms(torch, lambda: treg.drain_dense_plain(pp, ki, *d, out_p),
+                       reset=restorer(pp.state, st0))
+    nbytes, old_bytes = treg_dense_bytes(k, b, wins)
+    b_ms, b_by = bound(nbytes, b * OPS_PER_REGISTER, card)
+    row = dict(shape=f"K={k} B={b}", max_abs_err=err, kernel_ms=ms,
+               device_ms=dev_ms["total"], slots_device_ms=dev_ms["treg_drain_dense"],
+               clear_device_ms=dev_ms["treg_dense_clear"], launch_host_ms=launch_ms,
+               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+               old_bound_ms=bound(old_bytes, k * OPS_PER_REGISTER, card)[0],
+               old_bytes=old_bytes, wins=wins, ties=ties,
+               launches=treg.drain_dense.launches - l0)
+    emit({"phase": "treg_drain_dense", **row, "card": card})
+    del pk, pp, d
+    return row
+
+
 def treg_phases(torch, card: str) -> dict:
-    """treg_drain_dense at K = 1,048,576 and treg_drain_sparse at
-    B = 8,192 (5,000 live) and B = 65,536, on the keyspace the TREG node
-    phase gives them: each bit for bit against its plain version, then
+    """treg_drain_dense at K = 1,048,576 with staged batches of B = K / 4
+    (the row kept), K / 2 and K, and treg_drain_sparse at B = 8,192
+    (5,000 live) and B = 65,536, on the keyspace the TREG node phase
+    gives them: each bit for bit against its plain version, then
     timed."""
     from jylis_tpu_torch.ops import treg
     from jylis_tpu_torch.utils.batching import pad_rows
@@ -771,31 +930,12 @@ def treg_phases(torch, card: str) -> dict:
     sk, sp = _clone(st0), _clone(st0)
     out = {}
 
-    d = treg_tensors(torch, treg_deltas(rng, st_np, np.arange(K_TREG)), dev)
-    l0 = treg.drain_dense.launches
-    tie_k = treg.drain_dense(sk, *d)
-    tie_p = treg.drain_dense_plain(sp, *d)
-    torch.cuda.synchronize()
-    err = max_abs_err(torch, [(tie_k, tie_p), *zip(sk, sp)])
-    ties = int(tie_k.sum().item())
-    wins = changed(torch, st0, sk)
-    if err or not ties or not wins:
-        raise AssertionError(f"treg_drain_dense: err {err}, ties {ties}, wins {wins}")
-    ms = time_ms(torch, lambda: treg.drain_dense(sk, *d), reset=restorer(sk, st0))
-    dev_ms = device_ms(
-        torch, lambda: (restorer(sk, st0)(), treg.drain_dense(sk, *d)),
-        "treg_drain_dense")
-    plain_ms = time_ms(torch, lambda: treg.drain_dense_plain(sp, *d),
-                       reset=restorer(sp, st0))
-    # state and delta read, tie written, the state written where B wins
-    nbytes = K_TREG * (20 + 20 + 1) + wins * 20
-    b_ms, b_by = bound(nbytes, K_TREG * OPS_PER_REGISTER, card)
-    row = dict(shape=f"K={K_TREG}", max_abs_err=err, kernel_ms=ms,
-               device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
-               bound_by=b_by, bytes=nbytes, wins=wins, ties=ties,
-               launches=treg.drain_dense.launches - l0)
-    emit({"phase": "treg_drain_dense", **row, "card": card})
-    out["treg_drain_dense"] = row
+    for b in dense_batches(K_TREG):
+        row = treg_dense_case(torch, rng, st_np, st0, b, card)
+        if "treg_drain_dense" in out:
+            out["treg_drain_dense"].setdefault("other_shapes", []).append(row)
+        else:
+            out["treg_drain_dense"] = row
 
     for b, live in ((B_TREG_NODE, TREG_NEW), (B_LARGE, B_LARGE - B_LARGE // 16)):
         ki = pad_rows(b)
@@ -3690,14 +3830,21 @@ def _turns(torch, old, new, reset_old=None, reset_new=None):
 
 def _fill_ms(ks, rows, fill, fields) -> float:
     """Host ms of writing the batch into one card's pinned staging (the
-    part of a new call that the old path spends building its planes)."""
+    part of a new call that the old path spends building its planes),
+    in rounds of one Stage each when it overflows one."""
+    from jylis_tpu_torch.ops import staging
+
     stage = ks.stages[0]
+    fields = [(np.int32, ()), *fields]
+    width = staging.max_slots(fields)
     runs = []
     for _ in range(TIMED_RUNS):
         t0 = time.perf_counter()
-        views = stage.host_in(len(rows), [(np.int32, ()), *fields])
-        views[0][...] = rows
-        fill(views[1:], slice(None))
+        for lo in range(0, len(rows), width):
+            sel = slice(lo, min(lo + width, len(rows)))
+            views = stage.host_in(sel.stop - sel.start, fields)
+            views[0][...] = rows[sel]
+            fill(views[1:], sel)
         runs.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(runs)
 
@@ -3966,6 +4113,116 @@ def treg_call_cases(torch, card: str, devs, xfer) -> dict:
     del st
     torch.cuda.empty_cache()
     return {"treg_drain_sparse": rows_out}
+
+
+def dense_call_cases(torch, card: str, xfer) -> dict:
+    """The dense drains through the repos' staged call on one device
+    (parallel.drain_unrouted_* with dense=True: one pinned copy of the
+    compact batch to the card, the kernel's two launches (the counters'
+    scatter and walk, TREG's clear and slot pass), one copy of the slots'
+    outputs back) from a host batch to host results: the counters
+    at the node's K = 131,072 x R = 16 with B = K / 4 and K and at
+    K = 1,048,576 x R = 64 with B = K / 4, TREG at K = 1,048,576 with
+    B = K / 4 and K. Each bit for bit against the same call with the
+    plain step on a second keyspace on the card (slot outputs and
+    states), then timed on the CUDA-event clock (TREG on a fresh copy of
+    its state a call), beside the kernel's bound and the call's bound
+    (the kernel's plus the staged bytes at the measured pinned rates).
+    The whole-plane path these replace is gone from this tree: its call
+    times come from scripts/dense_drain_profile.py --root on the parent
+    commit."""
+    from jylis_tpu_torch import parallel as par
+    from jylis_tpu_torch.ops import gcount, pncount, staging, treg
+
+    rng = np.random.default_rng(SEED + 97)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 97)
+    out = {}
+
+    def rounds(b, fields):
+        """The slots of each staged call a dense drain of ``b`` slots
+        makes: a batch past one Stage is cut, each call one dense
+        drain."""
+        width = staging.max_slots([(np.int32, ()), *fields])
+        return [min(width, b - lo) for lo in range(0, b, width)]
+
+    def case(name, shape, call, ks, ks_plain, rows, fill, fields, outs, kbytes, wrapper,
+             plain_step, reset=None):
+        """``call(ks, step)``: the staged dense call on ``ks``, the
+        wrapper's step when ``step`` is None; ``kbytes`` the kernel's
+        bytes over every staged call."""
+        calls = len(rounds(len(rows), fields))
+        counts = (staging.Stage.uploads, wrapper.launches)
+        got = call(ks, None)
+        made = (staging.Stage.uploads - counts[0], wrapper.launches - counts[1])
+        if made != (calls, calls if DEVICE == "cuda" else 0):
+            raise AssertionError(f"{name} dense call: {made} staged copies and launches, "
+                                 f"not {calls} each")
+        plain = call(ks_plain, plain_step)
+        torch.cuda.synchronize()
+        t = torch.from_numpy
+        err = max_abs_err(torch, [(t(a), t(b)) for a, b in zip(got, plain)]
+                          + list(zip(ks.parts[0], ks_plain.parts[0])))
+        if err or not (ks.slots is None or bool((ks.slots.map == -1).all().item())):
+            raise AssertionError(f"{name} dense call: outputs or states differ ({err})")
+        ms = time_ms(torch, lambda: call(ks, None), reset=reset)
+        k_ms, k_by = bound(kbytes, 0, card)
+        in_b = staging.layout(len(rows), [(np.int32, ()), *fields])[1]
+        out_b = staging.layout(len(rows), outs)[1]
+        row = dict(shape=shape, new_call_ms=ms, staged_calls=calls,
+                   bound_ms=k_ms, bound_by=k_by,
+                   bytes=kbytes, staged_bytes=in_b + out_b,
+                   call_bound_ms=(k_ms + in_b / xfer["h2d_pinned_bytes_per_s"] * 1e3
+                                  + out_b / xfer["d2h_pinned_bytes_per_s"] * 1e3),
+                   max_abs_err=err, fill_ms=_fill_ms(ks, rows, fill, fields),
+                   **_staging_bytes(ks))
+        emit({"phase": f"dense_call {name}", **row, "card": card})
+        out.setdefault(name, []).append(row)
+        return got
+
+    for npl, mod, unrouted in ((1, gcount, par.drain_unrouted_g),
+                               (2, pncount, par.drain_unrouted_pn)):
+        name = f"counter_drain_dense<{npl}>"
+        for k, r, batches in ((K_NODE, R_NODE, (K_NODE // 4, K_NODE)),
+                              (K_COUNTER, R_COUNTER, (K_COUNTER // 4,))):
+            st = mod.GCountState(_rand64(torch, (k, r), gen)) if npl == 1 else \
+                mod.PNCountState(_rand64(torch, (k, r), gen), _rand64(torch, (k, r), gen))
+            for b in batches:
+                ks, ks_plain = _keyspaces(par, None, st, 2)
+                rows = dense_rows_np(rng, k, b).astype(np.int64)
+                fill = par.fill_from(*(u64_np(rng, (b, r)) for _ in range(npl)))
+                case(name, f"K={k} R={r} B={b}",
+                     lambda ks, step, rows=rows, fill=fill, unrouted=unrouted:
+                     (unrouted(ks, rows, fill, step, dense=True),),
+                     ks, ks_plain, rows, fill, [(np.uint64, (r,))] * npl, [(np.int64, ())],
+                     sum(dense_counter_bytes(npl, k, r, m)[0]
+                         for m in rounds(b, [(np.uint64, (r,))] * npl)),
+                     mod.drain_dense, mod.drain_dense_plain)
+                del ks, ks_plain
+            del st
+            torch.cuda.empty_cache()
+    st_np = treg_planes(rng, K_TREG)
+    st = treg.TRegState(*treg_tensors(torch, st_np, DEVICE))
+    for b in (K_TREG // 4, K_TREG):
+        ks, ks_plain = _keyspaces(par, None, st, 2)
+        rows = dense_rows_np(rng, K_TREG, b).astype(np.int64)
+        fill = par.fill_from(*treg_deltas(rng, st_np, rows))
+        # the wins this batch makes, for the bound: a plain call, undone
+        par.drain_unrouted_treg(ks_plain, rows, fill, treg.drain_dense_plain, dense=True)
+        wins = changed(torch, st, ks_plain.parts[0])
+        restorer(ks_plain.parts[0], st)()
+        got = case("treg_drain_dense", f"K={K_TREG} B={b}",
+                   lambda ks, step, rows=rows, fill=fill:
+                   par.drain_unrouted_treg(ks, rows, fill, step, dense=True),
+                   ks, ks_plain, rows, fill, [(np.uint64, ()), (np.uint64, ()), (np.int32, ())],
+                   [(np.bool_, ()), (np.int64, ()), (np.int32, ())],
+                   treg_dense_bytes(K_TREG, b, wins)[0], treg.drain_dense,
+                   treg.drain_dense_plain, reset=restorer(ks.parts[0], st))
+        out["treg_drain_dense"][-1].update(wins=wins, ties=int(got[0].sum()))
+        del ks, ks_plain
+    del st
+    torch.cuda.empty_cache()
+    return out
 
 
 def mesh_node_script(rng, writers=None, n_keys=None):
@@ -5300,6 +5557,7 @@ LANES_SHED = 4  # admission.shed's budget in lane 1: its first SYSTEM METRICS, t
 # the drain kernels each lane must launch: a counter drain of each type
 LANES_PATH = (("counter_drain_dense<1>", "counter_drain_sparse<1>"),
               ("counter_drain_dense<2>", "counter_drain_sparse<2>"))
+_LANE_DIED = re.compile(r"lane (\d+) died \(rc (-?\d+|None)\)")
 _LANE_UP = re.compile(r"serving lane (\d+)/\d+ \(pid (\d+)\) .* device ([^,\s]+)(?:, (Mesh.*))?")
 _LANE_LAUNCHES = re.compile(
     r"kernel launches since warmup \(pid (\d+)\): (\{[^{}]*\})(?:; by card: (\{.*\}))?")
@@ -5339,6 +5597,7 @@ class LanesNode:
         self.addr = ("127.0.0.1", str(cport), "lanes")
         self.log_path = os.path.join(root, "lanes.log")
         self._log = open(self.log_path, "w")
+        self.dropped = []  # connections a lane accepted and closed in connect
         argv = [sys.executable, "-m", "jylis_tpu_torch", "--port", str(self.port),
                 "--addr", ":".join(self.addr), "--lanes", str(LANES), "--data-dir", self.data,
                 "--metrics-port", str(self.mport), "--heartbeat-time", str(LANES_TICK)]
@@ -5381,10 +5640,19 @@ class LanesNode:
                     raise AssertionError(f"lanes phase: no connection reached lane {want}")
                 try:
                     c = Client(self.port)
-                except OSError:
+                except ConnectionRefusedError:  # no lane listening yet
                     time.sleep(0.2)
                     continue
-                lane = lane_of_reply(c.pipeline([("SYSTEM", "METRICS")])[0])
+                try:
+                    lane = lane_of_reply(c.pipeline([("SYSTEM", "METRICS")])[0])
+                except OSError as e:
+                    # a lane accepted the connection and closed it: counted
+                    # here, and the phase fails on it (and on any lane death
+                    # it did not cause) once the lanes line is out
+                    c.close()
+                    self.dropped.append(f"{type(e).__name__}: {e}")
+                    time.sleep(0.2)
+                    continue
                 if lane == 1 and drill is not None and not drill:
                     drill.update(admission_drill(c))
                 if lane == want:
@@ -5733,10 +6001,18 @@ def lanes_phase(torch, l_device=None) -> dict:
                        for n in set(by_lane[0]) | set(by_lane[1])}
     out["respawned_device"] = {int(pid): dev for _, pid, dev, _ in _LANE_UP.findall(text)}.get(
         respawned)
+    # the supervisor logs each lane death; the phase caused one, lane 1's
+    # SIGKILL (rc -9)
+    out["lane_deaths"] = _LANE_DIED.findall(text)
+    out["connect_drops"] = node.dropped if node is not None else []
     out["phase_s"] = time.perf_counter() - t_phase
     emit({"phase": "lanes", **out})
     if rc != 0:
         raise AssertionError(f"lanes phase: the supervisor exited {rc}")
+    if out["lane_deaths"] != [("1", "-9")] or out["connect_drops"]:
+        raise AssertionError(f"lanes phase: lane deaths {out['lane_deaths']} (the phase "
+                             f"killed lane 1 once), connections a lane dropped "
+                             f"{out['connect_drops']}")
     if len(launched) < LANES:
         raise AssertionError(f"lanes phase: the lanes logged launches {launched}")
     if l_device is None:
@@ -5910,6 +6186,7 @@ def main() -> int:
     xfer = transfer_phase(torch)
     calls = counter_call_cases(torch, card, devs, xfer)
     calls.update(treg_call_cases(torch, card, devs, xfer))
+    calls.update(dense_call_cases(torch, card, xfer))
     # the main paths, each with its launch counts set to 0 just before it
     node = node_phase(torch)
     treg_node = treg_node_phase(torch)
@@ -5933,7 +6210,8 @@ def main() -> int:
     # replica_join's main path is the dryrun (no serving repo runs it)
     launches.update({n: dryrun_launches.get(n, 0) for n in DRYRUN_PATH})
     routes["ujson_join"] = routes["ujson_fold_flat"] = routes.pop("ujson_aligned")
-    timing = ("shape", "class", "kernel_ms", "device_ms", "plain_ms", "bound_ms")
+    timing = ("shape", "class", "kernel_ms", "device_ms", "plain_ms", "bound_ms",
+              "old_bound_ms", "launch_host_ms")
     kernels = []
     for kname, (source, replaces) in KERNELS.items():
         r = rows[kname]

@@ -72,7 +72,7 @@ import sys
 from .obs import jtrace
 from .obs.prom import MetricsHTTP
 from .utils.address import Address, fnv1a64
-from .utils.net import free_port
+from .utils.net import free_port, listen_port
 
 # env var: "<lane>:<failpoint spec>;<lane>:<spec>" — the supervisor
 # merges each lane's spec into that CHILD's JYLIS_FAILPOINTS env (the
@@ -249,12 +249,14 @@ class Supervisor:
         self.log = config.log
         self.n = config.lanes
         self.resp_port = int(config.port) or free_port()
-        self.bus_ports = [free_port() for _ in range(self.n)]
-        self.metrics_ports = (
-            [free_port() for _ in range(self.n)]
-            if config.metrics_port
-            else [0] * self.n
-        )
+        # a lane binds its bus and metrics ports again when it respawns:
+        # ports below the ephemeral range, which no outgoing connection
+        # can take while the lane is down
+        taken: list[int] = []
+        for _ in range(self.n * (2 if config.metrics_port else 1)):
+            taken.append(listen_port(taken))
+        self.bus_ports = taken[:self.n]
+        self.metrics_ports = taken[self.n:] or [0] * self.n
         self.procs: list[subprocess.Popen | None] = [None] * self.n
         self.restarts = [0] * self.n
         self._lane_failpoints = _parse_lane_failpoints(

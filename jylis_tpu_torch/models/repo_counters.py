@@ -22,10 +22,13 @@ Delta wire shape: GCOUNT -> dict {replica_id: u64}; PNCOUNT -> a
 (absolute values — joinable delta-state), which the table tracks exactly,
 so flushes never need a device read.
 
-Sparse drains are staged (ops/staging.py, parallel/sharded.py
+Drains are staged (ops/staging.py, parallel/sharded.py
 ``drain_unrouted_g`` / ``_pn``): the batch's rows and delta columns are
 written straight into pinned host memory, copied to the card in one
-transfer, joined in one launch and read back in one copy.
+transfer, joined in one launch and read back in one copy. A dense drain
+takes the same compact batch: its kernel walks every row of the state
+and finds each row's staged slot through the keyspace's slot map, so no
+K-long plane is built on the host or copied either way.
 
 Mesh mode (``mesh``, parallel/mesh.py): the keyspace lives as one state
 per keys shard, a contiguous block of key rows on that shard's device
@@ -69,14 +72,17 @@ def _drain_pn(state, ki, dp, dn, out=None):
 
 
 # dense drains: when a batch covers most of the keyspace (a full
-# anti-entropy sweep), an elementwise join streams each plane once instead
-# of paying random-access gathers and scatters
-def _drain_g_dense(state, d):
-    return gcount.drain_dense(state, d)
+# anti-entropy sweep), one walk streams the state once in row order
+# instead of paying random-access gathers and scatters. The batch stays
+# compact (the staged rows and delta rows); the walk finds each row's
+# slot through the keyspace's slot map. Each takes the single device's
+# DensePlan and the staged ``out``; returns (every row's sum, out).
+def _drain_g_dense(plan, ki, d, out=None):
+    return gcount.drain_dense(plan, ki, d, out)
 
 
-def _drain_pn_dense(state, dp, dn):
-    return pncount.drain_dense(state, dp, dn)
+def _drain_pn_dense(plan, ki, dp, dn, out=None):
+    return pncount.drain_dense(plan, ki, dp, dn, out)
 
 
 # a batch covering >= 1/DENSE_FRACTION of the keyspace drains dense: the
@@ -210,30 +216,18 @@ class _CounterRepo:
         rows = list(dict.fromkeys(list(per_pol[0]) + list(per_pol[1])))
         return rows, per_pol
 
-    def _delta_plane(self, rows, pending) -> torch.Tensor:
-        """(K, R) u64 delta plane on the device for the dense drain: each
-        of ``rows`` holds its pending columns, every other row zeros."""
-        plane = np.zeros((self._key_cap, self._rep_cap), np.uint64)
-        for row in rows:
-            for col, v in pending.get(row, {}).items():
-                plane[row, col] = v
-        return planes.to_tensor(plane, self._device)
-
     def _drain(self) -> None:
-        """Join every pending row into the device state in one launch per
-        card (dense when the batch covers >= 1/DENSE_FRACTION of a
-        single device's keyspace, else the staged sparse drain) and hand
-        the rows' sums to the table as u64 values."""
+        """Join every pending row into the device state in one staged
+        call per card (the dense drain when the batch covers >=
+        1/DENSE_FRACTION of a single device's keyspace, else the sparse
+        one; both stage the same compact batch) and hand the rows' sums
+        to the table as u64 values."""
         rows, per_pol = self._collect_rows()
         if not rows:
             return
         self._grow_to_fit()
         per_pol = per_pol[: self._polarities]
-        if self._ks.mesh is None and len(rows) * DENSE_FRACTION >= self._key_cap:
-            deltas = [self._delta_plane(rows, p) for p in per_pol]
-            sums = self._dense(*deltas).cpu().numpy().view(np.uint64)
-            self._finish_drain(rows, sums[np.asarray(rows, np.int64)])
-            return
+        dense = self._ks.mesh is None and len(rows) * DENSE_FRACTION >= self._key_cap
         rows_np = np.asarray(rows, np.int64)
 
         def fill(views, sel):  # the pending columns, straight into staging
@@ -244,7 +238,7 @@ class _CounterRepo:
                         view[slot, col] = v
 
         # the int64 bits viewed as u64, never cast: the engine takes u64
-        sums = self._sparse(rows_np, fill).view(np.uint64)
+        sums = self._staged(rows_np, fill, dense).view(np.uint64)
         self._finish_drain(rows, sums)
 
     def _finish_drain(self, rows, values_bits) -> None:
@@ -314,11 +308,9 @@ class RepoGCOUNT(_CounterRepo):
     # the JAX package times each type's drain under its own name
     drain = timed_drain("GCOUNT", _CounterRepo._pend_size)(_CounterRepo._drain)
 
-    def _dense(self, d):
-        return _drain_g_dense(self._state, d)
-
-    def _sparse(self, rows, fill):
-        return drain_unrouted_g(self._ks, rows, fill, _drain_g)
+    def _staged(self, rows, fill, dense):
+        return drain_unrouted_g(self._ks, rows, fill,
+                                _drain_g_dense if dense else _drain_g, dense)
 
     def _get_value(self, key: bytes) -> int:
         return self._get_raw(key)
@@ -393,11 +385,9 @@ class RepoPNCOUNT(_CounterRepo):
 
     drain = timed_drain("PNCOUNT", _CounterRepo._pend_size)(_CounterRepo._drain)
 
-    def _dense(self, dp, dn):
-        return _drain_pn_dense(self._state, dp, dn)
-
-    def _sparse(self, rows, fill):
-        return drain_unrouted_pn(self._ks, rows, fill, _drain_pn)
+    def _staged(self, rows, fill, dense):
+        return drain_unrouted_pn(self._ks, rows, fill,
+                                 _drain_pn_dense if dense else _drain_pn, dense)
 
     def _get_value(self, key: bytes) -> int:
         return _wrap_i64(self._get_raw(key))

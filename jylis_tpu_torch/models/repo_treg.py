@@ -15,11 +15,13 @@ mutates, so SETs settled in C++ and Python-side drains and flushes share
 one source of truth) or the pure-Python oracle (``engine="python"``).
 GET never pays a device round-trip: the winner is an O(1) host compare.
 
-Sparse drains are staged (ops/staging.py, parallel/sharded.py
+Drains are staged (ops/staging.py, parallel/sharded.py
 ``drain_unrouted_treg``): rows, timestamps, ranks and vids are written
 straight into pinned host memory, copied to the card in one transfer,
 joined in one launch and the packed (tie, ts, vid) read back in one
-copy. Mesh mode (``mesh``, parallel/mesh.py) mirrors the counter repos:
+copy. The dense drain takes the same compact batch and also clears and
+sets every key's tie flag. Mesh mode (``mesh``,
+parallel/mesh.py) mirrors the counter repos:
 the three planes live as one block of key rows per keys shard, and the
 same unrouted drain makes one launch per card, the kernel finding each
 row's shard itself; ties patch each shard's vid plane directly.
@@ -32,7 +34,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops import planes, treg
+from ..ops import treg
 from ..native.engine import resolve_engine
 from ..ops.interner import Interner, prefix_rank
 from ..parallel import Keyspace, drain_unrouted_treg, fill_from, resolve_mesh
@@ -68,11 +70,11 @@ def _drain(state, ki, d_ts, d_rank, d_vid, out=None):
     return treg.drain_sparse(state, ki, d_ts, d_rank, d_vid, out)
 
 
-def _drain_dense(state, d_ts, d_rank, d_vid):
-    """Dense drain: the tie mask, and the state planes themselves as the
-    outputs (dense key order)."""
-    tie = treg.drain_dense(state, d_ts, d_rank, d_vid)
-    return tie, state.ts, state.vid
+def _drain_dense(plan, ki, d_ts, d_rank, d_vid, out=None):
+    """Dense drain of the staged batch on one device through the
+    keyspace's DensePlan: (every key's tie mask, (tie, out_ts, out_vid)
+    per slot, into ``out`` when given)."""
+    return treg.drain_dense(plan, ki, d_ts, d_rank, d_vid, out)
 
 
 def _patch_vids(ks, rows, vids) -> None:
@@ -221,22 +223,12 @@ class RepoTREG:
         )
         ts = np.fromiter((p[1] for p in pend), np.uint64, n)
         rank = np.fromiter((prefix_rank(p[2]) for p in pend), np.uint64, n)
-        if self._ks.mesh is None and n * DENSE_FRACTION >= self._key_cap:
-            k, dev = self._key_cap, self._device
-            d_ts = np.zeros(k, np.uint64)
-            d_rank = np.zeros(k, np.uint64)
-            d_vid = np.full(k, -1, np.int32)
-            d_ts[rows], d_rank[rows], d_vid[rows] = ts, rank, vids
-            tie, out_ts, out_vid = _drain_dense(
-                self._state, planes.to_tensor(d_ts, dev),
-                planes.to_tensor(d_rank, dev), torch.from_numpy(d_vid).to(dev))
-            tie = tie.cpu().numpy()[rows]
-            out_ts = planes.to_u64_np(out_ts)[rows]
-            out_vid = out_vid.cpu().numpy()[rows]  # a copy: patched below
-        else:
-            tie, out_ts, out_vid = drain_unrouted_treg(
-                self._ks, rows, fill_from(ts, rank, vids), _drain)
-            out_ts = out_ts.view(np.uint64)
+        dense = self._ks.mesh is None and n * DENSE_FRACTION >= self._key_cap
+        # fresh host arrays: out_vid is patched below
+        tie, out_ts, out_vid = drain_unrouted_treg(
+            self._ks, rows, fill_from(ts, rank, vids),
+            _drain_dense if dense else _drain, dense)
+        out_ts = out_ts.view(np.uint64)
         if tie.any():
             # prefix collision: the full-string compare decides; patch
             # the rows where the delta's value is the greater

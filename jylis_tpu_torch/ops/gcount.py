@@ -11,8 +11,10 @@ Functions that join into the state (``converge_batch``, ``increment``,
 JAX versions return new arrays and let XLA reuse the donated buffers.
 
 ``drain_dense`` and ``drain_sparse`` are the serving path's fused
-join + row-sum steps. On a CPU tensor they run their plain versions
-below; on a CUDA tensor they launch the hand-written kernels
+join + row-sum steps, both on a compact batch of rows and delta rows
+(the dense one walks every row of the state through its slot map and
+also returns every row's sum). On a CPU tensor they run their plain
+versions below; on a CUDA tensor they launch the hand-written kernels
 ``counter_drain_dense<1>`` / ``counter_drain_sparse<1>`` or raise.
 Batches must carry UNIQUE key rows (the repos' pending dicts guarantee
 it).
@@ -101,20 +103,52 @@ def grow(state: GCountState, num_keys: int, num_replicas: int) -> GCountState:
 # ---- the drain steps: kernels and their plain versions ------------------------
 
 
-def drain_dense_plain(state: GCountState, deltas: torch.Tensor) -> torch.Tensor:
-    """``join`` with a (K, R) delta plane, in place, then ``read_all``."""
-    state.counts.copy_(planes.join_max(state.counts, deltas))
-    return read_all(state)
+def drain_dense_plain(
+    plan, key_idx: torch.Tensor, deltas: torch.Tensor, out=None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of ``drain_dense``: the slot map's scatter and
+    walk, ``join`` at the rows holding a slot, in place, then
+    ``read_all`` into the plan's full output and the joined rows' sums
+    at their slots."""
+    plan = planes.mapped_plan(plan)
+    if out is None:
+        out = torch.zeros(key_idx.shape[0], dtype=torch.int64, device=deltas.device)
+    m = plan.slots.map
+    rows, slots = planes.walk_slots(m, key_idx)
+    x = plan.state.counts
+    x[rows] = planes.join_max(x[rows], deltas[slots])
+    full = planes.dense_full(plan, torch.int64)
+    full.copy_(read_all(plan.state))
+    out[slots] = full[rows]
+    m[rows] = -1
+    return full, out
 
 
-def drain_dense(state: GCountState, deltas: torch.Tensor) -> torch.Tensor:
-    """Whole-keyspace drain: join (K, R) ``deltas`` into ``state`` in place
-    and return every row's sum (K,) as int64 bits."""
-    if state.counts.device.type == "cpu":
-        return drain_dense_plain(state, deltas)
-    sums = planes.launch_drain_dense((state.counts,), (deltas,))
-    _build.count(drain_dense, state.counts.device)
-    return sums
+def drain_dense(
+    plan, key_idx: torch.Tensor, deltas: torch.Tensor, out=None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Whole-keyspace drain of a compact batch on one device: join the
+    (B, R) ``deltas`` at the UNIQUE rows ``key_idx`` ((B,) int32, in
+    [0, K)) into the state of ``plan`` (a ``DensePlan``, or a
+    GCountState given one of its own), in place, through the plan's slot
+    map. Returns (every row's sum (K,), the plan's full output, valid
+    until its next drain; ``out``, the joined rows' sums (B,) at their
+    slots, allocated zeroed when None), as int64 bits. A duplicate row is
+    the caller's fault: one of its slots is left out. A raised call
+    leaves the slot map to be refilled by the next."""
+    plan = planes.mapped_plan(plan)
+    slots = plan.slots
+    slots.begin()
+    if plan.device.type == "cpu":
+        res = drain_dense_plain(plan, key_idx, deltas, out)
+        slots.end()
+        return res
+    if out is None:
+        out = torch.zeros(key_idx.shape[0], dtype=torch.int64, device=plan.device)
+    planes.launch_drain_dense(plan, key_idx, (deltas,), out)
+    slots.end()
+    _build.count(drain_dense, plan.device)
+    return plan.full, out
 
 
 _build.counter(drain_dense)

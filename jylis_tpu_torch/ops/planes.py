@@ -13,9 +13,11 @@ the bit pattern of an ``int64`` element:
 ``coalesce`` max-combines duplicate rows of a host delta batch.
 ``launch_drain_dense`` / ``launch_drain_sparse`` run the two CUDA drain
 kernels (``csrc/counter_drain_*.cu``); the GCOUNT and PNCOUNT modules wrap
-them with their plain versions and launch counts. The sparse kernel takes
-the card's shards as an ``ops.staging.ShardTable`` and an unrouted batch
-of global rows.
+them with their plain versions and launch counts. Both take a compact
+staged batch of unique rows: the sparse kernel with the card's shards as
+an ``ops.staging.ShardTable``, the dense one with a single device's
+``ops.staging.DensePlan`` (its walk covers every row through the
+keyspace's slot map).
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ import numpy as np
 import torch
 
 from . import _build
-from .staging import MAX_SHARDS, ShardTable
+from .staging import MAX_SHARDS, DensePlan, ShardTable, SlotMap
 
 SIGN = -(1 << 63)  # int64 with only the sign bit set
 
@@ -97,8 +99,7 @@ def rowsum64(x: torch.Tensor) -> torch.Tensor:
 # ---- CUDA drain launches ------------------------------------------------------
 
 _P = ctypes.c_void_p
-_DENSE_ARGS = [ctypes.c_int, _P, _P, _P, _P, _P, ctypes.c_longlong,
-               ctypes.c_int, _P]
+_DENSE_ARGS = [ctypes.c_int, _P, _P, _P, _P, _P, ctypes.c_longlong, _P]
 _SPARSE_ARGS = [ctypes.c_int, _P, _P, _P, _P, _P, ctypes.c_longlong,
                 ctypes.c_int, _P]
 
@@ -137,24 +138,105 @@ def _two_ptrs(planes):
     return [p.data_ptr() for p in planes] + [None] * (2 - len(planes))
 
 
-def launch_drain_dense(state, deltas) -> torch.Tensor:
-    """Run ``counter_drain_dense<NP>`` (NP = len(state)): join ``deltas``
-    into ``state`` in place and return the (K,) wrapping row sums
-    (sum P - sum N for two polarities) as int64 bits."""
-    k, r = state[0].shape
-    _check_planes([*state, *deltas], (k, r), "counter_drain_dense")
-    if any(s.data_ptr() == d.data_ptr() for s in state for d in deltas):
-        raise ValueError("counter_drain_dense: delta aliases state")
-    dev = state[0].device
-    sums = torch.empty(k, dtype=torch.int64, device=dev)
-    fn = _build.function("counter_drain_dense", "jt_counter_drain_dense",
-                         _DENSE_ARGS)
-    with torch.cuda.device(dev):
-        rc = fn(len(state), *_two_ptrs(state),
-                *_two_ptrs(deltas), sums.data_ptr(), k, r,
-                torch.cuda.current_stream(dev).cuda_stream)
+class _CounterDensePlan(ctypes.Structure):
+    """csrc/counter_drain_dense.cu's CounterDensePlan, field for field."""
+
+    _fields_ = [("s0", _P), ("s1", _P), ("map", _P), ("sums", _P),
+                ("rows", ctypes.c_longlong), ("cols", ctypes.c_int),
+                ("device", ctypes.c_int)]
+
+
+def dense_full(plan: DensePlan, dtype) -> torch.Tensor:
+    """The plan's (K,) output for every row, allocated on first use."""
+    if plan.full is None:
+        plan.full = torch.empty(plan.state[0].shape[0], dtype=dtype, device=plan.device)
+    return plan.full
+
+
+def mapped_plan(plan) -> DensePlan:
+    """``plan`` (a ``DensePlan``, or a counter state given one of its
+    own) as a plan the counters' walk can take: one without a slot map
+    gets a fresh one."""
+    plan = DensePlan.of(plan)
+    if plan.slots is None:
+        plan.slots = SlotMap(plan.state[0].shape[0], plan.device)
+    return plan
+
+
+def walk_slots(slot_map: torch.Tensor, key_idx: torch.Tensor):
+    """The plain versions' scatter and walk of a ``SlotMap``'s map:
+    ``map[key_idx[s]] = s`` for each slot whose row lies in [0, K), then
+    (the rows holding a slot, in row order, and their slots). The caller
+    joins, then resets those rows to -1, as the kernels' walk does."""
+    live = live_rows(key_idx, slot_map.shape[0])
+    slots = torch.arange(key_idx.shape[0], dtype=torch.int32, device=slot_map.device)
+    slot_map[key_idx[live].long()] = slots[live]
+    rows = (slot_map >= 0).nonzero().squeeze(1)
+    return rows, slot_map[rows].long()
+
+
+def counter_plan(plan: DensePlan):
+    """The kernel's launch arguments for ``plan``, built and its planes
+    checked once per plan: the state's planes (one per polarity)
+    contiguous int64 (K, R) CUDA tensors on one device, 16-byte aligned,
+    R even. Returns (the C plan's address, the entry, the device, the
+    state's plane pointers, R)."""
+    if plan.c is None:
+        st = plan.state
+        k, r = st[0].shape
+        _check_planes(st, (k, r), "counter_drain_dense")
+        dev = st[0].device
+        sums = dense_full(plan, torch.int64)
+        c = _CounterDensePlan(map=plan.slots.map.data_ptr(), sums=sums.data_ptr(),
+                              rows=k, cols=r, device=dev.index)
+        c.s0, c.s1 = _two_ptrs(st)
+        fn = _build.function("counter_drain_dense", "jt_counter_drain_dense",
+                             _DENSE_ARGS)
+        plan.c = (c, ctypes.addressof(c), fn, dev,
+                  frozenset(p.data_ptr() for p in st), r)
+    return plan.c
+
+
+def launch_drain_dense(plan: DensePlan, key_idx, deltas, out) -> None:
+    """Run ``counter_drain_dense<NP>`` (NP = the state's polarities) with
+    ``plan``: join the (B, R) ``deltas`` at the UNIQUE rows ``key_idx``
+    ((B,) int32, in [0, K)) into the state through the plan's slot map,
+    in place, write every row's sum (sum P - sum N for two polarities)
+    into ``plan.full`` and the joined rows' sums into ``out`` (B,) at
+    their slots, as int64 bits. Checks are O(1) per call: the plan's
+    planes were checked when it was built; the staged views are checked
+    here."""
+    _c, addr, fn, dev, state_ptrs, r = counter_plan(plan)
+    np_ = len(plan.state)
+    b = key_idx.shape[0]
+    _check_dense_views(key_idx, deltas, out, np_, dev, state_ptrs, r)
+    rc = fn(np_, addr, key_idx.data_ptr(), *_two_ptrs(deltas), out.data_ptr(), b,
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "counter_drain_dense")
-    return sums
+
+
+def _check_dense_views(key_idx, deltas, out, np_, dev, state_ptrs, r) -> None:
+    """The staged views of one dense launch: what the kernel reads and
+    writes besides the plan's own planes."""
+    b = key_idx.shape[0] if key_idx.dim() == 1 else -1
+    if len(deltas) != np_:
+        raise ValueError(f"counter_drain_dense: {len(deltas)} delta planes for "
+                         f"{np_} polarities")
+    if (key_idx.device != dev or key_idx.dtype != torch.int32
+            or not key_idx.is_contiguous() or b < 0):
+        raise ValueError("counter_drain_dense: key_idx must be a contiguous (B,) "
+                         "int32 tensor on the state's device")
+    for d in deltas:
+        if (d.device != dev or d.dtype != torch.int64 or not d.is_contiguous()
+                or d.shape != (b, r) or d.data_ptr() % 16):
+            raise ValueError(f"counter_drain_dense: deltas must be contiguous 16-byte "
+                             f"aligned ({b}, {r}) int64 tensors on {dev}")
+        if d.data_ptr() in state_ptrs:
+            raise ValueError("counter_drain_dense: delta aliases state")
+    if (out.device != dev or out.dtype != torch.int64 or not out.is_contiguous()
+            or out.shape != (b,)):
+        raise ValueError(f"counter_drain_dense: out must be a contiguous ({b},) "
+                         f"int64 tensor on {dev}")
 
 
 def counter_table(table: ShardTable) -> _CounterTable:

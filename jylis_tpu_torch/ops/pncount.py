@@ -113,24 +113,48 @@ def grow(state: PNCountState, num_keys: int, num_replicas: int) -> PNCountState:
 
 
 def drain_dense_plain(
-    state: PNCountState, dp: torch.Tensor, dn: torch.Tensor
-) -> torch.Tensor:
-    """``join`` with (K, R) delta planes, in place, then ``read_all``."""
-    state.p.copy_(planes.join_max(state.p, dp))
-    state.n.copy_(planes.join_max(state.n, dn))
-    return read_all(state)
+    plan, key_idx: torch.Tensor, dp: torch.Tensor, dn: torch.Tensor, out=None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of ``drain_dense``: the slot map's scatter and
+    walk, ``join`` at the rows holding a slot, in place, then
+    ``read_all`` into the plan's full output and the joined rows' net
+    values at their slots."""
+    plan = planes.mapped_plan(plan)
+    if out is None:
+        out = torch.zeros(key_idx.shape[0], dtype=torch.int64, device=dp.device)
+    m = plan.slots.map
+    rows, slots = planes.walk_slots(m, key_idx)
+    for x, d in zip(plan.state, (dp, dn)):
+        x[rows] = planes.join_max(x[rows], d[slots])
+    full = planes.dense_full(plan, torch.int64)
+    full.copy_(read_all(plan.state))
+    out[slots] = full[rows]
+    m[rows] = -1
+    return full, out
 
 
 def drain_dense(
-    state: PNCountState, dp: torch.Tensor, dn: torch.Tensor
-) -> torch.Tensor:
-    """Whole-keyspace drain: join (K, R) ``dp``/``dn`` into ``state`` in
-    place and return every row's signed net value (K,) int64."""
-    if state.p.device.type == "cpu":
-        return drain_dense_plain(state, dp, dn)
-    sums = planes.launch_drain_dense(tuple(state), (dp, dn))
-    _build.count(drain_dense, state.p.device)
-    return sums
+    plan, key_idx: torch.Tensor, dp: torch.Tensor, dn: torch.Tensor, out=None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Whole-keyspace drain of a compact batch on one device (as
+    gcount.drain_dense): join the (B, R) ``dp``/``dn`` at the UNIQUE rows
+    ``key_idx`` into the state of ``plan`` (a ``DensePlan`` or a
+    PNCountState) in place. Returns (every row's signed net value (K,),
+    the plan's full output; ``out``, the joined rows' net values (B,) at
+    their slots)."""
+    plan = planes.mapped_plan(plan)
+    slots = plan.slots
+    slots.begin()
+    if plan.device.type == "cpu":
+        res = drain_dense_plain(plan, key_idx, dp, dn, out)
+        slots.end()
+        return res
+    if out is None:
+        out = torch.zeros(key_idx.shape[0], dtype=torch.int64, device=plan.device)
+    planes.launch_drain_dense(plan, key_idx, (dp, dn), out)
+    slots.end()
+    _build.count(drain_dense, plan.device)
+    return plan.full, out
 
 
 _build.counter(drain_dense)

@@ -27,8 +27,14 @@ copied and the plain versions run on the views as they are, but the
 steps are the same ones, and ``Stage.uploads`` / ``Stage.downloads``
 count them the same way on either device.
 
+The dense drains (``counter_drain_dense<NP>``, ``treg_drain_dense``) take
+the same staged batch on a single device, with the state's
+``DensePlan``; the counters' holds the keyspace's ``SlotMap``, which the
+kernel walks over every row of the state, joining a row's staged delta
+where the map holds its slot.
+
 Every region of a layout starts at a 16-byte aligned offset, which the
-counter kernel's 16-byte vector loads need.
+counter kernels' 16-byte vector loads need.
 """
 
 from __future__ import annotations
@@ -112,6 +118,66 @@ class ShardTable:
                                    self.first, len(self.parts)):
             yield (self.parts[i], torch.from_numpy(sel).to(dev),
                    torch.from_numpy(local).to(dev))
+
+
+class SlotMap:
+    """A keyspace's slot map for the dense drains: a (K,) int32 tensor on
+    its device, -1 ("no delta") at every row between drains. A dense drain
+    writes ``map[rows[s]] = s`` for its staged slots and its walk resets
+    every entry it reads back to -1, so the map is clean after each call
+    and no fill runs per drain. ``dirty`` is set for the length of a call
+    (``begin`` / ``end``): a call that raised leaves it set, and the next
+    ``begin`` refills the map with -1 first."""
+
+    __slots__ = ("map", "dirty")
+
+    def __init__(self, rows: int, device):
+        self.map = torch.full((rows,), -1, dtype=torch.int32, device=device)
+        self.dirty = False
+
+    def begin(self) -> None:
+        if self.dirty:
+            self.map.fill_(-1)
+        self.dirty = True
+
+    def end(self) -> None:
+        self.dirty = False
+
+
+class DensePlan:
+    """A state's dense-drain plan: the ``state`` (a counter or TREG state
+    of K rows on one device), ``slots``, the ``SlotMap`` the counters'
+    walk goes through (the keyspace's own, or one the counter wrappers
+    add to a plan without; None for TREG, whose drain runs in the batch's
+    order), ``full`` (the (K,) output
+    every row gets, allocated by the kernel's module on the first drain
+    and reused) and ``c``, the kernel's launch arguments, built and
+    checked once (see ops/planes.py ``counter_plan``, ops/treg.py
+    ``dense_plan``). A keyspace rebuilds its plan whenever its state is
+    replaced."""
+
+    __slots__ = ("state", "slots", "full", "c")
+
+    def __init__(self, state, slots: SlotMap | None = None):
+        self.state = state
+        rows = state[0].shape[0]
+        if slots is not None and (slots.map.shape[0] != rows
+                                  or slots.map.device != state[0].device):
+            raise ValueError(f"slot map of {slots.map.shape[0]} rows on "
+                             f"{slots.map.device} for a state of {rows} on "
+                             f"{state[0].device}")
+        self.slots = slots
+        self.full = None
+        self.c = None
+
+    @classmethod
+    def of(cls, state) -> "DensePlan":
+        """``state`` as a plan: a plan as it is, a state with a fresh one."""
+        return state if isinstance(state, cls) else cls(state)
+
+    @property
+    def device(self) -> torch.device:
+        return self.state[0].device
 
 
 def split(rows: np.ndarray, rows_per_shard: int, first: int, count: int):

@@ -20,13 +20,15 @@ are equal but the vids differ (two values sharing their 8-byte prefix)
 the drain flags a tie, and the repo settles it on the host with the full
 strings (models/repo_treg.py).
 
-``drain_dense`` and ``drain_sparse`` are the serving path's steps: on a
-CPU tensor they run their plain versions below; on a CUDA tensor they
-launch the hand-written kernels ``treg_drain_dense`` /
-``treg_drain_sparse`` (csrc/treg_drain.cu) or raise. ``converge_dense``
-and ``converge_batch`` keep the JAX signatures and go through them. All
-of them update the state in place, where JAX returns new arrays into
-donated buffers.
+``drain_dense`` and ``drain_sparse`` are the serving path's steps, both
+on a compact staged batch of unique rows (the dense one, on a single
+device, also writes every key's tie flag; ops/staging.py ``DensePlan``):
+on a CPU tensor
+they run their plain versions below; on a CUDA tensor they launch the
+hand-written kernels ``treg_drain_dense`` / ``treg_drain_sparse``
+(csrc/treg_drain.cu) or raise. ``converge_dense`` and ``converge_batch``
+keep the JAX signatures and go through them. All of them update the
+state in place, where JAX returns new arrays into donated buffers.
 
 Contract: one batch holds at most one delta per key (the repo coalesces
 per key on the host). The sparse drain takes a state, or the
@@ -46,7 +48,7 @@ from typing import NamedTuple
 import torch
 
 from . import _build, planes
-from .staging import MAX_SHARDS, ShardTable
+from .staging import MAX_SHARDS, DensePlan, ShardTable
 
 SIGN = planes.SIGN
 
@@ -90,14 +92,30 @@ def _b_wins(a, b):
 # ---- the drain steps: kernels and their plain versions ------------------------
 
 
-def drain_dense_plain(state: TRegState, d_ts, d_rank, d_vid) -> torch.Tensor:
-    """Whole-keyspace LWW join of (K,) delta planes into ``state``, in
-    place; returns the (K,) bool tie mask."""
-    d = (d_ts, d_rank, d_vid)
-    wins, tie = _b_wins(tuple(state), d)
-    for plane, dv in zip(state, d):
-        plane.copy_(torch.where(wins, dv, plane))
-    return tie
+def drain_dense_plain(plan, key_idx, d_ts, d_rank, d_vid, out=None):
+    """The plain version of ``drain_dense``: the LWW join at the slots'
+    rows, in place, every key's tie flag into the plan's full output (0
+    where it has no slot), and (tie, out_ts, out_vid) at the slots."""
+    plan = DensePlan.of(plan)
+    if out is None:
+        out = _zeros_out(key_idx.shape[0], d_vid.device)
+    state = plan.state
+    slots = planes.live_rows(key_idx, state.vid.shape[0]).nonzero().squeeze(1)
+    rows = key_idx[slots].long()
+    cur = tuple(p[rows] for p in state)
+    d = tuple(x[slots] for x in (d_ts, d_rank, d_vid))
+    wins, tie = _b_wins(cur, d)
+    new = [torch.where(wins, dv, cv) for dv, cv in zip(d, cur)]
+    for p, nv in zip(state, new):
+        p[rows] = nv
+    full = planes.dense_full(plan, torch.bool)
+    full.zero_()
+    full[rows] = tie
+    tie_o, ts_o, vid_o = out
+    tie_o[slots] = tie
+    ts_o[slots] = new[0]
+    vid_o[slots] = new[2]
+    return full, out
 
 
 def drain_sparse_plain(shards, key_idx, d_ts, d_rank, d_vid, out=None):
@@ -128,7 +146,7 @@ def _zeros_out(b: int, dev):
 
 
 _P = ctypes.c_void_p
-_DENSE_ARGS = [_P] * 7 + [ctypes.c_longlong, _P]
+_DENSE_ARGS = [_P] * 8 + [ctypes.c_longlong, _P]
 _SPARSE_ARGS = [_P] * 8 + [ctypes.c_longlong, _P]
 
 
@@ -138,6 +156,13 @@ class _TregTable(ctypes.Structure):
     _fields_ = [("ts", _P * MAX_SHARDS), ("rank", _P * MAX_SHARDS),
                 ("vid", _P * MAX_SHARDS), ("rows_per_shard", ctypes.c_longlong),
                 ("first", ctypes.c_int), ("count", ctypes.c_int)]
+
+
+class _TregDensePlan(ctypes.Structure):
+    """csrc/treg_drain.cu's TregDensePlan, field for field."""
+
+    _fields_ = [("ts", _P), ("rank", _P), ("vid", _P), ("tie", _P),
+                ("k", ctypes.c_longlong), ("device", ctypes.c_int)]
 
 
 _TYPES = (torch.int64, torch.int64, torch.int32)
@@ -157,19 +182,49 @@ def _check(what: str, dev, n: int, *planes_) -> None:
             raise ValueError(f"{what}: shape {tuple(p.shape)} != ({n},)")
 
 
-def _launch_dense(state: TRegState, d_ts, d_rank, d_vid) -> torch.Tensor:
-    dev = state.vid.device
-    k = state.vid.shape[0]
-    _check("treg_drain_dense", dev, k, *state, d_ts, d_rank, d_vid)
-    if any(s.data_ptr() == d.data_ptr() for s in state for d in (d_ts, d_rank, d_vid)):
-        raise ValueError("treg_drain_dense: delta aliases state")
-    tie = torch.empty(k, dtype=torch.bool, device=dev)
-    fn = _build.function("treg_drain", "jt_treg_drain_dense", _DENSE_ARGS)
-    with torch.cuda.device(dev):
-        rc = fn(*(p.data_ptr() for p in (*state, d_ts, d_rank, d_vid, tie)),
-                k, torch.cuda.current_stream(dev).cuda_stream)
+def dense_plan(plan: DensePlan):
+    """The kernel's launch arguments for ``plan``, built and its planes
+    checked once per plan: (ts, rank, vid) contiguous (K,) CUDA planes on
+    one device, and the plan's (K,) tie flags, which the kernel clears 16
+    bytes at a time. Returns (the C plan, its address, the entry, the
+    device, the state's plane pointers)."""
+    if plan.c is None:
+        st = plan.state
+        dev = st.vid.device
+        k = st.vid.shape[0]
+        _check("treg_drain_dense", dev, k, *st)
+        tie = planes.dense_full(plan, torch.bool)
+        if tie.data_ptr() % 16:
+            raise ValueError("treg_drain_dense: the tie flags must be 16-byte aligned")
+        c = _TregDensePlan(*(p.data_ptr() for p in st), tie.data_ptr(), k, dev.index)
+        fn = _build.function("treg_drain", "jt_treg_drain_dense", _DENSE_ARGS)
+        plan.c = (c, ctypes.addressof(c), fn, dev, frozenset(p.data_ptr() for p in st))
+    return plan.c
+
+
+def _launch_dense(plan: DensePlan, key_idx, d_ts, d_rank, d_vid, out) -> None:
+    """O(1) checks per call: the plan's planes were checked when it was
+    built; the staged views are checked here."""
+    _c, addr, fn, dev, state_ptrs = dense_plan(plan)
+    _check_dense_views(key_idx, d_ts, d_rank, d_vid, out, dev, state_ptrs)
+    rc = fn(addr, *(p.data_ptr() for p in (key_idx, d_ts, d_rank, d_vid, *out)),
+            key_idx.shape[0], torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "treg_drain_dense")
-    return tie
+
+
+def _check_dense_views(key_idx, d_ts, d_rank, d_vid, out, dev, state_ptrs) -> None:
+    b = key_idx.shape[0] if key_idx.dim() == 1 else -1
+    _check("treg_drain_dense", dev, b, d_ts, d_rank, d_vid)
+    if key_idx.device != dev or key_idx.dtype != torch.int32 or not key_idx.is_contiguous():
+        raise ValueError("treg_drain_dense: key_idx must be a contiguous (B,) int32 "
+                         "tensor on the state's device")
+    if any(x.data_ptr() in state_ptrs for x in (d_ts, d_rank, d_vid, *out)):
+        raise ValueError("treg_drain_dense: delta aliases state")
+    for o, want in zip(out, (torch.bool, torch.int64, torch.int32)):
+        if (o.device != dev or o.dtype != want or o.shape != (b,)
+                or not o.is_contiguous()):
+            raise ValueError(f"treg_drain_dense: outputs must be contiguous ({b},) "
+                             f"bool, int64 and int32 tensors on {dev}")
 
 
 def treg_table(table: ShardTable) -> _TregTable:
@@ -214,15 +269,24 @@ def _launch_sparse(table: ShardTable, key_idx, d_ts, d_rank, d_vid, out):
     return out
 
 
-def drain_dense(state: TRegState, d_ts, d_rank, d_vid) -> torch.Tensor:
-    """Whole-keyspace drain: join (K,) delta planes into ``state`` in
-    place (rows with no delta carry the identity 0, 0, -1, which never
-    wins and never ties); returns the (K,) bool tie mask."""
-    if state.vid.device.type == "cpu":
-        return drain_dense_plain(state, d_ts, d_rank, d_vid)
-    tie = _launch_dense(state, d_ts, d_rank, d_vid)
-    _build.count(drain_dense, state.vid.device)
-    return tie
+def drain_dense(plan, key_idx, d_ts, d_rank, d_vid, out=None):
+    """Whole-keyspace drain of a compact batch on one device: join the
+    staged (B,) deltas at the UNIQUE rows ``key_idx`` ((B,) int32, in
+    [0, K)) into the state of ``plan`` (a ``DensePlan``, or a TRegState
+    given one of its own), in place. Rows without a delta keep their
+    register and tie 0, as under the JAX package's identity (0, 0, -1).
+    Returns (the (K,) bool tie mask, the plan's full output, valid until
+    its next drain; ``out``, (tie, out_ts, out_vid) at the slots,
+    allocated zeroed when None). A duplicate row is the caller's fault:
+    its slots race on one register."""
+    plan = DensePlan.of(plan)
+    if plan.device.type == "cpu":
+        return drain_dense_plain(plan, key_idx, d_ts, d_rank, d_vid, out)
+    if out is None:
+        out = _zeros_out(key_idx.shape[0], plan.device)
+    _launch_dense(plan, key_idx, d_ts, d_rank, d_vid, out)
+    _build.count(drain_dense, plan.device)
+    return plan.full, out
 
 
 _build.counter(drain_dense)
@@ -260,8 +324,11 @@ def converge_batch(state: TRegState, key_idx, d_ts, d_rank, d_vid):
 
 
 def converge_dense(state: TRegState, d_ts, d_rank, d_vid):
-    """Full-keyspace elementwise LWW join in place: (state, tie (K,))."""
-    return state, drain_dense(state, d_ts, d_rank, d_vid)
+    """Full-keyspace elementwise LWW join of (K,) delta planes in place:
+    (state, tie (K,)), the dense drain with every row a slot."""
+    rows = torch.arange(state.vid.shape[0], dtype=torch.int32, device=state.vid.device)
+    tie, _out = drain_dense(state, rows, d_ts, d_rank, d_vid)
+    return state, tie
 
 
 def converge_many(state: TRegState, key_idx, d_ts, d_rank, d_vid):

@@ -34,7 +34,9 @@ device and its current stream:
   routing at all; over several cards one counting pass orders the slots
   by card. Per card: one staged host-to-device copy, one launch and one
   device-to-host copy, no pad slot; each result comes back at its
-  slot's index.
+  slot's index. On a single device the same staged call takes the dense
+  drains (``dense=True``, ``Keyspace.dense_plan``): the counters' kernel
+  walks every row of the state through the keyspace's slot map.
 * **Replica join**: ``join_replica_axis`` folds S stacked full states
   over the mesh's rep axis with the hand-written ``replica_join`` kernel
   (csrc/replica_join.cu): an unsigned 64-bit max per column, which on
@@ -54,7 +56,7 @@ import numpy as np
 import torch
 
 from ..ops import _build, gcount, planes, pncount, tlog, treg
-from ..ops.staging import ShardTable, Stage, max_slots, split
+from ..ops.staging import DensePlan, ShardTable, SlotMap, Stage, max_slots, split
 from ..utils.batching import bucket, pad_rows
 
 SIGN = planes.SIGN
@@ -127,6 +129,7 @@ class Keyspace:
                 self.cards.append((i, 1))
         self.card_of = np.repeat(np.arange(len(self.cards)), [n for _, n in self.cards])
         self.stages = [Stage(self.devices[f]) for f, _ in self.cards]
+        self.slots: SlotMap | None = None  # the counter dense drains' map (one device)
         self.parts = None
 
     @property
@@ -137,6 +140,21 @@ class Keyspace:
     def parts(self, parts) -> None:
         self._parts = parts
         self._tables = None
+        self._plan = None
+
+    def dense_plan(self) -> DensePlan:
+        """The single device's ``DensePlan`` over the current part, for a
+        counter state with the keyspace's slot map (allocated at -1 on the
+        first dense drain, replaced by ``grow``); rebuilt whenever
+        ``parts`` is replaced."""
+        if self.mesh is not None:
+            raise ValueError("the dense drains run on a single device, not a mesh")
+        if self._plan is None:
+            state = self.parts[0]
+            if self.slots is None and not isinstance(state, treg.TRegState):
+                self.slots = SlotMap(self.key_cap, shard_device(state))
+            self._plan = DensePlan(state, self.slots)
+        return self._plan
 
     def tables(self) -> list[ShardTable]:
         """One ShardTable per card, over the current parts."""
@@ -179,8 +197,12 @@ class Keyspace:
         self.parts = [state] if self.mesh is None else shard_state(self.mesh, state)
 
     def grow(self, fn) -> None:
-        """Apply a whole-state transform that changes the capacity."""
+        """Apply a whole-state transform that changes the capacity. The
+        slot map, clean between drains, is replaced by a clean one of the
+        new capacity."""
         self.place(fn(self.whole()))
+        if self.slots is not None and self.slots.map.shape[0] != self.key_cap:
+            self.slots = SlotMap(self.key_cap, shard_device(self.parts[0]))
 
     def map(self, fn) -> None:
         """Apply a row-wise transform to every part."""
@@ -399,7 +421,7 @@ def _by_card(ks: Keyspace, rows: np.ndarray):
     return np.split(order, np.cumsum(np.bincount(card, minlength=len(ks.cards)))[:-1])
 
 
-def _drain_unrouted(ks: Keyspace, rows, fill, ins, outs, step):
+def _drain_unrouted(ks: Keyspace, rows, fill, ins, outs, step, dense=False):
     """Stage, launch and read back a drain of the UNIQUE global ``rows``
     on every card that holds some of them, each card's copies and launch
     queued before the host waits on any (in rounds of at most
@@ -408,15 +430,20 @@ def _drain_unrouted(ks: Keyspace, rows, fill, ins, outs, step):
     shape) each) of the slots ``sel`` (positions in ``rows``: an index
     array or a slice) into the staged numpy views, in that order;
     ``step(table, rows, *fields, out)`` launches the kernel (or runs the
-    plain version on a CPU card) and writes ``outs`` into ``out``. Returns
-    one host array per output, in slot order."""
+    plain version on a CPU card) and writes ``outs`` into ``out``. With
+    ``dense`` (a single device only) ``step`` takes the keyspace's
+    ``DensePlan`` in place of the table: each staged call is one dense
+    drain. Returns one host array per output, in slot order."""
     rows = np.asarray(rows, np.int64)
     n = len(rows)
     if n and (rows.min() < 0 or rows.max() >= ks.key_cap):
         raise ValueError(f"rows must lie in [0, {ks.key_cap})")
     fields = ((np.int32, ()), *ins)
     width = max_slots(fields)
-    cards = list(zip(ks.tables(), ks.stages, _by_card(ks, rows)))
+    if dense:
+        cards = [(ks.dense_plan(), ks.stages[0], slice(None))]
+    else:
+        cards = list(zip(ks.tables(), ks.stages, _by_card(ks, rows)))
     results = [np.empty(n, dt) for dt, _ in outs]
     # one round unless a card's slots overflow its staging: each round
     # waits before the next writes the same buffers
@@ -440,32 +467,42 @@ def _drain_unrouted(ks: Keyspace, rows, fill, ins, outs, step):
     return results
 
 
-def drain_unrouted_g(ks: Keyspace, rows, fill, step=gcount.drain_sparse) -> np.ndarray:
+def drain_unrouted_g(ks: Keyspace, rows, fill, step=None,
+                     dense=False) -> np.ndarray:
     """GCOUNT drain of the unique global ``rows`` over ``ks``: ``fill``
-    writes each card's (m, R) u64 delta rows (see ``_drain_unrouted``).
-    Returns the joined rows' sums in slot order (int64 bits of the u64)."""
+    writes each card's (m, R) u64 delta rows (see ``_drain_unrouted``;
+    ``step`` defaults to gcount.drain_sparse, or with ``dense`` to
+    gcount.drain_dense). Returns the joined rows' sums in slot order (int64 bits of
+    the u64)."""
     r = ks.parts[0].counts.shape[1]
+    step = step or (gcount.drain_dense if dense else gcount.drain_sparse)
     return _drain_unrouted(ks, rows, fill, [(np.uint64, (r,))], [(np.int64, ())],
-                           lambda t, ki, d, out: step(t, ki, d, out[0]))[0]
+                           lambda t, ki, d, out: step(t, ki, d, out[0]), dense)[0]
 
 
-def drain_unrouted_pn(ks: Keyspace, rows, fill, step=pncount.drain_sparse) -> np.ndarray:
+def drain_unrouted_pn(ks: Keyspace, rows, fill, step=None,
+                      dense=False) -> np.ndarray:
     """PNCOUNT drain of the unique global ``rows`` over ``ks``: ``fill``
-    writes each card's P and N (m, R) u64 delta rows. Returns the joined
-    rows' net values sum(P) - sum(N) in slot order (int64)."""
+    writes each card's P and N (m, R) u64 delta rows (``dense`` as for
+    ``drain_unrouted_g``). Returns the joined rows' net values sum(P) -
+    sum(N) in slot order (int64)."""
     r = ks.parts[0].p.shape[1]
+    step = step or (pncount.drain_dense if dense else pncount.drain_sparse)
     return _drain_unrouted(ks, rows, fill, [(np.uint64, (r,))] * 2, [(np.int64, ())],
-                           lambda t, ki, dp, dn, out: step(t, ki, dp, dn, out[0]))[0]
+                           lambda t, ki, dp, dn, out: step(t, ki, dp, dn, out[0]),
+                           dense)[0]
 
 
-def drain_unrouted_treg(ks: Keyspace, rows, fill, step=treg.drain_sparse):
+def drain_unrouted_treg(ks: Keyspace, rows, fill, step=None, dense=False):
     """TREG drain of the unique global ``rows`` over ``ks``: ``fill``
-    writes each card's ts, rank (u64) and vid (int32) fields. Returns
-    (tie bool, ts int64 bits, vid int32) per slot after the join."""
+    writes each card's ts, rank (u64) and vid (int32) fields (``dense``
+    as for ``drain_unrouted_g``). Returns (tie bool, ts int64 bits, vid
+    int32) per slot after the join."""
+    step = step or (treg.drain_dense if dense else treg.drain_sparse)
     return tuple(_drain_unrouted(
         ks, rows, fill, [(np.uint64, ()), (np.uint64, ()), (np.int32, ())],
         [(np.bool_, ()), (np.int64, ()), (np.int32, ())],
-        lambda t, ki, ts, rank, vid, out: step(t, ki, ts, rank, vid, tuple(out))))
+        lambda t, ki, ts, rank, vid, out: step(t, ki, ts, rank, vid, tuple(out)), dense))
 
 
 # ---- the replica-axis join ------------------------------------------------------

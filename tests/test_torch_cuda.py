@@ -44,6 +44,7 @@ import torch
 from jylis_tpu_torch.ops import gcount, planes, pncount, tensor, tlog, treg
 from jylis_tpu_torch.ops import ujson_device as udev
 from jylis_tpu_torch.ops import ujson_resident as ures
+from jylis_tpu_torch.ops.staging import DensePlan
 from jylis_tpu_torch.utils.batching import pad_rows
 
 torch.set_num_threads(1)  # tier-1 shares the cores among its pytest workers
@@ -82,20 +83,43 @@ COUNTER_SHAPES = [(64, 64), (37, 2), (1000, 34), (5, 16), (300, 130),
                   (131072, 16)]
 
 
+def _dense_rows(rng, k, b):
+    """``b`` unique rows of ``k`` in no order, row k - 1 among them, as
+    an int32 tensor's numpy source."""
+    rows = rng.permutation(k)[:b].astype(np.int32)
+    if k - 1 not in rows:
+        rows[0] = k - 1
+    return rows
+
+
+def _dense_batches(k):
+    """The dense drain's batch sizes at ``k`` keys: K / 4, K / 2 and K."""
+    return sorted({max(1, k // 4), max(1, k // 2), k})
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("mod", [gcount, pncount], ids=["G", "PN"])
 @pytest.mark.parametrize("k,r", COUNTER_SHAPES)
 def test_drain_dense_matches_plain(dev, mod, k, r):
+    """The staged dense drain at B = K / 4, K / 2 and K (unsorted unique
+    rows, K - 1 among them; uniform u64, so values >= 2^63 and wrapping
+    sums): state, every row's sum and the slots' sums bit for bit, each
+    plan's slot map clean after, one launch a call."""
     rng = np.random.default_rng(k * 131 + r)
     st = _state(mod, rng, k, r, dev)
-    deltas = [planes.to_tensor(_u64(rng, (k, r)), dev) for _ in st]
-    sk, sp = _clone(st), _clone(st)
-    before = mod.drain_dense.launches
-    sums_k = mod.drain_dense(sk, *deltas)
-    sums_p = mod.drain_dense_plain(sp, *deltas)
-    torch.cuda.synchronize()
-    assert mod.drain_dense.launches == before + 1
-    assert torch.equal(sums_k, sums_p) and _equal(sk, sp)
+    pk, pp = DensePlan(_clone(st)), DensePlan(_clone(st))
+    for b in _dense_batches(k):
+        rows = _dense_rows(rng, k, b)
+        ki = torch.from_numpy(rows).to(dev)
+        deltas = [planes.to_tensor(_u64(rng, (b, r)), dev) for _ in st]
+        before = mod.drain_dense.launches
+        full_k, out_k = mod.drain_dense(pk, ki, *deltas)
+        full_p, out_p = mod.drain_dense_plain(pp, ki, *deltas)
+        torch.cuda.synchronize()
+        assert mod.drain_dense.launches == before + 1
+        assert torch.equal(full_k, full_p) and torch.equal(out_k, out_p)
+        assert _equal(pk.state, pp.state)
+        assert (pk.slots.map == -1).all() and not pk.slots.dirty
 
 
 @pytest.mark.cuda
@@ -178,11 +202,14 @@ def test_counter_drains_reject_odd_rows_and_unaligned_planes(dev, mod):
     d8 = [planes.to_tensor(_u64(rng, (64, 8)), dev) for _ in odd]
     before = (mod.drain_dense.launches, mod.drain_sparse.launches)
     with pytest.raises(ValueError, match="odd"):
-        mod.drain_dense(odd, *d_odd)
+        mod.drain_dense(odd, ki, *b_odd)
     with pytest.raises(ValueError, match="odd"):
         mod.drain_sparse(odd, ki, *b_odd)
     with pytest.raises(ValueError, match="aligned"):
-        mod.drain_dense(shifted, *d8)
+        mod.drain_dense(shifted, ki, *(d[:4] for d in d8))
+    with pytest.raises(ValueError, match="aligned"):  # a staged view off 16 bytes
+        mod.drain_dense(mod.init(64, 8, dev), ki[:1],
+                        *(buf[1:9].view(1, 8) for _ in odd))
     with pytest.raises(ValueError, match="aligned"):
         mod.drain_sparse(mod.init(64, 8, dev), ki[:1],
                          *(buf[1:9].view(1, 8) for _ in odd))
@@ -192,12 +219,15 @@ def test_counter_drains_reject_odd_rows_and_unaligned_planes(dev, mod):
 @pytest.mark.cuda
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     st = gcount.init(16, 8, dev)
+    ki = torch.arange(16, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError):
-        gcount.drain_dense(st, torch.zeros((16, 8), dtype=torch.int32, device=dev))
+        gcount.drain_dense(st, ki, torch.zeros((16, 8), dtype=torch.int32, device=dev))
     with pytest.raises(ValueError):
-        gcount.drain_dense(st, torch.zeros((16, 4), dtype=torch.int64, device=dev))
+        gcount.drain_dense(st, ki, torch.zeros((16, 4), dtype=torch.int64, device=dev))
+    with pytest.raises(ValueError, match="aliases"):
+        gcount.drain_dense(st, ki, st.counts)  # delta aliases state
     with pytest.raises(ValueError):
-        gcount.drain_dense(st, st.counts)  # delta aliases state
+        gcount.drain_dense(st, ki.long(), torch.zeros((16, 8), dtype=torch.int64, device=dev))
     ki64 = torch.zeros(16, dtype=torch.int64, device=dev)
     with pytest.raises(ValueError):
         gcount.drain_sparse(st, ki64, torch.zeros((16, 8), dtype=torch.int64, device=dev))
@@ -227,18 +257,28 @@ def _treg(rng, n, dev, like=None):
 @pytest.mark.cuda
 @pytest.mark.parametrize("k", [1, 5, 300, 4096, 70001])
 def test_treg_drain_dense_matches_plain(dev, k):
+    """The staged dense drain at B = K / 4, K / 2 and K (K not a multiple
+    of 16: the clear's scalar tail), a half of the deltas at their row's
+    ts and rank: the state, every key's tie flag (the last call's only)
+    and the slots' (tie, ts, vid) bit for bit, no slot map, one launch a
+    call."""
     rng = np.random.default_rng(k)
     st = treg.TRegState(*_treg(rng, k, dev))
-    d = _treg(rng, k, dev, like=(st, np.arange(k)))
-    sk, sp = _clone(st), _clone(st)
-    before = treg.drain_dense.launches
-    tie_k = treg.drain_dense(sk, *d)
-    tie_p = treg.drain_dense_plain(sp, *d)
-    torch.cuda.synchronize()
-    assert treg.drain_dense.launches == before + 1
-    assert torch.equal(tie_k, tie_p) and _equal(sk, sp)
-    if k >= 300:
-        assert tie_k.any()
+    pk, pp = DensePlan(_clone(st)), DensePlan(_clone(st))
+    for b in _dense_batches(k):
+        rows = _dense_rows(rng, k, b)
+        d = _treg(rng, b, dev, like=(pk.state, rows))
+        ki = torch.from_numpy(rows).to(dev)
+        before = treg.drain_dense.launches
+        tie_k, out_k = treg.drain_dense(pk, ki, *d)
+        tie_p, out_p = treg.drain_dense_plain(pp, ki, *d)
+        torch.cuda.synchronize()
+        assert treg.drain_dense.launches == before + 1
+        assert torch.equal(tie_k, tie_p) and _equal(out_k, out_p)
+        assert _equal(pk.state, pp.state)
+        assert pk.slots is None
+        if b >= 300:
+            assert tie_k.any()
 
 
 @pytest.mark.cuda
@@ -302,14 +342,25 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take(dev):
         tensor.converge_batch(tensor.init(8, 8, dev), ki.long(),
                               *tensor.init(2, 8, dev))
     rs = treg.init(8, dev)
+    k8 = torch.arange(8, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="aliases"):
+        treg.drain_dense(rs, k8, rs.ts, rs.rank, rs.vid)  # delta aliases state
     with pytest.raises(ValueError):
-        treg.drain_dense(rs, rs.ts, rs.rank, rs.vid)  # delta aliases state
-    with pytest.raises(ValueError):
-        treg.drain_dense(rs, *(p[:4] for p in treg.init(8, dev)))
+        treg.drain_dense(rs, k8, *(p[:4] for p in treg.init(8, dev)))
     with pytest.raises(ValueError):
         treg.drain_sparse(rs, ki.long(), *(p[:2] for p in treg.init(8, dev)))
     with pytest.raises(ValueError):
-        treg.drain_dense(rs, *(p.int() for p in treg.init(8, dev)))
+        treg.drain_dense(rs, k8, *(p.int() for p in treg.init(8, dev)))
+    # tie flags off a 16-byte boundary: the plan refuses them (the kernel
+    # clears them 16 bytes at a time); a state 8 bytes off one is taken
+    # (one key a thread)
+    plan = DensePlan(treg.init(8, dev))
+    plan.full = torch.zeros(17, dtype=torch.bool, device=dev)[1:]
+    with pytest.raises(ValueError, match="aligned"):
+        treg.drain_dense(plan, k8, *treg.init(8, dev))
+    buf = torch.zeros(17, dtype=torch.int64, device=dev)
+    shifted = treg.TRegState(buf[1:9], rs.rank.clone(), rs.vid.clone())
+    treg.drain_dense(shifted, k8, *treg.init(8, dev))
 
 
 U64 = (1 << 64) - 1
@@ -540,7 +591,8 @@ def test_cpu_tensors_run_the_plain_versions():
               treg.drain_dense.launches, treg.drain_sparse.launches,
               tlog.drain_dense.launches, tlog.drain_sparse.launches)
     st = gcount.init(8, 4, "cpu")
-    gcount.drain_dense(st, torch.ones((8, 4), dtype=torch.int64))
+    every = torch.arange(8, dtype=torch.int32)
+    gcount.drain_dense(st, every, torch.ones((8, 4), dtype=torch.int64))
     pn = pncount.init(8, 4, "cpu")
     ki = torch.tensor([1, 2**31 - 1], dtype=torch.int32)
     z = torch.ones((2, 4), dtype=torch.int64)
@@ -548,7 +600,7 @@ def test_cpu_tensors_run_the_plain_versions():
     tensor.join_dense(tensor.init(2, 4, "cpu"), tensor.init(2, 4, "cpu"))
     tensor.converge_batch(tensor.init(2, 8, "cpu"), ki, *tensor.init(2, 8, "cpu"))
     rs = treg.init(4, "cpu")
-    treg.drain_dense(rs, *treg.init(4, "cpu"))
+    treg.drain_dense(rs, every[:4], *treg.init(4, "cpu"))
     treg.drain_sparse(rs, ki, *treg.init(2, "cpu"))
     ls = tlog.init(4, 8, True, "cpu")
     one = torch.ones((4, 1), dtype=torch.int64)
@@ -1091,6 +1143,137 @@ def test_unrouted_drains_on_one_card_match_the_cpu(dev, name):
     for g, w in zip(got if name == "treg" else (got,), want if name == "treg" else (want,)):
         np.testing.assert_array_equal(g, w)
     assert all(torch.equal(a.cpu(), c) for a, c in zip(ksg.whole(), ksc.whole()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["g", "pn", "treg"])
+def test_dense_staged_drains_on_one_card_match_the_cpu(dev, monkeypatch, name):
+    """The repos' dense path (drain_unrouted_* with dense=True) on a
+    single-device keyspace on the card against the same on the CPU: one
+    staged copy each way and one launch a call, per-slot outputs, every
+    row's output and the state equal, the counters' slot map clean (TREG
+    has none); a call that raised (a misaligned staged delta, a wrong vid
+    type) leaves the map dirty and the next refills it; three staged
+    calls when the batch overflows the Stage; after a grow a clean map
+    of the new capacity on the card."""
+    from jylis_tpu_torch import parallel as tpar
+    from jylis_tpu_torch.ops import staging
+    from jylis_tpu_torch.ops.staging import Stage
+
+    rng = np.random.default_rng(75)
+    k, r = 1024, 16
+    if name == "treg":
+        mod, st, per_slot = treg, treg.TRegState(*_treg(rng, k, "cpu")), 4 + 20
+
+        def fields(b):
+            ts, rank, vid = _treg(rng, b, "cpu")
+            return planes.to_u64_np(ts), planes.to_u64_np(rank), vid.numpy()
+
+        def fn(ks, rows, f):
+            return tpar.drain_unrouted_treg(ks, rows, tpar.fill_from(*f), dense=True)
+    else:
+        mod = gcount if name == "g" else pncount
+        unrouted = tpar.drain_unrouted_g if name == "g" else tpar.drain_unrouted_pn
+        st = (gcount.from_counts(_u64(rng, (k, r)), "cpu") if name == "g" else
+              pncount.from_counts(_u64(rng, (k, r)), _u64(rng, (k, r)), "cpu"))
+        per_slot = 4 + 8 * r * len(st)
+
+        def fields(b):
+            return tuple(_u64(rng, (b, r)) for _ in st)
+
+        def fn(ks, rows, f):
+            return (unrouted(ks, rows, tpar.fill_from(*f), dense=True),)
+    ksc, ksg = tpar.Keyspace(None, "cpu"), tpar.Keyspace(None, dev)
+    ksc.place(_clone(st))
+    ksg.place(type(st)(*(p.to(dev) for p in st)))
+
+    def both(rows, f, calls=1):
+        counts = (mod.drain_dense.launches, Stage.uploads, Stage.downloads)
+        got = fn(ksg, rows, f)
+        assert (mod.drain_dense.launches, Stage.uploads, Stage.downloads) == (
+            counts[0] + calls, counts[1] + calls, counts[2] + calls)
+        want = fn(ksc, rows, f)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+        assert torch.equal(ksg.dense_plan().full.cpu(), ksc.dense_plan().full)
+        assert all(torch.equal(a.cpu(), c) for a, c in zip(ksg.parts[0], ksc.parts[0]))
+        if name == "treg":
+            assert ksg.slots is None
+        else:
+            assert (ksg.slots.map == -1).all() and not ksg.slots.dirty
+
+    for b in (k // 4, k):
+        both(_dense_rows(rng, k, b), fields(b))
+    plan = ksg.dense_plan()
+    ki = torch.arange(8, dtype=torch.int32, device=dev) * 3
+    if name == "treg":  # an int64 vid: the staged view's check raises
+        with pytest.raises(ValueError):
+            mod.drain_dense(plan, ki, *(torch.zeros(8, dtype=torch.int64, device=dev),) * 3)
+    else:
+        buf = torch.zeros(8 * r + 1, dtype=torch.int64, device=dev)[1:].view(8, r)
+        with pytest.raises(ValueError, match="aligned"):
+            mod.drain_dense(plan, ki, *(buf,) * len(st))
+    if name != "treg":
+        assert ksg.slots.dirty
+        ksg.slots.map[ki.long()] = 5  # what a failed walk could leave behind
+    both(_dense_rows(rng, k, k // 2), fields(k // 2))
+    b = k // 2
+    monkeypatch.setattr(staging, "MAX_STAGE_BYTES", 200 * per_slot + 8 * staging.ALIGN)
+    both(_dense_rows(rng, k, b), fields(b), calls=3)
+    monkeypatch.undo()
+    grow = (lambda s: treg.grow(s, 2 * k)) if name == "treg" else (
+        lambda s: mod.grow(s, 2 * k, r))
+    ksg.grow(grow)
+    ksc.grow(grow)
+    if name != "treg":
+        assert ksg.slots.map.shape == (2 * k,) and ksg.slots.map.device.type == "cuda"
+        assert (ksg.slots.map == -1).all()
+    both(_dense_rows(rng, 2 * k, 2 * k), fields(2 * k))
+
+
+@pytest.mark.cuda
+def test_dense_drains_on_another_card_keep_the_current_device(dev):
+    """On a host with two or more cards, the dense drains of keyspaces on
+    the last card, with card 0 current: the C entry sets the plan's card
+    for its launches and puts card 0 back, so no device context is
+    entered; results equal the same drains on the CPU, one launch each,
+    the counters' slot map clean (the test skips on one card)."""
+    from jylis_tpu_torch import parallel as tpar
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip("needs two or more GPUs: the drains run on another card")
+    last = torch.device(f"cuda:{cards - 1}")
+    torch.cuda.set_device(0)
+    rng = np.random.default_rng(85)
+    k, r = 1024, 16
+    rows = _dense_rows(rng, k, k // 2)
+    cases = [
+        (gcount, gcount.from_counts(_u64(rng, (k, r)), "cpu"), (_u64(rng, (k // 2, r)),),
+         lambda ks, f: (tpar.drain_unrouted_g(ks, rows, tpar.fill_from(*f), dense=True),)),
+        (pncount, pncount.from_counts(_u64(rng, (k, r)), _u64(rng, (k, r)), "cpu"),
+         (_u64(rng, (k // 2, r)), _u64(rng, (k // 2, r))),
+         lambda ks, f: (tpar.drain_unrouted_pn(ks, rows, tpar.fill_from(*f), dense=True),)),
+        (treg, treg.TRegState(*_treg(rng, k, "cpu")),
+         tuple(x.numpy().view(np.uint64) if x.dtype == torch.int64 else x.numpy()
+               for x in _treg(rng, k // 2, "cpu")),
+         lambda ks, f: tpar.drain_unrouted_treg(ks, rows, tpar.fill_from(*f), dense=True)),
+    ]
+    for mod, st, fields, drain in cases:
+        ksg, ksc = tpar.Keyspace(None, last), tpar.Keyspace(None, "cpu")
+        ksg.place(type(st)(*(p.to(last) for p in st)))
+        ksc.place(_clone(st))
+        before = (mod.drain_dense.launches, mod.drain_dense.by_card.get(last.index, 0))
+        got, want = drain(ksg, fields), drain(ksc, fields)
+        torch.cuda.synchronize(last)
+        assert torch.cuda.current_device() == 0
+        assert (mod.drain_dense.launches, mod.drain_dense.by_card.get(last.index, 0)) == (
+            before[0] + 1, before[1] + 1)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+        assert all(torch.equal(a.cpu(), c) for a, c in zip(ksg.parts[0], ksc.parts[0]))
+        if mod is not treg:
+            assert ksg.slots.map.device == last and (ksg.slots.map == -1).all()
 
 
 @pytest.mark.cuda

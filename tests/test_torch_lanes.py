@@ -29,6 +29,7 @@ import os
 import re
 import signal
 import subprocess
+import socket
 import sys
 import time
 import urllib.request
@@ -183,6 +184,25 @@ def test_child_argv_differs_from_jax_only_by_device(tmp_path):
     assert lanes.MANIFEST_NAME == jax_lanes.MANIFEST_NAME
     assert (lanes.RESTART_BACKOFF_S, lanes.RESTART_BACKOFF_CAP_S) == \
         (jax_lanes.RESTART_BACKOFF_S, jax_lanes.RESTART_BACKOFF_CAP_S)
+
+
+def test_supervisor_ports_lie_below_the_ephemeral_range():
+    """The bus and metrics ports the supervisor hands its lanes, which a
+    respawned lane binds again, lie below the host's ephemeral range
+    (the JAX package's free_port takes them from it), so while a lane is
+    down no outgoing connection can be given its port; each is free."""
+    from jylis_tpu_torch.utils import net
+
+    cfg, _ = configs(2)
+    cfg.port, cfg.metrics_port = "0", 9100
+    sup = lanes.Supervisor(cfg, [])
+    low = net._ephemeral_low()
+    ports = [*sup.bus_ports, *sup.metrics_ports]
+    assert len(set(ports)) == 4
+    for port in ports:
+        assert 1024 <= port < low
+        with socket.socket() as s:
+            s.bind(("0.0.0.0", port))
 
 
 def parser_of(mod) -> argparse.ArgumentParser:

@@ -21,8 +21,10 @@ from jylis_tpu.ops import planes as jplanes
 from jylis_tpu.ops import pncount as jpn
 from jylis_tpu.ops import tensor as jt
 from jylis_tpu_torch import convert
+from jylis_tpu_torch import parallel as tpar
 from jylis_tpu_torch.models import repo_counters as rc
-from jylis_tpu_torch.ops import gcount, planes, pncount, tensor
+from jylis_tpu_torch.ops import gcount, planes, pncount, staging, tensor
+from jylis_tpu_torch.ops.staging import DensePlan, Stage
 from jylis_tpu_torch.utils.batching import pad_rows
 
 torch.set_num_threads(1)  # tier-1 shares the cores among its pytest workers
@@ -270,25 +272,143 @@ def test_sparse_drains_match_jax(seed, live):
     assert not sums[live:].any()
 
 
+def dense_rows(rng, b: int, k: int = K) -> np.ndarray:
+    """``b`` unique rows of ``k`` in no order, row k - 1 among them."""
+    rows = rng.permutation(k)[:b].astype(np.int32)
+    if k - 1 not in rows:
+        rows[int(rng.integers(b))] = k - 1
+    return rows
+
+
+def whole(rows, d, k: int = K) -> np.ndarray:
+    """The JAX package's delta plane for a compact batch: ``d``'s rows at
+    ``rows``, zeros (the identity) everywhere else."""
+    plane = np.zeros((k,) + d.shape[1:], d.dtype)
+    plane[rows] = d
+    return plane
+
+
+def staged(arrays, outs):
+    """A compact batch (the rows first, then one array per field) written
+    into a CPU Stage's views as the repos stage it: (the uploaded
+    tensors, the output views, one per field of ``outs``)."""
+    stage = Stage("cpu")
+    fields = [(a.dtype, a.shape[1:]) for a in arrays]
+    for view, a in zip(stage.host_in(len(arrays[0]), fields), arrays):
+        view[...] = a
+    return stage.upload(), stage.device_out(len(arrays[0]), outs)
+
+
+SUMS = ((np.int64, ()),)
+
+
 @pytest.mark.parametrize("seed", SEEDS)
 def test_dense_drains_match_jax(seed):
+    """The port's dense drains on a staged compact batch (B = K / 4 and
+    B = K, unsorted unique rows, row K - 1 among them) against JAX's on
+    the same batch expanded to whole planes: the joined state, every
+    row's sum and the slots' sums, and the slot map clean after."""
     rng = np.random.default_rng(seed)
     p, n = u64(rng, (K, R)), u64(rng, (K, R))
-    dp, dn = u64(rng, (K, R)), u64(rng, (K, R))
+    for b in (K // 4, K):
+        rows = dense_rows(rng, b)
+        dp, dn = u64(rng, (b, R)), u64(rng, (b, R))
 
-    js, jsums = jrc._drain_g_dense(jg.from_counts(p), *jplanes.split64_np(dp))
-    st = gcount.from_counts(p, "cpu")
-    sums = rc._drain_g_dense(st, t64(dp))
-    assert np.array_equal(gcount.to_counts(st), jg.to_counts(js))
-    assert np.array_equal(bits(sums), np.asarray(jsums))
+        js, jsums = jrc._drain_g_dense(jg.from_counts(p), *jplanes.split64_np(whole(rows, dp)))
+        plan = DensePlan(gcount.from_counts(p, "cpu"))
+        (ki, d), (out,) = staged((rows, dp), SUMS)
+        full, got = rc._drain_g_dense(plan, ki, d, out)
+        assert got is out and full is plan.full
+        assert np.array_equal(gcount.to_counts(plan.state), jg.to_counts(js))
+        assert np.array_equal(bits(full), np.asarray(jsums))
+        assert np.array_equal(bits(out), np.asarray(jsums)[rows])
+        assert (plan.slots.map == -1).all() and not plan.slots.dirty
+        assert wraps(jg.to_counts(js))
 
-    js, jsums = jrc._drain_pn_dense(
-        pn_jax(p, n), *jplanes.split64_np(dp), *jplanes.split64_np(dn)
-    )
-    st = pncount.from_counts(p, n, "cpu")
-    sums = rc._drain_pn_dense(st, t64(dp), t64(dn))
-    assert_pn_equal(st, pn_jax_counts(js))
-    assert np.array_equal(sums.numpy(), np.asarray(jsums))
+        js, jsums = jrc._drain_pn_dense(
+            pn_jax(p, n), *jplanes.split64_np(whole(rows, dp)),
+            *jplanes.split64_np(whole(rows, dn)))
+        plan = DensePlan(pncount.from_counts(p, n, "cpu"))
+        (ki, dpt, dnt), (out,) = staged((rows, dp, dn), SUMS)
+        full, _ = rc._drain_pn_dense(plan, ki, dpt, dnt, out)
+        assert_pn_equal(plan.state, pn_jax_counts(js))
+        assert np.array_equal(full.numpy(), np.asarray(jsums))
+        assert np.array_equal(out.numpy(), np.asarray(jsums)[rows])
+        assert (plan.slots.map == -1).all() and not plan.slots.dirty
+
+
+def test_dense_drain_slot_map_stays_clean_across_a_raise_and_a_grow(monkeypatch):
+    """A keyspace's dense PNCOUNT drains (parallel.drain_unrouted_pn with
+    dense=True, the repos' path) against JAX's whole-plane drain: the map
+    is clean after a call; a call that raises after the scatter leaves it
+    dirty and the next call refills it and joins as JAX does; after
+    ``grow`` the keyspace holds a clean map of the new capacity, and a
+    drain over every row, row 2K - 1 among them, matches."""
+    rng = np.random.default_rng(41)
+    p, n = u64(rng, (K, R)), u64(rng, (K, R))
+    ks = tpar.Keyspace(None, "cpu")
+    ks.place(pncount.from_counts(p, n, "cpu"))
+    js = pn_jax(p, n)
+
+    def drain(rows, dp, dn, k):
+        fill = tpar.fill_from(dp, dn)
+        got = tpar.drain_unrouted_pn(ks, rows, fill, rc._drain_pn_dense, dense=True)
+        nonlocal js
+        js, jsums = jrc._drain_pn_dense(
+            js, *jplanes.split64_np(whole(rows, dp, k)),
+            *jplanes.split64_np(whole(rows, dn, k)))
+        assert np.array_equal(got, np.asarray(jsums)[rows])
+        assert np.array_equal(ks.dense_plan().full.numpy(), np.asarray(jsums))
+        assert_pn_equal(ks.parts[0], pn_jax_counts(js))
+        assert (ks.slots.map == -1).all() and not ks.slots.dirty
+
+    rows = dense_rows(rng, K // 4)
+    drain(rows, u64(rng, (K // 4, R)), u64(rng, (K // 4, R)), K)
+
+    rows = dense_rows(rng, K // 2)
+    dp, dn = u64(rng, (K // 2, R)), u64(rng, (K // 2, R))
+    join = planes.join_max
+
+    def fail(*a):
+        raise RuntimeError("injected failure after the scatter")
+
+    monkeypatch.setattr(planes, "join_max", fail)
+    with pytest.raises(RuntimeError, match="injected"):
+        tpar.drain_unrouted_pn(ks, rows, tpar.fill_from(dp, dn), rc._drain_pn_dense,
+                               dense=True)
+    assert ks.slots.dirty and (ks.slots.map >= 0).sum() == K // 2
+    monkeypatch.setattr(planes, "join_max", join)
+    drain(rows, dp, dn, K)
+
+    ks.grow(lambda st: pncount.grow(st, 2 * K, R))
+    assert ks.slots.map.shape == (2 * K,) and (ks.slots.map == -1).all()
+    jp, jn = pn_jax_counts(js)
+    js = pn_jax(np.concatenate([jp, np.zeros_like(jp)]),
+                np.concatenate([jn, np.zeros_like(jn)]))
+    rows = dense_rows(rng, 2 * K, 2 * K)
+    drain(rows, u64(rng, (2 * K, R)), u64(rng, (2 * K, R)), 2 * K)
+
+
+def test_dense_drain_in_staged_rounds_matches_jax(monkeypatch):
+    """A dense batch larger than one Stage runs as several staged calls,
+    each one dense drain: the same state and sums as JAX's one drain."""
+    rng = np.random.default_rng(42)
+    p = u64(rng, (K, R))
+    ks = tpar.Keyspace(None, "cpu")
+    ks.place(gcount.from_counts(p, "cpu"))
+    rows = dense_rows(rng, K)
+    d = u64(rng, (K, R))
+    # room for 20 slots of (row, R counters) a call: K = 64 slots in 4 calls
+    monkeypatch.setattr(staging, "MAX_STAGE_BYTES", 20 * (4 + 8 * R) + 2 * staging.ALIGN)
+    calls = []
+    step = lambda *a: calls.append(1) or rc._drain_g_dense(*a)  # noqa: E731
+    ups = staging.Stage.uploads
+    got = tpar.drain_unrouted_g(ks, rows, tpar.fill_from(d), step, dense=True)
+    js, jsums = jrc._drain_g_dense(jg.from_counts(p), *jplanes.split64_np(whole(rows, d)))
+    assert len(calls) == staging.Stage.uploads - ups == 4
+    assert np.array_equal(got.view(np.uint64), np.asarray(jsums)[rows])
+    assert np.array_equal(gcount.to_counts(ks.parts[0]), jg.to_counts(js))
+    assert (ks.slots.map == -1).all()
 
 
 # ---- TENSOR ------------------------------------------------------------------

@@ -10,12 +10,14 @@ the keyspace and the replica columns, and wrap sums past 2^64.
 """
 
 import asyncio
+import copy
 
 import numpy as np
 import pytest
 import torch
 
 from jylis_tpu.models import repo_counters as jrc
+from jylis_tpu.models.database import Database as JaxDatabase
 from jylis_tpu.server import resp as jresp
 from jylis_tpu_torch.models import database as tdb
 from jylis_tpu_torch.models import repo_counters as rc
@@ -123,6 +125,59 @@ def test_dense_and_sparse_drains_both_run(monkeypatch):
     out = bytearray()
     repo.apply(tresp.Respond(out.extend), [b"GET", b"k1"])
     assert bytes(out) == b":98\r\n"
+
+
+def test_database_dense_drains_match_jax(monkeypatch):
+    """A port Database on the CPU and a JAX Database take one stream that
+    forces the dense drains: local INC/DEC, then foreign deltas from three
+    replicas at 600 and 500 of the 1,024 rows (>= K / 4; values >= 2^63,
+    sums that wrap), GETs that drain, SYSTEM DIGEST, a sparse round and a
+    grow past 1,024 keys. Replies, digests and dumps must be equal, and
+    the port's dense wrappers must have run."""
+    calls = []
+    for fn in ("_drain_g_dense", "_drain_pn_dense"):
+        orig = getattr(rc, fn)
+        monkeypatch.setattr(rc, fn, lambda *a, _o=orig, _n=fn: calls.append(_n) or _o(*a))
+    rng = np.random.default_rng(23)
+    rids = [int(x) for x in rng.integers(1, 1 << 62, 3)]
+    keys = [b"key%d" % i for i in range(1500)]
+    jdb = JaxDatabase(identity=IDENTITY, engine="python")
+    pdb = tdb.Database(IDENTITY, device="cpu")
+    jout, tout = bytearray(), bytearray()
+    jr, tr = jresp.Respond(jout.extend), tresp.Respond(tout.extend)
+
+    def cmds(lines):
+        for line in lines:
+            jdb.apply(jr, list(line))
+            pdb.apply(tr, list(line))
+        assert bytes(tout) == bytes(jout)
+
+    def conv(name, ks):
+        batch = [(k, delta(rng, rids, name == "PNCOUNT")) for k in ks]
+        jdb.converge_deltas((name, copy.deepcopy(batch)))
+        pdb.converge(name, copy.deepcopy(batch))
+
+    def gets(ks):
+        cmds([[t, b"GET", k] for t in (b"GCOUNT", b"PNCOUNT") for k in ks])
+
+    cmds([[b"GCOUNT", b"INC", k, b"%d" % amount(rng)] for k in keys[:60]]
+         + [[b"PNCOUNT", b"DEC", k, b"%d" % amount(rng)] for k in keys[30:90]])
+    conv("GCOUNT", keys[:600])
+    conv("PNCOUNT", keys[100:600])
+    gets(keys[:700:7])
+    assert calls == ["_drain_g_dense", "_drain_pn_dense"]
+    cmds([[b"SYSTEM", b"DIGEST"]])
+    conv("GCOUNT", keys[5:10])
+    conv("PNCOUNT", keys[5:10])
+    gets(keys[:12])
+    conv("GCOUNT", keys[:1500])  # the keyspace grows to 2,048 rows: dense again
+    gets(keys[::11])
+    cmds([[b"SYSTEM", b"DIGEST"], [b"SYSTEM", b"DIGEST", b"TYPES"]])
+    assert calls == ["_drain_g_dense", "_drain_pn_dense", "_drain_g_dense"]
+    for name in ("GCOUNT", "PNCOUNT"):
+        assert (pdb.manager(name).repo.dump_state()
+                == jdb.manager(name).repo.dump_state())
+    assert pdb.manager("GCOUNT").repo._key_cap == 2048
 
 
 def test_signed_value_wraps_like_the_reference():

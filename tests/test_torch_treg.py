@@ -23,8 +23,10 @@ from jylis_tpu.ops import planes as jplanes
 from jylis_tpu.ops import treg as jtreg
 from jylis_tpu.server import resp as jresp
 from jylis_tpu_torch import convert
+from jylis_tpu_torch import parallel as tpar
 from jylis_tpu_torch.models import repo_treg as rt
 from jylis_tpu_torch.ops import interner, planes, treg
+from jylis_tpu_torch.ops.staging import DensePlan, Stage
 from jylis_tpu_torch.server import resp as tresp
 from jylis_tpu_torch.utils.batching import pad_rows
 
@@ -133,12 +135,107 @@ def test_converge_dense_and_dense_drain_match_jax(seed):
     assert_same_state(tst, jst)
     assert np.array_equal(tie.numpy(), np.asarray(jtie))
     assert tie.any() and not tie[ident].any()
+    # the repo's dense drain: JAX's on the whole planes (identity rows
+    # included), the port's on the staged compact batch of the other
+    # rows, in no order
     jres = jrt._drain_dense(jax_state(*st), *dj)
-    tie2, out_ts, out_vid = rt._drain_dense(port_state(*st), *deltas(*d))
+    rows = rng.permutation(np.flatnonzero(~ident)).astype(np.int32)
+    plan = DensePlan(port_state(*st))
+    (ki, *dd), out = staged(rows, *(x[rows] for x in d))
+    full, got = rt._drain_dense(plan, ki, *dd, out)
+    assert got is out and full is plan.full
+    assert_same_state(plan.state, jres[0])
+    assert np.array_equal(full.numpy(), np.asarray(jres[1]))
     jts = jplanes.combine64_np(np.asarray(jres[2]), np.asarray(jres[3]))
-    assert np.array_equal(planes.to_u64_np(out_ts), jts)
-    assert np.array_equal(out_vid.numpy(), np.asarray(jres[4]))
-    assert np.array_equal(tie2.numpy(), np.asarray(jres[1]))
+    assert np.array_equal(out[0].numpy(), np.asarray(jres[1])[rows])
+    assert np.array_equal(planes.to_u64_np(out[1]), jts[rows])
+    assert np.array_equal(out[2].numpy(), np.asarray(jres[4])[rows])
+    assert plan.slots is None  # TREG's drain runs in slot order, with no map
+
+
+def staged(rows, ts, rank, vid):
+    """A compact TREG batch in a CPU Stage's views, as the repo stages it:
+    (the uploaded (rows, ts, rank, vid), the (tie, ts, vid) output
+    views)."""
+    stage = Stage("cpu")
+    b = len(rows)
+    fields = [(np.int32, ()), (np.uint64, ()), (np.uint64, ()), (np.int32, ())]
+    for view, a in zip(stage.host_in(b, fields), (rows, ts, rank, vid)):
+        view[...] = a
+    return stage.upload(), tuple(stage.device_out(b, OUTS))
+
+
+OUTS = ((np.bool_, ()), (np.int64, ()), (np.int32, ()))
+
+
+def whole_reg(rows, d, k):
+    """The JAX package's delta planes for a compact batch: ``d``'s
+    registers at ``rows``, the identity (0, 0, -1) elsewhere."""
+    ts, rank = np.zeros(k, np.uint64), np.zeros(k, np.uint64)
+    vid = np.full(k, -1, np.int32)
+    ts[rows], rank[rows], vid[rows] = d
+    return (*jplanes.split64_np(ts), *jplanes.split64_np(rank), vid)
+
+
+def test_dense_drain_slot_map_stays_clean_across_a_raise_and_a_grow(monkeypatch):
+    """A keyspace's dense TREG drains (parallel.drain_unrouted_treg with
+    dense=True, the repo's path) at B = K / 4 and K, unsorted, row K - 1
+    among them, a third of the deltas tying their row, against JAX's
+    whole-plane drain: slot outputs, every key's tie flag (the last
+    call's only) and states equal after each call, and no slot map (the
+    TREG drain runs in slot order); a call that raises leaves the next
+    right; after ``grow``, the same at the new capacity."""
+    rng = np.random.default_rng(31)
+    st = draw_reg(rng, K)
+    ks = tpar.Keyspace(None, "cpu")
+    ks.place(port_state(*st))
+    js = jax_state(*st)
+
+    def batch(b, k):
+        rows = rng.permutation(k)[:b].astype(np.int32)
+        if k - 1 not in rows:
+            rows[0] = k - 1
+        d = draw_reg(rng, b)
+        cur = [planes.to_u64_np(ks.parts[0].ts), planes.to_u64_np(ks.parts[0].rank)]
+        tie = rng.random(b) < 1 / 3
+        d[0][tie], d[1][tie] = cur[0][rows[tie]], cur[1][rows[tie]]
+        return rows, d
+
+    def drain(rows, d, k):
+        nonlocal js
+        got = tpar.drain_unrouted_treg(ks, rows, tpar.fill_from(*d), rt._drain_dense,
+                                       dense=True)
+        jres = jrt._drain_dense(js, *whole_reg(rows, d, k))
+        js = jres[0]
+        jts = jplanes.combine64_np(np.asarray(jres[2]), np.asarray(jres[3]))
+        assert np.array_equal(got[0], np.asarray(jres[1])[rows])
+        assert np.array_equal(got[1].view(np.uint64), jts[rows])
+        assert np.array_equal(got[2], np.asarray(jres[4])[rows])
+        assert np.array_equal(ks.dense_plan().full.numpy(), np.asarray(jres[1]))
+        assert_same_state(ks.parts[0], js)
+        assert ks.slots is None
+        return got
+
+    for b in (K // 4, K):
+        assert drain(*batch(b, K), K)[0].any()
+
+    rows, d = batch(K // 2, K)
+    wins = treg._b_wins
+
+    def fail(*a):
+        raise RuntimeError("injected failure in the join")
+
+    monkeypatch.setattr(treg, "_b_wins", fail)
+    with pytest.raises(RuntimeError, match="injected"):
+        tpar.drain_unrouted_treg(ks, rows, tpar.fill_from(*d), rt._drain_dense, dense=True)
+    assert ks.slots is None
+    monkeypatch.setattr(treg, "_b_wins", wins)
+    drain(rows, d, K)
+
+    ks.grow(lambda s: treg.grow(s, 2 * K))
+    js = jtreg.grow(js, 2 * K)
+    assert ks.dense_plan().state.vid.shape == (2 * K,)
+    drain(*batch(2 * K, 2 * K), 2 * K)
 
 
 @pytest.mark.parametrize("seed", SEEDS)
@@ -333,6 +430,72 @@ def test_interner_compaction_matches_jax(monkeypatch):
     assert [trepo._interner.lookup(i) for i in range(len(trepo._interner))] == [
         jrepo._interner.lookup(i) for i in range(len(jrepo._interner))
     ]
+
+
+def test_database_dense_drains_match_jax(monkeypatch):
+    """A port Database on the CPU and a JAX Database take one TREG stream
+    that forces the dense drain twice: SETs and foreign deltas at 700 of
+    the 1,024 rows (>= K / 4, ts >= 2^63), a drain, then foreign deltas at
+    600 rows, a third of them at their row's ts under another value with
+    the same 8-byte prefix (prefix ties the host settles, half of them won
+    by the delta), GETs, SYSTEM DIGEST, a sparse round. Replies, digests,
+    dumps and the mirror caches must be equal, and the port's dense
+    wrapper must have run."""
+    from jylis_tpu.models.database import Database as JaxDatabase
+    from jylis_tpu_torch.models import database as tdb
+
+    calls = []
+    for fn in ("_drain", "_drain_dense", "_patch_vids"):
+        orig = getattr(rt, fn)
+        monkeypatch.setattr(rt, fn, lambda *a, _o=orig, _n=fn: calls.append(_n) or _o(*a))
+    rng = np.random.default_rng(29)
+    keys = [b"key%d" % i for i in range(800)]
+    jdb = JaxDatabase(identity=1, engine="python")
+    pdb = tdb.Database(1, device="cpu")
+    jout, tout = bytearray(), bytearray()
+    jr, tr = jresp.Respond(jout.extend), tresp.Respond(tout.extend)
+    held = {}
+
+    def cmds(lines):
+        for line in lines:
+            jdb.apply(jr, list(line))
+            pdb.apply(tr, list(line))
+        assert bytes(tout) == bytes(jout)
+
+    def conv(batch):
+        for k, (v, ts) in batch:
+            if (ts, v) > held.get(k, (-1, b"")):
+                held[k] = (ts, v)
+        jdb.converge_deltas(("TREG", list(batch)))
+        pdb.converge("TREG", list(batch))
+
+    def dump_and_compare():
+        jrepo, prepo = jdb.manager("TREG").repo, pdb.manager("TREG").repo
+        assert prepo.dump_state() == jrepo.dump_state()
+        assert prepo._cache == jrepo._cache
+
+    cmds([[b"TREG", b"SET", k, b"local%d" % i, b"%d" % ts_of(rng)]
+          for i, k in enumerate(keys[:100])])
+    conv([(k, (b"prefix%02d-%d" % (i % 7, i), (1 << 63) + i % 5))
+          for i, k in enumerate(keys[:700])])
+    dump_and_compare()
+    assert calls == ["_drain_dense"]
+    batch = []
+    for i, k in enumerate(keys[100:700]):
+        ts, v = held[k]
+        if i % 3 == 0:  # the same 8-byte prefix at the same ts
+            batch.append((k, (v[:8] + (b"~" if i % 2 else b"!") + v[8:], ts)))
+        else:
+            batch.append((k, (value(rng), ts_of(rng))))
+    conv(batch)
+    cmds([[b"TREG", b"GET", k] for k in keys[:800:3]] + [[b"SYSTEM", b"DIGEST"]])
+    dump_and_compare()
+    assert calls == ["_drain_dense", "_drain_dense", "_patch_vids"]
+    conv([(k, (value(rng), ts_of(rng))) for k in keys[700:800]])
+    cmds([[b"TREG", b"GET", k] for k in keys[690:800]]
+         + [[b"SYSTEM", b"DIGEST"], [b"SYSTEM", b"DIGEST", b"TYPES"]])
+    dump_and_compare()
+    assert calls[-1] == "_drain" and calls.count("_drain_dense") == 2
 
 
 def test_set_threshold_drain_and_database_routing():
