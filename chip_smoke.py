@@ -66,10 +66,13 @@ library's path, its build seconds, the compiler's version); then:
    for 10,000 keys, L = 1,024; sparse at B = 16,384 with Ld = 128, dense
    with Ld = 64, TRIM counts of 512), narrow and wide; the dense drain at
    the node phase's L = 512; the socket TRIM's shape (B = 16, one row);
-   a row wider than shared memory (L = Ld = 65,536); and the class
-   boundaries of ops/tlog.py drain_plan (the widest L the warp class
-   takes at Ld = 128 and the next, narrow and wide; Ld = 256 and 257;
-   the dense drain at its crossover). Each is held bit
+   a row wider than shared memory (L = Ld = 65,536: a cluster of 16
+   CTAs); the class boundaries of ops/tlog.py drain_plan (the widest L
+   the warp class takes at Ld = 128 and the next, narrow and wide; Ld =
+   256 and 257; the dense drain at its crossover); and the cluster
+   class's partition edges (8 rows forced into clusters of 8: trims and
+   cutoffs at the first and last CTA's share, repeats, an overflow).
+   Each is held bit
    for bit against its plain version (ts >= 2^32 and 2^64-1 with CLR,
    duplicates inside a delta and against the state, raised cutoffs,
    pad and negative rows, counts 0, above the length, negative and
@@ -94,8 +97,10 @@ library's path, its build seconds, the compiler's version); then:
    ops/ujson_resident.py flat_plan (UJ_FLAT_BOUNDARIES); ujson_join at
    the class boundaries of ops/ujson_device.py join_plan (random rows of
    the widest width the warp class takes, and of the next; the fewest
-   rows it takes, and half as many); narrow and wide, each bit for bit
-   against its plain version and timed;
+   rows it takes, and half as many) and at the cluster class's partition
+   edges (twin dots and cloud entries split across CTAs, the epilogue in
+   place); narrow and wide, each bit for bit against its plain version
+   and timed;
 10. the UJSON store phase (BASELINE config 5, published shape): 32
    replica documents resident on the card, 8 rounds of 1,280 set_doc
    deltas through fold_in_broadcast, every replica's state against the
@@ -291,7 +296,7 @@ launches the wire fed, "restore_launches" in P2's boot restore,
 lanes node's two lane processes, each apart; for the row
 kernels tlog_drain, ujson_join and ujson_fold_flat, "class" at each
 shape and "launch_classes", the main path's launches by class (a warp
-or a CTA per row, device scratch, or a cluster of CTAs: ops/row_plan.py);
+or a CTA per row, or a cluster of CTAs per row: ops/row_plan.py);
 error
 against the plain version, kernel / plain / bound times at the main
 path's shape, the mesh routes' times under "mesh_routes", the staged
@@ -306,6 +311,7 @@ not 0; without a GPU the script exits 1 before printing any result.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import json
 import os
 import re
@@ -1230,17 +1236,26 @@ def tlog_case(torch, rng, wide: bool, dense: bool, k: int, length: int,
                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
                operations=nops, overflow_rows=n_ovf, rows_merged=int(active.sum()),
                rows_changed=int(diff.sum()), launches=kern.launches - l0,
-               **{"class": f"{plan.kind} x{plan.rows_per_cta}"})
+               **{"class": row_class(plan)})
     emit({"phase": name, **row, "card": card})
     del st0, sk, sp, dt, extra
     torch.cuda.empty_cache()
     return row
 
 
+def row_class(plan) -> str:
+    """A row kernel's launch class (ops/row_plan.py) as a label: "warp x2"
+    (rows a CTA), "cta x1", "cluster of 16" (CTAs a row; "in device
+    scratch" where the shares live there)."""
+    if plan.kind == "cluster":
+        return f"cluster of {plan.cluster}" + (" in device scratch" if plan.scratch else "")
+    return f"{plan.kind} x{plan.rows_per_cta}"
+
+
 def tlog_work(torch, before, after, lens, cut, slot_rows, d_ts, d_vid, d_cut,
               slot_counts, ovf, nslots: int, dense: bool):
     """(bytes, compares, merged rows, changed rows) of one tlog_drain
-    launch, by the source's count of what this run's data needs: every
+    launch, by the least work this run's data needs: every
     slot's delta and scalars; the state row where the kernel merges it
     (a valid delta entry, a raised cutoff or a trim), written back where
     it changed. ``before`` / ``after``: the state around the drain;
@@ -1268,12 +1283,91 @@ def tlog_work(torch, before, after, lens, cut, slot_rows, d_ts, d_vid, d_cut,
     nbytes = n * (ld * 16 + 28) + (nslots if dense else nslots * 17)
     nbytes += int((old[active] * nplanes * 4).sum()) + 12 * int((active & ~flagged).sum())
     nbytes += int((np.maximum(old, new_len[sr])[diff[sr]] * nplanes * 4).sum())
-    ldp = 1 << (ld - 1).bit_length()
-    s = ldp.bit_length() - 1
-    lg = (length + ldp).bit_length()
-    nops = int(active.sum()) * (ldp // 2 * s * (s + 1) // 2 + ldp + ldp * lg)
+    # per merged row: a sort of its valid delta entries (a merge sort's v
+    # log2 v compares, the least a sort needs), a filter per column, a
+    # search per valid entry, and per old and merged entry
+    nvd = ((d_vid[:n] >= 0) & (d_ts[:n] >= cut_v[:, None])).sum(1)[active]
+    lg = (length + ld).bit_length()
+    sort = np.where(nvd > 1, nvd * np.ceil(np.log2(np.maximum(nvd, 2))), 0)
+    nops = int(sort.sum()) + int(active.sum()) * ld + int(nvd.sum()) * lg
     nops += int((old[active] + new_len[sr][active] * lg).sum())
     return nbytes, nops, active, diff
+
+
+@contextlib.contextmanager
+def forced_cluster(*mods):
+    """Every row the wrappers of ``mods`` (ops/tlog.py,
+    ops/ujson_device.py) launch takes the cluster class while the block
+    runs: their WARP_ROW_BYTES and CTA_ROW_BYTES at 0."""
+    saved = [(m, m.WARP_ROW_BYTES, m.CTA_ROW_BYTES) for m in mods]
+    for m in mods:
+        m.WARP_ROW_BYTES = m.CTA_ROW_BYTES = 0
+    try:
+        yield
+    finally:
+        for m, w, c in saved:
+            m.WARP_ROW_BYTES, m.CTA_ROW_BYTES = w, c
+
+
+def tlog_edge_case(torch, card: str) -> dict:
+    """tlog_drain_sparse's cluster class at its partition edges: 8 wide
+    rows of L = Ld = 256 forced into clusters of 8 (32 delta and 32
+    state slots a CTA); per row a TRIM 1, a TRIM at the merged row's
+    last entry, a CLR, a cutoff raised to the merged row's first and to
+    its last entry, a delta of three entries repeated over every CTA's
+    share, a row the sparse rule flags, and a plain merge; bit for bit
+    against the plain drain, then timed."""
+    from jylis_tpu_torch.ops import planes, tlog
+
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(SEED + 22)
+    k, length, ld = 8, 256, 256
+    lens = np.array([40, 60, 60, 50, 70, 30, 230, 80])
+    pl, lens32, cut, ts, vid = tlog_rows_np(rng, k, length, lens, True)
+    st0 = tlog.TLogState(*(torch.from_numpy(p.view(np.int32)).to(dev) for p in pl),
+                         torch.from_numpy(lens32).to(dev), planes.to_tensor(cut, dev))
+    rows = np.arange(k)
+    d_ts, d_vid, d_cut = tlog_delta_np(rng, ts, vid, lens, rows, ld)
+    d_cut[:] = 0
+    pick = rng.integers(0, 3, ld)
+    d_ts[5], d_vid[5] = d_ts[5, pick], np.abs(d_vid[5, pick])
+    ki = torch.from_numpy(rows.astype(np.int32)).to(dev)
+    dt = [planes.to_tensor(d_ts, dev), torch.from_numpy(d_vid).to(dev),
+          planes.to_tensor(d_cut, dev)]
+    noop = torch.full((k,), tlog.TRIM_NOOP, dtype=torch.int64, device=dev)
+    merged = tlog.TLogState(*(x.clone() for x in st0))
+    tlog.drain_sparse_plain(merged, ki, *dt, noop)
+    m = merged.length.cpu().numpy().astype(np.int64)
+    counts = np.full(k, tlog.TRIM_NOOP, np.int64)
+    counts[0], counts[1], counts[2] = 1, max(m[1], 1), 0
+    mts = tlog.decode_ts_np(merged.nth.cpu().numpy(), merged.ntl.cpu().numpy())
+    d_cut[3], d_cut[4] = mts[3, 0], mts[4, max(m[4] - 1, 0)]
+    dt[2] = planes.to_tensor(d_cut, dev)
+    cnt = torch.from_numpy(counts).to(dev)
+    sk = tlog.TLogState(*(x.clone() for x in st0))
+    sp = tlog.TLogState(*(x.clone() for x in st0))
+    with forced_cluster(tlog):
+        plan = tlog.drain_plan(k, length, ld, 3).rows
+        l0 = tlog.drain_sparse.launches
+        out_k = tlog.drain_sparse(sk, ki, *dt, cnt)
+        launched = tlog.drain_sparse.launches - l0
+        out_p = tlog.drain_sparse_plain(sp, ki, *dt, cnt)
+        torch.cuda.synchronize()
+        err = max_abs_err(torch, [*zip(out_k, out_p), *zip(_tensors(sk), _tensors(sp))])
+        ovf = out_k[0].cpu().numpy()
+        if err or plan.kind != "cluster" or launched != 1 or not ovf[6] or ovf.sum() != 1:
+            raise AssertionError(f"tlog_drain_sparse partition edges: err {err}, "
+                                 f"{plan.kind}, launches {launched}, overflow {ovf}")
+        reset = restorer(_tensors(sk), _tensors(st0))
+        ms = time_ms(torch, lambda: tlog.drain_sparse(sk, ki, *dt, cnt), reset=reset)
+    plain_ms = time_ms(torch, lambda: tlog.drain_sparse_plain(sp, ki, *dt, cnt),
+                       reset=restorer(_tensors(sp), _tensors(st0)))
+    row = dict(shape=f"partition edges: K={k} L=Ld={ld} wide, trims and cutoffs at the "
+                     "first and last CTA's share, a delta of repeats, an overflow",
+               max_abs_err=err, kernel_ms=ms, plain_ms=plain_ms, launches=launched,
+               **{"class": row_class(plan)})
+    emit({"phase": "tlog_drain_sparse", **row, "card": card})
+    return row
 
 
 def tlog_phases(torch, card: str) -> dict:
@@ -1282,8 +1376,9 @@ def tlog_phases(torch, card: str) -> dict:
     dense with Ld = 64; TRIM counts of 512), narrow and wide, the dense
     drain at the node phase's L = 512, the shape a socket TRIM gives the
     sparse drain (B = 16, one live row, no entries),
-    and a row wider than shared memory holds (L = Ld = 65,536, wide: the
-    kernel's device-scratch path); then the class boundaries."""
+    and a row wider than shared memory holds (L = Ld = 65,536, wide: a
+    cluster of 16 CTAs); then the class boundaries, and the cluster
+    class's partition edges."""
     rng = np.random.default_rng(SEED + 20)
     out = {}
     for dense, name in ((False, "tlog_drain_sparse"), (True, "tlog_drain_dense")):
@@ -1317,6 +1412,7 @@ def tlog_phases(torch, card: str) -> dict:
     for length in (lx, lx + 4):
         out["tlog_drain_dense"]["other_shapes"].append(
             tlog_case(torch, rng, False, True, 2048, length, 2048, 2000, LD_DENSE, card))
+    out["tlog_drain_sparse"]["other_shapes"].append(tlog_edge_case(torch, card))
     return out
 
 
@@ -2621,19 +2717,21 @@ def uj_warp_max_width(tsize: int, r: int, n: int = 1024) -> int:
     from jylis_tpu_torch.ops import ujson_device as udev
 
     width = 4
-    while udev.join_plan(n, udev.join_work_bytes(
-            tsize, width + 4, width + 4, width + 4, width + 4, r)).kind == "warp":
+    while udev.plan_join(n, tsize, width + 4, width + 4, width + 4, width + 4,
+                         r).kind == "warp":
         width += 4
     return width
 
 
 def uj_join_class(a, b) -> str:
-    """The class ujson_join takes for slots joining a's rows with b's."""
+    """The class ujson_join takes for slots joining a's rows with b's
+    ("cluster of 8": CTAs a row)."""
     from jylis_tpu_torch.ops import ujson_device as udev
 
-    wb = udev.join_work_bytes(a.dots.element_size(), a.dots.shape[-1], b.dots.shape[-1],
-                              a.cloud.shape[-1], b.cloud.shape[-1], a.vv.shape[-1])
-    return udev.join_plan(a.dots.shape[0], wb).kind
+    plan = udev.plan_join(a.dots.shape[0], a.dots.element_size(), a.dots.shape[-1],
+                          b.dots.shape[-1], a.cloud.shape[-1], b.cloud.shape[-1],
+                          a.vv.shape[-1])
+    return f"cluster of {plan.cluster}" if plan.kind == "cluster" else plan.kind
 
 
 def uj_flat_work(grid, out):
@@ -2756,6 +2854,50 @@ def uj_5_setup(wide: bool):
     return st5, deltas, udev.DocBatch(*(p[None] for p in batch))
 
 
+def uj_edge_case(torch, card: str, wide: bool) -> dict:
+    """ujson_join's cluster class where its partition edges split twins:
+    6 rows of 64 dots and 64 cloud entries forced into clusters of 8,
+    b's rows holding 13 of a's dots and cloud entries among their own (so
+    a dot and its twin, a cloud entry and its repeat, fall into
+    neighbouring CTAs), joined with the epilogue in place at a permuted
+    subset (out is a), bit for bit against the plain join, then timed."""
+    from jylis_tpu_torch.ops import ujson_device as udev
+
+    rng = np.random.default_rng(SEED + 32 + wide)
+    r, n, width, twins = 8, 6, 64, 13
+    shift = 32 if wide else udev.narrow_shift(r)
+    a = uj_random_planes(torch, rng, (n,), width, width, r, shift, empty=[0])
+    b = uj_random_planes(torch, rng, (n,), width, width, r, shift)
+    pad = udev.pad_of(a.dots)
+    bias = (1 << 63) if wide else 0  # wide rows sort unsigned
+
+    def sort_rows(x):
+        return torch.gather(x, 1, (x ^ bias).sort(1).indices)
+
+    for x, y in ((a.dots, b.dots), (a.cloud, b.cloud)):
+        both = sort_rows(torch.cat([x[:, :twins], y[:, : width - twins]], 1))
+        both[:, 1:][both[:, 1:] == both[:, :-1]] = pad
+        y.copy_(sort_rows(both))
+    b.pay.copy_(torch.where(b.dots == pad, -1, b.pay.abs()))
+    idx = torch.tensor([3, 1, 4, 2, 5, 0], dtype=torch.int32, device=DEVICE)
+    a0 = uj_clone(a)
+    ak, ap = uj_clone(a0), uj_clone(a0)
+    with forced_cluster(udev):
+        row = uj_case(
+            torch, "ujson_join",
+            f"partition edges: {n} x {width} dots + {width} ({twins} twins a row), "
+            f"in place at a permuted subset, {'wide' if wide else 'narrow'}",
+            card,
+            lambda: udev.join_rows(ak, b, shift, a_idx=idx, finish=(width, width), out=ak),
+            lambda: udev.join_rows_plain(ap, b, shift, a_idx=idx, finish=(width, width),
+                                         out=ap),
+            uj_join_work(a0, b, False, width, width), restorer(ak, a0), restorer(ap, a0),
+            launch_class=uj_join_class(a0, b))
+    if not row["class"].startswith("cluster"):
+        raise AssertionError(f"ujson_join partition edges ran {row['class']}")
+    return row
+
+
 def ujson_phases(torch, card: str, flat_groups) -> dict:
     """ujson_join and ujson_fold_flat, each bit for bit against its plain
     version, narrow and wide, at the shapes their main paths give them:
@@ -2763,7 +2905,7 @@ def ujson_phases(torch, card: str, flat_groups) -> dict:
     and its subset join into resident rows of 4,096 dots (round 8: 3,584
     resident entries + 512); config 5's broadcast join (32 resident
     rows, one folded row of 10,240 deltas, 65,536 slots wide: past
-    shared memory, the device-scratch path) and its 14-level tree;
+    shared memory, a cluster of 8 CTAs a row) and its 14-level tree;
     ujson_join at the class boundaries of ujson_device.join_plan;
     ujson_fold_flat at the node phase's flat leg (K = 4,096 x D = 64, and
     its first 64 keys), random planes at K = 2 x D = 64 x W = 512 (a
@@ -2831,20 +2973,22 @@ def ujson_phases(torch, card: str, flat_groups) -> dict:
         wb = udev.join_work_bytes(folded.dots.element_size(), r0.dots.shape[-1],
                                   folded.dots.shape[-1], r0.cloud.shape[-1],
                                   folded.cloud.shape[-1], r0.vv.shape[-1])
-        if wb <= udev.SMEM_LIMIT:
-            raise AssertionError("config 5's broadcast row fits shared memory")
+        bc_class = uj_join_class(r0, folded)
+        if wb <= udev.SMEM_LIMIT or not bc_class.startswith("cluster"):
+            raise AssertionError(f"config 5's broadcast row: {wb} B, {bc_class}, "
+                                 "not a cluster past shared memory")
         bc_row = uj_case(
             torch, "ujson_join",
             f"config 5 broadcast: {r0.dots.shape[0]} rows ({UJ5_REPS} occupied) x "
             f"{r0.dots.shape[-1]} + 1 folded row x {folded.dots.shape[-1]} "
-            f"(device scratch, {wb} B a row), out {out_w}/{out_c}, {lay}",
+            f"(past shared memory: {wb} B a row, {bc_class}), out {out_w}/{out_c}, {lay}",
             card,
             lambda: udev.join_rows(rk, folded, shift, finish=(out_w, out_c), occupied=occ,
                                    out=ures.slice_widths(rk, out_w, out_c)),
             lambda: udev.join_rows_plain(rp, folded, shift, finish=(out_w, out_c),
                                          occupied=occ, out=ures.slice_widths(rp, out_w, out_c)),
             uj_join_work(r0, folded, True, out_w, out_c), restorer(rk, r0), restorer(rp, r0),
-            launch_class=uj_join_class(r0, folded))
+            launch_class=bc_class)
         l0 = udev.join_rows.launches
         udev._fold_body(g5, shift)
         levels5 = udev.join_rows.launches - l0
@@ -2856,7 +3000,7 @@ def ujson_phases(torch, card: str, flat_groups) -> dict:
             lambda: udev.DocBatch(*(p[:, 0] for p in udev._fold_body(
                 g5, shift, udev.join_rows_plain))),
             work, launches_per=levels5, launch_class=work[2])
-        join_rows += [bc_row, t5_row]
+        join_rows += [bc_row, t5_row, uj_edge_case(torch, card, wide)]
         del st5, batch, g5, folded, r0, rk, rp, deltas
 
         # the class boundaries (ujson_device.join_plan): random rows of the

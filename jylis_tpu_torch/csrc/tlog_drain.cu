@@ -54,8 +54,28 @@
 //            slice or Ld > 256: the delta is bitonic-sorted in the work
 //            buffer (a barrier a stage), compacted by ballot scans of
 //            one barrier each (warp_ops.cuh CtaGroup).
-//   scratch  the cta kernel with its work buffer in device scratch the
-//            wrapper allocates, for rows past shared memory.
+//   cluster  (tlog_drain_cluster) rows past a CTA's shared memory: a
+//            thread-block cluster of n CTAs per row (n a power of two,
+//            up to 16; cudaLaunchKernelEx), CTA q holding its share of
+//            the work buffer in its own shared memory: delta columns
+//            [q * P, (q + 1) * P) and state slots [q * PA, (q + 1) * PA).
+//            Each CTA bitonic-sorts its P delta entries in shared memory;
+//            log2(n) rounds of merge path then merge the sorted runs
+//            pairwise across the cluster, each thread finding its co-rank
+//            by a binary search over the two runs and merging its
+//            outputs in order, reading the other CTAs' runs through
+//            distributed shared memory (cluster.map_shared_rank): no
+//            device-scratch sorting network. The dedup compares an entry
+//            with its left neighbour (in the CTA before for a share's
+//            first entry), the compaction takes its offsets from a
+//            cluster-wide exclusive scan (each CTA publishes its count,
+//            one cluster barrier, every CTA reads the others'), the
+//            trim's co-rank and the cutoff's suffix search run over the
+//            partitioned buffers, and cluster.sync() ends every step:
+//            every CTA has read the state row before any CTA writes it.
+//            A row too wide for 16 CTAs' shared memory keeps the shares
+//            in device scratch, one region a cluster; the steps are the
+//            same.
 // In every class: a slot's delta and the scalars that need no row are
 // loaded before the row's, so their latencies overlap; a row with no
 // valid delta entry, no raised cutoff and no trim reads no state and
@@ -80,12 +100,16 @@
 // cutoff and count read; the rewritten slots written back (positions up
 // to the larger of the old and new length), then length and cutoff; plus
 // the outputs (overflow byte; sparse: 4 + 8 bytes, and the 4-byte
-// index). Compares per row: Ldp/2 * s(s+1)/2 for the sort (Ldp = 2^s),
-// Ldp + (old length) for the filters, and log2(L + Ld) per merged and per
-// delta entry for the searches.
+// index). Compares per row: Ldp * s for the sort (Ldp = 2^s: a merge
+// sort's, the least a sort of Ldp entries needs), Ldp + (old length) for
+// the filters, and log2(L + Ld) per merged and per delta entry for the
+// searches.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "warp_ops.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -93,6 +117,7 @@ using u32 = unsigned int;
 using u64 = unsigned long long;
 
 constexpr int kCtaThreads = 256;
+using jt::kClusterMax;
 constexpr u32 kPad = 0xFFFFFFFFu;
 constexpr long long kTrimNoop = 1LL << 62;
 
@@ -160,26 +185,24 @@ __device__ __forceinline__ long long buffer_u32(long long slice, int ldp, bool w
   return slice * (wide ? 3 : 2) + ((ldp + 3) & ~3);
 }
 
-// entries of p[0, n) that are < e (p sorted ascending)
-template <bool W>
-__device__ __forceinline__ int lower_bound(const Planes<W>& p, int n,
-                                           const Ent& e) {
+// entries of p[0, n) that are < e (p sorted ascending; p: Planes or Dist)
+template <bool W, class P>
+__device__ __forceinline__ int lower_bound(const P& p, int n, const Ent& e) {
   return jt::partition_point(n, [&](int i) { return lt<W>(p.get(i), e); });
 }
 
 // entries of p[0, n) with ts >= cut: a prefix of a sorted list. Every
 // thread of the group calls it (a warp-parallel search).
-template <bool W>
-__device__ __forceinline__ int live_prefix(const Planes<W>& p, int n, u64 cut) {
+template <bool W, class P>
+__device__ __forceinline__ int live_prefix(const P& p, int n, u64 cut) {
   return jt::warp_partition_point(0, n, [&](int i) { return ts_ge<W>(p.get(i), cut); });
 }
 
 // the k-th entry (0-based) of the merge of sorted, disjoint a[0, na) and
 // d[0, nd): a merge-path co-rank search for how many of the first k + 1
 // come from a. Every thread of the group calls it.
-template <bool W>
-__device__ Ent merged_at(const Planes<W>& a, int na, const Planes<W>& d,
-                         int nd, int k) {
+template <bool W, class PA, class PD>
+__device__ Ent merged_at(const PA& a, int na, const PD& d, int nd, int k) {
   const int kk = k + 1;
   const int i = jt::warp_partition_point(
       kk - nd > 0 ? kk - nd : 0, kk < na ? kk : na,
@@ -307,8 +330,8 @@ __device__ __forceinline__ Ent delta_entry(const Raw& r, u64 cut, bool* ok) {
 // Keep delta entry e (sorted position: after prev, or first) unless it
 // is PAD, equal to its left neighbour or already in a[0, na); *at gets
 // its lower bound in a.
-template <bool W>
-__device__ __forceinline__ bool keep_delta(const Planes<W>& a, int na,
+template <bool W, class PA>
+__device__ __forceinline__ bool keep_delta(const PA& a, int na,
                                            const Ent& e, const Ent& prev,
                                            bool first, int* at) {
   if (e.v == kPad || (!first && eq<W>(prev, e))) return false;
@@ -483,20 +506,19 @@ __device__ void cta_bitonic(const Planes<W>& d, int n) {
 }
 
 // A CTA per row (grid-stride over slots); the work buffer of `slice` u32
-// per plane (L state slots, then ldp delta slots) in shared memory, or in
-// device scratch when scratch is not null.
+// per plane (L state slots, then ldp delta slots) in shared memory.
 template <bool W>
 __global__ void __launch_bounds__(kCtaThreads)
     tlog_drain_cta(u32* nth, u32* ntl, u32* nv, int* length, u64* cutoff,
                    const int* key_idx, const u64* dts, const long long* dvid,
                    const u64* dcut, const long long* counts,
                    unsigned char* ovf, int* out_len, u64* out_cut,
-                   u32* scratch, long long nslots, long long k, int L, int ld,
-                   int ldp, long long slice, int vec) {
+                   long long nslots, long long k, int L, int ld, int ldp,
+                   long long slice, int vec) {
   extern __shared__ __align__(16) u32 smem[];
   __shared__ int sums[2 * kCtaThreads / 32];
   jt::CtaGroup<kCtaThreads> g(sums);
-  u32* w = scratch ? scratch + blockIdx.x * buffer_u32(slice, ldp, W) : smem;
+  u32* w = smem;
   const Planes<W> A = buffer<W>(w, slice);
   const Planes<W> D = A.at(L);
   int* at = reinterpret_cast<int*>(w + slice * (W ? 3 : 2));
@@ -563,12 +585,252 @@ __global__ void __launch_bounds__(kCtaThreads)
   }
 }
 
-template <typename F>
-void allow_smem(F* fn, long long smem) {
-  if (smem > 48 * 1024) {
-    cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(smem));
+// ---- the cluster class: a row's work buffer split across a cluster -------
+
+// A CTA's view of one array of every work buffer of its cluster: CTA r's
+// share at peers[r] + off (u32), `plane` u32 a plane, entries [r << log_p,
+// (r + 1) << log_p) of the array (plane == 1 << log_p). Generic pointers:
+// another CTA's shared memory through the cluster window, or device
+// scratch.
+template <bool W>
+struct Dist {
+  u32* const* peers;
+  int off, log_p;
+  __device__ __forceinline__ Planes<W> part(int r) const {
+    return buffer<W>(peers[r] + off, 1 << log_p);
   }
+  __device__ __forceinline__ Ent get(int i) const {
+    return part(i >> log_p).get(i & ((1 << log_p) - 1));
+  }
+  __device__ __forceinline__ void put(int i, const Ent& e) const {
+    part(i >> log_p).put(i & ((1 << log_p) - 1), e);
+  }
+};
+
+struct DistInt {
+  u32* const* peers;
+  int off, log_p;
+  __device__ __forceinline__ int& operator[](int i) const {
+    return reinterpret_cast<int*>(peers[i >> log_p] + off)[i & ((1 << log_p) - 1)];
+  }
+};
+
+// One round of the cluster's merge sort: runs of h entries of src (h a
+// multiple of the P entries a CTA holds) merged pairwise into runs of 2h
+// of dst. CTA q writes outputs [q * P, (q + 1) * P) of dst, its share
+// `out`, each thread a contiguous stretch of them: a co-rank search over the two runs for its
+// first output (merge path, a before b on ties), then a merge in order.
+template <bool W>
+__device__ void merge_round(const Dist<W>& src, const Planes<W>& out, int q,
+                            int log_p, int h) {
+  const int P = 1 << log_p;
+  const int per = (P + kCtaThreads - 1) / kCtaThreads;
+  const int o0 = q * P + static_cast<int>(threadIdx.x) * per;
+  const int o1 = min(o0 + per, (q + 1) * P);
+  if (o0 >= o1) return;
+  const int base = o0 / (2 * h) * (2 * h), d = o0 - base;
+  int lo = d > h ? d - h : 0, hi = d < h ? d : h;
+  while (lo < hi) {  // outputs [0, d) take a[mid] iff a[mid] <= b[d - 1 - mid]
+    const int mid = (lo + hi) >> 1;
+    const bool in = !lt<W>(src.get(base + h + d - mid - 1), src.get(base + mid));
+    lo = in ? mid + 1 : lo;
+    hi = in ? hi : mid;
+  }
+  int i = lo, j = d - lo;
+  const Ent pad{kPad, kPad, kPad};
+  Ent x = i < h ? src.get(base + i) : pad, y = j < h ? src.get(base + h + j) : pad;
+  for (int o = o0; o < o1; ++o) {
+    const bool ta = i < h && (j >= h || !lt<W>(y, x));
+    out.put(o - q * P, ta ? x : y);
+    if (ta) {
+      if (++i < h) x = src.get(base + i);
+    } else {
+      if (++j < h) y = src.get(base + h + j);
+    }
+  }
+}
+
+// A cluster of n CTAs per row (grid-stride over the clusters). CTA q's
+// share of the work buffer (u32): two delta buffers of P entries each
+// plane (the merge's two sides), P ints of bounds (`at`, by compacted
+// delta index), P ints of compaction positions, then state slots
+// [q * pa, (q + 1) * pa), each plane; in shared memory, or (InScratch)
+// at blockIdx.x * stride bytes of device scratch. A CTA reaches its own
+// share through `mine` (shared memory as such, so the compiler emits
+// shared-memory accesses), the others' through peers.
+template <bool W, bool InScratch>
+__global__ void __launch_bounds__(kCtaThreads)
+    tlog_drain_cluster(u32* nth, u32* ntl, u32* nv, int* length, u64* cutoff,
+                       const int* key_idx, const u64* dts, const long long* dvid,
+                       const u64* dcut, const long long* counts,
+                       unsigned char* ovf, int* out_len, u64* out_cut,
+                       char* scratch, long long stride, long long nslots,
+                       long long k, int L, int ld, int log_p, int pa) {
+  extern __shared__ __align__(16) u32 smem[];
+  __shared__ int sums[2 * kCtaThreads / 32];
+  __shared__ u32* peers[kClusterMax];
+  __shared__ int tab[kClusterMax];
+  __shared__ int pub[2];
+  cg::cluster_group cluster = cg::this_cluster();
+  jt::CtaGroup<kCtaThreads> g(sums);
+  const int q = static_cast<int>(cluster.block_rank());
+  const int n = static_cast<int>(cluster.num_blocks());
+  const long long cid = blockIdx.x / n, nclusters = gridDim.x / n;
+  const int tid = g.rank, crank = q * kCtaThreads + tid, csize = n * kCtaThreads;
+  constexpr int NP = W ? 3 : 2;
+  const int P = 1 << log_p;
+  if (tid < n) {
+    peers[tid] = InScratch
+        ? reinterpret_cast<u32*>(scratch + (cid * n + tid) * stride)
+        : cluster.map_shared_rank(smem, tid);
+  }
+  u32* const mine = InScratch ? reinterpret_cast<u32*>(scratch + blockIdx.x * stride) : smem;
+  const Dist<W> D0{peers, 0, log_p}, D1{peers, NP * P, log_p};
+  const DistInt AT{peers, 2 * NP * P, log_p};
+  int xc = 0;
+
+  for (long long s = cid; s < nslots; s += nclusters) {
+    cluster.sync();  // every CTA is done with the previous slot's buffers
+    int* pos = reinterpret_cast<int*>(mine + 2 * NP * P + P);
+    const Planes<W> A = buffer<W>(mine + 2 * NP * P + 2 * P, pa);
+    Slot t;
+    if (!open_slot(crank, s, key_idx, k, L, ld, length, cutoff, dcut, counts,
+                   ovf, out_len, out_cut, &t)) {
+      continue;
+    }
+    // this CTA's delta columns [q * P, (q + 1) * P) under the cutoff, PAD
+    // elsewhere
+    const Planes<W> S0 = buffer<W>(mine, P), S1 = buffer<W>(mine + NP * P, P);
+    int* const at_mine = reinterpret_cast<int*>(mine + 2 * NP * P);
+    int nv_here = 0;
+    for (int i0 = 0; i0 < P; i0 += kCtaThreads) {
+      const int i = i0 + tid;
+      bool ok = false;
+      if (i < P) S0.put(i, delta_entry(delta_raw(dts, dvid, s, ld, q * P + i), t.cut, &ok));
+      nv_here += g.count(ok);
+    }
+    jt::exchange(cluster, pub, xc, nv_here, tab);
+    int nvalid = 0;
+    for (int r = 0; r < n; ++r) nvalid += tab[r];
+    if (nvalid == 0 && t.cut == t.a_cut && t.cnt >= kTrimNoop) {  // unchanged
+      report(crank, t, 0, ovf, out_len, out_cut);
+      continue;
+    }
+    const long long off = t.row * L;
+    const Planes<W> R{W ? nth + off : nullptr, ntl + off, nv + off};
+    // this CTA's state slots, copied (the row is rewritten in place), and
+    // the first entry among them below the cutoff
+    const int a0 = min(q * pa, t.old_len), a1 = min(a0 + pa, t.old_len);
+    int fail = t.old_len;
+    for (int i = a0 + tid; i < a1; i += kCtaThreads) {
+      const Ent e = R.get(i);
+      A.put(i - a0, e);
+      if (i < fail && !ts_ge<W>(e, t.cut)) fail = i;
+    }
+    fail = g.min(fail);
+    if (nvalid > 1) cta_bitonic<W>(S0, P);  // each stage ends on a barrier
+    jt::exchange(cluster, pub, xc, fail, tab);  // (the sorted runs, published)
+    int na = t.old_len;
+    for (int r = 0; r < n; ++r) na = min(na, tab[r]);
+    // the runs merged across the cluster, log2(n) rounds
+    bool in0 = true;
+    for (int h = P; nvalid > 1 && h < n * P; h <<= 1) {
+      merge_round<W>(in0 ? D0 : D1, in0 ? S1 : S0, q, log_p, h);
+      in0 = !in0;
+      cluster.sync();
+    }
+    const Dist<W>& S = in0 ? D0 : D1;
+    const Dist<W>& T = in0 ? D1 : D0;
+    // drop entries equal to their left neighbour or already in the state
+    // row (searched in the row itself: nothing writes it before the
+    // barrier ahead of the write-back); number the rest
+    const Planes<W> Sq = in0 ? S0 : S1;
+    int kept = 0;
+    for (int i0 = 0; i0 < (nvalid ? P : 0); i0 += kCtaThreads) {
+      const int i = i0 + tid, j = q * P + i;
+      bool keep = false;
+      if (i < P) {
+        const Ent e = Sq.get(i);
+        int p;
+        keep = keep_delta<W>(R, na, e, i ? Sq.get(i - 1) : S.get(j > 0 ? j - 1 : 0),
+                             j == 0, &p);
+      }
+      int tot;
+      const int pp = g.scan(keep, &tot);
+      if (i < P) pos[i] = keep ? kept + pp : -1;
+      kept += tot;
+    }
+    jt::exchange(cluster, pub, xc, kept, tab);
+    int base = 0, nd = 0;
+    for (int r = 0; r < n; ++r) {
+      base += r < q ? tab[r] : 0;
+      nd += tab[r];
+    }
+    // the kept entries compacted into T[0, nd), each with its bound in
+    // the state row's surviving entries
+    for (int i = tid; i < (nvalid ? P : 0); i += kCtaThreads) {
+      const int pp = pos[i];
+      if (pp >= 0) {
+        const Ent e = Sq.get(i);
+        T.put(base + pp, e);
+        AT[base + pp] = lower_bound<W>(R, na, e);
+      }
+    }
+    cluster.sync();
+    const int m = na + nd;
+    if (key_idx && m > L) {  // the sparse rule
+      report(crank, t, 1, ovf, out_len, out_cut);
+      continue;
+    }
+    // the trim's target, the new cutoff and the surviving prefixes, from
+    // the merged row (every warp searches alike)
+    u64 target = 0;
+    if (t.cnt == 0) {
+      if (m > 0) target = ts_of<W>(nd ? merged_at<W>(R, na, T, nd, 0) : R.get(0)) + 1;
+    } else if (t.cnt > 0 && t.cnt <= m) {
+      const int kk = static_cast<int>(t.cnt - 1);
+      target = ts_of<W>(nd ? merged_at<W>(R, na, T, nd, kk) : R.get(kk));
+    }
+    const u64 new_cut = t.cut > target ? t.cut : target;
+    const int ka = new_cut == t.cut ? na : live_prefix<W>(R, na, new_cut);
+    const int kd = live_prefix<W>(T, nd, new_cut);
+    const int nk = ka + kd;
+    cluster.sync();  // every CTA has read the state row: write it
+    if (nd > 0 || nk != t.old_len) {
+      // a state entry's merged position is its index plus the delta
+      // entries whose bound lies at or below it; state entries below the
+      // first delta entry's bound keep their slots
+      const int at0 = kd ? AT[0] : ka;
+      const int i0 = at0 < ka ? at0 : ka;
+      for (int i = max(i0, q * pa) + tid; i < min(ka, q * pa + pa); i += kCtaThreads) {
+        R.put(i + jt::partition_point(kd, [&](int j) { return AT[j] <= i; }),
+              A.get(i - q * pa));
+      }
+      const Planes<W> Tq = in0 ? S1 : S0;
+      for (int j = q * P + tid; j < min(kd, q * P + P); j += kCtaThreads) {
+        const int a = at_mine[j - q * P];
+        R.put(j + (a < ka ? a : ka), Tq.get(j - q * P));
+      }
+      for (int p = nk + crank; p < t.old_len; p += csize) R.put(p, Ent{kPad, kPad, kPad});
+    }
+    if (crank == 0) {
+      length[t.row] = nk;
+      cutoff[t.row] = new_cut;
+      ovf[t.s] = 0;
+      if (out_len) {
+        out_len[t.s] = nk;
+        out_cut[t.s] = new_cut;
+      }
+    }
+  }
+  cluster.sync();  // no CTA leaves while another may read its shared memory
+}
+
+template <typename F>
+cudaError_t allow_smem(F* fn, long long smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
 }
 
 template <bool W>
@@ -578,7 +840,8 @@ int launch(int kind, int log_e, void* nth, void* ntl, void* nv, void* length,
            void* out_len, void* out_cut, void* scratch, long long nslots,
            long long k, long long L, long long ld, long long ldp,
            long long rows_per_cta, long long slice, long long grid,
-           long long smem, int vec, cudaStream_t stream) {
+           long long smem, int vec, long long csize, long long stride,
+           cudaStream_t stream) {
   auto* a_h = static_cast<u32*>(nth);
   auto* a_l = static_cast<u32*>(ntl);
   auto* a_v = static_cast<u32*>(nv);
@@ -594,12 +857,14 @@ int launch(int kind, int log_e, void* nth, void* ntl, void* nv, void* length,
   auto* oc = static_cast<u64*>(out_cut);
   const unsigned blocks = static_cast<unsigned>(grid);
   const size_t bytes = static_cast<size_t>(smem);
+  cudaError_t e = cudaSuccess;
   if (kind == 0) {
     const unsigned threads = static_cast<unsigned>(32 * rows_per_cta);
     const int rpc = static_cast<int>(rows_per_cta);
 #define JT_WARP_CASE(LE)                                                      \
   case LE:                                                                    \
-    allow_smem(tlog_drain_warp<W, LE>, smem);                                 \
+    e = allow_smem(tlog_drain_warp<W, LE>, smem);                             \
+    if (e != cudaSuccess) return static_cast<int>(e);                         \
     tlog_drain_warp<W, LE><<<blocks, threads, bytes, stream>>>(               \
         a_h, a_l, a_v, len, cut, ki, ts, vid, dc, cn, of, ol, oc, nslots, k,  \
         static_cast<int>(L), static_cast<int>(ld), rpc, slice, vec);          \
@@ -613,12 +878,50 @@ int launch(int kind, int log_e, void* nth, void* ntl, void* nv, void* length,
         return static_cast<int>(cudaErrorInvalidValue);
     }
 #undef JT_WARP_CASE
-  } else {
-    allow_smem(tlog_drain_cta<W>, smem);
+  } else if (kind == 1) {
+    e = allow_smem(tlog_drain_cta<W>, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
     tlog_drain_cta<W><<<blocks, kCtaThreads, bytes, stream>>>(
-        a_h, a_l, a_v, len, cut, ki, ts, vid, dc, cn, of, ol, oc,
-        static_cast<u32*>(scratch), nslots, k, static_cast<int>(L),
-        static_cast<int>(ld), static_cast<int>(ldp), slice, vec);
+        a_h, a_l, a_v, len, cut, ki, ts, vid, dc, cn, of, ol, oc, nslots, k,
+        static_cast<int>(L), static_cast<int>(ld), static_cast<int>(ldp), slice,
+        vec);
+  } else if (kind == 2 && csize >= 2 && csize <= kClusterMax &&
+             (csize & (csize - 1)) == 0 && ldp >= 1 && (ldp & (ldp - 1)) == 0 &&
+             grid % csize == 0) {
+    auto fn = scratch ? tlog_drain_cluster<W, true> : tlog_drain_cluster<W, false>;
+    e = allow_smem(fn, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (csize > 8) {
+      e = cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(blocks);
+    cfg.blockDim = dim3(kCtaThreads);
+    cfg.dynamicSmemBytes = bytes;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = static_cast<unsigned>(csize);
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    // a cluster's CTAs must be resident together: refuse a launch the card
+    // cannot place one cluster of
+    int fits = 0;
+    e = cudaOccupancyMaxActiveClusters(&fits, fn, &cfg);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (fits < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+    int log_p = 0;
+    while ((1LL << log_p) < ldp) ++log_p;
+    e = cudaLaunchKernelEx(&cfg, fn, a_h, a_l, a_v, len, cut, ki, ts, vid, dc, cn,
+                           of, ol, oc, static_cast<char*>(scratch), stride, nslots,
+                           k, static_cast<int>(L), static_cast<int>(ld), log_p,
+                           static_cast<int>(slice));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  } else {
+    return static_cast<int>(cudaErrorInvalidConfiguration);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -631,13 +934,17 @@ int launch(int kind, int log_e, void* nth, void* ntl, void* nv, void* length,
 // out_cut: (B,) for the sparse drain, null for the dense one (its state
 // planes are its outputs). kind: 0 the warp class (log_e: log2 of the
 // delta entries a lane holds, 0..3; rows_per_cta warps a CTA), 1 a CTA a
-// row. ldp: delta slots of the work buffer (32 << log_e for the warp
-// class, Ld rounded up to a power of two otherwise); slice: u32 per plane
-// of one row's work buffer, at least L + ldp, a multiple of 4. scratch:
-// null to keep the work buffers in shared memory (smem bytes a CTA), else
-// grid * nplanes * slice u32 of device memory. vec: 1 when L % 4 == 0 and
-// the state planes are 16-byte aligned. Returns cudaGetLastError() after
-// the launch.
+// row, 2 a cluster of csize CTAs a row (a power of two, 2..16). ldp:
+// delta slots of the work buffer (32 << log_e for the warp class, Ld
+// rounded up to a power of two for a CTA, a CTA's share, a power of two,
+// for a cluster); slice: u32 per plane of one row's work buffer, at least
+// L + ldp, a multiple of 4 (a cluster: the state slots of a CTA's share).
+// smem: shared-memory bytes a CTA; scratch: null, or for a cluster whose
+// shares live in device memory grid * stride bytes (stride a CTA's
+// share). vec: 1 when L % 4 == 0 and the state planes are 16-byte
+// aligned. Returns a CUDA error code: cudaErrorInvalidConfiguration for a
+// class it does not take or a cluster the card cannot place, else
+// cudaGetLastError() after the launch.
 extern "C" int jt_tlog_drain(int nplanes, void* nth, void* ntl, void* nv,
                              void* length, void* cutoff, const void* key_idx,
                              const void* dts, const void* dvid,
@@ -647,12 +954,13 @@ extern "C" int jt_tlog_drain(int nplanes, void* nth, void* ntl, void* nv,
                              long long ld, long long kind, long long log_e,
                              long long ldp, long long rows_per_cta,
                              long long slice, long long grid, long long smem,
-                             long long vec, void* stream) {
+                             long long vec, long long csize, long long stride,
+                             void* stream) {
   if (nslots <= 0) return 0;
   auto fn = nplanes == 3 ? launch<true> : launch<false>;
   return fn(static_cast<int>(kind), static_cast<int>(log_e), nth, ntl, nv,
             length, cutoff, key_idx, dts, dvid, dcut, counts, ovf, out_len,
             out_cut, scratch, nslots, k, L, ld, ldp, rows_per_cta, slice,
-            grid, smem, static_cast<int>(vec),
+            grid, smem, static_cast<int>(vec), csize, stride,
             static_cast<cudaStream_t>(stream));
 }

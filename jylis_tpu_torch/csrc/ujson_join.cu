@@ -41,29 +41,59 @@
 // slice of shared memory, with only __syncwarp between steps
 // (ujson_join_warp); a CTA of 256 threads per row for rows past a warp's
 // slice, or launches of too few rows to fill the card a warp each
-// (ujson_join_cta); and the same with its work buffer in device scratch
-// per CTA, for rows past shared memory. The slot's steps are written once for both groups
-// (warp_ops.cuh): compactions are ballot scans, __ballot_sync + __popc
-// in a warp and one barrier to combine the warps in a CTA. The work
-// buffer holds the two rows, the merged
-// cloud and the flags. Steps, each ended by the group's sync: load (the
-// output may alias a's row: a group reads its whole row before it writes
-// any of it); keep/add flags by binary searches (membership in the other
-// row, coverage by a vv lookup plus a search in the other cloud) and the
-// vv max; the clouds merged by co-rank (each entry's position is its
-// index plus a search in the other cloud, a before b on ties) and
-// adjacent repeats dropped by a compaction in place; the kept a-dots and
-// added b-dots compacted in place the same way (both stay sorted); the
-// sorted dots written by co-rank (kept and added are disjoint, so a
-// lower-bound search places each); the epilogue's exclusive scan of the
-// kept flags, a segment start by binary search for (col << shift), the
-// absorbed counts by shared-memory atomics, the surviving cloud
-// compacted straight into the output. The warp kernel is held to 64
-// registers (4 CTAs of 256 threads an SM): its rows are small and many,
-// so rows in flight matter more than registers. Crossovers (the
-// wrapper's WARP_ROW_BYTES and WARP_MIN_ROWS: fewer rows fill the card
-// better a CTA each), measured on an H100 by
+// (ujson_join_cta); and a thread-block cluster per row for rows past a
+// CTA's shared memory (ujson_join_cluster, below). The slot's steps are
+// written once for the warp and the CTA (warp_ops.cuh): compactions are
+// ballot scans, __ballot_sync + __popc in a warp and one barrier to
+// combine the warps in a CTA. The work buffer holds the two rows, the
+// merged cloud and the flags. Steps, each ended by the group's sync: load
+// (the output may alias a's row: a group reads its whole row before it
+// writes any of it); keep/add flags by binary searches (membership in
+// the other row, coverage by a vv lookup plus a search in the other
+// cloud) and the vv max; the clouds merged by co-rank (each entry's
+// position is its index plus a search in the other cloud, a before b on
+// ties) and adjacent repeats dropped by a compaction in place; the kept
+// a-dots and added b-dots compacted in place the same way (both stay
+// sorted); the sorted dots written by co-rank (kept and added are
+// disjoint, so a lower-bound search places each); the epilogue's
+// exclusive scan of the kept flags, a segment start by binary search for
+// (col << shift), the absorbed counts by shared-memory atomics, the
+// surviving cloud compacted straight into the output. The warp kernel is
+// held to 64 registers (4 CTAs of 256 threads an SM): its rows are small
+// and many, so rows in flight matter more than registers. Crossovers
+// (the wrapper's WARP_ROW_BYTES and WARP_MIN_ROWS: fewer rows fill the
+// card better a CTA each), measured on an H100 by
 // scripts/row_kernel_profile.py --sweep: PERF.md §6.
+//
+// The cluster class (rows past shared memory: the broadcast of a folded
+// row 65,536 wide, the last levels of a long fold tree). n CTAs per row
+// (a power of two, up to 16; cudaLaunchKernelEx); rows are sorted with
+// their pads last, so each row's live prefix is found by a binary search
+// for the pad and only live entries are merged. CTA q owns a merge-path
+// partition: output positions [q * M / n, (q + 1) * M / n) of the merge
+// of a's and b's live dots (M of them; a before b on ties), each thread a
+// stretch of up to 32 of them, found by a co-rank search into the two
+// rows. Walking the merge in order, a dot's twin in the other row is its
+// neighbour there (a-dot at (i, j): b[j]; b-dot: a[i - 1]), so membership
+// costs one compare; coverage is a vv lookup and a search of the other
+// cloud. The kept dots (with their payload ids) are staged in the CTA's
+// shared memory in merged order; the clouds the same way, an entry
+// dropped when it equals the entry before it in the merge (across a
+// partition edge too: the co-rank gives that entry). One cluster-wide
+// exclusive scan (each CTA publishes its two counts, cluster.sync(),
+// every CTA reads the others' through distributed shared memory,
+// cluster.map_shared_rank) places every CTA's window in the output; that
+// barrier also ends every read of a's row, so `out` may be `a`. The
+// epilogue runs on the staged cloud windows: the kept counts scanned
+// across the cluster, a segment's start found by a search over the
+// windows (the CTA's own, or the cluster's when its window opens inside
+// the segment), its kept count read where it lies, absorbed counts by
+// shared-memory atomics, summed across the CTAs into vv, survivors
+// written at a third cluster scan's offsets. b's row is read once per
+// cluster, each CTA its window of it (the broadcast reads one row for
+// every slot). A row too wide for 16 CTAs' shared memory keeps the
+// windows in device scratch, one region a cluster; the steps are the
+// same.
 //
 // Bound: bytes (the rows are read once and written once); operations: a
 // log2 search per dot and per cloud entry into the other side, a few
@@ -72,10 +102,13 @@
 //   writes Lo dots and ids, Co cloud entries, R vv
 // and per row (La + Lb)(log2 L + log2 C + 4) + (Ca + Cb)(log2 C + 6)
 // operations, L and C the larger of the two widths.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "block_ops.cuh"
 #include "warp_ops.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -83,6 +116,8 @@ using u32 = unsigned int;
 using u64 = unsigned long long;
 
 constexpr int kThreads = 256;
+using jt::kClusterMax;
+constexpr int kRun = 32;         // merged positions a cluster thread walks at once
 
 template <typename T>
 struct Layout;
@@ -397,29 +432,355 @@ __global__ void __launch_bounds__(256, 4)
   }
 }
 
-// A CTA per slot (grid-stride); its work buffer in shared memory, or at
-// blockIdx.x * stride of device scratch when scratch is not null.
+// A CTA per slot (grid-stride); its work buffer in shared memory.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    ujson_join_cta(JT_JOIN_PARAMS, char* scratch, long long stride,
-                   long long nrows) {
+    ujson_join_cta(JT_JOIN_PARAMS, long long nrows) {
   extern __shared__ __align__(16) char smem[];
   __shared__ int sums[2 * kThreads / 32];
   jt::CtaGroup<kThreads> g(sums);
-  const Work<T> w(scratch ? scratch + blockIdx.x * stride : smem, la, lb, ca,
-                  cb, r);
+  const Work<T> w(smem, la, lb, ca, cb, r);
   for (long long s = blockIdx.x; s < nrows; s += gridDim.x) {
     __syncthreads();  // the previous slot is done with the work buffer
     join_slot<T>(g, w, s, JT_JOIN_ARGS);
   }
 }
 
-template <typename F>
-void allow_smem(F* fn, long long smem) {
-  if (smem > 48 * 1024) {
-    cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(smem));
+// ---- the cluster class --------------------------------------------------
+
+// entries of the merge of sorted a[0, na) and b[0, nb) among its first d
+// that come from a (merge path; a before b on ties)
+template <typename T>
+__device__ __forceinline__ int co_rank(const T* a, int na, const T* b, int nb, int d) {
+  int lo = d > nb ? d - nb : 0, hi = d < na ? d : na;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    const bool in = !(b[d - 1 - mid] < a[mid]);  // a[mid] <= b[d - 1 - mid]
+    lo = in ? mid + 1 : lo;
+    hi = in ? hi : mid;
   }
+  return lo;
+}
+
+// the entries of a sorted row before its first pad
+template <typename T>
+__device__ __forceinline__ int live(const T* p, int n) {
+  return jt::partition_point(n, [&](int i) { return p[i] != Layout<T>::kPad; });
+}
+
+// A CTA's share of the row's work buffer, carved as the wrapper sizes it
+// (ujson_device.py `join_share`): windows of pd merged dots and pc merged
+// cloud entries, then the row's vv columns.
+template <typename T>
+struct Share {
+  T *dw, *cw;
+  int *dp, *kbw;
+  unsigned *fl;
+  u32 *va, *vb, *vo, *cnt;
+  __device__ Share(char* base, int pd, int pc, int r) {
+    dw = reinterpret_cast<T*>(base);
+    cw = dw + pd;
+    dp = reinterpret_cast<int*>(cw + pc);
+    kbw = dp + pd;
+    fl = reinterpret_cast<unsigned*>(kbw + pc);
+    va = fl + (pc + 31) / 32;
+    vb = va + r;
+    vo = vb + r;
+    cnt = vo + r;
+  }
+};
+
+// A cluster of n CTAs per slot (grid-stride over the clusters): CTA q's
+// share in its shared memory, or (InScratch) at blockIdx.x * stride bytes
+// of device scratch. A CTA reaches its own share as such (shared memory:
+// the compiler emits shared-memory accesses), the others' through peers.
+template <typename T, bool InScratch>
+__global__ void __launch_bounds__(kThreads)
+    ujson_join_cluster(JT_JOIN_PARAMS, char* scratch, long long stride,
+                       long long nrows, int pd, int pc) {
+  extern __shared__ __align__(16) char smem[];
+  __shared__ int sums[2 * kThreads / 32];
+  __shared__ char* peers[kClusterMax];
+  __shared__ int2 tab[kClusterMax];
+  __shared__ int2 pub[2];
+  __shared__ int cbase_of[kClusterMax + 1], kbase_of[kClusterMax];
+  cg::cluster_group cluster = cg::this_cluster();
+  jt::CtaGroup<kThreads> g(sums);
+  const int q = static_cast<int>(cluster.block_rank());
+  const int n = static_cast<int>(cluster.num_blocks());
+  const long long cid = blockIdx.x / n, nclusters = gridDim.x / n;
+  const int tid = g.rank, crank = q * kThreads + tid, csize = n * kThreads;
+  const T pad = Layout<T>::kPad;
+  if (tid < n) {
+    peers[tid] = InScratch ? scratch + (cid * n + tid) * stride
+                           : cluster.map_shared_rank(smem, tid);
+  }
+  char* const mine = InScratch ? scratch + blockIdx.x * stride : smem;
+  int xc = 0;
+
+  for (long long s = cid; s < nrows; s += nclusters) {
+    cluster.sync();  // every CTA is done with the previous slot's windows
+    const Share<T> w(mine, pd, pc, r);
+    const long long ra = a_idx ? static_cast<long long>(a_idx[s]) : s;
+    const long long rb = s * b_step;
+    T* od = o_dots + ra * lo;
+    int* op = o_pay + ra * lo;
+    u32* ov = o_vv + ra * r;
+    T* oc = o_cloud + ra * co;
+    if (occupied && !occupied[ra]) {  // a free row: the identity document
+      for (int i = crank; i < lo; i += csize) {
+        od[i] = pad;
+        op[i] = -1;
+      }
+      for (int i = crank; i < co; i += csize) oc[i] = pad;
+      for (int i = crank; i < r; i += csize) ov[i] = 0;
+      continue;
+    }
+    const T* ad = a_dots + ra * la;
+    const int* ap = a_pay + ra * la;
+    const T* ac = a_cloud + ra * ca;
+    const T* bd = b_dots + rb * lb;
+    const int* bp = b_pay + rb * lb;
+    const T* bc = b_cloud + rb * cb;
+    const int nla = live(ad, la), nlb = live(bd, lb);
+    const int nca = live(ac, ca), ncb = live(bc, cb);
+    for (int i = tid; i < r; i += kThreads) {
+      const u32 x = a_vv[ra * r + i], y = b_vv[rb * r + i];
+      w.va[i] = x;
+      w.vb[i] = y;
+      w.vo[i] = x > y ? x : y;
+      w.cnt[i] = 0;
+    }
+    for (int i = tid; i < (pc + 31) / 32; i += kThreads) w.fl[i] = 0;
+    __syncthreads();
+
+    // the dots: this CTA's window of the merge of the live rows, each
+    // thread kRun positions of it at a time; a flag a position, then the
+    // kept ones staged (sorted) or written in place (unsorted)
+    const int md = nla + nlb;
+    const int d0 = static_cast<int>(static_cast<long long>(md) * q / n);
+    const int d1 = static_cast<int>(static_cast<long long>(md) * (q + 1) / n);
+    int dcnt = 0;
+    for (int r0 = d0; r0 < d1; r0 += kThreads * kRun) {
+      const int p0 = min(r0 + tid * kRun, d1), p1 = min(p0 + kRun, d1);
+      const int i0 = co_rank(ad, nla, bd, nlb, p0);
+      unsigned mask = 0;
+      for (int p = p0, i = i0, j = p0 - i0; p < p1; ++p) {
+        const bool ta = i < nla && (j >= nlb || !(bd[j] < ad[i]));
+        bool f;
+        if (ta) {
+          const T x = ad[i];
+          f = (j < nlb && bd[j] == x) || !covered(w.vb, bc, ncb, x, shift, r);
+          if (!sorted) {
+            od[i] = f ? x : pad;
+            op[i] = f ? ap[i] : -1;
+          }
+          ++i;
+        } else {
+          const T x = bd[j];
+          f = !(i > 0 && ad[i - 1] == x) && !covered(w.va, ac, nca, x, shift, r);
+          if (!sorted) {
+            od[la + j] = f ? x : pad;
+            op[la + j] = f ? bp[j] : -1;
+          }
+          ++j;
+        }
+        mask |= static_cast<unsigned>(f) << (p - p0);
+      }
+      int tot;
+      const int at = dcnt + g.exscan(__popc(mask), &tot);
+      if (sorted) {
+        for (int p = p0, i = i0, j = p0 - i0, k = 0; p < p1; ++p) {
+          const bool ta = i < nla && (j >= nlb || !(bd[j] < ad[i]));
+          if (mask >> (p - p0) & 1u) {
+            w.dw[at + k] = ta ? ad[i] : bd[j];
+            w.dp[at + k] = ta ? ap[i] : bp[j];
+            ++k;
+          }
+          i += ta;
+          j += !ta;
+        }
+      }
+      dcnt += tot;
+    }
+    // the clouds: this CTA's window of their merge, an entry dropped when
+    // it equals the one before it in the merge
+    const int mc = nca + ncb;
+    const int c0 = static_cast<int>(static_cast<long long>(mc) * q / n);
+    const int c1 = static_cast<int>(static_cast<long long>(mc) * (q + 1) / n);
+    int ccnt = 0;
+    for (int r0 = c0; r0 < c1; r0 += kThreads * kRun) {
+      const int p0 = min(r0 + tid * kRun, c1), p1 = min(p0 + kRun, c1);
+      const int i0 = co_rank(ac, nca, bc, ncb, p0);
+      unsigned mask = 0;
+      T prev = pad;
+      {
+        const int i = i0, j = p0 - i0;  // the entry at p0 - 1: the larger
+        if (i > 0 && (j == 0 || !(ac[i - 1] < bc[j - 1]))) prev = ac[i - 1];
+        else if (j > 0) prev = bc[j - 1];
+      }
+      for (int p = p0, i = i0, j = p0 - i0; p < p1; ++p) {
+        const bool ta = i < nca && (j >= ncb || !(bc[j] < ac[i]));
+        const T x = ta ? ac[i] : bc[j];
+        mask |= static_cast<unsigned>(p == 0 || x != prev) << (p - p0);
+        prev = x;
+        i += ta;
+        j += !ta;
+      }
+      int tot;
+      const int at = ccnt + g.exscan(__popc(mask), &tot);
+      for (int p = p0, i = i0, j = p0 - i0, k = 0; p < p1; ++p) {
+        const bool ta = i < nca && (j >= ncb || !(bc[j] < ac[i]));
+        if (mask >> (p - p0) & 1u) w.cw[at + k++] = ta ? ac[i] : bc[j];
+        i += ta;
+        j += !ta;
+      }
+      ccnt += tot;
+    }
+    if (!sorted) {  // the unsorted rows' pads (no epilogue on this path)
+      for (int p = nla + crank; p < la; p += csize) {
+        od[p] = pad;
+        op[p] = -1;
+      }
+      for (int p = nlb + crank; p < lb; p += csize) {
+        od[la + p] = pad;
+        op[la + p] = -1;
+      }
+    }
+    // every CTA's windows placed (and every read of a's row done)
+    jt::exchange(cluster, pub, xc, make_int2(dcnt, ccnt), tab);
+    int dbase = 0, nd = 0, cbase = 0, nc = 0;
+    for (int k = 0; k < n; ++k) {
+      dbase += k < q ? tab[k].x : 0;
+      nd += tab[k].x;
+      cbase += k < q ? tab[k].y : 0;
+      if (tid == 0) cbase_of[k] = nc;  // (read after the next exchange)
+      nc += tab[k].y;
+    }
+    if (tid == 0) cbase_of[n] = nc;
+    if (sorted) {
+      for (int i = tid; i < dcnt; i += kThreads) {
+        const int p = dbase + i;
+        if (p < lo) {
+          od[p] = w.dw[i];
+          op[p] = w.dp[i];
+        }
+      }
+      for (int p = nd + crank; p < lo; p += csize) {
+        od[p] = pad;
+        op[p] = -1;
+      }
+    }
+    if (!finish) {
+      for (int i = tid; i < ccnt; i += kThreads) oc[cbase + i] = w.cw[i];
+      for (int p = nc + crank; p < co; p += csize) oc[p] = pad;
+      for (int i = crank; i < r; i += csize) ov[i] = w.vo[i];
+      continue;
+    }
+
+    // the epilogue: _compact_ctx_row on (vo, the merged cloud), then the
+    // fit. kbw[i]: kept entries of this window before i
+    int kt = 0;
+    for (int i0 = 0; i0 < ccnt; i0 += kThreads) {
+      const int i = i0 + tid;
+      bool keep = false;
+      if (i < ccnt) {
+        const T x = w.cw[i];
+        keep = seq_of(x, shift) > vv_at(w.vo, col_of(x, shift, r));
+      }
+      int tot;
+      const int pos = g.scan(keep, &tot);
+      if (i < ccnt) w.kbw[i] = kt + pos;
+      kt += tot;
+    }
+    jt::exchange(cluster, pub, xc, make_int2(kt, 0), tab);
+    if (tid == 0) {
+      int acc = 0;
+      for (int k = 0; k < n; ++k) {
+        kbase_of[k] = acc;
+        acc += tab[k].x;
+      }
+    }
+    __syncthreads();
+    // the merged cloud's entry p and the kept entries before it, wherever
+    // they lie in the cluster
+    const size_t cw_off = reinterpret_cast<char*>(w.cw) - mine;
+    const size_t kb_off = reinterpret_cast<char*>(w.kbw) - mine;
+    const auto owner = [&](int p) {
+      return jt::partition_point(n, [&](int k) { return cbase_of[k + 1] <= p; });
+    };
+    const auto cloud_at = [&](int p) {
+      const int k = owner(p);
+      return reinterpret_cast<const T*>(peers[k] + cw_off)[p - cbase_of[k]];
+    };
+    const auto kb_at = [&](int p) {
+      const int k = owner(p);
+      return kbase_of[k] + reinterpret_cast<const int*>(peers[k] + kb_off)[p - cbase_of[k]];
+    };
+    // absorbed dots count into cnt; survivors (kept, not absorbed) flagged
+    int sc = 0;
+    for (int i0 = 0; i0 < ccnt; i0 += kThreads) {
+      const int i = i0 + tid;
+      bool surv = false;
+      if (i < ccnt) {
+        const T x = w.cw[i];
+        const int c = col_of(x, shift, r);
+        const u32 sq = seq_of(x, shift);
+        const u32 vc = vv_at(w.vo, c);
+        if (sq > vc) {
+          // the column's segment starts at the first entry whose decoded
+          // column is c: a search for (c << shift), in this window unless
+          // the window opens inside the segment
+          const T lo_x = static_cast<T>(static_cast<u64>(static_cast<u32>(c)) << shift);
+          int start;
+          if (w.cw[0] < lo_x) {
+            start = cbase + jt::lower_bound(w.cw, i, lo_x);
+          } else {
+            start = jt::partition_point(cbase, [&](int p) { return cloud_at(p) < lo_x; });
+          }
+          const int kb_start = start >= cbase ? kbase_of[q] + w.kbw[start - cbase]
+                                              : kb_at(start);
+          const u32 rank = static_cast<u32>(kbase_of[q] + w.kbw[i] - kb_start);
+          if (sq == vc + rank + 1u) {
+            if (c >= 0) atomicAdd(&w.cnt[c], 1u);  // absorbed (nowhere, if negative)
+          } else {
+            surv = true;
+          }
+        }
+        if (surv) atomicOr(&w.fl[i >> 5], 1u << (i & 31));
+      }
+      sc += g.count(surv);
+    }
+    jt::exchange(cluster, pub, xc, make_int2(sc, 0), tab);
+    int sbase = 0, ns = 0;
+    for (int k = 0; k < n; ++k) {
+      sbase += k < q ? tab[k].x : 0;
+      ns += tab[k].x;
+    }
+    for (int i0 = 0; i0 < ccnt; i0 += kThreads) {
+      const int i = i0 + tid;
+      const bool surv = i < ccnt && (w.fl[i >> 5] >> (i & 31) & 1u);
+      int tot;
+      const int pos = g.scan(surv, &tot);
+      if (surv && sbase + pos < co) oc[sbase + pos] = w.cw[i];
+      sbase += tot;
+    }
+    for (int p = ns + crank; p < co; p += csize) oc[p] = pad;
+    const size_t cnt_off = reinterpret_cast<char*>(w.cnt) - mine;
+    for (int i = crank; i < r; i += csize) {
+      u32 add = 0;
+      for (int k = 0; k < n; ++k) add += reinterpret_cast<const u32*>(peers[k] + cnt_off)[i];
+      ov[i] = w.vo[i] + add;
+    }
+  }
+  cluster.sync();  // no CTA leaves while another may read its shared memory
+}
+
+template <typename F>
+cudaError_t allow_smem(F* fn, long long smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
 }
 
 template <typename T>
@@ -432,10 +793,11 @@ int launch(const void* a_dots, const void* a_pay, const void* a_vv,
            long long sorted, long long finish, const void* occupied,
            long long kind, long long rows_per_cta, void* scratch,
            long long stride, long long nrows, long long grid, long long smem,
-           cudaStream_t stream) {
+           long long csize, long long pd, long long pc, cudaStream_t stream) {
   if (nrows <= 0) return 0;
   const unsigned blocks = static_cast<unsigned>(grid);
   const size_t bytes = static_cast<size_t>(smem);
+  cudaError_t e = cudaSuccess;
 #define JT_JOIN_CALL_ARGS                                                   \
   static_cast<const T*>(a_dots), static_cast<const int*>(a_pay),            \
       static_cast<const u32*>(a_vv), static_cast<const T*>(a_cloud),        \
@@ -449,14 +811,46 @@ int launch(const void* a_dots, const void* a_pay, const void* a_vv,
       static_cast<int>(lo), static_cast<int>(co), static_cast<int>(sorted), \
       static_cast<int>(finish), static_cast<const unsigned char*>(occupied)
   if (kind == 0) {
-    allow_smem(ujson_join_warp<T>, smem);
+    e = allow_smem(ujson_join_warp<T>, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
     ujson_join_warp<T><<<blocks, static_cast<unsigned>(32 * rows_per_cta),
                          bytes, stream>>>(JT_JOIN_CALL_ARGS, stride, nrows,
                                           static_cast<int>(rows_per_cta));
+  } else if (kind == 1) {
+    e = allow_smem(ujson_join_cta<T>, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    ujson_join_cta<T><<<blocks, kThreads, bytes, stream>>>(JT_JOIN_CALL_ARGS, nrows);
+  } else if (kind == 2 && csize >= 2 && csize <= kClusterMax && grid % csize == 0) {
+    auto fn = scratch ? ujson_join_cluster<T, true> : ujson_join_cluster<T, false>;
+    e = allow_smem(fn, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (csize > 8) {
+      e = cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(blocks);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = bytes;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = static_cast<unsigned>(csize);
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    // a cluster's CTAs must be resident together: refuse a launch the card
+    // cannot place one cluster of
+    int fits = 0;
+    e = cudaOccupancyMaxActiveClusters(&fits, fn, &cfg);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (fits < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+    e = cudaLaunchKernelEx(&cfg, fn, JT_JOIN_CALL_ARGS, static_cast<char*>(scratch),
+                           stride, nrows, static_cast<int>(pd), static_cast<int>(pc));
+    if (e != cudaSuccess) return static_cast<int>(e);
   } else {
-    allow_smem(ujson_join_cta<T>, smem);
-    ujson_join_cta<T><<<blocks, kThreads, bytes, stream>>>(
-        JT_JOIN_CALL_ARGS, static_cast<char*>(scratch), stride, nrows);
+    return static_cast<int>(cudaErrorInvalidConfiguration);
   }
 #undef JT_JOIN_CALL_ARGS
   return static_cast<int>(cudaGetLastError());
@@ -471,9 +865,14 @@ int launch(const void* a_dots, const void* a_pay, const void* a_vv,
 // cloud; without finish, Lo = La + Lb and Co = Ca + Cb. occupied: a byte
 // per output row, or null. kind: 0 a warp per row (rows_per_cta warps a
 // CTA, each with stride bytes of its smem bytes of shared memory), 1 a
-// CTA per row, its work buffer in shared memory (smem bytes) when scratch
-// is null, else at blockIdx.x * stride bytes of grid * stride bytes of
-// device scratch. Returns cudaGetLastError() after the launch.
+// CTA per row, its work buffer in shared memory (smem bytes), 2 a
+// cluster of csize CTAs per row (2..16), each CTA's share of pd merged
+// dots and pc merged cloud entries in smem bytes of shared memory, or,
+// when scratch is not null, at blockIdx.x * stride bytes of grid * stride
+// bytes of device scratch. Returns a CUDA error code:
+// cudaErrorInvalidConfiguration for a class it does not take or a
+// cluster the card cannot place, else cudaGetLastError() after the
+// launch.
 extern "C" int jt_ujson_join(
     int wide, const void* a_dots, const void* a_pay, const void* a_vv,
     const void* a_cloud, const void* a_idx, long long la, long long ca,
@@ -483,10 +882,12 @@ extern "C" int jt_ujson_join(
     void* o_cloud, long long lo, long long co, long long sorted,
     long long finish, const void* occupied, long long kind,
     long long rows_per_cta, void* scratch, long long stride, long long nrows,
-    long long grid, long long smem, void* stream) {
+    long long grid, long long smem, long long csize, long long pd,
+    long long pc, void* stream) {
   auto fn = wide ? launch<u64> : launch<int>;
   return fn(a_dots, a_pay, a_vv, a_cloud, a_idx, la, ca, b_dots, b_pay, b_vv,
             b_cloud, b_step, lb, cb, r, shift, o_dots, o_pay, o_vv, o_cloud,
             lo, co, sorted, finish, occupied, kind, rows_per_cta, scratch,
-            stride, nrows, grid, smem, static_cast<cudaStream_t>(stream));
+            stride, nrows, grid, smem, csize, pd, pc,
+            static_cast<cudaStream_t>(stream));
 }

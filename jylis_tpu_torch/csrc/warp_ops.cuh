@@ -1,6 +1,7 @@
 // Group-scope building blocks of the row kernels (tlog_drain.cu,
 // ujson_join.cu): the group that owns one row, with its step barrier and
-// its ballot scans, and a warp's bitonic sort held in registers.
+// its ballot scans, a warp's bitonic sort held in registers, and the
+// cluster class's exchange of per-CTA counts.
 //
 // A row kernel is written once for a group G and instantiated twice:
 //   WarpGroup      a warp per row, several rows per CTA, __syncwarp
@@ -10,15 +11,18 @@
 //                  combines the warps' counts.
 // Both expose kSize (threads in the group), rank (this thread's index),
 // sync() (every thread of the group waits, and sees the others' shared
-// and global writes), count(f), scan(f, &total) and min(v). Every thread
+// and global writes), count(f), scan(f, &total) and min(v) (CtaGroup also
+// exscan(v, &total), a prefix sum of ints). Every thread
 // of the group must make the same calls in the same order.
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 namespace jt {
 
 constexpr unsigned kFullMask = 0xFFFFFFFFu;
+constexpr int kClusterMax = 16;  // the non-portable cluster size an H100 allows
 
 // the lanes below this one, as a bit mask
 __device__ __forceinline__ unsigned lanemask_lt() {
@@ -82,6 +86,30 @@ struct CtaGroup {
     }
     *total = tot;
     return base + __popc(b & lanemask_lt());
+  }
+  // exclusive prefix sum of v in rank order, on the same table and one
+  // barrier; *total gets the sum
+  __device__ __forceinline__ int exscan(int v, int* total) {
+    const int lane = rank & 31, warp = rank >> 5;
+    int incl = v;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(kFullMask, incl, o);
+      if (lane >= o) incl += y;
+    }
+    int* s = sums + parity * kWarps;
+    parity ^= 1;
+    if (lane == 31) s[warp] = incl;
+    __syncthreads();
+    int base = 0, tot = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const int x = s[w];
+      base += w < warp ? x : 0;
+      tot += x;
+    }
+    *total = tot;
+    return base + incl - v;
   }
   // the group's least v (v >= 0), on the same table and one barrier;
   // it also orders every thread's writes before it ahead of every read
@@ -175,6 +203,26 @@ __device__ __forceinline__ void warp_bitonic(T (&d)[1 << LogE], Less less,
       }
     }
   }
+}
+
+// Every CTA of a thread-block cluster publishes v; after the cluster
+// barrier tab[r] holds CTA r's (tab: kClusterMax entries of shared
+// memory). pub holds two slots of shared memory, written in turn (xc),
+// so a slot is rewritten only after the next exchange's barrier, which
+// every reader of it has passed. The barrier also orders every thread's
+// writes before it ahead of every read after it, across the cluster.
+// Every thread of the cluster calls it, in step.
+template <typename V>
+__device__ __forceinline__ void exchange(cooperative_groups::cluster_group& cluster,
+                                         V* pub, int& xc, V v, V* tab) {
+  V* slot = pub + xc;
+  xc ^= 1;
+  if (threadIdx.x == 0) *slot = v;
+  cluster.sync();
+  if (threadIdx.x < cluster.num_blocks()) {
+    tab[threadIdx.x] = *cluster.map_shared_rank(slot, threadIdx.x);
+  }
+  __syncthreads();
 }
 
 }  // namespace jt

@@ -11,9 +11,13 @@ of these classes:
   not cover the card's SMs;
 * ``cta``: a CTA of ``CTA_THREADS`` threads per row, its buffer in
   shared memory;
-* ``scratch``: a CTA per row with its buffer in device scratch the
-  wrapper allocates, for rows past ``SMEM_LIMIT``; only as many CTAs as
-  ``SCRATCH_LIMIT`` holds, each striding over the rows;
+* ``cluster`` (``plan_split``, the row kernels' rows past a CTA's
+  shared memory): a thread-block cluster of n CTAs per row (n a power
+  of two), each CTA holding its share of the row's work buffer in its
+  own shared memory and reading the others' through the cluster's
+  distributed shared memory; a row too wide even for
+  ``CLUSTER_LARGE`` CTAs keeps the shares in device scratch, one region
+  a cluster, as many clusters as ``SCRATCH_LIMIT`` holds;
 * ``cluster`` (``plan_cluster``, the flat fold): a thread-block cluster
   of up to ``CLUSTER_MAX`` CTAs per row, each taking a share of the
   row's parts, reading the row from device memory, its flags in device
@@ -33,6 +37,7 @@ SCRATCH_LIMIT = 256 << 20  # bytes of device scratch per launch, at most
 WARPS_PER_CTA = 8
 CTA_THREADS = 256
 CLUSTER_MAX = 8  # CTAs a thread-block cluster holds, portably
+CLUSTER_LARGE = 16  # the non-portable size an H100 allows (plan_split)
 # an H100 SXM: streaming multiprocessors, shared memory an SM holds, and
 # what each resident CTA reserves of it
 SMS = 132
@@ -41,14 +46,14 @@ CTA_RESERVED = 1_024
 
 
 class RowPlan(NamedTuple):
-    kind: str  # "warp", "cta", "cluster" or "scratch"
+    kind: str  # "warp", "cta" or "cluster"
     rows_per_cta: int  # rows a CTA holds at once (1 unless "warp")
     threads: int  # threads a CTA
     smem: int  # dynamic shared-memory bytes a CTA
     grid: int  # CTAs launched
-    scratch: int  # bytes of device scratch (0 unless "scratch")
-    stride: int  # bytes between two rows' (or clusters') work buffers
-    cluster: int = 1  # CTAs a row (plan_cluster)
+    scratch: int  # bytes of device scratch (0 unless the buffers live there)
+    stride: int  # bytes between two rows' (clusters'; plan_split: CTAs') work buffers
+    cluster: int = 1  # CTAs a row (plan_cluster, plan_split)
     held: int = 0  # parts of a row a CTA takes (plan_cluster; the flat fold: deltas)
 
 
@@ -64,24 +69,52 @@ def _resident_rows(rpc: int, warp_bytes: int) -> int:
 
 
 def plan_rows(nrows: int, warp_bytes: Optional[int], cta_bytes: int,
-              warp_limit: int, warp_min_rows: int = 1) -> RowPlan:
+              warp_limit: int, warp_min_rows: int = 1, share=None,
+              cta_limit: int = SMEM_LIMIT) -> RowPlan:
     """The plan for ``nrows`` rows whose work buffer takes ``warp_bytes``
     in the warp class (None: the kernel has no warp class for this
-    width) and ``cta_bytes`` in the others. The warp class takes rows up
-    to ``warp_limit`` bytes, in launches of at least ``warp_min_rows``
-    rows (the kernel's measured crossovers: fewer rows than that keep
-    more of the card busy a CTA per row)."""
+    width), ``cta_bytes`` in the CTA class and ``share(n)`` a CTA in a
+    cluster of n (``plan_split``). The warp class takes rows up to
+    ``warp_limit`` bytes, in launches of at least ``warp_min_rows`` rows
+    (the kernel's measured crossovers: fewer rows than that keep more of
+    the card busy a CTA per row); the CTA class rows up to ``cta_limit``
+    (at most ``SMEM_LIMIT``); the cluster class the rest."""
     if (warp_bytes is not None and nrows >= warp_min_rows
             and warp_bytes <= min(warp_limit, SMEM_LIMIT)):
         top = max(1, min(WARPS_PER_CTA, SMEM_LIMIT // warp_bytes, -(-nrows // SMS)))
         rpc = max(range(1, top + 1), key=lambda n: (_resident_rows(n, warp_bytes), n))
         return RowPlan("warp", rpc, 32 * rpc, rpc * warp_bytes, -(-nrows // rpc), 0,
                        warp_bytes)
-    if cta_bytes <= SMEM_LIMIT:
+    if cta_bytes <= min(cta_limit, SMEM_LIMIT):
         return RowPlan("cta", 1, CTA_THREADS, cta_bytes, nrows, 0, cta_bytes)
-    stride = align(cta_bytes, 256)
-    grid = max(1, min(nrows, SCRATCH_LIMIT // stride))
-    return RowPlan("scratch", 1, CTA_THREADS, 0, grid, grid * stride, stride)
+    return plan_split(nrows, share)
+
+
+def plan_split(nrows: int, share) -> RowPlan:
+    """A cluster of n CTAs per row, CTA q holding its share of the row's
+    work buffer, ``share(n)`` bytes (n a power of two). n is the least
+    size whose share fits ``SMEM_LIMIT``, raised until the launch's
+    clusters cover the card's SMs (up to ``CLUSTER_MAX``, the portable
+    size; ``CLUSTER_LARGE`` only where the share needs it: the kernel
+    checks that the card can place such a cluster). A row whose share
+    does not fit even ``CLUSTER_LARGE`` CTAs keeps every CTA's share in
+    device scratch (``stride`` bytes a CTA, so CTA b of the launch at
+    b * stride), as many clusters as ``SCRATCH_LIMIT`` holds, striding
+    over the rows."""
+    cover = 2
+    while cover < CLUSTER_MAX and cover * nrows < SMS:
+        cover *= 2
+    n = 2
+    while n < CLUSTER_LARGE and share(n) > SMEM_LIMIT:
+        n *= 2
+    if share(n) > SMEM_LIMIT:
+        stride = align(share(n), 256)
+        clusters = max(1, min(nrows, SCRATCH_LIMIT // (n * stride)))
+        return RowPlan("cluster", 1, CTA_THREADS, 0, clusters * n, clusters * n * stride,
+                       stride, n)
+    n = max(n, cover)
+    smem = share(n)
+    return RowPlan("cluster", 1, CTA_THREADS, smem, nrows * n, 0, smem, n)
 
 
 def plan_cluster(nrows: int, parts: int, smem, scratch_bytes: int) -> RowPlan:

@@ -27,7 +27,8 @@ one delta batch (cutoff, sort, dedup, overflow) and apply a per-row
 TRIM/CLR count in the same pass. On a CPU tensor they run their plain
 versions below; on a CUDA tensor they launch the hand-written kernels
 ``tlog_drain_sparse`` / ``tlog_drain_dense`` (csrc/tlog_drain.cu: one
-CUDA kernel a call, a warp or a CTA per row as ``drain_plan`` picks) or
+CUDA kernel a call, a warp, a CTA or a thread-block cluster per row as
+``drain_plan`` picks) or
 raise. The JAX package's entry points (``converge_batch``,
 ``converge_then_trim``, ``trim_batch`` ...) keep their signatures and go
 through them. All of them update the state in place, where JAX returns
@@ -287,21 +288,23 @@ def drain_sparse_plain(state: TLogState, key_idx, d_ts, d_vid, d_cut, counts):
 # buffer (its L state slots and the delta's slots, each plane) fits
 # WARP_ROW_BYTES and Ld <= WARP_MAX_LD (the delta sorts in a warp's
 # registers, WARP_MAX_LD / 32 entries a lane); else a CTA per row, its
-# buffer in shared memory, or in device scratch past row_plan.SMEM_LIMIT
-# (the crossover measured on an H100: PERF.md §6)
+# buffer in shared memory, up to CTA_ROW_BYTES; past that a thread-block
+# cluster per row, the buffer split across its CTAs' shared memory (the
+# crossovers measured on an H100: PERF.md §6)
 WARP_ROW_BYTES = 36 * 1024
 WARP_MAX_LD = 256
+CTA_ROW_BYTES = row_plan.SMEM_LIMIT
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
-_ARGS = [ctypes.c_int] + [_P] * 14 + [_LL] * 12 + [_P]
+_ARGS = [ctypes.c_int] + [_P] * 14 + [_LL] * 14 + [_P]
 
 
 class DrainPlan(NamedTuple):
     rows: row_plan.RowPlan
     log_e: int  # log2 of the delta entries a lane holds (warp class)
-    ldp: int  # delta slots of a row's work buffer
-    slice: int  # u32 a plane of a row's work buffer
+    ldp: int  # delta slots of a row's work buffer (cluster: of a CTA's share)
+    slice: int  # u32 a plane of a row's work buffer (cluster: state slots a share holds)
 
 
 def _row_bytes(nplanes: int, L: int, ldp: int) -> int:
@@ -310,15 +313,30 @@ def _row_bytes(nplanes: int, L: int, ldp: int) -> int:
     return 4 * (nplanes * row_plan.align(L + ldp, 4) + row_plan.align(ldp, 4))
 
 
+def _share(nplanes: int, L: int, ldp: int, n: int) -> tuple[int, int, int]:
+    """(delta slots, state slots, bytes) of one CTA's share of a row's work
+    buffer in a cluster of n (csrc/tlog_drain.cu `tlog_drain_cluster`):
+    two delta buffers (the merge's two sides) and two ints a delta slot,
+    then the state slots, each plane."""
+    p = max(ldp, n) // n
+    pa = row_plan.align(-(-L // n), 4)
+    return p, pa, 4 * (2 * nplanes * p + 2 * p + nplanes * pa)
+
+
 def drain_plan(b: int, L: int, ld: int, nplanes: int) -> DrainPlan:
     """How ``tlog_drain`` runs ``b`` slots of width L with Ld delta
     columns: the class, rows a CTA, shared memory, grid and scratch."""
     ldp = bucket(ld, 1)
     wl = max(32, ldp)
     warp = _row_bytes(nplanes, L, wl) if ldp <= WARP_MAX_LD else None
-    rows = row_plan.plan_rows(b, warp, _row_bytes(nplanes, L, ldp), WARP_ROW_BYTES)
+    rows = row_plan.plan_rows(b, warp, _row_bytes(nplanes, L, ldp), WARP_ROW_BYTES,
+                              share=lambda n: _share(nplanes, L, ldp, n)[2],
+                              cta_limit=CTA_ROW_BYTES)
     if rows.kind == "warp":
         return DrainPlan(rows, (wl // 32).bit_length() - 1, wl, row_plan.align(L + wl, 4))
+    if rows.kind == "cluster":
+        p, pa, _ = _share(nplanes, L, ldp, rows.cluster)
+        return DrainPlan(rows, 0, p, pa)
     return DrainPlan(rows, 0, ldp, row_plan.align(L + ldp, 4))
 
 
@@ -343,6 +361,9 @@ def _check(what, state, key_idx, d_ts, d_vid, d_cut, counts, b) -> None:
         raise ValueError(f"{what}: the delta needs at least one column")
 
 
+_KINDS = {"warp": 0, "cta": 1, "cluster": 2}
+
+
 def _launch(what, state, key_idx, d_ts, d_vid, d_cut, counts, outs):
     dev = state.ntl.device
     k, L = state.shape
@@ -350,7 +371,7 @@ def _launch(what, state, key_idx, d_ts, d_vid, d_cut, counts, outs):
     nplanes = 3 if state.wide else 2
     plan = drain_plan(b, L, ld, nplanes)
     rows = plan.rows
-    scratch = (torch.empty(rows.scratch // 4, dtype=torch.int32, device=dev)
+    scratch = (torch.empty(rows.scratch, dtype=torch.uint8, device=dev)
                if rows.scratch else None)
     vec = L % 4 == 0 and all(p.data_ptr() % 16 == 0 for p in _planes(state))
     ptrs = [None if t is None else t.data_ptr() for t in (
@@ -358,9 +379,10 @@ def _launch(what, state, key_idx, d_ts, d_vid, d_cut, counts, outs):
         d_ts, d_vid, d_cut, counts, *outs, scratch)]
     fn = _build.function("tlog_drain", "jt_tlog_drain", _ARGS)
     with torch.cuda.device(dev):
-        rc = fn(nplanes, *ptrs, b, k, L, ld, 0 if rows.kind == "warp" else 1,
+        rc = fn(nplanes, *ptrs, b, k, L, ld, _KINDS[rows.kind],
                 plan.log_e, plan.ldp, rows.rows_per_cta, plan.slice, rows.grid,
-                rows.smem, int(vec), torch.cuda.current_stream(dev).cuda_stream)
+                rows.smem, int(vec), rows.cluster, rows.stride,
+                torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, what)
     return rows.kind
 

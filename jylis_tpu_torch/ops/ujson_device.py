@@ -280,17 +280,19 @@ def clear_rows(batch: DocBatch, mask) -> DocBatch:
 
 # the launch plan (csrc/ujson_join.cu): a warp per row while a row's work
 # buffer fits WARP_ROW_BYTES and the launch has WARP_MIN_ROWS rows or
-# more, else a CTA per row, its buffer in shared memory, or in device
-# scratch past row_plan.SMEM_LIMIT (crossovers measured on an H100:
+# more, else a CTA per row, its buffer in shared memory, up to
+# CTA_ROW_BYTES; past that a thread-block cluster per row, the buffer
+# split across its CTAs' shared memory (crossovers measured on an H100:
 # PERF.md §6)
 WARP_ROW_BYTES = 16 * 1024
 WARP_MIN_ROWS = 512
 SMEM_LIMIT = row_plan.SMEM_LIMIT
+CTA_ROW_BYTES = SMEM_LIMIT
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _JOIN_ARGS = ([ctypes.c_int] + [_P] * 5 + [_LL] * 2 + [_P] * 4 + [_LL] * 5
-              + [_P] * 4 + [_LL] * 4 + [_P] + [_LL] * 2 + [_P] + [_LL] * 4 + [_P])
+              + [_P] * 4 + [_LL] * 4 + [_P] + [_LL] * 2 + [_P] + [_LL] * 7 + [_P])
 
 
 def join_work_bytes(tsize: int, la: int, lb: int, ca: int, cb: int, r: int) -> int:
@@ -300,10 +302,30 @@ def join_work_bytes(tsize: int, la: int, lb: int, ca: int, cb: int, r: int) -> i
                           + la + lb, 16)
 
 
-def join_plan(nrows: int, wb: int) -> row_plan.RowPlan:
-    """How ``ujson_join`` runs ``nrows`` rows of ``wb`` work bytes each:
-    the class, rows a CTA, shared memory, grid and scratch."""
-    return row_plan.plan_rows(nrows, wb, wb, WARP_ROW_BYTES, WARP_MIN_ROWS)
+def join_share(tsize: int, la: int, lb: int, ca: int, cb: int, r: int,
+               n: int) -> tuple[int, int, int]:
+    """(dot slots, cloud slots, bytes) of one CTA's share of a row's work
+    buffer in a cluster of n (csrc/ujson_join.cu `ujson_join_cluster`):
+    its window of the merged dots (dot and payload id) and of the merged
+    cloud (entry, kept count and a flag bit), and the row's four vv
+    columns."""
+    pd, pc = -(-(la + lb) // n), -(-(ca + cb) // n)
+    return pd, pc, row_plan.align((tsize + 4) * (pd + pc) + 4 * -(-pc // 32) + 16 * r, 16)
+
+
+def join_plan(nrows: int, wb: int, share=None) -> row_plan.RowPlan:
+    """How ``ujson_join`` runs ``nrows`` rows of ``wb`` work bytes each
+    (``share(n)``: a CTA's bytes in a cluster of n, `join_share`): the
+    class, rows a CTA, shared memory, grid and scratch."""
+    return row_plan.plan_rows(nrows, wb, wb, WARP_ROW_BYTES, WARP_MIN_ROWS, share,
+                              CTA_ROW_BYTES)
+
+
+def plan_join(nrows: int, tsize: int, la: int, lb: int, ca: int, cb: int,
+              r: int) -> row_plan.RowPlan:
+    """`join_plan` for rows of these widths (tsize: bytes a dot)."""
+    return join_plan(nrows, join_work_bytes(tsize, la, lb, ca, cb, r),
+                     lambda n: join_share(tsize, la, lb, ca, cb, r, n)[2])
 
 
 def _check_planes(what, batch: DocBatch, dev, dtype, r=None) -> None:
@@ -317,6 +339,9 @@ def _check_planes(what, batch: DocBatch, dev, dtype, r=None) -> None:
         raise ValueError(f"{what}: planes disagree on rows or widths")
     if r is not None and batch.vv.shape[1] != r:
         raise ValueError(f"{what}: vv has {batch.vv.shape[1]} columns, not {r}")
+
+
+_KINDS = {"warp": 0, "cta": 1, "cluster": 2}
 
 
 def join_rows(a: DocBatch, b: DocBatch, shift: int, a_idx=None,
@@ -334,8 +359,8 @@ def join_rows(a: DocBatch, b: DocBatch, shift: int, a_idx=None,
     only): rows not occupied get the identity document.
 
     A CPU tensor runs the plain version; a CUDA tensor launches
-    csrc/ujson_join.cu (one CUDA kernel a call, a warp or a CTA per row
-    as ``join_plan`` picks) or raises."""
+    csrc/ujson_join.cu (one CUDA kernel a call, a warp, a CTA or a
+    thread-block cluster per row as ``join_plan`` picks) or raises."""
     if a.dots.device.type == "cpu":
         return join_rows_plain(a, b, shift, a_idx, sort_output, finish, occupied, out)
     _check_finish(finish, sort_output, occupied, a_idx, out)
@@ -379,7 +404,9 @@ def join_rows(a: DocBatch, b: DocBatch, shift: int, a_idx=None,
             raise ValueError("ujson_join: occupied must be a (rows,) bool on the device")
     if r < 1:
         raise ValueError("ujson_join: vv needs at least one column")
-    plan = join_plan(n, join_work_bytes(8 if wide else 4, la, lb, ca, cb, r))
+    ts = 8 if wide else 4
+    plan = plan_join(n, ts, la, lb, ca, cb, r)
+    pd, pc, _ = join_share(ts, la, lb, ca, cb, r, plan.cluster)
     scratch = (torch.empty(plan.scratch, dtype=torch.uint8, device=dev)
                if plan.scratch else None)
     ptrs = [None if t is None else t.data_ptr() for t in (
@@ -391,9 +418,10 @@ def join_rows(a: DocBatch, b: DocBatch, shift: int, a_idx=None,
                 *(t.data_ptr() for t in out), lo, co, int(sort_output),
                 int(finish is not None),
                 None if occupied is None else occupied.data_ptr(),
-                0 if plan.kind == "warp" else 1, plan.rows_per_cta,
+                _KINDS[plan.kind], plan.rows_per_cta,
                 None if scratch is None else scratch.data_ptr(), plan.stride, n,
-                plan.grid, plan.smem, torch.cuda.current_stream(dev).cuda_stream)
+                plan.grid, plan.smem, plan.cluster, pd, pc,
+                torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "ujson_join")
     _build.count(join_rows, dev, plan.kind)
     return out

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Per-launch device times of the port's row kernels on an NVIDIA GPU.
 
-    python3 scripts/row_kernel_profile.py [--root DIR] [--flat] [--sweep [flat|tlog|join ...]]
+    python3 scripts/row_kernel_profile.py [--root DIR] [--flat] [--long] [--smoke-phases]
+                                          [--sweep [flat|tlog|join ...]]
 
 Measures the ``jylis_tpu_torch`` package found under ``--root`` (default:
 this checkout), so one call can hold two trees side by side, e.g. a
@@ -19,6 +20,17 @@ Prints one JSON line per measurement:
   widths, its device time (torch.profiler, CUPTI; the mean of 3 traced
   folds) and, where the tree has ``ujson_device.join_plan``, the class
   the launch took;
+* with ``--long``: the rows past shared memory on any tree (a parent's
+  too): config 5's broadcast join (64 resident rows, one folded row
+  65,536 wide), narrow and wide, and ``tlog_drain_sparse`` at K = 4,
+  L = Ld = 65,536, wide (``chip_smoke.py``'s shape and generators), each
+  launch's device time (torch.profiler), and the TLOG row's plain
+  twin's time on the card (CUDA events, median of 5);
+* with ``--smoke-phases``: the wall seconds of that tree's own
+  ``chip_smoke.py`` TLOG and UJSON kernel phases (``tlog_phases``,
+  ``ujson_phases``), each run once as its main() runs it; beside the
+  seconds of the tree's first build of every kernel (``build_s``), what
+  the row kernels add to the script's time;
 * with ``--flat``: ``ujson_fold_flat`` at ``chip_smoke.py``'s
   class-boundary shapes on the planes it draws there: each class forced
   in turn as ``--sweep flat`` does, or, on a tree without classes (a
@@ -26,7 +38,11 @@ Prints one JSON line per measurement:
 * with ``--sweep`` (trees that have ``ops/row_plan.py``): the warp and
   CTA classes of ``tlog_drain`` and ``ujson_join`` forced in turn at
   widths around their crossovers, each launch's device time, and the two
-  classes' outputs compared bit for bit; ``--sweep flat`` (or ``tlog``,
+  classes' outputs compared bit for bit; then, on trees whose plans have
+  the cluster class (``row_plan.plan_split``), rows around and past a
+  CTA's shared memory in the CTA class (where it fits) and in clusters of
+  2, 4, 8 and 16 CTAs (each size whose share fits), every output held
+  against the first; ``--sweep flat`` (or ``tlog``,
   ``join``) sweeps only that kernel. The flat fold's sweep (trees that
   have ``ujson_resident.flat_plan``) forces each of its three classes (a
   warp per key, its deltas in registers; a CTA, its rows in shared
@@ -45,6 +61,7 @@ import os
 import statistics
 import sys
 import tempfile
+import time
 from pathlib import Path
 
 import numpy as np
@@ -104,7 +121,11 @@ def tree_profile(torch, cs, udev) -> None:
                 n, la = a.dots.shape
                 lb, ca, cb, r = b.dots.shape[1], a.cloud.shape[1], b.cloud.shape[1], a.vv.shape[1]
                 lv = dict(rows=n, la=la, lb=lb, ca=ca, cb=cb, r=r)
-                if has_plan:
+                if hasattr(udev, "plan_join"):
+                    plan = udev.plan_join(n, a.dots.element_size(), la, lb, ca, cb, r)
+                    lv["class"] = plan.kind + (f" of {plan.cluster}"
+                                               if plan.kind == "cluster" else "")
+                elif has_plan:
                     wb = udev.join_work_bytes(a.dots.element_size(), la, lb, ca, cb, r)
                     lv["class"] = udev.join_plan(n, wb).kind
                 levels.append(lv)
@@ -122,6 +143,12 @@ def tree_profile(torch, cs, udev) -> None:
 
 def _clone(st):
     return type(st)(*(None if x is None else x.clone() for x in st))
+
+
+def _same(x, y) -> bool:
+    import torch
+
+    return all(torch.equal(a, b) for a, b in zip(x, y))
 
 
 def _forced(mod, warp: bool) -> dict:
@@ -214,6 +241,222 @@ def ujson_sweep(torch, cs, udev) -> None:
                   "classes_equal": same if len(res) == 2 else None})
             del a, b, res
             torch.cuda.empty_cache()
+
+
+def long_rows(torch, cs, udev, tlog, planes) -> None:
+    """The rows past shared memory, on any tree: config 5's broadcast
+    join and the K = 4, L = Ld = 65,536 TLOG drain, device time a launch;
+    the TLOG row's plain twin on the card."""
+    from jylis_tpu_torch.ops import ujson_resident as ures
+
+    for wide in (False, True):
+        st5, deltas, g5 = cs.uj_5_setup(wide)
+        shift = st5._shift
+        folded = udev.DocBatch(*(p[:, 0] for p in udev._fold_body(g5, shift)))
+        out_w, out_c = st5._budget_widths(sum(len(x.entries) for x in deltas),
+                                          sum(len(x.ctx.cloud) for x in deltas))
+        occ = torch.zeros(st5._row_axis(), dtype=torch.bool, device="cuda")
+        occ[list(st5._rows.values())] = True
+        r0 = cs.uj_clone(st5._batch)
+        rk = cs.uj_clone(r0)
+        reset = cs.restorer(rk, r0)
+
+        def run():
+            reset()
+            udev.join_rows(rk, folded, shift, finish=(out_w, out_c), occupied=occ,
+                           out=ures.slice_widths(rk, out_w, out_c))
+
+        t = kernel_times(torch, run, "ujson_join", runs=5)
+        emit({"long": "config 5 broadcast", "layout": "wide" if wide else "narrow",
+              "rows": r0.dots.shape[0], "lb": folded.dots.shape[-1],
+              "device_us": t[-1] if t else None})
+        del st5, g5, folded, r0, rk
+        torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(cs.SEED + 20)
+    k, length, ld = 4, 1 << 16, 1 << 16
+    lens = np.zeros(k, np.int64)
+    lens[:3] = rng.integers(0, 901, 3)
+    pl, lens32, cut, ts, vid = cs.tlog_rows_np(rng, k, length, lens, True)
+    st0 = tlog.TLogState(*(torch.from_numpy(p.view(np.int32)).to(dev) for p in pl),
+                         torch.from_numpy(lens32).to(dev), planes.to_tensor(cut, dev))
+    rows = np.arange(3)
+    d_ts, d_vid, d_cut = cs.tlog_delta_np(rng, ts, vid, lens, rows, ld)
+    ki = torch.tensor([0, 1, 2, 2**31 - 1], dtype=torch.int32, device=dev)
+    z = np.zeros((1, ld), np.uint64)
+    args = (ki, planes.to_tensor(np.concatenate([d_ts, z]), dev),
+            torch.from_numpy(np.concatenate([d_vid, np.full((1, ld), -1)])).to(dev),
+            planes.to_tensor(np.concatenate([d_cut, z[:, 0]]), dev),
+            torch.from_numpy(np.r_[cs.tlog_counts_np(rng, 3), tlog.TRIM_NOOP]).to(dev))
+    sk = _clone(st0)
+    reset = cs.restorer(cs._tensors(sk), cs._tensors(st0))
+    t = kernel_times(torch, lambda: (reset(), tlog.drain_sparse(sk, *args)), "tlog_drain",
+                     runs=5)
+    sp = _clone(st0)
+    reset_p = cs.restorer(cs._tensors(sp), cs._tensors(st0))
+    plain = []
+    for _ in range(5):
+        reset_p()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        tlog.drain_sparse_plain(sp, *args)
+        e1.record()
+        torch.cuda.synchronize()
+        plain.append(e0.elapsed_time(e1))
+    same = all(torch.equal(x, y) for x, y in zip(cs._tensors(sk), cs._tensors(sp)))
+    emit({"long": "tlog_drain_sparse K=4 L=Ld=65536 wide", "device_us": t[0] if t else None,
+          "plain_ms": statistics.median(plain), "equal_to_plain": same})
+
+
+def _split_classes(torch, row_plan, mod, run, equal, name: str) -> dict:
+    """``run()`` (a launch of ``mod``'s wrapper, returning its outputs)
+    in the CTA class where the row fits it, then in clusters of 2, 4, 8
+    and 16 CTAs (each size whose share fits shared memory): device time
+    a launch, and whether each class's outputs equal the first's."""
+    out, first = {}, None
+    orig = row_plan.plan_split
+    old = (mod.WARP_ROW_BYTES, mod.CTA_ROW_BYTES)
+    mod.WARP_ROW_BYTES = 0
+    try:
+        for klass in ("cta", 2, 4, 8, 16):
+            if klass == "cta":
+                mod.CTA_ROW_BYTES = row_plan.SMEM_LIMIT
+            else:
+                mod.CTA_ROW_BYTES = 0
+
+                def split(nrows, share, n=klass):
+                    if share(n) > row_plan.SMEM_LIMIT:
+                        return orig(nrows, share)
+                    return row_plan.RowPlan("cluster", 1, row_plan.CTA_THREADS, share(n),
+                                            nrows * n, 0, share(n), n)
+
+                row_plan.plan_split = split
+            got, plan = run()
+            torch.cuda.synchronize()
+            label = plan.kind if plan.kind != "cluster" else f"cluster of {plan.cluster}"
+            if label in out or (klass == "cta" and plan.kind != "cta") or (
+                    klass != "cta" and plan.cluster != klass):
+                continue
+            t = kernel_times(torch, lambda: run(), name)
+            first = got if first is None else first
+            out[label] = dict(device_us=t[0] if t else None, smem=plan.smem,
+                              scratch=plan.scratch, equal=equal(first, got))
+    finally:
+        row_plan.plan_split = orig
+        mod.WARP_ROW_BYTES, mod.CTA_ROW_BYTES = old
+    return out
+
+
+def tlog_split_sweep(torch, cs, tlog, planes) -> None:
+    """tlog_drain_sparse around and past a CTA's shared memory: every
+    class that takes the row (_split_classes), rows filled to half of L
+    and deltas as chip_smoke.py draws them."""
+    from jylis_tpu_torch.ops import row_plan
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 93)
+    for k, length, ld in ((64, 8192, 1024), (16, 16384, 1024), (8, 24576, 1024),
+                          (4, 65536, 1024), (4, 32768, 32768), (4, 65536, 65536),
+                          (1, 65536, 65536)):
+        for wide in (False, True):
+            lens = rng.integers(0, min(900, length // 2) + 1, k)
+            pl, lens32, cut, ts, vid = cs.tlog_rows_np(rng, k, length, lens, wide)
+            rows = rng.permutation(k).astype(np.int32)
+            d_ts, d_vid, d_cut = cs.tlog_delta_np(rng, ts, vid, lens, rows.astype(np.int64), ld)
+            st0 = tlog.TLogState(
+                *([] if wide else [None]),
+                *(torch.from_numpy(p.view(np.int32)).to(dev) for p in pl),
+                torch.from_numpy(lens32).to(dev), planes.to_tensor(cut, dev))
+            args = (torch.from_numpy(rows).to(dev), planes.to_tensor(d_ts, dev),
+                    torch.from_numpy(d_vid).to(dev), planes.to_tensor(d_cut, dev),
+                    torch.from_numpy(cs.tlog_counts_np(rng, k)).to(dev))
+            sk = _clone(st0)
+            reset = cs.restorer(cs._tensors(sk), cs._tensors(st0))
+
+            def run():
+                reset()
+                o = tlog.drain_sparse(sk, *args)
+                return [*o, *cs._tensors(sk)], tlog.drain_plan(
+                    k, length, ld, 3 if wide else 2).rows
+
+            out = _split_classes(torch, row_plan, tlog, run, _same, "tlog_drain")
+            emit({"sweep": "tlog_drain_sparse split", "K": k, "L": length, "Ld": ld,
+                  "layout": "wide" if wide else "narrow", "classes": out,
+                  "plan": cs.row_class(tlog.drain_plan(k, length, ld, 3 if wide else 2).rows)})
+            del st0, sk, args
+            torch.cuda.empty_cache()
+
+
+def ujson_split_sweep(torch, cs, udev) -> None:
+    """ujson_join of random rows around and past a CTA's shared memory
+    (sorted output; a and b rows of the same widths, R = 32), and config
+    5's broadcast: every class that takes the row (_split_classes)."""
+    from jylis_tpu_torch.ops import row_plan
+    from jylis_tpu_torch.ops import ujson_resident as ures
+
+    rng = np.random.default_rng(SEED + 94)
+    for n, width in ((64, 2048), (16, 4096), (8, 8192), (4, 16384), (2, 32768)):
+        for wide in (False, True):
+            shift = 32 if wide else udev.narrow_shift(32)
+            a = cs.uj_random_planes(torch, rng, (n,), width, width, 32, shift)
+            b = cs.uj_random_planes(torch, rng, (n,), width, width, 32, shift)
+            ts = a.dots.element_size()
+
+            def run():
+                return udev.join_rows(a, b, shift), udev.plan_join(
+                    n, ts, width, width, width, width, 32)
+
+            out = _split_classes(torch, row_plan, udev, run, _same, "ujson_join")
+            emit({"sweep": "ujson_join split", "rows": n, "width": width,
+                  "layout": "wide" if wide else "narrow", "classes": out,
+                  "plan": cs.uj_join_class(a, b)})
+            del a, b
+            torch.cuda.empty_cache()
+    for wide in (False, True):
+        st5, deltas, g5 = cs.uj_5_setup(wide)
+        shift = st5._shift
+        folded = udev.DocBatch(*(p[:, 0] for p in udev._fold_body(g5, shift)))
+        out_w, out_c = st5._budget_widths(sum(len(x.entries) for x in deltas),
+                                          sum(len(x.ctx.cloud) for x in deltas))
+        occ = torch.zeros(st5._row_axis(), dtype=torch.bool, device="cuda")
+        occ[list(st5._rows.values())] = True
+        r0 = cs.uj_clone(st5._batch)
+        rk = cs.uj_clone(r0)
+        reset = cs.restorer(rk, r0)
+
+        def run():
+            reset()
+            o = udev.join_rows(rk, folded, shift, finish=(out_w, out_c), occupied=occ,
+                               out=ures.slice_widths(rk, out_w, out_c))
+            return cs.uj_clone(o), udev.plan_join(
+                r0.dots.shape[0], r0.dots.element_size(), r0.dots.shape[-1],
+                folded.dots.shape[-1], r0.cloud.shape[-1], folded.cloud.shape[-1],
+                r0.vv.shape[-1])
+
+        out = _split_classes(torch, row_plan, udev, run, _same, "ujson_join")
+        emit({"sweep": "ujson_join split", "rows": r0.dots.shape[0],
+              "width": folded.dots.shape[-1], "data": "config 5 broadcast",
+              "layout": "wide" if wide else "narrow", "classes": out,
+              "plan": cs.uj_join_class(r0, folded)})
+        del st5, g5, folded, r0, rk
+        torch.cuda.empty_cache()
+
+
+def smoke_phases(torch, root: Path) -> dict:
+    """Wall seconds of the tree's chip_smoke.py TLOG and UJSON kernel
+    phases, each called as its main() calls it."""
+    spec = importlib.util.spec_from_file_location("chip_smoke_tree", root / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    card = cs.smi_line()
+    t0 = time.perf_counter()
+    cs.tlog_phases(torch, card)
+    out = {"tlog_phases_s": time.perf_counter() - t0}
+    flat = cs.uj_flat_data(cs.UJ_FLAT_KEYS)
+    t0 = time.perf_counter()
+    cs.ujson_phases(torch, card, flat[1])
+    out["ujson_phases_s"] = time.perf_counter() - t0
+    return out
 
 
 FLAT_CLASSES = ("warp", "cta", "cluster")
@@ -320,6 +563,10 @@ def main() -> int:
                          "named) around its crossover")
     ap.add_argument("--flat", action="store_true",
                     help="also time ujson_fold_flat at chip_smoke.py's class-boundary shapes")
+    ap.add_argument("--long", action="store_true",
+                    help="also time the rows past shared memory (any tree)")
+    ap.add_argument("--smoke-phases", action="store_true",
+                    help="also time the tree's chip_smoke.py TLOG and UJSON kernel phases")
     args = ap.parse_args()
     import torch
 
@@ -336,18 +583,30 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda})
     from jylis_tpu_torch.ops import ujson_resident as ures
 
-    emit({"build_s": _build.build(("tlog_drain", "ujson_join", "ujson_fold_flat"))})
+    t0 = time.perf_counter()
+    _build.build()
+    emit({"build_s": time.perf_counter() - t0})
+    if args.smoke_phases:
+        emit({"smoke_phases": str(Path(args.root).resolve()),
+              **smoke_phases(torch, Path(args.root).resolve())})
     tree_profile(torch, cs, udev)
+    if args.long:
+        long_rows(torch, cs, udev, tlog, planes)
     if args.flat:
         flat_boundaries(torch, cs, ures)
     if args.sweep is not None:
         which = set(args.sweep or ("flat", "tlog", "join"))
         if not hasattr(udev, "join_plan"):
             raise SystemExit("--sweep needs a tree with ops/row_plan.py")
+        split = hasattr(udev, "plan_join")
         if "tlog" in which:
             tlog_sweep(torch, cs, tlog, planes)
+            if split:
+                tlog_split_sweep(torch, cs, tlog, planes)
         if "join" in which:
             ujson_sweep(torch, cs, udev)
+            if split:
+                ujson_split_sweep(torch, cs, udev)
         if "flat" in which:
             if not hasattr(ures, "flat_plan"):
                 raise SystemExit("--sweep flat needs a tree with ujson_resident.flat_plan")

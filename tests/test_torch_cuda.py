@@ -11,15 +11,18 @@ NaN bits and what its wrapper refuses (D not a multiple of 4, unaligned
 planes); for the TLOG drains, narrow and wide rows, duplicates inside a
 delta and against the state, raised cutoffs, every kind of trim count,
 CLR at ts 2^64-1, both overflow rules, pads, and rows wider than shared
-memory holds (the kernel's device-scratch path); both classes of each
-row kernel (a warp per row and a CTA per row, forced in turn) at the
-widths that split them; for the UJSON join
+memory holds (a thread-block cluster per row); every class of each row
+kernel (a warp per row, a CTA per row and a cluster per row, its shares
+in shared memory or in device scratch, forced in turn) at the widths
+that split them, and the cluster's partition edges (trim targets and
+cutoffs in the first and last CTA's share, deltas of repeats, twin dots
+and cloud entries split across CTAs); for the UJSON join
 and flat fold, narrow and wide rows (wide ones with seqs near 2^32 and
 columns past 2^31, so dots with bit 63 set), empty rows, pads, one dot
 under several payload ids (the flat fold's last-copy rule), version
 vectors at the u32 wrap, the epilogue in place and refitted, the
 broadcast with free rows, the tree's levels, and rows wider than shared
-memory; for the mesh, replica_join at even and odd S with columns at 0,
+memory (a cluster per row); for the mesh, replica_join at even and odd S with columns at 0,
 2^64-1 and >= 2^63 (and what its wrapper refuses), join_replica_axis,
 the routed GCOUNT / PNCOUNT / TREG / TLOG drains on [cuda] * 4 against
 the same drains on [cpu] * 4 (one launch per shard), the row-aligned
@@ -41,7 +44,7 @@ import numpy as np
 import pytest
 import torch
 
-from jylis_tpu_torch.ops import gcount, planes, pncount, tensor, tlog, treg
+from jylis_tpu_torch.ops import gcount, planes, pncount, row_plan, tensor, tlog, treg
 from jylis_tpu_torch.ops import ujson_device as udev
 from jylis_tpu_torch.ops import ujson_resident as ures
 from jylis_tpu_torch.ops.staging import DensePlan
@@ -433,7 +436,7 @@ def _tlog_counts(rng, n, dev):
     (8, 16, 16, 8, 4), (64, 64, 32, 20, 1), (300, 256, 128, 100, 33),
     (16384, 1024, 16, 1, 1),  # a socket TRIM's drain at config 4's shape
     (2048, 1024, 2048, 1500, 128),
-    (3, 65536, 4, 3, 65536),  # wider than shared memory: device scratch
+    (3, 65536, 4, 3, 65536),  # wider than shared memory: a cluster of 16
 ])
 def test_tlog_drain_sparse_matches_plain(dev, wide, k, length, b, live, ld):
     rng = np.random.default_rng(k + length + b + ld + wide)
@@ -487,13 +490,20 @@ def test_tlog_drain_dense_matches_plain(dev, wide, k, length, ld):
 
 def _force_class(monkeypatch, mod, klass):
     """Make a row kernel's wrapper take the warp class wherever the
-    kernel has one ("warp"), or a CTA per row ("cta")."""
+    kernel has one ("warp"), a CTA per row ("cta"), or a thread-block
+    cluster per row, its shares in shared memory ("cluster") or in device
+    scratch ("scratch"); returns the class the wrapper counts."""
     monkeypatch.setattr(mod, "WARP_ROW_BYTES", (1 << 40) if klass == "warp" else 0)
     monkeypatch.setattr(mod, "WARP_MIN_ROWS", 1, raising=False)
+    monkeypatch.setattr(mod, "CTA_ROW_BYTES",
+                        row_plan.SMEM_LIMIT if klass in ("warp", "cta") else 0)
+    if klass == "scratch":  # the cluster class with its shares in device scratch
+        monkeypatch.setattr(row_plan, "SMEM_LIMIT", 512)
+    return "cluster" if klass == "scratch" else klass
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("klass", ["warp", "cta"])
+@pytest.mark.parametrize("klass", ["warp", "cta", "cluster", "scratch"])
 @pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
 @pytest.mark.parametrize("k,length,b,live,ld,all_pad", [
     (64, 64, 64, 60, 1, False), (64, 64, 64, 60, 31, False), (64, 64, 64, 60, 32, False),
@@ -505,13 +515,13 @@ def _force_class(monkeypatch, mod, klass):
 ])
 def test_tlog_drain_sparse_classes_match_plain(dev, monkeypatch, klass, wide, k, length,
                                                b, live, ld, all_pad):
-    """Both classes of tlog_drain at the widths that split them (Ld = 1,
+    """Every class of tlog_drain at the widths that split them (Ld = 1,
     31, 32, 33: one delta entry a lane, 2; 256: 8; 257: the CTA class),
     bit for bit against the plain drain, with rows the sparse rule flags,
     pad and negative slots, and deltas that carry no entry."""
-    _force_class(monkeypatch, tlog, klass)
+    klass = _force_class(monkeypatch, tlog, klass)
     nplanes = 3 if wide else 2
-    want = "cta" if klass == "cta" or ld > tlog.WARP_MAX_LD else "warp"
+    want = "cta" if klass == "warp" and ld > tlog.WARP_MAX_LD else klass
     assert tlog.drain_plan(b, length, ld, nplanes).rows.kind == want
     rng = np.random.default_rng(k + length + ld + 7 * wide)
     lens = rng.integers(0, length // 3 + 1, k)
@@ -540,15 +550,15 @@ def test_tlog_drain_sparse_classes_match_plain(dev, monkeypatch, klass, wide, k,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("klass", ["warp", "cta"])
+@pytest.mark.parametrize("klass", ["warp", "cta", "cluster", "scratch"])
 @pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
 @pytest.mark.parametrize("k,length,ld", [
     (100, 64, 1), (100, 64, 33), (300, 512, 128), (50, 1024, 256), (30, 1024, 300)])
 def test_tlog_drain_dense_classes_match_plain(dev, monkeypatch, klass, wide, k, length, ld):
-    """Both classes of the dense drain, rows the dense rule flags (with
+    """Every class of the dense drain, rows the dense rule flags (with
     and without a delta) among them, bit for bit against the plain drain."""
-    _force_class(monkeypatch, tlog, klass)
-    want = "cta" if klass == "cta" or ld > tlog.WARP_MAX_LD else "warp"
+    klass = _force_class(monkeypatch, tlog, klass)
+    want = "cta" if klass == "warp" and ld > tlog.WARP_MAX_LD else klass
     assert tlog.drain_plan(k, length, ld, 3 if wide else 2).rows.kind == want
     rng = np.random.default_rng(k * 3 + length + ld + wide)
     lens = rng.integers(0, max(1, length - ld) + 1, k)
@@ -566,6 +576,62 @@ def test_tlog_drain_dense_classes_match_plain(dev, monkeypatch, klass, wide, k, 
     torch.cuda.synchronize()
     assert torch.equal(ovf_k, ovf_p) and _equal(sk, sp)
     assert ovf_k.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
+@pytest.mark.parametrize("case", ["trim_first", "trim_last", "clr", "cut_first",
+                                  "cut_last", "repeats", "overflow"])
+def test_tlog_drain_cluster_partition_edges(dev, monkeypatch, wide, case):
+    """The cluster class at its partition edges (4 rows of L = Ld = 256 in
+    clusters of 8: 32 delta slots and 32 state slots a CTA): the trim's
+    target at the merged row's first entry (TRIM 1, CLR) and at its last,
+    a raised cutoff at the first and at the last merged entry, a delta
+    of a few entries repeated over every CTA's share (the dedup compares
+    across the edges), and rows the sparse rule flags; bit for bit
+    against the plain drain."""
+    _force_class(monkeypatch, tlog, "cluster")
+    k, length, ld = 4, 256, 256
+    plan = tlog.drain_plan(k, length, ld, 3 if wide else 2)
+    assert plan.rows.kind == "cluster" and plan.rows.cluster == 8 and plan.ldp == 32
+    rng = np.random.default_rng(len(case) + 11 * wide)
+    lens = np.array([0, 40, 100, 200 if case == "overflow" else 150])
+    st, ts, vid = _tlog_state(rng, k, length, lens, wide, dev)
+    rows = np.arange(k)
+    d_ts, d_vid, d_cut = _tlog_delta(rng, ts, vid, lens, rows, ld, dev)
+    d_cut.zero_()
+    if case == "repeats":  # three entries over all 256 columns
+        pick = torch.from_numpy(rng.integers(0, 3, (k, ld))).to(dev)
+        d_ts.copy_(torch.gather(d_ts[:, :3], 1, pick))
+        d_vid.copy_(torch.gather(d_vid[:, :3].abs(), 1, pick))
+    ki = torch.arange(k, dtype=torch.int32, device=dev)
+    noop = torch.full((k,), tlog.TRIM_NOOP, dtype=torch.int64, device=dev)
+    merged = _clone(st)
+    tlog.drain_sparse_plain(merged, ki, d_ts, d_vid, d_cut, noop)
+    m = merged.length.long()
+    counts = noop
+    if case == "trim_first":
+        counts = torch.ones(k, dtype=torch.int64, device=dev)
+    elif case == "trim_last":
+        counts = m.clone()
+    elif case == "clr":
+        counts = torch.zeros(k, dtype=torch.int64, device=dev)
+    elif case in ("cut_first", "cut_last"):
+        # ts of the merged row's first (latest) or last (oldest) entry
+        at = torch.zeros_like(m) if case == "cut_first" else (m - 1).clamp(min=0)
+        pl = [p for p in merged[:3] if p is not None]
+        low = (~pl[-2].long().gather(1, at[:, None])[:, 0]) & 0xFFFFFFFF
+        hi = ((~pl[0].long().gather(1, at[:, None])[:, 0]) & 0xFFFFFFFF) if wide else 0
+        d_cut.copy_(torch.where(m > 0, (hi << 32) | low, torch.zeros_like(low)))
+    sk, sp = _clone(st), _clone(st)
+    out_k = tlog.drain_sparse(sk, ki, d_ts, d_vid, d_cut, counts)
+    out_p = tlog.drain_sparse_plain(sp, ki, d_ts, d_vid, d_cut, counts)
+    torch.cuda.synchronize()
+    assert _equal(out_k, out_p) and _equal(sk, sp)
+    if case == "overflow":
+        assert out_k[0].any()
+    if case == "repeats":
+        assert (sk.length.long() - torch.from_numpy(lens).to(dev) <= 3).all()
 
 
 @pytest.mark.cuda
@@ -676,7 +742,7 @@ UJ_SHIFT = {"narrow": lambda r: udev.narrow_shift(r), "wide": lambda r: 32}
 @pytest.mark.parametrize("layout", ["narrow", "wide"])
 @pytest.mark.parametrize("n,la,lb,ca,cb,r", [
     (64, 8, 8, 4, 4, 8), (37, 16, 4, 8, 32, 12), (5, 300, 260, 64, 40, 4),
-    (3, 16384, 16384, 64, 64, 8),  # rows past shared memory: device scratch
+    (3, 16384, 16384, 64, 64, 8),  # rows past shared memory: a cluster of 8
 ])
 def test_ujson_join_matches_plain(dev, layout, n, la, lb, ca, cb, r):
     rng = np.random.default_rng(n + la + r)
@@ -864,7 +930,7 @@ def test_ujson_tree_fold_matches_plain(dev, layout, k, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("klass", ["warp", "cta"])
+@pytest.mark.parametrize("klass", ["warp", "cta", "cluster", "scratch"])
 @pytest.mark.parametrize("layout", ["narrow", "wide"])
 @pytest.mark.parametrize("n,la,lb,ca,cb,r", [
     (64, 4, 4, 4, 4, 8), (37, 16, 4, 8, 32, 12), (9, 200, 260, 64, 40, 4),
@@ -872,18 +938,17 @@ def test_ujson_tree_fold_matches_plain(dev, layout, k, d):
 ])
 def test_ujson_join_classes_match_plain(dev, monkeypatch, klass, layout, n, la, lb, ca,
                                         cb, r):
-    """Both classes of ujson_join, bit for bit against the plain join:
+    """Every class of ujson_join, bit for bit against the plain join:
     sorted and unsorted, the broadcast of one row (b step 0), the
     epilogue written in place at a subset of rows (a_idx, pad slots at
     the identity row 0) and into refitted planes, and the broadcast
     with free rows (occupied)."""
-    _force_class(monkeypatch, udev, klass)
     rng = np.random.default_rng(n + la + r + len(klass))
+    klass = _force_class(monkeypatch, udev, klass)
     shift = UJ_SHIFT[layout](r)
     a = _ujson_planes(rng, (n,), la, ca, r, shift, dev, empty=[0])
     b = _ujson_planes(rng, (n,), lb, cb, r, shift, dev, empty=[1 % n])
-    wb = udev.join_work_bytes(a.dots.element_size(), la, lb, ca, cb, r)
-    assert udev.join_plan(n, wb).kind == klass
+    assert udev.plan_join(n, a.dots.element_size(), la, lb, ca, cb, r).kind == klass
     for sort_output in (True, False):
         before = udev.join_rows.classes.get(klass, 0)
         got = udev.join_rows(a, b, shift, sort_output=sort_output)
@@ -921,6 +986,61 @@ def test_ujson_join_classes_match_plain(dev, monkeypatch, klass, layout, n, la, 
                        out=ures.slice_widths(r_, la, ca)))
     assert _uj_equal(*outs)
     assert not outs[0].vv[~occ].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["narrow", "wide"])
+@pytest.mark.parametrize("live", [7, 13, 64])
+def test_ujson_join_cluster_partition_edges(dev, monkeypatch, layout, live):
+    """The cluster class where its partition edges split twins: b's rows
+    hold a's dots and cloud entries (and some of their own), so the merge
+    alternates equal entries and an odd window puts a dot and its twin,
+    or a cloud entry and its repeat, in neighbouring CTAs; sorted and
+    unsorted, the epilogue in place at a subset of rows (a_idx), and the
+    broadcast into free and occupied rows, bit for bit against the plain
+    join."""
+    _force_class(monkeypatch, udev, "cluster")
+    rng = np.random.default_rng(live + len(layout))
+    r, n, width = 8, 6, 64
+    shift = UJ_SHIFT[layout](r)
+    a = _ujson_planes(rng, (n,), width, width, r, shift, dev, empty=[0])
+    b = _ujson_planes(rng, (n,), width, width, r, shift, dev)
+    pad = udev.pad_of(a.dots)
+    bias = (1 << 63) if layout == "wide" else 0  # wide rows sort unsigned
+
+    def sort_rows(x):
+        return torch.gather(x, 1, (x ^ bias).sort(1).indices)
+
+    for x, y in ((a.dots, b.dots), (a.cloud, b.cloud)):
+        # b: a's first `live` entries, then b's own, sorted and deduplicated
+        both = sort_rows(torch.cat([x[:, :live], y[:, : width - live]], 1))
+        both[:, 1:][both[:, 1:] == both[:, :-1]] = pad
+        y.copy_(sort_rows(both))
+    b.pay.copy_(torch.where(b.dots == pad, -1, b.pay.abs()))
+    a.vv.zero_()
+    plan = udev.plan_join(n, a.dots.element_size(), width, width, width, width, r)
+    assert plan.kind == "cluster" and plan.cluster == 8
+    for sort_output in (True, False):
+        got = udev.join_rows(a, b, shift, sort_output=sort_output)
+        want = udev.join_rows_plain(a, b, shift, sort_output=sort_output)
+        assert _uj_equal(got, want)
+    idx = torch.tensor([3, 1, 4, 2, 5, 0], dtype=torch.int32, device=dev)
+    rk = udev.DocBatch(*(p.clone() for p in a))
+    rp = udev.DocBatch(*(p.clone() for p in a))
+    got = udev.join_rows(rk, b, shift, a_idx=idx, finish=(width, width), out=rk)
+    want = udev.join_rows_plain(rp, b, shift, a_idx=idx, finish=(width, width), out=rp)
+    torch.cuda.synchronize()
+    assert got.dots.data_ptr() == rk.dots.data_ptr()  # in place: out is a
+    assert _uj_equal(got, want)
+    occ = torch.tensor([False, True, True, False, True, True], device=dev)
+    one = udev.DocBatch(*(p[2:3] for p in b))
+    outs = []
+    for fn in (udev.join_rows, udev.join_rows_plain):
+        r_ = udev.DocBatch(*(p.clone() for p in a))
+        outs.append(fn(r_, one, shift, finish=(width // 2, 2 * width), occupied=occ,
+                       out=ures.slice_widths(r_, width // 2, 2 * width)))
+    torch.cuda.synchronize()
+    assert _uj_equal(*outs)
 
 
 @pytest.mark.cuda

@@ -260,47 +260,69 @@ def test_dense_and_sparse_paths_agree(wide):
 SMEM_MAX = 232_448  # dynamic shared memory an H100 block may use
 
 
-@pytest.mark.parametrize("b,length,ld,nplanes,kind,rpc,smem,grid,scratch", [
+@pytest.mark.parametrize("b,length,ld,nplanes,kind,rpc,smem,grid,scratch,cluster", [
     # chip_smoke.py's shapes: config 4 (B = K = 16,384, L = 1,024; the
     # sparse rounds' Ld = 128, the dense ones' Ld = 64, and L = 512)
-    (16384, 1024, 128, 2, "warp", 2, 19_456, 8192, 0),
-    (16384, 1024, 128, 3, "warp", 8, 114_688, 2048, 0),
-    (16384, 1024, 64, 2, "warp", 5, 44_800, 3277, 0),
-    (16384, 1024, 64, 3, "warp", 8, 106_496, 2048, 0),
-    (16384, 512, 64, 2, "warp", 5, 24_320, 3277, 0),
-    (16, 1024, 1, 2, "warp", 1, 8_576, 16, 0),  # a socket TRIM
-    (16, 1024, 1, 3, "warp", 1, 12_800, 16, 0),
-    (4, 65536, 65536, 3, "scratch", 1, 0, 4, 7_340_032),  # past shared memory
-    (4096, 1024, 128, 3, "warp", 8, 114_688, 512, 0),  # a mesh shard's launch
-    (2048, 1024, 256, 2, "warp", 5, 56_320, 410, 0),  # 8 delta entries a lane
-    (2048, 1024, 257, 2, "cta", 1, 14_336, 2048, 0),  # past a warp's registers
+    (16384, 1024, 128, 2, "warp", 2, 19_456, 8192, 0, 1),
+    (16384, 1024, 128, 3, "warp", 8, 114_688, 2048, 0, 1),
+    (16384, 1024, 64, 2, "warp", 5, 44_800, 3277, 0, 1),
+    (16384, 1024, 64, 3, "warp", 8, 106_496, 2048, 0, 1),
+    (16384, 512, 64, 2, "warp", 5, 24_320, 3277, 0, 1),
+    (16, 1024, 1, 2, "warp", 1, 8_576, 16, 0, 1),  # a socket TRIM
+    (16, 1024, 1, 3, "warp", 1, 12_800, 16, 0, 1),
+    # past shared memory: a cluster of 16, a CTA's share 4,096 delta and
+    # 4,096 state slots
+    (4, 65536, 65536, 3, "cluster", 1, 180_224, 64, 0, 16),
+    (4, 65536, 65536, 2, "cluster", 1, 131_072, 64, 0, 16),
+    (4096, 1024, 128, 3, "warp", 8, 114_688, 512, 0, 1),  # a mesh shard's launch
+    (2048, 1024, 256, 2, "warp", 5, 56_320, 410, 0, 1),  # 8 delta entries a lane
+    (2048, 1024, 257, 2, "cta", 1, 14_336, 2048, 0, 1),  # past a warp's registers
     # the crossovers (WARP_ROW_BYTES = 36 KiB) and one step past each
-    (2048, 4416, 128, 2, "warp", 3, 110_592, 683, 0),
-    (2048, 4420, 128, 2, "cta", 1, 36_896, 2048, 0),
-    (2048, 2900, 128, 3, "warp", 3, 110_544, 683, 0),
-    (2048, 2904, 128, 3, "cta", 1, 36_896, 2048, 0),
-    (2048, 4512, 64, 2, "warp", 3, 110_592, 683, 0),
-    (2048, 4516, 64, 2, "cta", 1, 36_896, 2048, 0),
+    (2048, 4416, 128, 2, "warp", 3, 110_592, 683, 0, 1),
+    (2048, 4420, 128, 2, "cta", 1, 36_896, 2048, 0, 1),
+    (2048, 2900, 128, 3, "warp", 3, 110_544, 683, 0, 1),
+    (2048, 2904, 128, 3, "cta", 1, 36_896, 2048, 0, 1),
+    (2048, 4512, 64, 2, "warp", 3, 110_592, 683, 0, 1),
+    (2048, 4516, 64, 2, "cta", 1, 36_896, 2048, 0, 1),
+    # the widest rows the CTA class takes (CTA_ROW_BYTES = SMEM_LIMIT) at
+    # Ld = 1,024 and the next L: a cluster of 8 covers the card with 8 rows
+    (8, 24064, 1024, 2, "cta", 1, 204_800, 8, 0, 1),
+    (8, 24068, 1024, 2, "cluster", 1, 27_168, 64, 0, 8),
+    (8, 15700, 1024, 3, "cta", 1, 204_784, 8, 0, 1),
+    (8, 15704, 1024, 3, "cluster", 1, 27_664, 64, 0, 8),
+    # a TRIM's drain of long rows (Ld = 1: a delta slot a CTA), a share
+    # past 8 CTAs (16), and one past 16 (the shares in device scratch)
+    (16, 65536, 1, 3, "cluster", 1, 98_336, 128, 0, 8),
+    (2, 32768, 32768, 3, "cluster", 1, 180_224, 16, 0, 8),
+    (4, 131072, 131072, 3, "cluster", 1, 0, 64, 23_068_672, 16),
 ])
 def test_drain_plan_at_every_chip_shape_and_crossover(b, length, ld, nplanes, kind, rpc,
-                                                     smem, grid, scratch):
+                                                     smem, grid, scratch, cluster):
     """drain_plan's class, rows a CTA, shared memory, grid and scratch at
     the shapes chip_smoke.py runs and at each crossover: the kernel's
     work buffers hold L + the delta's slots, a multiple of 4 per plane."""
     plan = tlog.drain_plan(b, length, ld, nplanes)
     r = plan.rows
-    assert (r.kind, r.rows_per_cta, r.smem, r.grid, r.scratch) == (
-        kind, rpc, smem, grid, scratch)
+    assert (r.kind, r.rows_per_cta, r.smem, r.grid, r.scratch, r.cluster) == (
+        kind, rpc, smem, grid, scratch, cluster)
     assert r.smem <= SMEM_MAX and r.threads == (32 * rpc if kind == "warp" else 256)
+    if kind == "cluster":
+        # CTA q's share: delta slots [q * ldp, (q + 1) * ldp) (a power of
+        # two), state slots [q * slice, (q + 1) * slice)
+        p, pa = plan.ldp, plan.slice
+        assert p & (p - 1) == 0 and p * cluster >= ld and pa % 4 == 0
+        assert pa * cluster >= length and grid % cluster == 0
+        share = 4 * (2 * nplanes * p + 2 * p + nplanes * pa)
+        assert r.stride >= share and (scratch == grid * r.stride if scratch
+                                      else smem == share <= SMEM_MAX)
+        return
     assert plan.slice % 4 == 0 and plan.slice >= length + plan.ldp >= length + ld
     row_bytes = 4 * (nplanes * plan.slice + -(-plan.ldp // 4) * 4)  # + the bounds
-    assert r.stride == row_bytes or kind == "scratch"
+    assert r.stride == row_bytes
     if kind == "warp":
         assert plan.ldp == 32 << plan.log_e and 0 <= plan.log_e <= 3
     if kind == "warp":
         assert r.smem == rpc * row_bytes <= tlog.WARP_ROW_BYTES * rpc
-    if kind == "scratch":
-        assert r.scratch == r.grid * r.stride >= r.grid * row_bytes
 
 
 def port_state(rng, wide, k, length, rounds=3, ld=64):

@@ -421,35 +421,57 @@ def test_cpu_wrappers_take_the_plain_versions():
 SMEM_MAX = 232_448  # dynamic shared memory an H100 block may use
 
 
-@pytest.mark.parametrize("n,la,lb,ca,cb,r,tsize,kind,rpc,smem,grid,scratch", [
+@pytest.mark.parametrize("n,la,lb,ca,cb,r,tsize,kind,rpc,smem,grid,scratch,cluster", [
     # chip_smoke.py's shapes: the 5b tree's first, seventh and last
     # levels (narrow), its sixth and seventh (wide), config 5's tree where
     # it leaves shared memory, the 5b subset join, config 5's broadcast
-    (16384, 4, 4, 4, 4, 8, 4, "warp", 8, 2_432, 2048, 0),
-    (256, 256, 256, 256, 256, 8, 4, "cta", 1, 10_880, 256, 0),
-    (64, 1024, 1024, 1024, 1024, 8, 4, "cta", 1, 43_136, 64, 0),
-    (512, 128, 128, 128, 128, 8, 8, "warp", 4, 34_304, 128, 0),
-    (256, 256, 256, 256, 256, 8, 8, "cta", 1, 17_024, 256, 0),
-    (8, 4096, 4096, 4096, 4096, 32, 4, "cta", 1, 172_544, 8, 0),
-    (4, 8192, 8192, 8192, 8192, 32, 4, "scratch", 1, 0, 4, 1_378_304),
-    (64, 4096, 2048, 4, 2048, 8, 4, "cta", 1, 80_048, 64, 0),
-    (64, 4, 65536, 4, 65536, 32, 4, "scratch", 1, 0, 64, 88_129_536),
+    (16384, 4, 4, 4, 4, 8, 4, "warp", 8, 2_432, 2048, 0, 1),
+    (256, 256, 256, 256, 256, 8, 4, "cta", 1, 10_880, 256, 0, 1),
+    (64, 1024, 1024, 1024, 1024, 8, 4, "cta", 1, 43_136, 64, 0, 1),
+    (512, 128, 128, 128, 128, 8, 8, "warp", 4, 34_304, 128, 0, 1),
+    (256, 256, 256, 256, 256, 8, 8, "cta", 1, 17_024, 256, 0, 1),
+    (8, 4096, 4096, 4096, 4096, 32, 4, "cta", 1, 172_544, 8, 0, 1),
+    (4, 8192, 8192, 8192, 8192, 32, 4, "cluster", 1, 33_536, 32, 0, 8),
+    (64, 4096, 2048, 4, 2048, 8, 4, "cta", 1, 80_048, 64, 0, 1),
+    (64, 4, 65536, 4, 65536, 32, 4, "cluster", 1, 132_640, 512, 0, 8),
+    (64, 4, 65536, 4, 65536, 32, 8, "cluster", 1, 198_176, 512, 0, 8),
+    (1, 32768, 32768, 32768, 32768, 32, 8, "cluster", 1, 198_144, 8, 0, 8),
     # the crossovers (WARP_ROW_BYTES = 16 KiB, WARP_MIN_ROWS = 512) and
     # one step past each
-    (1024, 384, 384, 384, 384, 8, 4, "warp", 7, 113_792, 147, 0),
-    (1024, 388, 388, 388, 388, 8, 4, "cta", 1, 16_432, 1024, 0),
-    (1024, 244, 244, 244, 244, 8, 8, "warp", 7, 113_680, 147, 0),
-    (1024, 248, 248, 248, 248, 8, 8, "cta", 1, 16_496, 1024, 0),
-    (512, 64, 64, 64, 64, 8, 4, "warp", 4, 11_264, 128, 0),
-    (256, 64, 64, 64, 64, 8, 4, "cta", 1, 2_816, 256, 0),
+    (1024, 384, 384, 384, 384, 8, 4, "warp", 7, 113_792, 147, 0, 1),
+    (1024, 388, 388, 388, 388, 8, 4, "cta", 1, 16_432, 1024, 0, 1),
+    (1024, 244, 244, 244, 244, 8, 8, "warp", 7, 113_680, 147, 0, 1),
+    (1024, 248, 248, 248, 248, 8, 8, "cta", 1, 16_496, 1024, 0, 1),
+    (512, 64, 64, 64, 64, 8, 4, "warp", 4, 11_264, 128, 0, 1),
+    (256, 64, 64, 64, 64, 8, 4, "cta", 1, 2_816, 256, 0, 1),
+    # the widest rows the CTA class takes (CTA_ROW_BYTES = SMEM_LIMIT) and
+    # the next width: a cluster of 8 covers the card with 8 rows
+    (8, 4864, 4864, 4864, 4864, 32, 4, "cta", 1, 204_800, 8, 0, 1),
+    (8, 4868, 4868, 4868, 4868, 32, 4, "cluster", 1, 20_144, 64, 0, 8),
+    (8, 3092, 3092, 3092, 3092, 32, 8, "cta", 1, 204_592, 8, 0, 1),
+    (8, 3096, 3096, 3096, 3096, 32, 8, "cluster", 1, 19_200, 64, 0, 8),
+    # a share past 8 CTAs' shared memory: 16 (non-portable); past 16: the
+    # shares in device scratch
+    (2, 4, 98304, 4, 98304, 32, 8, "cluster", 1, 148_768, 32, 0, 16),
+    (2, 4, 262144, 4, 262144, 32, 8, "cluster", 1, 0, 32, 12_673_024, 16),
 ])
 def test_join_plan_at_every_chip_shape(n, la, lb, ca, cb, r, tsize, kind, rpc, smem, grid,
-                                       scratch):
-    plan = tdev.join_plan(n, tdev.join_work_bytes(tsize, la, lb, ca, cb, r))
-    assert (plan.kind, plan.rows_per_cta, plan.smem, plan.grid, plan.scratch) == (
-        kind, rpc, smem, grid, scratch)
+                                       scratch, cluster):
+    plan = tdev.plan_join(n, tsize, la, lb, ca, cb, r)
+    assert (plan.kind, plan.rows_per_cta, plan.smem, plan.grid, plan.scratch,
+            plan.cluster) == (kind, rpc, smem, grid, scratch, cluster)
     assert plan.smem <= SMEM_MAX and plan.stride % 16 == 0
     assert plan.threads == (32 * rpc if kind == "warp" else 256)
+    wb = tdev.join_work_bytes(tsize, la, lb, ca, cb, r)
+    if kind == "cluster":
+        pd, pc, share = tdev.join_share(tsize, la, lb, ca, cb, r, cluster)
+        # every CTA's window holds its share of the merged dots and cloud
+        assert pd * cluster >= la + lb and pc * cluster >= ca + cb
+        assert grid % cluster == 0 and wb > tdev.row_plan.SMEM_LIMIT
+        if scratch:
+            assert plan.stride >= share and scratch == grid * plan.stride
+        else:
+            assert smem == share <= tdev.row_plan.SMEM_LIMIT
 
 
 def warp_max_width(tsize: int, n: int = 1024) -> int:
