@@ -4827,7 +4827,7 @@ class ClusterNode:
                 repo.drain()
 
         for mgr in list(self.db.managers()):
-            async with mgr._lock:
+            async with mgr.locked("sync"):
                 await asyncio.to_thread(drain, mgr.repo)
 
     async def _established(self) -> int:

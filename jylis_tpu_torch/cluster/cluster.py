@@ -1302,7 +1302,8 @@ class Cluster:
                     self._mark_activity(conn)
                     self._note_seen(conn)  # bridge-election liveness
                     try:
-                        msg = codec.decode(body)
+                        with self._reg.span("decode.frame", len(body)):
+                            msg = codec.decode(body)
                     except codec.CodecError as e:
                         self._log.err() and self._log.e(f"cluster codec error: {e}")
                         self._drop(conn, Drop.CODEC)

@@ -18,9 +18,12 @@ ends; the journal then takes every flushed delta batch, and
 compacts the journal when it outgrows ``--journal-max-bytes``. On
 SIGINT/SIGTERM ``Dispose`` stops intake, makes the final flush to peers
 under the repo locks, writes the shutdown snapshot and retires the
-journal, ends the drain profiler's session (``JYLIS_PROFILE_DIR``),
-closes the journal and stops the cluster and the listener (after
-dispose.pony). ``build_node`` does the wiring and the recovery and
+journal, ends the profiler's session (``JYLIS_PROFILE_DIR``: from
+``serve`` on, the node's CPU and CUDA activity with the registry's spans
+as ranges, utils/metrics.py), closes the journal and stops the cluster
+and the listener (after dispose.pony). ``build_node`` hooks the node's
+registry into ``gc.callbacks`` (its ``gc.full`` span) and ``Dispose``
+unhooks it. ``build_node`` does the wiring and the recovery and
 ``serve`` starts the listeners and the snapshot loop; ``run`` is the two
 with the signal handlers, and other drivers (chip_smoke.py's cluster and
 persistence phases) call the same two.
@@ -46,6 +49,7 @@ trace ring goes to stderr (``_dump_trace``).
 from __future__ import annotations
 
 import asyncio
+import gc
 import json
 import os
 import signal
@@ -87,6 +91,8 @@ class Dispose:
         # the loop's in-flight write future: cancelling the task does not
         # stop a to_thread worker, so shutdown awaits this too
         self.snapshot_inflight: dict = {"write": None}
+        # the registry's gc.callbacks hook that build_node added (serve)
+        self.gc_hook = None
         self.done = asyncio.Event()
 
     def on_signal(self) -> None:
@@ -153,6 +159,8 @@ class Dispose:
                 )
             metrics.stop_profiling()
         finally:
+            if self.gc_hook in gc.callbacks:
+                gc.callbacks.remove(self.gc_hook)
             if self._journal is not None:
                 # close() joins the writer thread and fsyncs: off the
                 # loop. A full disk can make it raise; the listeners
@@ -221,6 +229,8 @@ def build_node(config) -> NodeStack:
     database.metrics.spans.set_slo_ms(
         int(s) for s in config.converge_slo_ms.split(",") if s.strip()
     )
+    # each full collection is a gc.full span of this node's registry
+    gc.callbacks.append(database.metrics.gc_callback)
     if lane_id is not None:
         # SYSTEM METRICS' LANE section: which lane this connection landed
         # on, out of how many
@@ -307,7 +317,9 @@ async def serve(node: NodeStack) -> Dispose:
     lane 0's external identity), the Prometheus endpoint with
     ``--metrics-port``, the online snapshot loop when it has work (an
     interval, or a journal to compact) and a lane's ``lane.tick`` task;
-    return its ``Dispose``."""
+    return its ``Dispose``. With ``JYLIS_PROFILE_DIR`` set, the
+    profiler's session starts here."""
+    metrics.start_profiling()
     await node.server.start()
     for sub in getattr(node.cluster, "clusters", [node.cluster]):
         sub.resp_port = int(node.server.port)
@@ -325,6 +337,7 @@ async def serve(node: NodeStack) -> Dispose:
     dispose = Dispose(node.database, node.server, node.cluster,
                       node.snapshot_path, config.log, node.journal,
                       node.warmup_launches)
+    dispose.gc_hook = node.database.metrics.gc_callback
     if node.snapshot_path and (config.snapshot_interval > 0
                                or node.journal is not None):
         dispose.snapshot_task = asyncio.create_task(_snapshot_loop(

@@ -190,7 +190,9 @@ class Database:
     def _add(self, repo) -> None:
         repo.metrics = self.metrics  # timed_drain resolves through this
         mgr = RepoManager(repo.name, repo, repo.help, served=self._served_py)
-        mgr.registry = self.metrics
+        # the server's native burst locks the engine-backed types
+        mgr.use_registry(self.metrics, native=self.native_engine is not None
+                         and type(repo) in ENGINE_REPO_CLASSES)
         self._map[repo.name.encode()] = mgr
 
     def _served_totals(self) -> dict[str, int]:
@@ -268,7 +270,7 @@ class Database:
         thread."""
         for name in self.DATA_TYPES:
             mgr = self._map[name.encode()]
-            async with mgr._lock:
+            async with mgr.locked("sync"):
                 await asyncio.to_thread(self._sync_update_repo, name, mgr.repo)
         return tuple(self._sync_xor[n] for n in self.DATA_TYPES)
 
@@ -283,7 +285,7 @@ class Database:
         ((bucket, 32-byte digest), ...) for the non-empty buckets only.
         Folds the type's dirty keys first."""
         mgr = self._map[name.encode()]
-        async with mgr._lock:
+        async with mgr.locked("sync"):
             await asyncio.to_thread(self._sync_update_repo, name, mgr.repo)
         return tuple(
             (i, v.to_bytes(32, "big"))
@@ -318,7 +320,7 @@ class Database:
                     if key in wanted
                 ]
 
-        async with mgr._lock:
+        async with mgr.locked("sync"):
             return await asyncio.to_thread(dump_filtered)
 
     def _sync_digest_blocking(self) -> bytes:
@@ -491,7 +493,7 @@ class Database:
                 with self._device_scope():
                     return repo.dump_state()
 
-            async with mgr._lock:
+            async with mgr.locked("sync"):
                 batch = await asyncio.to_thread(dump)
             out.append((mgr.name, batch))
         return out
@@ -516,7 +518,7 @@ class Database:
         under it, so nothing mutates mid-dump."""
         async with contextlib.AsyncExitStack() as stack:
             for mgr in self._map.values():
-                await stack.enter_async_context(mgr._lock)
+                await stack.enter_async_context(mgr.locked("shutdown"))
             yield
 
 

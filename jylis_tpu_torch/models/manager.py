@@ -24,7 +24,11 @@ Concurrency: commands that will hit the device (the repo's
 ``may_drain`` predicate) run in a worker thread via
 ``asyncio.to_thread`` so a drain never stalls the event loop. The
 per-repo lock serialises every repo access (apply, converge, flush), so
-repo state is never touched concurrently with an offloaded drain.
+repo state is never touched concurrently with an offloaded drain. Every
+holder of the lock, in this module and outside it, takes it through
+``locked(who)``, which times the wait and the hold as the registry's
+``lock_wait.<TYPE>.<who>`` / ``lock_hold.<TYPE>.<who>`` spans; each
+converge slice is a ``converge.<TYPE>`` span.
 Host-only commands take a lock-free inline fast path when no drain is
 active, which preserves per-connection order. Replies from offloaded
 commands are buffered and replayed on the loop thread (transports are
@@ -35,10 +39,16 @@ not thread-safe). The sync ``apply`` path serves single-threaded callers
 from __future__ import annotations
 
 import asyncio
+import itertools
 import time
 
+from ..obs.registry import SPAN_ID, null_span
 from .base import ParseError
 from .help import respond_help
+
+# one id per lock acquisition: its wait's and hold's profiler ranges
+# carry it, and so do the ranges of the drain it runs
+_acquisitions = itertools.count(1)
 
 
 class _ReplayResp:
@@ -61,6 +71,38 @@ class _ReplayResp:
             getattr(resp, name)(*args)
 
 
+class _Locked:
+    """``RepoManager.locked(who)``: an async ``with`` that takes the repo
+    lock, timing the wait and the hold as spans of the manager's
+    registry (none without one)."""
+
+    __slots__ = ("_mgr", "_who", "_hold", "_sid")
+
+    def __init__(self, mgr: "RepoManager", who: str):
+        self._mgr = mgr
+        self._who = who
+
+    async def __aenter__(self):
+        mgr = self._mgr
+        wait_name, hold_name = mgr._lock_spans[self._who]
+        self._sid = SPAN_ID.set(next(_acquisitions))
+        wait = mgr._span(wait_name)
+        try:
+            await mgr._lock.acquire()
+        except BaseException:  # cancelled while queued: never held
+            wait.close()
+            SPAN_ID.reset(self._sid)
+            raise
+        wait.close()
+        self._hold = mgr._span(hold_name)
+        return self
+
+    async def __aexit__(self, *exc) -> None:
+        self._mgr._lock.release()
+        self._hold.close()
+        SPAN_ID.reset(self._sid)
+
+
 PROACTIVE_FLUSH_INTERVAL = 0.5  # seconds; repo_manager.pony:80
 
 SHUTDOWN_ERR = "SHUTDOWN (server is shutting down, rejecting all requests)"
@@ -76,8 +118,8 @@ class RepoManager:
         self._clock = clock
         # per-Database commands-served tally (SYSTEM METRICS "cmds")
         self._served = served if served is not None else {}
-        # the Database's MetricsRegistry (write heat, BUSY refusals),
-        # when it has one
+        # the Database's MetricsRegistry (write heat, BUSY refusals,
+        # spans), when it has one (use_registry)
         self.registry = None
         # admission control (Database.set_admission_cap): commands of
         # this class queued behind the repo lock past the cap are
@@ -92,6 +134,40 @@ class RepoManager:
         self._last_proactive = None
         self._shutdown = False
         self._lock = asyncio.Lock()
+        # the span names of this type's lock, per holder, and converge
+        self._lock_spans = {
+            who: (f"lock_wait.{name}.{who}", f"lock_hold.{name}.{who}")
+            for who in (*self.LOCKERS, "native")
+        }
+        self._converge_span = f"converge.{name}"
+
+    # who takes a repo lock: a command, a converge, the heartbeat's flush,
+    # the sync digest, trees and dumps, shutdown; the server's native
+    # burst ("native") takes only the engine-backed types' locks
+    LOCKERS = ("apply", "converge", "flush", "sync", "shutdown")
+
+    def use_registry(self, registry, native: bool = False) -> None:
+        """Record into ``registry``, declaring this type's spans there:
+        the lock's wait and hold for each of LOCKERS (and "native" with
+        ``native``: a type the server's native burst locks) and the
+        converge slice."""
+        whos = (*self.LOCKERS, "native") if native else self.LOCKERS
+        registry.declare_spans(
+            [n for who in whos for n in self._lock_spans[who]]
+            + [self._converge_span]
+        )
+        self.registry = registry
+
+    def _span(self, name: str, items: int = 0):
+        """A span of the registry's, or a null one without a registry."""
+        reg = self.registry
+        return (null_span if reg is None else reg.span)(name, items)
+
+    def locked(self, who: str) -> _Locked:
+        """The repo lock, for ``async with``: EVERY holder takes it here,
+        naming who it is (one of LOCKERS, or "native"), so each wait and
+        hold is timed."""
+        return _Locked(self, who)
 
     def apply(self, resp, cmd: list[bytes]) -> None:
         """cmd includes the routing word (cmd[0] == data type name).
@@ -140,7 +216,7 @@ class RepoManager:
             return
         self._inflight += 1
         try:
-            async with self._lock:
+            async with self.locked("apply"):
                 if self._shutdown:
                     # shutdown won the lock race while we queued behind a
                     # drain: the final flush already ran — accepting now
@@ -164,12 +240,14 @@ class RepoManager:
     CONVERGE_SLICE = 256
 
     async def converge_async(self, batch) -> None:
-        async with self._lock:
+        async with self.locked("converge"):
             if self._shutdown:
                 return  # fire-and-forget: late deltas re-deliver elsewhere
             batch = list(batch)
             for i in range(0, len(batch), self.CONVERGE_SLICE):
-                self.converge_deltas(batch[i : i + self.CONVERGE_SLICE])
+                part = batch[i : i + self.CONVERGE_SLICE]
+                with self._span(self._converge_span, len(part)):
+                    self.converge_deltas(part)
                 if i + self.CONVERGE_SLICE < len(batch):
                     await asyncio.sleep(0)
             # repos that buffer deltas (TREG, TENSOR) drain once their
@@ -184,7 +262,7 @@ class RepoManager:
         by the repo lock. A repo with banked native-queue work (UJSON's
         ``prepare_flush``) applies it in a worker thread first, so the
         loop-side flush sees fully applied state."""
-        async with self._lock:
+        async with self.locked("flush"):
             prep = getattr(self.repo, "prepare_flush", None)
             if prep is not None:
                 await asyncio.to_thread(prep)
@@ -199,7 +277,7 @@ class RepoManager:
         """Lock-holding shutdown: waits out any in-flight threaded drain,
         then stops intake and performs the final flush atomically."""
         self._shutdown = True  # reject commands queued behind the lock
-        async with self._lock:
+        async with self.locked("shutdown"):
             prep = getattr(self.repo, "prepare_flush", None)
             if prep is not None:  # banked native-queue writes must ship
                 await asyncio.to_thread(prep)

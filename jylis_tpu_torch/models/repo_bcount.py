@@ -167,12 +167,15 @@ class RepoBCOUNT:
     def drain_overdue(self) -> bool:
         return len(self._pending) >= PENDING_DRAIN_THRESHOLD
 
-    @timed_drain("BCOUNT", lambda self: len(self._pending))
-    def drain(self) -> None:
+    @timed_drain("BCOUNT")
+    def drain(self) -> int:
+        """Fold the buffered foreign states; returns how many (timed_drain's
+        ``keys``)."""
         pending, self._pending = self._pending, []
         for key, delta in pending:
             self._for(key).converge(BCount.from_wire(delta))
             self._sync_dirty.add(key)
+        return len(pending)
 
     def deltas_size(self) -> int:
         return len(self._dirty)

@@ -47,7 +47,7 @@ import torch
 from ..ops import gcount, planes, pncount
 from ..native.engine import G as ENG_G, PN as ENG_PN, resolve_engine
 from ..parallel import Keyspace, drain_unrouted_g, drain_unrouted_pn, resolve_mesh
-from ..utils.metrics import timed_drain
+from ..utils.metrics import resolve_registry, timed_drain
 from .base import ParseError, bucket, need, parse_u64, U64_MAX
 from .counter_table import NativeTable, PyTable
 from .help import RepoHelp
@@ -172,15 +172,6 @@ class _CounterRepo:
         row = self._tbl.find(args[1])
         return row >= 0 and self._tbl.is_foreign(row)
 
-    def _pend_size(self) -> int:
-        """Exact drain batch size: own-pending rows unioned with the
-        buffered foreign rows (metrics, read before the drain runs)."""
-        own_rows, _vp, _vn = self._tbl.export_pending(clear=False)
-        rows = set(own_rows)
-        rows.update(self._pending_f[0])
-        rows.update(self._pending_f[1])
-        return len(rows)
-
     def converge_polarity(self, key: bytes, polarity: int, delta: dict) -> None:
         row = self._tbl.upsert(key)
         p = self._pending_f[polarity].setdefault(row, {})
@@ -196,10 +187,12 @@ class _CounterRepo:
 
     def _collect_rows(self):
         """The drain batch: pending-own values merged with the buffered
-        foreign columns -> (rows, per-row {col: val} per polarity).
-        Reads WITHOUT clearing: the window clears in `_finish_drain`, so
-        a device failure mid-drain keeps every contribution for the
-        retry."""
+        foreign columns -> (rows, per-row {col: val} per polarity, the
+        batch's key count). The count is every pending row, own or
+        foreign: an own row with nothing to join (an INC of 0) counts
+        though it joins nothing. Reads WITHOUT clearing: the window
+        clears in `_finish_drain`, so a device failure mid-drain keeps
+        every contribution for the retry."""
         own_rows, vp, vn = self._tbl.export_pending(clear=False)
         own_col = self._col_for(self._identity)
         per_pol: tuple[dict[int, dict[int, int]], ...] = ({}, {})
@@ -214,21 +207,31 @@ class _CounterRepo:
                     if v > d.get(col, 0):
                         d[col] = v
         rows = list(dict.fromkeys(list(per_pol[0]) + list(per_pol[1])))
-        return rows, per_pol
+        idle = sum(1 for row, p, q in zip(own_rows, vp, vn) if not (p or q)
+                   and row not in per_pol[0] and row not in per_pol[1])
+        return rows, per_pol, len(rows) + idle
 
-    def _drain(self) -> None:
+    def _drain(self) -> int:
         """Join every pending row into the device state in one staged
         call per card (the dense drain when the batch covers >=
         1/DENSE_FRACTION of a single device's keyspace, else the sparse
         one; both stage the same compact batch) and hand the rows' sums
-        to the table as u64 values."""
-        rows, per_pol = self._collect_rows()
-        if not rows:
-            return
-        self._grow_to_fit()
-        per_pol = per_pol[: self._polarities]
-        dense = self._ks.mesh is None and len(rows) * DENSE_FRACTION >= self._key_cap
-        rows_np = np.asarray(rows, np.int64)
+        to the table as u64 values. Returns the batch's key count
+        (timed_drain's ``keys``); its phases are the registry's
+        ``drain.<TYPE>.{collect,fill,launch,wait,finish}`` spans."""
+        reg = resolve_registry(self)
+        with reg.span(f"drain.{self.name}.collect") as span:
+            rows, per_pol, n = self._collect_rows()
+            if not n:
+                span.cancel()  # nothing pending: no drain to count
+                return 0
+            span.items = n
+            if not rows:
+                return n
+            self._grow_to_fit()
+            per_pol = per_pol[: self._polarities]
+            dense = self._ks.mesh is None and len(rows) * DENSE_FRACTION >= self._key_cap
+            rows_np = np.asarray(rows, np.int64)
 
         def fill(views, sel):  # the pending columns, straight into staging
             for view, pending in zip(views, per_pol):
@@ -238,8 +241,10 @@ class _CounterRepo:
                         view[slot, col] = v
 
         # the int64 bits viewed as u64, never cast: the engine takes u64
-        sums = self._staged(rows_np, fill, dense).view(np.uint64)
-        self._finish_drain(rows, sums)
+        sums = self._staged(rows_np, fill, dense, reg).view(np.uint64)
+        with reg.span(f"drain.{self.name}.finish", len(rows)):
+            self._finish_drain(rows, sums)
+        return n
 
     def _finish_drain(self, rows, values_bits) -> None:
         self._tbl.apply_drain(rows, values_bits)
@@ -306,11 +311,11 @@ class RepoGCOUNT(_CounterRepo):
     _which = ENG_G
 
     # the JAX package times each type's drain under its own name
-    drain = timed_drain("GCOUNT", _CounterRepo._pend_size)(_CounterRepo._drain)
+    drain = timed_drain("GCOUNT")(_CounterRepo._drain)
 
-    def _staged(self, rows, fill, dense):
+    def _staged(self, rows, fill, dense, reg):
         return drain_unrouted_g(self._ks, rows, fill,
-                                _drain_g_dense if dense else _drain_g, dense)
+                                _drain_g_dense if dense else _drain_g, dense, reg)
 
     def _get_value(self, key: bytes) -> int:
         return self._get_raw(key)
@@ -383,11 +388,11 @@ class RepoPNCOUNT(_CounterRepo):
     _polarities = 2
     _which = ENG_PN
 
-    drain = timed_drain("PNCOUNT", _CounterRepo._pend_size)(_CounterRepo._drain)
+    drain = timed_drain("PNCOUNT")(_CounterRepo._drain)
 
-    def _staged(self, rows, fill, dense):
+    def _staged(self, rows, fill, dense, reg):
         return drain_unrouted_pn(self._ks, rows, fill,
-                                 _drain_pn_dense if dense else _drain_pn, dense)
+                                 _drain_pn_dense if dense else _drain_pn, dense, reg)
 
     def _get_value(self, key: bytes) -> int:
         return _wrap_i64(self._get_raw(key))

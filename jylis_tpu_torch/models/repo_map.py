@@ -139,9 +139,13 @@ class RepoMAP:
     def drain_overdue(self) -> bool:
         return len(self._tbl.pending) >= PENDING_DRAIN_THRESHOLD
 
-    @timed_drain("MAP", lambda self: len(self._tbl.pending))
-    def drain(self) -> None:
+    @timed_drain("MAP")
+    def drain(self) -> int:
+        """Fold the pending fields; returns how many (timed_drain's
+        ``keys``)."""
+        n = len(self._tbl.pending)
         self._tbl.fold_pending()
+        return n
 
     def deltas_size(self) -> int:
         return len(self._tbl.dirty)

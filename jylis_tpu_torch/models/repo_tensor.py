@@ -238,11 +238,13 @@ class RepoTENSOR:
             m[contrib] = dev
         return dev
 
-    @timed_drain("TENSOR", lambda self: self._tbl.pend_count())
-    def drain(self) -> None:
+    @timed_drain("TENSOR")
+    def drain(self) -> int:
+        """Mirror the pending window's winners into the device planes;
+        returns its key count (timed_drain's ``keys``)."""
         pend = self._tbl.export_pend()
         if not pend:
-            return
+            return 0
         # expand to device rows FIRST (capacity growth must see the
         # post-expansion row count and the batch's widest vector). Every
         # plane mirrors the table WINNER (cache ⊔ pending), never the
@@ -279,7 +281,7 @@ class RepoTENSOR:
         self._grow_to_fit(max_dim)
         if not entries:
             self._tbl.fold_pend()
-            return
+            return len(pend)
         b = bucket(len(entries))
         d = self._dim_cap
         ki = pad_rows(b)
@@ -322,6 +324,7 @@ class RepoTENSOR:
         _drain(self._state, dev(ki), dev(d_val), dev(ts_hi), dev(ts_lo),
                dev(d_rid))
         self._tbl.fold_pend()
+        return len(pend)
 
     def _grow_to_fit(self, max_dim: int) -> None:
         rows = bucket(max(self._next_dev, 1), self._row_cap)

@@ -440,15 +440,18 @@ class RepoTLOG:
             return planes.to_tensor(x, self._device)
         return torch.from_numpy(x).to(self._device)
 
-    @timed_drain("TLOG", lambda self: self._tbl.touched_count())
-    def drain(self, trim: tuple[int, int] | None = None) -> None:
+    @timed_drain("TLOG")
+    def drain(self, trim: tuple[int, int] | None = None) -> int:
         """Flush pending entries/cutoffs in one launch; with ``trim`` =
         (row, count), the TRIM/CLR of that row fuses into the SAME launch
         via the kernel's per-row count column (counts of TRIM_NOOP leave
-        other rows untouched)."""
+        other rows untouched). Returns the pending rows' count
+        (timed_drain's ``keys``), at least 1 for a trim, so a pure trim's
+        cost stays visible."""
         row_set = set(self._tbl.touched_rows())
         if not row_set and trim is None:
-            return
+            return 0
+        keys = max(len(row_set), 1)
         self._maybe_compact_interner()
         if trim is not None:
             row_set.add(trim[0])
@@ -472,7 +475,7 @@ class RepoTLOG:
             self._grow(kcap, lcap)
         if self._ks.mesh is not None:
             self._drain_sharded(rows, pend, cuts_in, trim)
-            return
+            return keys
         while True:
             ld = bucket(max((len(pend.get(r, ())) for r in rows), default=1), 1)
             # dense path (repo_counters precedent): when the batch covers a
@@ -522,7 +525,7 @@ class RepoTLOG:
             lens = lens.cpu().numpy()
             cuts = planes.to_u64_np(cuts)
             self._finish_drain(zip(rows, lens[slots], cuts[slots]))
-            return
+            return keys
 
     def _drain_sharded(self, rows, pend, cuts_in, trim=None) -> None:
         """Mesh-mode drain: per-row deltas route as u64 payload columns

@@ -38,7 +38,7 @@ from ..ops import treg
 from ..native.engine import resolve_engine
 from ..ops.interner import Interner, prefix_rank
 from ..parallel import Keyspace, drain_unrouted_treg, fill_from, resolve_mesh
-from ..utils.metrics import timed_drain
+from ..utils.metrics import resolve_registry, timed_drain
 from .base import ParseError, bucket, need, parse_u64
 from .help import RepoHelp
 from .treg_table import NativeTregTable, PyTregTable
@@ -206,44 +206,54 @@ class RepoTREG:
 
     # -- device drain -------------------------------------------------------
 
-    @timed_drain("TREG", lambda self: self._tbl.pend_count())
-    def drain(self) -> None:
-        pend = self._tbl.export_pend()  # [(row, ts, value)], not yet cleared
-        if not pend:
-            return
-        cap = self._ks.round_cap(bucket(max(self._tbl.rows(), 1), self._key_cap))
-        if cap != self._key_cap:
-            self._key_cap = cap
-            self._ks.grow(lambda st: treg.grow(st, cap))
-        self._maybe_compact_interner()
-        n = len(pend)
-        rows = np.fromiter((p[0] for p in pend), np.int64, n)
-        vids = np.fromiter(
-            (self._interner.intern(p[2]) for p in pend), np.int32, n
-        )
-        ts = np.fromiter((p[1] for p in pend), np.uint64, n)
-        rank = np.fromiter((prefix_rank(p[2]) for p in pend), np.uint64, n)
+    @timed_drain("TREG")
+    def drain(self) -> int:
+        """Join the pending window into the planes; returns its key count
+        (timed_drain's ``keys``). Its phases are the registry's
+        ``drain.TREG.{collect,fill,launch,wait,finish}`` spans (collect:
+        the pending read and interning up to staging; finish: the tie
+        patch and the host mirror)."""
+        reg = resolve_registry(self)
+        with reg.span("drain.TREG.collect") as span:
+            pend = self._tbl.export_pend()  # [(row, ts, value)], not yet cleared
+            if not pend:
+                span.cancel()  # nothing pending: no drain to count
+                return 0
+            n = span.items = len(pend)
+            cap = self._ks.round_cap(bucket(max(self._tbl.rows(), 1), self._key_cap))
+            if cap != self._key_cap:
+                self._key_cap = cap
+                self._ks.grow(lambda st: treg.grow(st, cap))
+            self._maybe_compact_interner()
+            rows = np.fromiter((p[0] for p in pend), np.int64, n)
+            vids = np.fromiter(
+                (self._interner.intern(p[2]) for p in pend), np.int32, n
+            )
+            ts = np.fromiter((p[1] for p in pend), np.uint64, n)
+            rank = np.fromiter((prefix_rank(p[2]) for p in pend), np.uint64, n)
         dense = self._ks.mesh is None and n * DENSE_FRACTION >= self._key_cap
         # fresh host arrays: out_vid is patched below
         tie, out_ts, out_vid = drain_unrouted_treg(
             self._ks, rows, fill_from(ts, rank, vids),
-            _drain_dense if dense else _drain, dense)
-        out_ts = out_ts.view(np.uint64)
-        if tie.any():
-            # prefix collision: the full-string compare decides; patch
-            # the rows where the delta's value is the greater
-            patch = []
-            for i in np.flatnonzero(tie):
-                cur_val = self._interner.lookup(int(out_vid[i]))
-                if pend[i][2] > cur_val:
-                    patch.append(i)
-                    out_vid[i] = vids[i]
-            if patch:
-                _patch_vids(self._ks, rows[patch], vids[patch])
-        self._cache.update(
-            zip(rows.tolist(), zip(out_ts.tolist(), out_vid.tolist()))
-        )
-        self._tbl.fold_pend()
+            _drain_dense if dense else _drain, dense, reg)
+        with reg.span("drain.TREG.finish", n):
+            out_ts = out_ts.view(np.uint64)
+            if tie.any():
+                # prefix collision: the full-string compare decides; patch
+                # the rows where the delta's value is the greater
+                patch = []
+                for i in np.flatnonzero(tie):
+                    cur_val = self._interner.lookup(int(out_vid[i]))
+                    if pend[i][2] > cur_val:
+                        patch.append(i)
+                        out_vid[i] = vids[i]
+                if patch:
+                    _patch_vids(self._ks, rows[patch], vids[patch])
+            self._cache.update(
+                zip(rows.tolist(), zip(out_ts.tolist(), out_vid.tolist()))
+            )
+            self._tbl.fold_pend()
+        return n
 
     def _maybe_compact_interner(self) -> None:
         """Epoch compaction: every value ever SET keeps its interner slot

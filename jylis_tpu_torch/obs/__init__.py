@@ -12,10 +12,17 @@ format of ``jtrace.py`` come with the cluster.
   per-type drains record into them (utils/metrics.timed_drain).
 * **A bounded structured trace ring** (`trace.TraceRing`), dumped by
   `SYSTEM TRACE [count]`.
+* **Spans** (`MetricsRegistry.span`), the port's own: per name a count,
+  host milliseconds and items (keys or bytes), shown in `SYSTEM
+  METRICS`' SPAN section; under a recording torch profiler each span is
+  also a profiler range of its name, on the device trace's clock.
 
 Every histogram and gauge name is pre-registered below, the same
 tuples as the JAX package's, so `SYSTEM LATENCY` shows the same seams
-(with zero counts) from boot.
+(with zero counts) from boot. Every span name is declared before it
+records, the node-wide ones in ``SPANS`` and each repo's lock and
+converge spans when the Database registers its manager, so the SPAN
+section shows them all (zeros included) from boot.
 """
 
 from __future__ import annotations
@@ -59,3 +66,26 @@ GAUGES = (
     "serving.overload",
     "serving.queued_bytes",
 )
+
+# the staged drains' types and the phases each drain is split into
+DRAIN_TYPES = ("GCOUNT", "PNCOUNT", "TREG")
+DRAIN_PHASES = ("collect", "fill", "launch", "wait", "finish")
+
+# The node-wide span names, pre-created in each MetricsRegistry (SYSTEM
+# METRICS' SPAN section lists them from boot; ``span()`` raises KeyError
+# on an undeclared name):
+#   decode.frame            one cluster frame's decode (items: its bytes)
+#   drain.<TYPE>.<phase>    one drain phase (items: the batch's keys)
+#   gc.full                 one full (generation 2) collection
+# Each repo manager declares its own when the Database registers it
+# (RepoManager.use_registry), for the callers that can take its lock:
+#   lock_wait.<TYPE>.<who>  asking for the repo lock until holding it
+#   lock_hold.<TYPE>.<who>  holding it until its release
+#   converge.<TYPE>         one converge slice (items: its keys)
+SPANS = (
+    "decode.frame",
+    *(f"drain.{t}.{p}" for t in DRAIN_TYPES for p in DRAIN_PHASES),
+    "gc.full",
+)
+# the fields each span shows, one SYSTEM METRICS line each
+SPAN_FIELDS = ("count", "ms", "items")

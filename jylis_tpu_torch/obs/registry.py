@@ -11,14 +11,32 @@ direct drives (standalone repos) still record somewhere.
 ``enabled`` is the one switch the seams check before paying for
 `perf_counter` pairs. Histogram and gauge names are pre-registered from
 obs.SEAMS/GAUGES -- `hist()` raises KeyError on an undeclared name.
+
+The port adds spans (``span``): the names of obs.SPANS and those a
+caller declares (``declare_spans``: each repo manager its lock's and
+converge's), each with a count, host seconds and items, always on while ``enabled`` (SYSTEM
+METRICS' SPAN section). While a torch profiler records, a span also
+opens a profiler range of its name and closes it by handle, so a span
+may cross an ``await`` while other coroutines open ranges on the same
+thread. A range carries ``SPAN_ID``'s value as its argument when it is
+set: the repo lock's helper (models/manager.py) sets it per acquisition,
+and ``asyncio.to_thread`` copies it into the worker thread, so a
+command's lock wait and the drain it triggers carry one id. A span's
+totals are updated by one thread at a time: the loop thread alone takes
+the locks, converges and decodes, a repo lock serialises its type's
+drains, and collections do not overlap.
 """
 
 from __future__ import annotations
 
+import contextvars
 import time
 from collections import defaultdict, deque
 
-from . import GAUGES, SEAMS
+import torch
+import torch.autograd.profiler as _tprof
+
+from . import GAUGES, SEAMS, SPANS
 from .hist import Histogram
 from .jtrace import SpanStats
 from .trace import TraceRing
@@ -32,6 +50,74 @@ WINDOW_MARKS = 64
 WINDOW_MIN_SPACING_S = 1.0
 
 HEAT_FANOUT = 256  # digest-tree leaf fanout (models/database.py SYNC_FANOUT)
+
+# the id a span's profiler range carries (0: none)
+SPAN_ID: contextvars.ContextVar[int] = contextvars.ContextVar("span_id", default=0)
+_range_enter = torch._C._autograd._record_function_with_args_enter
+_range_exit = torch._C._autograd._record_function_with_args_exit
+
+
+class _Span:
+    """One open span: ``close`` (or leaving a ``with``) adds one to its
+    name's count, the host seconds since it opened and ``items``, and
+    ends the profiler range it opened, if any; after ``cancel`` it only
+    ends the range."""
+
+    __slots__ = ("_tot", "_t0", "_range", "items")
+
+    def __init__(self, tot: list, items: int, name: str):
+        self._tot = tot
+        self.items = items
+        self._range = None
+        if _tprof._is_profiler_enabled:  # a profiler records somewhere
+            sid = SPAN_ID.get()
+            self._range = _range_enter(name, sid) if sid else _range_enter(name)
+        self._t0 = time.perf_counter()
+
+    def close(self) -> None:
+        tot = self._tot
+        if tot is not None:
+            tot[1] += time.perf_counter() - self._t0
+            tot[0] += 1
+            tot[2] += self.items
+        if self._range is not None:
+            _range_exit(self._range)
+
+    def cancel(self) -> None:
+        """Count nothing at the close (a drain that found nothing)."""
+        self._tot = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+class _NullSpan:
+    """The span of a disabled registry: records nothing."""
+
+    __slots__ = ("items",)
+
+    def close(self) -> None:
+        pass
+
+    def cancel(self) -> None:
+        pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> None:
+        pass
+
+
+NULL_SPAN = _NullSpan()
+
+
+def null_span(name: str, items: int = 0) -> _NullSpan:
+    """``MetricsRegistry.span``'s stand-in where there is no registry."""
+    return NULL_SPAN
 
 
 class MetricsRegistry:
@@ -67,6 +153,11 @@ class MetricsRegistry:
         self.write_heat: dict[str, list[int]] = {}
         # windowed quantiles: (monotonic ts, {seam: Histogram.mark()})
         self._window_marks: deque = deque(maxlen=WINDOW_MARKS)
+        # spans: name -> [count, host seconds, items], every declared
+        # name in the order declared; the open full collection's span
+        # (gc_callback)
+        self.span_totals: dict[str, list] = {name: [0, 0.0, 0] for name in SPANS}
+        self._gc_span = None
 
     # ---- counters ----------------------------------------------------------
 
@@ -93,6 +184,39 @@ class MetricsRegistry:
         if heat is None:
             heat = self.write_heat[name] = [0] * HEAT_FANOUT
         heat[bucket] += n
+
+    # ---- spans -------------------------------------------------------------
+
+    def declare_spans(self, names) -> None:
+        """Declare more span names (zeros until they record); a name
+        already declared keeps its totals."""
+        for name in names:
+            self.span_totals.setdefault(name, [0, 0.0, 0])
+
+    def span(self, name: str, items: int = 0):
+        """An open span of the declared ``name`` (KeyError otherwise):
+        use it as a ``with`` block, or ``close()`` it; ``items`` may be
+        set until it closes."""
+        if not self.enabled:
+            return NULL_SPAN
+        return _Span(self.span_totals[name], items, name)
+
+    def gc_callback(self, phase: str, info: dict) -> None:
+        """For ``gc.callbacks``: each full (generation 2) collection is
+        a ``gc.full`` span (main.build_node registers it for its node)."""
+        if info["generation"] != 2:
+            return
+        if phase == "start":
+            self._gc_span = self.span("gc.full")
+        elif self._gc_span is not None:
+            self._gc_span.close()
+            self._gc_span = None
+
+    def span_stats(self):
+        """(name, count, ms, items) per declared span, in the order
+        declared."""
+        for name, (count, seconds, items) in self.span_totals.items():
+            yield name, count, seconds * 1e3, items
 
     # ---- histograms / gauges / trace --------------------------------------
 

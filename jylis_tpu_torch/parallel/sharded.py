@@ -55,6 +55,7 @@ import ctypes
 import numpy as np
 import torch
 
+from ..obs.registry import null_span
 from ..ops import _build, gcount, planes, pncount, tlog, treg
 from ..ops.staging import DensePlan, ShardTable, SlotMap, Stage, max_slots, split
 from ..utils.batching import bucket, pad_rows
@@ -421,7 +422,8 @@ def _by_card(ks: Keyspace, rows: np.ndarray):
     return np.split(order, np.cumsum(np.bincount(card, minlength=len(ks.cards)))[:-1])
 
 
-def _drain_unrouted(ks: Keyspace, rows, fill, ins, outs, step, dense=False):
+def _drain_unrouted(ks: Keyspace, rows, fill, ins, outs, step, dense=False,
+                    reg=None, name=""):
     """Stage, launch and read back a drain of the UNIQUE global ``rows``
     on every card that holds some of them, each card's copies and launch
     queued before the host waits on any (in rounds of at most
@@ -433,11 +435,18 @@ def _drain_unrouted(ks: Keyspace, rows, fill, ins, outs, step, dense=False):
     plain version on a CPU card) and writes ``outs`` into ``out``. With
     ``dense`` (a single device only) ``step`` takes the keyspace's
     ``DensePlan`` in place of the table: each staged call is one dense
-    drain. Returns one host array per output, in slot order."""
+    drain. Returns one host array per output, in slot order.
+
+    With a registry ``reg``, each card's staged call of a round is timed
+    as the ``drain.<name>.fill`` (the row and field writes), ``.launch``
+    (copy up, kernel, copy down: enqueued only) and ``.wait`` (until the
+    copy down has landed) spans, each with the call's slots as items."""
     rows = np.asarray(rows, np.int64)
     n = len(rows)
     if n and (rows.min() < 0 or rows.max() >= ks.key_cap):
         raise ValueError(f"rows must lie in [0, {ks.key_cap})")
+    span = null_span if reg is None else reg.span
+    fill_span, launch_span, wait_span = (f"drain.{name}.{p}" for p in ("fill", "launch", "wait"))
     fields = ((np.int32, ()), *ins)
     width = max_slots(fields)
     if dense:
@@ -454,55 +463,60 @@ def _drain_unrouted(ks: Keyspace, rows, fill, ins, outs, step, dense=False):
             m = sel.stop - sel.start if isinstance(sel, slice) else len(sel)
             if m <= 0:
                 continue
-            views = stage.host_in(m, fields)
-            views[0][...] = rows[sel]
-            fill(views[1:], sel)
-            ki, *batch = stage.upload()
-            step(table, ki, *batch, stage.device_out(m, outs))
-            stage.download()
-            queued.append((stage, sel))
-        for stage, sel in queued:
-            for res, got in zip(results, stage.wait()):
-                res[sel] = got
+            with span(fill_span, m):
+                views = stage.host_in(m, fields)
+                views[0][...] = rows[sel]
+                fill(views[1:], sel)
+            with span(launch_span, m):
+                ki, *batch = stage.upload()
+                step(table, ki, *batch, stage.device_out(m, outs))
+                stage.download()
+            queued.append((stage, sel, m))
+        for stage, sel, m in queued:
+            with span(wait_span, m):
+                for res, got in zip(results, stage.wait()):
+                    res[sel] = got
     return results
 
 
 def drain_unrouted_g(ks: Keyspace, rows, fill, step=None,
-                     dense=False) -> np.ndarray:
+                     dense=False, reg=None) -> np.ndarray:
     """GCOUNT drain of the unique global ``rows`` over ``ks``: ``fill``
     writes each card's (m, R) u64 delta rows (see ``_drain_unrouted``;
     ``step`` defaults to gcount.drain_sparse, or with ``dense`` to
-    gcount.drain_dense). Returns the joined rows' sums in slot order (int64 bits of
-    the u64)."""
+    gcount.drain_dense; ``reg`` times its phases). Returns the joined
+    rows' sums in slot order (int64 bits of the u64)."""
     r = ks.parts[0].counts.shape[1]
     step = step or (gcount.drain_dense if dense else gcount.drain_sparse)
     return _drain_unrouted(ks, rows, fill, [(np.uint64, (r,))], [(np.int64, ())],
-                           lambda t, ki, d, out: step(t, ki, d, out[0]), dense)[0]
+                           lambda t, ki, d, out: step(t, ki, d, out[0]), dense,
+                           reg, "GCOUNT")[0]
 
 
 def drain_unrouted_pn(ks: Keyspace, rows, fill, step=None,
-                      dense=False) -> np.ndarray:
+                      dense=False, reg=None) -> np.ndarray:
     """PNCOUNT drain of the unique global ``rows`` over ``ks``: ``fill``
-    writes each card's P and N (m, R) u64 delta rows (``dense`` as for
-    ``drain_unrouted_g``). Returns the joined rows' net values sum(P) -
-    sum(N) in slot order (int64)."""
+    writes each card's P and N (m, R) u64 delta rows (``dense`` and
+    ``reg`` as for ``drain_unrouted_g``). Returns the joined rows' net
+    values sum(P) - sum(N) in slot order (int64)."""
     r = ks.parts[0].p.shape[1]
     step = step or (pncount.drain_dense if dense else pncount.drain_sparse)
     return _drain_unrouted(ks, rows, fill, [(np.uint64, (r,))] * 2, [(np.int64, ())],
                            lambda t, ki, dp, dn, out: step(t, ki, dp, dn, out[0]),
-                           dense)[0]
+                           dense, reg, "PNCOUNT")[0]
 
 
-def drain_unrouted_treg(ks: Keyspace, rows, fill, step=None, dense=False):
+def drain_unrouted_treg(ks: Keyspace, rows, fill, step=None, dense=False, reg=None):
     """TREG drain of the unique global ``rows`` over ``ks``: ``fill``
     writes each card's ts, rank (u64) and vid (int32) fields (``dense``
-    as for ``drain_unrouted_g``). Returns (tie bool, ts int64 bits, vid
-    int32) per slot after the join."""
+    and ``reg`` as for ``drain_unrouted_g``). Returns (tie bool, ts int64
+    bits, vid int32) per slot after the join."""
     step = step or (treg.drain_dense if dense else treg.drain_sparse)
     return tuple(_drain_unrouted(
         ks, rows, fill, [(np.uint64, ()), (np.uint64, ()), (np.int32, ())],
         [(np.bool_, ()), (np.int64, ()), (np.int32, ())],
-        lambda t, ki, ts, rank, vid, out: step(t, ki, ts, rank, vid, tuple(out)), dense))
+        lambda t, ki, ts, rank, vid, out: step(t, ki, ts, rank, vid, tuple(out)), dense,
+        reg, "TREG"))
 
 
 # ---- the replica-axis join ------------------------------------------------------

@@ -295,8 +295,9 @@ class Server:
             # keeps per repo. The order is the DATABASE MAP's (TREG, TLOG,
             # GCOUNT, PNCOUNT, UJSON), the order every multi-lock holder
             # takes, so a shutdown can never deadlock against a burst
-            async with mgrs[2]._lock, mgrs[3]._lock, mgrs[0]._lock, \
-                    mgrs[1]._lock, mgrs[4]._lock:
+            async with mgrs[2].locked("native"), mgrs[3].locked("native"), \
+                    mgrs[0].locked("native"), mgrs[1].locked("native"), \
+                    mgrs[4].locked("native"):
                 try:
                     # a failure at the FFI burst boundary demotes this
                     # connection to the Python oracle path, never kills

@@ -11,16 +11,19 @@ process-wide ``DEFAULT`` instance below. Two pieces stay here:
 * every drain runs under `timed_drain`, accumulating per-type batch
   counts / batched-key counts / seconds AND a log2 latency histogram
   per type (``drain.<TYPE>`` in SYSTEM LATENCY);
-* set ``JYLIS_PROFILE_DIR=/some/dir`` to record the drains in one
-  long-lived torch.profiler session (CPU and, on a GPU, CUDA activity),
-  each drain under a ``record_function("drain_<TYPE>")`` range; the
-  trace is written to that directory by ``stop_profiling`` (clean
-  shutdown), for TensorBoard or chrome://tracing.
+* set ``JYLIS_PROFILE_DIR=/some/dir`` to record the node in one
+  torch.profiler session from the moment it starts serving
+  (``start_profiling``, called by main.serve) to its clean shutdown
+  (``stop_profiling``, which writes the trace to that directory, for
+  TensorBoard or chrome://tracing): CPU and, on a GPU, CUDA activity, on
+  every thread, and the registry's spans (obs.SPANS: the repo locks'
+  waits and holds, converge slices, frame decodes, the drains' phases,
+  full collections) as profiler ranges of their names, a lock wait and
+  the drain it triggers carrying one id as the range's input.
 """
 
 from __future__ import annotations
 
-import contextlib
 import functools
 import os
 import time
@@ -28,29 +31,30 @@ import time
 from ..obs.registry import JOURNAL_KEYS as _JOURNAL_KEYS
 from ..obs.registry import MetricsRegistry
 
-_PROFILE_DIR = os.environ.get("JYLIS_PROFILE_DIR", "")
 _profiler = None
 
 
-def _drain_scope(name: str):
-    """One long-lived profiler session (started lazily at the first
-    drain), with a record_function range per drain: a session per drain
-    would write a whole trace per batch and distort the timings."""
+def start_profiling() -> None:
+    """Start the ``JYLIS_PROFILE_DIR`` session, when that variable names
+    a directory and none runs yet."""
     global _profiler
-    if not _PROFILE_DIR:
-        return contextlib.nullcontext()
+    out = os.environ.get("JYLIS_PROFILE_DIR", "")
+    if not out or _profiler is not None:
+        return
     import torch
+    from torch._C._profiler import _ExperimentalConfig
 
-    if _profiler is None:
-        acts = [torch.profiler.ProfilerActivity.CPU]
-        if torch.cuda.is_available():
-            acts.append(torch.profiler.ProfilerActivity.CUDA)
-        _profiler = torch.profiler.profile(
-            activities=acts,
-            on_trace_ready=torch.profiler.tensorboard_trace_handler(_PROFILE_DIR),
-        )
-        _profiler.start()
-    return torch.profiler.record_function(f"drain_{name}")
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    # every thread: the drains run in worker threads. Shapes recorded,
+    # so a range's id (obs.registry.SPAN_ID) is in the trace
+    _profiler = torch.profiler.profile(
+        activities=acts, record_shapes=True,
+        experimental_config=_ExperimentalConfig(profile_all_threads=True),
+        on_trace_ready=torch.profiler.tensorboard_trace_handler(out),
+    )
+    _profiler.start()
 
 
 # The process-wide fallback registry for callers constructed without an
@@ -66,13 +70,14 @@ def resolve_registry(obj) -> MetricsRegistry:
     return getattr(obj, "metrics", None) or DEFAULT
 
 
-def timed_drain(name: str, key_count):
-    """Decorator for repo drain() methods: per-batch counters, a log2
-    latency histogram (``drain.<name>``), and an optional profiler
-    range. ``key_count(self)`` returns the pending batch size. The
-    registry resolves per call from the repo's ``metrics`` attribute
-    (set by Database), so one decorated class serves any number of
-    registry-carrying instances.
+def timed_drain(name: str):
+    """Decorator for repo drain() methods: per-batch counters and a log2
+    latency histogram (``drain.<name>``). The drain returns the number
+    of keys it drained (0: nothing was pending, and nothing is
+    recorded); the decorated drain returns None. The registry resolves
+    per call from the repo's ``metrics`` attribute (set by Database), so
+    one decorated class serves any number of registry-carrying
+    instances.
 
     The seconds recorded are the host's seconds of the drain call, as
     the JAX package's are: no ``torch.cuda.synchronize()`` is added, so
@@ -82,22 +87,12 @@ def timed_drain(name: str, key_count):
     def wrap(fn):
         @functools.wraps(fn)
         def inner(self, *args, **kwargs):
-            reg = resolve_registry(self)
-            if not reg.enabled:
-                return fn(self, *args, **kwargs)
-            n = key_count(self)
-            # a drain invoked with explicit work (e.g. TLOG's fused
-            # trim=(row, count)) dispatches even with nothing pending --
-            # time it as one key so pure-trim cost stays visible
-            if n == 0 and not args and not any(
-                v is not None for v in kwargs.values()
-            ):
-                return fn(self, *args, **kwargs)
-            with _drain_scope(name):
-                t0 = time.perf_counter()
-                out = fn(self, *args, **kwargs)
-                reg.note_drain(name, max(n, 1), time.perf_counter() - t0)
-            return out
+            t0 = time.perf_counter()
+            n = fn(self, *args, **kwargs)
+            if n:
+                reg = resolve_registry(self)
+                if reg.enabled:
+                    reg.note_drain(name, n, time.perf_counter() - t0)
 
         return inner
 
@@ -160,7 +155,7 @@ def launches_since(before: dict, before_by_card: dict) -> tuple[dict, dict]:
 
 
 def stop_profiling() -> None:
-    """End the long-lived profiler session and write its trace (called
+    """End the ``JYLIS_PROFILE_DIR`` session and write its trace (called
     at clean shutdown)."""
     global _profiler
     if _profiler is not None:
@@ -186,7 +181,9 @@ def metric_lines(
     SESSION and OVERLOAD sections (None: no section). ``registry`` is
     the node's MetricsRegistry (drain/journal counters + the latency
     histograms, emitted as `LATENCY <seam>.<stat>` lines); None falls
-    back to the process DEFAULT."""
+    back to the process DEFAULT. The port's SPAN section ends the reply
+    (`SPAN <name> <count|ms|items> <value>`, every declared span); a JAX
+    node has none."""
     reg = registry if registry is not None else DEFAULT
     lines = [
         f"{name} cmds {n}" for name, n in sorted((served or {}).items()) if n
@@ -227,4 +224,8 @@ def metric_lines(
             lines.append(f"LATENCY {name}.p99_us {snap['p99_s'] * 1e6:.0f}")
             lines.append(f"LATENCY {name}.max_us {snap['max_s'] * 1e6:.0f}")
             lines.append(f"LATENCY {name}.count {snap['count']}")
+    for name, count, ms, items in reg.span_stats():
+        lines.append(f"SPAN {name} count {count}")
+        lines.append(f"SPAN {name} ms {ms:.1f}")
+        lines.append(f"SPAN {name} items {items}")
     return lines

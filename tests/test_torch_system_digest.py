@@ -314,11 +314,22 @@ def test_metrics_line_names_match_jax(nodes):
     split, drain counters, LATENCY seams) and SYSTEM LATENCY / OBSERVE /
     TRACE SPANS the same seams and lines; the port has no CLUSTER,
     SESSION, LANE or OVERLOAD section, and neither has a JAX node without
-    a cluster or armed admission."""
+    a cluster or armed admission. The port's SYSTEM METRICS ends with its
+    own SPAN section, which a JAX node lacks: every line before it is
+    compared exactly, and it names each declared span's three fields."""
+    from jylis_tpu_torch.obs import SPAN_FIELDS
+
     names = {}
     for name, db in nodes["dbs"].items():
         names[name] = [metric_names(ask(db, c("SYSTEM", *w), name == "jax", False))
                        for w in (["METRICS"], ["LATENCY"], ["OBSERVE"], ["TRACE", "SPANS"])]
+    for name in ("cpu", "mesh"):
+        declared = nodes["dbs"][name].metrics.span_totals
+        assert "lock_wait.PNCOUNT.apply" in declared
+        spans = [f"SPAN {s} {f}" for s in declared for f in SPAN_FIELDS]
+        assert names[name][0][-len(spans):] == spans
+        del names[name][0][-len(spans):]
+    assert not any(n.startswith("SPAN ") for n in names["jax"][0])
     assert names["cpu"] == names["mesh"] == names["jax"]
     metrics = names["jax"][0]
     for want in ("UJSON cmds", "SERVING demoted_cmds", "TLOG drains", "GCOUNT keys",
