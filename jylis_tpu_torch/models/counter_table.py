@@ -18,6 +18,8 @@ Polarity 0 is GCOUNT's only / PNCOUNT's P plane; polarity 1 is N.
 
 from __future__ import annotations
 
+import numpy as np
+
 U64_MASK = (1 << 64) - 1
 
 
@@ -80,8 +82,12 @@ class PyTable:
     def is_foreign(self, row: int) -> bool:
         return row in self._foreign
 
-    def set_foreign(self, row: int) -> None:
-        self._foreign.add(row)
+    def upsert_foreign(self, keys) -> np.ndarray:
+        """A converge slice's keys: each upserted and marked foreign; the
+        rows (int64) in the keys' order."""
+        rows = [self.upsert(k) for k in keys]
+        self._foreign.update(rows)
+        return np.array(rows, np.int64)
 
     def value(self, row: int) -> int:
         return self._value[row]
@@ -162,8 +168,8 @@ class NativeTable:
     def is_foreign(self, row: int) -> bool:
         return self._eng.is_foreign(self._which, row)
 
-    def set_foreign(self, row: int) -> None:
-        self._eng.set_foreign(self._which, row)
+    def upsert_foreign(self, keys) -> np.ndarray:
+        return self._eng.upsert_foreign(self._which, keys)
 
     def value(self, row: int) -> int:
         return self._eng.value(self._which, row)

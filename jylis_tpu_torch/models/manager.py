@@ -320,5 +320,11 @@ class RepoManager:
         self._deltas_fn((self.name, batch))
 
     def converge_deltas(self, batch) -> None:
+        """Join a batch: whole, where the repo converges a slice at once
+        (the counters' ``converge_batch``), else key by key."""
+        whole = getattr(self.repo, "converge_batch", None)
+        if whole is not None:
+            whole(batch)
+            return
         for key, delta in batch:
             self.repo.converge(key, delta)

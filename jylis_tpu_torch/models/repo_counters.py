@@ -13,9 +13,11 @@ the native serving engine's tables (``engine="auto"``, the default) --
 the SAME state the server's native burst applier mutates, so commands
 settled in C++ and Python-side drains and flushes share one source of
 truth -- or the pure-Python oracle (``engine="python"``). Foreign delta
-columns (sparse per-replica maps from the cluster) stay in Python dicts;
-they merge with the engine's exported pending-own values at drain time,
-and the drain's row sums go back to the engine as u64 bit patterns.
+columns (sparse per-replica maps from the cluster) join into dense u64
+host planes, (rows x replica columns) per polarity, a converge slice at
+a time; a drain gathers its rows from them in one pass, merges the
+engine's exported pending-own values, and its row sums go back to the
+engine as u64 bit patterns.
 
 Delta wire shape: GCOUNT -> dict {replica_id: u64}; PNCOUNT -> a
 (p_dict, n_dict) pair. Outbound deltas carry only this node's own column
@@ -120,15 +122,19 @@ class _CounterRepo:
         self._tbl = (
             NativeTable(engine, self._which) if engine is not None else PyTable()
         )
-        # foreign delta columns buffered per row per polarity (sparse
-        # {col: max-value} maps from cluster converges)
-        self._pending_f: tuple[dict[int, dict[int, int]], ...] = ({}, {})
-        # sync-digest bookkeeping: a CUMULATIVE join of every foreign
-        # column ever converged, keyed by replica id -- unlike _pending_f
-        # it never clears, so the per-key canonical state (own joined
-        # with foreign) reads host-side with no device pull
-        self._sync_f: tuple[dict[int, dict[int, int]], ...] = ({}, {})
-        self._sync_dirty_extra: set[int] = set()  # converge-path rows
+        # foreign delta columns, joined a converge slice at a time into
+        # dense u64 planes indexed (polarity, row, replica column):
+        # _fpend, the window's pending join, which a drain gathers and
+        # then zeroes at the rows it drained, and _fsync, the CUMULATIVE
+        # join of every column ever converged, which never clears, so
+        # the per-key canonical state (own joined with foreign) reads
+        # host-side with no device pull. They grow by `bucket` as the
+        # device state does, apart from it (_fit_planes)
+        shape = (self._polarities, self._key_cap, rep_cap)
+        self._fpend = np.zeros(shape, np.uint64)
+        self._fsync = np.zeros(shape, np.uint64)
+        self._frows = np.zeros(self._key_cap, bool)  # rows with _fpend pending
+        self._fdirty = np.zeros(self._key_cap, bool)  # converged since the last digest
 
     def _get_raw(self, key: bytes) -> int:
         """Serving value bits for a key (drains first when foreign deltas
@@ -172,44 +178,96 @@ class _CounterRepo:
         row = self._tbl.find(args[1])
         return row >= 0 and self._tbl.is_foreign(row)
 
-    def converge_polarity(self, key: bytes, polarity: int, delta: dict) -> None:
-        row = self._tbl.upsert(key)
-        p = self._pending_f[polarity].setdefault(row, {})
-        sf = self._sync_f[polarity].setdefault(row, {})
-        for rid, v in delta.items():
-            col = self._col_for(rid)
-            if v > p.get(col, 0):
-                p[col] = v
-            if v > sf.get(rid, 0):
-                sf[rid] = v
-        self._sync_dirty_extra.add(row)
-        self._tbl.set_foreign(row)
+    def _fit_planes(self, rows: int) -> None:
+        """Grow the foreign planes to hold ``rows`` rows and a column for
+        every replica id, by `bucket`, as `_grow_to_fit` grows the device
+        state (so a drain's batch is as wide as the state)."""
+        _, k, r = self._fpend.shape
+        k2 = bucket(max(rows, 1), k)
+        r2 = bucket(max(len(self._rids), 1), r)
+        if (k2, r2) == (k, r):
+            return
+        for name in ("_fpend", "_fsync"):
+            plane = np.zeros((self._polarities, k2, r2), np.uint64)
+            plane[:, :k, :r] = getattr(self, name)
+            setattr(self, name, plane)
+        for name in ("_frows", "_fdirty"):
+            mask = np.zeros(k2, bool)
+            mask[:k] = getattr(self, name)
+            setattr(self, name, mask)
+
+    def converge(self, key: bytes, delta) -> None:
+        self.converge_batch(((key, delta),))
+
+    def converge_batch(self, batch) -> None:
+        """Join a slice of deltas [(key, delta)]: one table call upserts
+        the keys and marks their rows foreign, then an unsigned max per
+        plane takes every (row, replica id, value) of the slice, a key
+        repeated in it included. A delta decoded from the wire is read in
+        place from the decoder's lists (its ``wire()``); any other
+        mapping through its items, counted as ``<TYPE> converge_mapped``
+        in SYSTEM METRICS."""
+        keys, rids, vals, counts = [], [], [], []  # counts: per key, per polarity
+        mapped = 0
+        for key, delta in batch:
+            keys.append(key)
+            wire = getattr(delta, "wire", None)
+            if wire is not None:
+                r, v, lo, ns = wire()
+                hi = lo + sum(ns)
+                rids += r[lo:hi]
+                vals += v[lo:hi]
+                counts += ns
+            else:
+                mapped += 1
+                for d in (delta,) if self._polarities == 1 else delta:
+                    rids += d.keys()
+                    vals += d.values()
+                    counts.append(len(d))
+        reg = resolve_registry(self)
+        if reg.enabled:
+            reg.note_converge_mapped(self.name, mapped)
+        if not keys:
+            return
+        rows = self._tbl.upsert_foreign(keys)
+        ids, first, inv = np.unique(np.array(rids, np.uint64), return_index=True,
+                                    return_inverse=True)
+        ids = ids.tolist()
+        col = np.empty(len(ids), np.int64)
+        for i in np.argsort(first).tolist():  # new ids take columns in arrival order
+            col[i] = self._col_for(ids[i])
+        self._fit_planes(int(rows.max()) + 1)
+        self._frows[rows] = True
+        self._fdirty[rows] = True
+        p, k, r = self._fpend.shape
+        pol = np.repeat(np.tile(np.arange(p), len(keys)), counts)
+        at = (pol * k + np.repeat(np.repeat(rows, p), counts)) * r + col[inv]
+        v = np.array(vals, np.uint64)
+        np.maximum.at(self._fpend.reshape(-1), at, v)
+        np.maximum.at(self._fsync.reshape(-1), at, v)
 
     def _collect_rows(self):
-        """The drain batch: pending-own values merged with the buffered
-        foreign columns -> (rows, per-row {col: val} per polarity, the
-        batch's key count). The count is every pending row, own or
-        foreign: an own row with nothing to join (an INC of 0) counts
-        though it joins nothing. Reads WITHOUT clearing: the window
-        clears in `_finish_drain`, so a device failure mid-drain keeps
-        every contribution for the retry."""
+        """The drain batch: the rows with pending foreign deltas joined
+        with the engine's pending-own rows -> (rows, sorted; each
+        polarity's (n, R) u64 columns, gathered from the pending plane
+        in one pass with the own column max-joined; the batch's key
+        count). The count is every pending row, own or foreign: an own
+        row with nothing to join (an INC of 0) counts though it joins
+        nothing. Reads WITHOUT clearing: the window clears in
+        `_finish_drain`, so a device failure mid-drain keeps every
+        contribution for the retry."""
         own_rows, vp, vn = self._tbl.export_pending(clear=False)
         own_col = self._col_for(self._identity)
-        per_pol: tuple[dict[int, dict[int, int]], ...] = ({}, {})
-        for pol, own_vals in ((0, vp), (1, vn)):
-            fdict = self._pending_f[pol]
-            for row, v in zip(own_rows, own_vals):
-                if v:
-                    per_pol[pol][row] = {own_col: v}
-            for row, cols in fdict.items():
-                d = per_pol[pol].setdefault(row, {})
-                for col, v in cols.items():
-                    if v > d.get(col, 0):
-                        d[col] = v
-        rows = list(dict.fromkeys(list(per_pol[0]) + list(per_pol[1])))
-        idle = sum(1 for row, p, q in zip(own_rows, vp, vn) if not (p or q)
-                   and row not in per_pol[0] and row not in per_pol[1])
-        return rows, per_pol, len(rows) + idle
+        self._fit_planes(self._tbl.rows())
+        own = np.asarray(own_rows, np.int64)
+        own_vals = np.array((vp, vn)[: self._polarities], np.uint64)  # (P, len(own))
+        live = own_vals.any(axis=0)
+        rows = np.union1d(own[live], np.flatnonzero(self._frows))
+        idle = int(np.count_nonzero(~live & ~self._frows[own]))
+        batch = np.take(self._fpend, rows, axis=1)
+        at = np.searchsorted(rows, own[live])
+        batch[:, at, own_col] = np.maximum(batch[:, at, own_col], own_vals[:, live])
+        return rows, batch, len(rows) + idle
 
     def _drain(self) -> int:
         """Join every pending row into the device state in one staged
@@ -221,27 +279,22 @@ class _CounterRepo:
         ``drain.<TYPE>.{collect,fill,launch,wait,finish}`` spans."""
         reg = resolve_registry(self)
         with reg.span(f"drain.{self.name}.collect") as span:
-            rows, per_pol, n = self._collect_rows()
+            rows, batch, n = self._collect_rows()
             if not n:
                 span.cancel()  # nothing pending: no drain to count
                 return 0
             span.items = n
-            if not rows:
+            if not len(rows):
                 return n
             self._grow_to_fit()
-            per_pol = per_pol[: self._polarities]
             dense = self._ks.mesh is None and len(rows) * DENSE_FRACTION >= self._key_cap
-            rows_np = np.asarray(rows, np.int64)
 
-        def fill(views, sel):  # the pending columns, straight into staging
-            for view, pending in zip(views, per_pol):
-                view.fill(0)
-                for slot, row in enumerate(rows_np[sel].tolist()):
-                    for col, v in pending.get(row, {}).items():
-                        view[slot, col] = v
+        def fill(views, sel):  # the gathered columns, straight into staging
+            for view, cols in zip(views, batch):
+                view[...] = cols[sel]
 
         # the int64 bits viewed as u64, never cast: the engine takes u64
-        sums = self._staged(rows_np, fill, dense, reg).view(np.uint64)
+        sums = self._staged(rows, fill, dense, reg).view(np.uint64)
         with reg.span(f"drain.{self.name}.finish", len(rows)):
             self._finish_drain(rows, sums)
         return n
@@ -249,8 +302,8 @@ class _CounterRepo:
     def _finish_drain(self, rows, values_bits) -> None:
         self._tbl.apply_drain(rows, values_bits)
         self._tbl.export_pending(clear=True)  # drain succeeded: clear window
-        self._pending_f[0].clear()
-        self._pending_f[1].clear()
+        self._fpend[:, rows] = 0
+        self._frows[rows] = False
 
     # -- sync digest (models/database.py) ------------------------------------
 
@@ -258,15 +311,19 @@ class _CounterRepo:
         """Keys whose canonical state may have changed since the last
         digest pass (local INC/DEC and converges); clears."""
         rows = set(self._tbl.export_sync_dirty())
-        rows.update(self._sync_dirty_extra)
-        self._sync_dirty_extra.clear()
+        fresh = np.flatnonzero(self._fdirty)
+        self._fdirty[fresh] = False
+        rows.update(fresh.tolist())
         return [self._tbl.key_of(r) for r in rows]
 
     def _sync_cols(self, row: int, polarity: int) -> list[tuple[int, int]]:
         """{rid: max} for one polarity: own contribution joined with the
-        cumulative foreign mirror -- exactly the column state the device
+        cumulative foreign plane -- exactly the column state the device
         converges to, with no device read."""
-        d = dict(self._sync_f[polarity].get(row, ()))
+        d = {}
+        if row < self._fsync.shape[1]:
+            vals = self._fsync[polarity, row].tolist()
+            d = {rid: vals[col] for rid, col in self._rids.items() if vals[col]}
         if self._tbl.own_set(row) & (1 << polarity):
             own = self._tbl.own(row, polarity)
             if own > d.get(self._identity, 0):
@@ -344,9 +401,6 @@ class RepoGCOUNT(_CounterRepo):
 
     # -- lattice plumbing ---------------------------------------------------
 
-    def converge(self, key: bytes, delta: dict) -> None:
-        self.converge_polarity(key, 0, delta)
-
     def flush_deltas(self):
         rows, op, _on, _sb = self._tbl.export_dirty()
         return sorted(
@@ -373,11 +427,12 @@ class RepoGCOUNT(_CounterRepo):
         column is its private monotonic state: it is joined into the
         table's own counter too, or the next INC would vanish under the
         pending max."""
+        batch = list(batch)
+        self.converge_batch(batch)
         for key, delta in batch:
-            self.converge(key, delta)
             if self._identity in delta:
                 self._tbl.own_max(
-                    self._tbl.upsert(key), 0, delta[self._identity]
+                    self._tbl.find(key), 0, delta[self._identity]
                 )
 
 
@@ -422,11 +477,6 @@ class RepoPNCOUNT(_CounterRepo):
             return True
         raise ParseError()
 
-    def converge(self, key: bytes, delta: tuple) -> None:
-        dp, dn = delta
-        self.converge_polarity(key, 0, dp)
-        self.converge_polarity(key, 1, dn)
-
     def flush_deltas(self):
         rows, op, on, sb = self._tbl.export_dirty()
         out = []
@@ -455,9 +505,10 @@ class RepoPNCOUNT(_CounterRepo):
 
     def load_state(self, batch) -> None:
         """As RepoGCOUNT.load_state, for each polarity's own column."""
+        batch = list(batch)
+        self.converge_batch(batch)
         for key, (dp, dn) in batch:
-            self.converge(key, (dp, dn))
-            row = self._tbl.upsert(key)
+            row = self._tbl.find(key)
             if self._identity in dp:
                 self._tbl.own_max(row, 0, dp[self._identity])
             if self._identity in dn:

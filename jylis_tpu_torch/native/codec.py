@@ -390,6 +390,12 @@ class LazyU64Map:
     def __repr__(self) -> str:
         return repr(self._mat())
 
+    def wire(self):
+        """(rids, vals, lo, (n,)): the decoded wire lists this map reads
+        and its entries' span in them, for a converge that reads them in
+        place (models/repo_counters.converge_batch)."""
+        return self._rids, self._vals, self._lo, (self._n,)
+
 
 class LazyPNPair:
     """A PNCOUNT delta ((p_dict, n_dict)) decoded lazily from the wire
@@ -440,6 +446,11 @@ class LazyPNPair:
 
     def __repr__(self) -> str:
         return repr(self._mat())
+
+    def wire(self):
+        """(rids, vals, lo, (n_p, n_n)): the decoded wire lists, and the
+        P entries then the N entries from ``lo`` on (``LazyU64Map.wire``)."""
+        return self._rids, self._vals, self._lo, (self._np, self._nn)
 
 
 def _decode_counters(cdll, name, rest, ndicts) -> Msg | None:

@@ -52,6 +52,7 @@ def _declare(c: ctypes.CDLL) -> None:
         "jy_eng_inc": (None, [vp, i32, i64, i32, u64]),
         "jy_eng_is_foreign": (i32, [vp, i32, i64]),
         "jy_eng_set_foreign": (None, [vp, i32, i64]),
+        "jy_eng_upsert_foreign": (None, [vp, i32, u8p, vp, vp, i64, vp]),
         "jy_eng_value": (u64, [vp, i32, i64]),
         "jy_eng_own": (u64, [vp, i32, i64, i32]),
         "jy_eng_own_max": (None, [vp, i32, i64, i32, u64]),
@@ -201,6 +202,20 @@ class ServeEngine:
 
     def set_foreign(self, which: int, row: int) -> None:
         self._lib.jy_eng_set_foreign(self._h, which, row)
+
+    def upsert_foreign(self, which: int, keys) -> np.ndarray:
+        """Upsert each of ``keys`` and mark its row foreign, in one call:
+        the rows, int64, in the keys' order."""
+        n = len(keys)
+        lens = np.fromiter(map(len, keys), np.int64, n)
+        offs = np.zeros(n, np.int64)
+        np.cumsum(lens[:-1], out=offs[1:])
+        rows = np.empty(n, np.int64)
+        self._lib.jy_eng_upsert_foreign(
+            self._h, which, b"".join(keys),
+            offs.ctypes.data, lens.ctypes.data, n, rows.ctypes.data,
+        )
+        return rows
 
     def value(self, which: int, row: int) -> int:
         return self._lib.jy_eng_value(self._h, which, row)

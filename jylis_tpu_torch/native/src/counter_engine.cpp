@@ -11,9 +11,9 @@
 //
 // Split of responsibilities (single source of truth):
 //   * native: per-key own/value/dirty/pending-own/foreign + INC/DEC/GET
-//   * Python: device drains, foreign-delta pending (dict of sparse
-//     cols), flush/snapshot orchestration, cluster converge — all via
-//     the bulk export/apply calls below.
+//   * Python: device drains, foreign-delta pending (dense u64 planes),
+//     flush/snapshot orchestration, cluster converge — all via the bulk
+//     upsert/export/apply calls below.
 //
 // All values are u64 bit patterns; PNCOUNT's serving value is the
 // two's-complement wrapped i64 the reference's (p-n).i64() defines.
@@ -57,6 +57,20 @@ int32_t jy_eng_is_foreign(void* e, int32_t which, int64_t row) {
 
 void jy_eng_set_foreign(void* e, int32_t which, int64_t row) {
     static_cast<Engine*>(e)->t[which].flags[row] |= F_FOREIGN;
+}
+
+// a converge slice's table half: upsert each of the n keys (key i is
+// buf[offs[i], offs[i] + lens[i])), mark its row foreign and write the
+// row to rows[i] -- one call per slice in place of two per key
+void jy_eng_upsert_foreign(void* e, int32_t which, const uint8_t* buf,
+                           const int64_t* offs, const int64_t* lens,
+                           int64_t n, int64_t* rows) {
+    Table& t = static_cast<Engine*>(e)->t[which];
+    for (int64_t i = 0; i < n; i++) {
+        int64_t r = t.upsert(buf + offs[i], lens[i]);
+        t.flags[r] |= F_FOREIGN;
+        rows[i] = r;
+    }
 }
 
 uint64_t jy_eng_value(void* e, int32_t which, int64_t row) {

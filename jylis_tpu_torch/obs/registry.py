@@ -127,6 +127,10 @@ class MetricsRegistry:
         self.counters: dict[str, dict[str, float]] = defaultdict(
             lambda: {"batches": 0, "keys": 0, "seconds": 0.0}
         )
+        # per counter type, the converged keys whose delta was read as a
+        # generic mapping, not in place from the wire (repo_counters
+        # converge_batch); a type appears at its first converge
+        self.converge_mapped: dict[str, int] = {}
         # delta write-ahead journal counters: appends / bytes / fsyncs
         # accrue on the writer thread, replayed_batches on boot
         # recovery, errors on ANY writer-side encode/write/fsync failure
@@ -169,6 +173,9 @@ class MetricsRegistry:
         h = self.hists.get("drain." + name)
         if h is not None:
             h.record(seconds)
+
+    def note_converge_mapped(self, name: str, n: int) -> None:
+        self.converge_mapped[name] = self.converge_mapped.get(name, 0) + n
 
     def note_journal(self, counter: str, n: int = 1) -> None:
         self.journal_counters[counter] += n

@@ -181,7 +181,10 @@ def metric_lines(
     SESSION and OVERLOAD sections (None: no section). ``registry`` is
     the node's MetricsRegistry (drain/journal counters + the latency
     histograms, emitted as `LATENCY <seam>.<stat>` lines); None falls
-    back to the process DEFAULT. The port's SPAN section ends the reply
+    back to the process DEFAULT. A counter type's drain lines carry the
+    port's `<TYPE> converge_mapped` (keys converged from a generic
+    mapping, not in place from the wire); a JAX node has none. The
+    port's SPAN section ends the reply
     (`SPAN <name> <count|ms|items> <value>`, every declared span); a JAX
     node has none."""
     reg = registry if registry is not None else DEFAULT
@@ -210,10 +213,14 @@ def metric_lines(
         )
     if cluster is not None:
         lines.extend(f"CLUSTER {k} {v}" for k, v in cluster.items())
+    mapped = dict(reg.converge_mapped)
     for name, drains, keys, ms in reg.type_stats():
         lines.append(f"{name} drains {drains}")
         lines.append(f"{name} keys {keys}")
         lines.append(f"{name} device_ms {ms:.1f}")
+        if name in mapped:
+            lines.append(f"{name} converge_mapped {mapped.pop(name)}")
+    lines.extend(f"{name} converge_mapped {n}" for name, n in sorted(mapped.items()))
     if reg.journal_enabled or any(reg.journal_counters.values()):
         for k in _JOURNAL_KEYS:
             lines.append(f"JOURNAL {k} {reg.journal_counters[k]}")

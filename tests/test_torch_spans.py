@@ -11,6 +11,7 @@ import gc
 import json
 import time
 
+import numpy as np
 import pytest
 import torch
 
@@ -335,7 +336,7 @@ def test_drain_key_count_reads_as_the_pending_union(engine, kind, batch):
             delta = {9: i + 1} if kind == "GCOUNT" else ({9: i + 1}, {} if i % 2 else {9: 1})
             repo.converge(b"k%06d" % i, delta)
     own_rows, _, _ = repo._tbl.export_pending(clear=False)
-    want = len(set(own_rows) | set(repo._pending_f[0]) | set(repo._pending_f[1]))
+    want = len(set(own_rows) | set(np.flatnonzero(repo._frows).tolist()))
     assert want > 0
     c = db.metrics.counters[kind]
     before = (c["batches"], c["keys"])

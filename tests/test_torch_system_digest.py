@@ -315,8 +315,10 @@ def test_metrics_line_names_match_jax(nodes):
     TRACE SPANS the same seams and lines; the port has no CLUSTER,
     SESSION, LANE or OVERLOAD section, and neither has a JAX node without
     a cluster or armed admission. The port's SYSTEM METRICS ends with its
-    own SPAN section, which a JAX node lacks: every line before it is
-    compared exactly, and it names each declared span's three fields."""
+    own SPAN section, which a JAX node lacks, and a converged counter
+    type's drain lines carry the port's ``<TYPE> converge_mapped``: every
+    other line is compared exactly, and the SPAN section names each
+    declared span's three fields."""
     from jylis_tpu_torch.obs import SPAN_FIELDS
 
     names = {}
@@ -329,6 +331,9 @@ def test_metrics_line_names_match_jax(nodes):
         spans = [f"SPAN {s} {f}" for s in declared for f in SPAN_FIELDS]
         assert names[name][0][-len(spans):] == spans
         del names[name][0][-len(spans):]
+        mapped = [n for n in names[name][0] if n.endswith(" converge_mapped")]
+        assert mapped == ["GCOUNT converge_mapped", "PNCOUNT converge_mapped"], name
+        names[name][0] = [n for n in names[name][0] if n not in mapped]
     assert not any(n.startswith("SPAN ") for n in names["jax"][0])
     assert names["cpu"] == names["mesh"] == names["jax"]
     metrics = names["jax"][0]
