@@ -1,6 +1,6 @@
 """The lower-precision control: the reference put in the program's place,
-computed in the next narrower type than the configuration states (u64
-counters as u32, u64 timestamps as u32), and judged by the same
+computed in the next narrower type than the configuration states (the
+type module's ``NARROW``, types/<type>.py), and judged by the same
 comparison as a run (judge.py). It has to come out not correct.
 
 ``python -m cardbench.control --workload <cell> --seeds a,b,c --frames N``
@@ -14,31 +14,20 @@ from __future__ import annotations
 import argparse
 import json
 
-import numpy as np
-
-from . import judge
-from .run import TREG_GET_SAMPLE, load_cell
+from . import judge, types
+from .run import load_cell
 from .traffic import gen
-
-
-def control_state(cfg: dict, narrow) -> dict:
-    """What the node would give back, from the narrow reference."""
-    if cfg["type"] == "PNCOUNT":
-        return {"gets": (narrow.values().astype(np.int64), 0)}
-    sample = np.arange(0, cfg["keys"], max(1, cfg["keys"] // TREG_GET_SAMPLE))
-    ts = narrow.ts.astype(np.uint64)
-    return {"device": (narrow.set, ts, narrow.value),
-            "gets": (ts[sample], narrow.value[sample], 0), "sample": sample}
 
 
 def run_control(cell: dict, seed: int, frames_past_fill: int) -> dict:
     cfg, traffic = cell["config"], cell["traffic"]
-    n_fill = [s.n_fill for s in gen.streams(cfg, traffic, seed)]
+    kind = types.load(cfg["type"], cell["types"])
+    n_fill = [s.n_fill for s in gen.streams(cfg, traffic, seed, kind)]
     frames = [f + frames_past_fill for f in n_fill]
-    ref = judge.reference(cfg, traffic, seed, frames)
-    narrow = judge.reference(cfg, traffic, seed, frames, narrow=True)
-    sound = judge.compare(cfg, ref, control_state(cfg, ref), None)
-    checks = judge.compare(cfg, ref, control_state(cfg, narrow), None)
+    ref = judge.reference(kind, cfg, traffic, seed, frames)
+    narrow = judge.reference(kind, cfg, traffic, seed, frames, narrow=True)
+    sound = judge.compare(kind, cfg, ref, kind.control_state(cfg, ref), None)
+    checks = judge.compare(kind, cfg, ref, kind.control_state(cfg, narrow), None)
     return {"seed": seed, "frames": frames,
             "reference_correct": all(c["value"] <= c["limit"] for c in sound.values()),
             "control_correct": all(c["value"] <= c["limit"] for c in checks.values()),

@@ -10,7 +10,8 @@ synthetic cluster peers (traffic/peer.py) and the open-loop RESP reader
 (traffic/loadgen.py). Set-up fills the state the traffic needs over the
 same wire and runs the cell's mix for ``warmup_s`` so every drain shape
 the window meets has run; then the window, then the readback that
-decides ``correct`` (judge.py), then the metrics (metrics/<name>.py).
+decides ``correct`` (the data type's module, types/<type>.py, and
+judge.py), then the metrics (metrics/<name>.py).
 
 The last line of stdout is the result; the numbers compared, each with
 its limit, are the last lines of stderr. Without a CUDA card, or with
@@ -34,13 +35,12 @@ import threading
 import time
 from pathlib import Path
 
-import numpy as np
+from . import types
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = Path(__file__).resolve().parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "jylis_tpu")
 READBACK_CHUNK = 4096
-TREG_GET_SAMPLE = 20000
 WORKER_TIMEOUT_S = 240.0
 
 
@@ -81,13 +81,14 @@ def load_cell(name: str, root: Path = ROOT) -> dict:
 
 
 def make_cell(name: str, chips: int, config_file: Path, traffic: str, end_to_end: list,
-              per_layer: list) -> dict:
-    """A cell from its configuration file and the name of its traffic mix."""
+              per_layer: list, types_dir: Path = types.DIR) -> dict:
+    """A cell from its configuration file and the name of its traffic mix;
+    its data type's module is found in ``types_dir`` (types.load)."""
     return {
         "name": name, "chips": chips,
         "config": json.loads(Path(config_file).read_text()),
         "traffic": json.loads((PKG / "traffic" / f"{traffic}.json").read_text()),
-        "end_to_end": end_to_end, "per_layer": per_layer,
+        "end_to_end": end_to_end, "per_layer": per_layer, "types": str(types_dir),
     }
 
 
@@ -273,55 +274,6 @@ class Resp:
         self.conn.close()
 
 
-# ---- readback -------------------------------------------------------------------
-
-
-def read_counters(resp: Resp, cfg: dict, keys: np.ndarray) -> tuple[np.ndarray, int]:
-    """Every key's GET as int64, and how many replies were not integers."""
-    t = cfg["type"].encode()
-    replies = resp.pipeline([[t, b"GET", keys[i].tobytes()] for i in range(len(keys))])
-    bad = sum(not isinstance(r, int) for r in replies)
-    vals = np.array([r if isinstance(r, int) else 0 for r in replies], np.int64)
-    return vals, bad
-
-
-def read_treg_gets(resp: Resp, keys: np.ndarray, sample: np.ndarray, value_bytes: int):
-    """GETs of the sampled keys: (ts u64, value, unreadable count)."""
-    replies = resp.pipeline([[b"TREG", b"GET", keys[i].tobytes()] for i in sample])
-    ts = np.zeros(len(sample), np.uint64)
-    val = np.zeros(len(sample), f"S{value_bytes}")
-    bad = 0
-    for i, r in enumerate(replies):
-        if isinstance(r, list) and len(r) == 2 and isinstance(r[0], bytes) and isinstance(r[1], int):
-            val[i], ts[i] = r[0], r[1]
-        else:
-            bad += 1
-    return ts, val, bad
-
-
-def read_treg_device(db, keys: np.ndarray, value_bytes: int):
-    """The TREG state on the card after the last drain, per key: (set,
-    ts u64, value). Reads the repo's planes (``_state``: ts and the
-    interned value id per row) and maps rows and ids back through its
-    host tables. Runs under the repo locks."""
-    repo = db.manager("TREG").repo
-    repo.drain()
-    st = repo._state
-    ts_plane = st.ts.cpu().numpy().view(np.uint64)
-    vid_plane = st.vid.cpu().numpy()
-    n = len(keys)
-    rows = np.fromiter((repo._tbl.find(keys[i].tobytes()) for i in range(n)), np.int64, n)
-    have = rows >= 0
-    vids = np.where(have, vid_plane[np.where(have, rows, 0)], -1)
-    is_set = vids >= 0
-    ts = np.where(is_set, ts_plane[np.where(have, rows, 0)], 0).astype(np.uint64)
-    value = np.zeros(n, f"S{value_bytes}")
-    uniq, inverse = np.unique(vids[is_set], return_inverse=True)
-    lookup = repo._interner.lookup
-    value[is_set] = np.array([lookup(int(v)) for v in uniq], f"S{value_bytes}")[inverse]
-    return is_set, ts, value
-
-
 # ---- the run --------------------------------------------------------------------
 
 
@@ -333,7 +285,8 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, device: str = "
 
     t_proc0 = process_start() if t_proc0 is None else t_proc0
     cfg, traffic = cell["config"], cell["traffic"]
-    spec = {"config": cfg, "traffic": traffic, "seed": seed}
+    kind = types.load(cfg["type"], cell["types"])
+    spec = {"config": cfg, "traffic": traffic, "seed": seed, "types": cell["types"]}
     peers = Worker("cardbench.traffic.peer", spec)
     reader_w = None
     data_dir = tempfile.mkdtemp(prefix="cardbench-node-")
@@ -366,15 +319,7 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, device: str = "
             dev.update(busy_s=trace_rec["busy_s"], window_s=trace_rec["window_s"])
 
         keys = key_bytes(cfg["key_format"], cfg["keys"])
-        if cfg["type"] == "TREG":
-            sample = np.sort(np.random.default_rng([seed & 0xFFFFFFFF, seed >> 32, 41]).choice(
-                cfg["keys"], min(TREG_GET_SAMPLE, cfg["keys"]), replace=False))
-            vb = cfg["values"]["value_bytes"]
-            node_state = {"device": node.locked(lambda: read_treg_device(node.db, keys, vb))}
-            node_state["gets"] = read_treg_gets(resp, keys, sample, vb)
-            node_state["sample"] = sample
-        else:
-            node_state = {"gets": read_counters(resp, cfg, keys)}
+        node_state = kind.readback(node, resp, cfg, keys, seed)
         resp.close()
     finally:
         for w in (peers, reader_w):
@@ -385,13 +330,13 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, device: str = "
         shutil.rmtree(data_dir, ignore_errors=True)
 
     loaded = sorted({m.split(".")[0] for m in sys.modules} & set(FORBIDDEN))
-    checks = judge.judge(cfg, traffic, seed, ran["frames"], node_state, got)
+    checks = judge.judge(kind, cfg, traffic, seed, ran["frames"], node_state, got)
     record = {
-        "cell": cell["name"], "config": cfg, "traffic": traffic, "setup_s": setup_s,
-        "fill_s": filled["seconds"], "window_s": ran["window_s"], "merges": ran["merges"],
-        "push_ack_ms": ran["ack_ms"], "gets": got, "forced_reads": ran["reads"],
-        "system_metrics": {"before": before, "after": after}, "trace": trace_rec,
-        "device": dev,
+        "cell": cell["name"], "config": cfg, "type_module": kind, "traffic": traffic,
+        "setup_s": setup_s, "fill_s": filled["seconds"], "window_s": ran["window_s"],
+        "merges": ran["merges"], "push_ack_ms": ran["ack_ms"], "gets": got,
+        "forced_reads": ran["reads"], "system_metrics": {"before": before, "after": after},
+        "trace": trace_rec, "device": dev,
     }
     wanted = cell["per_layer"] if trace else cell["end_to_end"]
     metrics = {}

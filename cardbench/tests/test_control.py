@@ -18,3 +18,6 @@ def test_the_narrow_reference_fails_the_comparison(name, seed):
     assert out["reference_correct"]
     assert not out["control_correct"]
     assert max(c["value"] for c in out["checks"].values()) > SMALL[name] // 10
+    # every key's value (every register) reads wrong
+    wrong = "wrong_registers" if "wrong_registers" in out["checks"] else "wrong_values"
+    assert out["checks"][wrong]["value"] == SMALL[name]

@@ -75,6 +75,14 @@ def fault(monkeypatch, kind):
     yield
 
 
+# the numbers each cell compares, in the order a run prints them
+CHECKS = {
+    "pn100k-r8.sweep-read": ["wrong_values", "unread_keys", "error_replies", "lost_replies"],
+    "pn100k-r8.sweep-batch": ["wrong_values", "unread_keys"],
+    "treg1m.sweep": ["wrong_registers", "wrong_gets", "unread_keys"],
+}
+
+
 def small_run(name: str, seed: int) -> dict:
     return run.run_cell(small_cell(name), seed, 2.0, False, device="cpu")
 
@@ -87,6 +95,7 @@ def test_a_broken_drain_comes_out_not_correct(monkeypatch, name, kind):
     result = out["result"]
     assert not out["loaded"]
     assert result["correct"] is (kind is None), result["checks"]
+    assert list(result["checks"]) == CHECKS[name]
     if kind is None:
         assert out["record"]["merges"] > 0 and result["metrics"]["setup_s"]["value"] > 0
     else:

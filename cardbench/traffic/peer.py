@@ -11,16 +11,18 @@ frame goes out once the last one's Pong arrives. A frame counts as
 acknowledged when its Pong arrives; each frame's send-to-Pong time is
 kept.
 
-For a counter type a phase ends with a drain-forcing read: a GET of one
+Where the data type's module asks for it (``DRAIN_AT_CLOSE``,
+types/<type>.py) a phase ends with a drain-forcing read: a GET of one
 key of each peer's last acknowledged frame, over RESP, so the phase's
 deltas are joined into the state when it closes. With
 ``forced_reads_per_s`` a read of a key the sweep has just written goes
 out that many times a second during the phase as well.
 
 Protocol: one JSON object a line on stdin, one a line on stdout. The
-first line is the spec (configuration, traffic, seed); then "connect"
-(ports), "fill", "run" (start time on the monotonic clock, seconds) and
-"exit". Imports nothing of the program.
+first line is the spec (configuration, traffic, seed, the directory of
+the type modules); then "connect" (ports), "fill", "run" (start time on
+the monotonic clock, seconds) and "exit". Imports nothing of the
+program.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ import time
 
 import numpy as np
 
+from .. import types
 from . import gen, wire
 
 HOST = "127.0.0.1"
@@ -196,7 +199,8 @@ class Peers:
     def __init__(self, spec: dict):
         self.cfg, self.traffic = spec["config"], spec["traffic"]
         self.type = self.cfg["type"]
-        streams = gen.streams(self.cfg, self.traffic, spec["seed"])
+        self.kind = types.load(self.type, spec["types"])
+        streams = gen.streams(self.cfg, self.traffic, spec["seed"], self.kind)
         self.key_table = streams[0].key_table
         self.peers = [Peer(i, s, epoch=1 + i) for i, s in enumerate(streams)]
         self.resp: Resp | None = None
@@ -263,7 +267,7 @@ class Peers:
         if hz:
             jobs.append(forced_reads(hz))
         await asyncio.gather(*jobs)
-        if self.type in ("GCOUNT", "PNCOUNT"):
+        if self.kind.DRAIN_AT_CLOSE:
             # the drain-forcing close: every delta acked so far is joined
             # into the state once these reads return
             for p in self.peers:

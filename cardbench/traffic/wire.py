@@ -5,11 +5,12 @@ frame) and of the oracle half of ``cluster/codec.py`` at schema v11: the
 schema text whose sha256 is the handshake signature, LEB128 varints, the
 transport frame's CRC and origin stamp, the dialer's hello and the
 passive side's echo, the address set of ``MsgExchangeAddrs`` and the
-``MsgPushDeltas`` payloads of PNCOUNT and TREG. A later change to the
+pieces of a ``MsgPushDeltas`` body, from which each data type's module
+(types/<type>.py) builds its own (``push``). A later change to the
 program cannot move what the peers send. Imports nothing of the program.
 
-The delta encoders are vectorised: every entry of a frame has one fixed
-width (fixed-length keys, values and varints, ``leb128_fixed``), so a
+The bodies are vectorised: every entry of a frame has one fixed width
+(fixed-length keys, values and varints, ``leb128_fixed``), so a
 2,048-key frame is a handful of numpy column writes.
 """
 
@@ -250,26 +251,11 @@ def key_column(key_bytes: np.ndarray) -> np.ndarray:
     return out
 
 
-def pncount_push(key_bytes: np.ndarray, rid: int, p: np.ndarray, n: np.ndarray,
-                 p_width: int = 10, n_width: int = 9) -> bytes:
-    """A PNCOUNT ``MsgPushDeltas`` body: per key ({rid: p}, {rid: n}).
-    ``rid`` takes 10 varint bytes, ``p`` and ``n`` ``p_width`` and
-    ``n_width``."""
-    rid_col = np.frombuffer(varint(1) + varint(rid), np.uint8)
-    cols = [key_column(key_bytes), rid_col, leb128_fixed(p, p_width), rid_col,
-            leb128_fixed(n, n_width)]
-    return _push("PNCOUNT", cols)
-
-
-def treg_push(key_bytes: np.ndarray, values: np.ndarray, ts: np.ndarray,
-              ts_width: int = 10) -> bytes:
-    """A TREG ``MsgPushDeltas`` body: per key (value, ts). ``values`` is
-    an (n, V) uint8 array of fixed-length values."""
-    cols = [key_column(key_bytes), key_column(values), leb128_fixed(ts, ts_width)]
-    return _push("TREG", cols)
-
-
-def _push(name: str, cols: list[np.ndarray]) -> bytes:
+def push(name: str, cols: list[np.ndarray]) -> bytes:
+    """A ``MsgPushDeltas`` body of data type ``name``: the header, then
+    each entry's columns side by side. A 2-D column holds one row an
+    entry (a key with its prefix, ``key_column``; a fixed-width varint,
+    ``leb128_fixed``); a 1-D one is the same bytes in every entry."""
     n = next(c.shape[0] for c in cols if c.ndim == 2)
     widths = [c.shape[-1] for c in cols]
     entries = np.empty((n, sum(widths)), np.uint8)
